@@ -1,0 +1,543 @@
+#!/usr/bin/env python3
+"""Smoke run of minbpe_tpu_torch on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each of which must pass (the script exits non-zero otherwise):
+
+1. build the CUDA kernels (nvcc) and the native pre-split scanner (g++)
+   from the checkout's sources, both at once;
+2. hold each kernel against its plain PyTorch version on the card, on
+   numpy-seeded inputs at the main path's shapes (400K tokens, W = 1024);
+   the outputs are integers and must be exactly equal;
+3. drive the main path through the user's entry points, one path at a
+   time, with every launch count set to 0 just before each path and read
+   just after it: RegexTokenizer (GPT-4 pattern) training at vocab 1024 on
+   the frozen in-repo smoke corpus (merges and counts equal to the golden
+   that minbpe_tpu produced), encode (ids' sha256 equal to the golden's),
+   decode, encode_batch and the same documents encoded one by one, special
+   tokens, save/load, a BasicTokenizer at vocab 512 and one on 2^20 copies
+   of "a", both equal to the plain path on the CPU;
+4. the device's busy time in the training and encode runs (torch.profiler)
+   against their wall time: the idle share;
+5. print the kernels line (launches of each path in phase 3, errors and
+   times of phase 2), the main path's timings, the busy times, the card's
+   name and power limit, and last the result line.
+
+Without CUDA, or without the package beside it, it exits non-zero and
+prints no result.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import os
+import re
+import shutil
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+SEED = 1234
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
+    return 1
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 1: build
+# ---------------------------------------------------------------------------
+
+def phase_build(kernels, native):
+    def timed(fn):
+        t0 = time.perf_counter()
+        path = fn()
+        return path, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=2) as ex:
+        fk = ex.submit(timed, kernels.build)
+        fn = ex.submit(timed, native.build)
+        kpath, ks = fk.result()
+        npath, ns = fn.result()
+    if npath is None:
+        raise RuntimeError("no C++ compiler: the native scanner did not build")
+    if not native.available():
+        raise RuntimeError("the native scanner did not load")
+    print(f"build: kernels {ks:.2f} s ({os.path.basename(kpath)}), "
+          f"native scanner {ns:.2f} s ({os.path.basename(npath)})")
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def device_ms(torch, fn, reps: int) -> float:
+    """Device time per call: the host enqueues every call behind a sleeping
+    kernel, so the events time the device work and not the enqueue."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * 400_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def profiled_events(torch, fn):
+    """(ms, count, name) of each device activity (kernel, memset, copy) that
+    torch.profiler records while fn runs and the device drains. Host-side
+    ops are left out: their "self device time" repeats that of the kernels
+    they launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    parts = [(e.self_device_time_total / 1e3, e.count, e.key)
+             for e in prof.key_averages()
+             if e.device_type != DeviceType.CPU and e.self_device_time_total]
+    return sorted(parts, reverse=True)
+
+
+def profiled_ms(torch, fn, reps: int) -> float:
+    """Device time per call from the profiler's device activity, for calls
+    that wait on the device (a library call that reads a size back): CUDA
+    events around them would also time the host's round trip."""
+    fn()
+    torch.cuda.synchronize()
+
+    def loop():
+        for _ in range(reps):
+            fn()
+
+    busy = sum(p[0] for p in profiled_events(torch, loop))
+    if not busy:
+        raise RuntimeError("the profiler recorded no device time")
+    return busy / reps
+
+
+def host_ms(torch, fn, reps: int) -> float:
+    """Wall time per call, synchronised (for the plain versions, which
+    sync on their own)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def max_err(torch, pairs) -> int:
+    err = 0
+    for a, b in pairs:
+        if a.shape != b.shape:
+            raise AssertionError(f"shape {tuple(a.shape)} != {tuple(b.shape)}")
+        if a.numel():
+            err = max(err, int((a.long() - b.long()).abs().max()))
+    return err
+
+
+def smoke_stream(np, n: int, W: int):
+    """A seeded stream like a pre-split corpus: skewed ids (hot pairs),
+    chunks of 1-8 tokens, and long runs of one id inside one chunk, some of
+    them crossing the kernels' 1024-position tiles."""
+    rng = np.random.default_rng(SEED)
+    ids = np.minimum(rng.zipf(1.3, n) - 1, W - 1).astype(np.int32)
+    seg = np.cumsum(rng.random(n) < 0.3).astype(np.int32)
+    for start, length in ((1000, 5001), (200_000, 4096), (399_000, 777)):
+        ids[start:start + length] = 7
+        seg[start:start + length] = seg[start]
+        seg[start + length:] += 1  # close the run's chunk
+    return ids, seg
+
+
+def phase_kernels(torch, np, kernels):
+    W = 1024
+    n = 400_000
+    dev = torch.device("cuda")
+    ids_h, seg_h = smoke_stream(np, n, W)
+    ids = torch.from_numpy(ids_h).to(dev)
+    seg = torch.from_numpy(seg_h).to(dev)
+    nt = torch.tensor([n], dtype=torch.int32, device=dev)
+    big = torch.tensor([1 << 30], dtype=torch.int32, device=dev)
+    rows = []
+
+    # K1 pair_stats
+    ck, fk = kernels.pair_stats(ids, seg, nt, W, big, 0)
+    cp, fp = kernels.pair_stats_plain(ids, seg, nt, W, big, 0)
+    err1 = max_err(torch, [(ck, cp), (fk, fp)])
+    key = (ids[:-1].long() * W + ids[1:].long())[seg[:-1] == seg[1:]]
+    rows.append(dict(
+        k=kernels.PAIR_STATS, err=err1,
+        ms=device_ms(torch, lambda: kernels.pair_stats(ids, seg, nt, W, big,
+                                                       0), 50),
+        plain_ms=host_ms(torch, lambda: kernels.pair_stats_plain(
+            ids, seg, nt, W, big, 0), 5),
+        bytes=8 * n + 8 * W * W,
+        library_ms=profiled_ms(torch, lambda: torch.bincount(
+            key, minlength=W * W), 50)))
+
+    # K2 select_best, on K1's matrices and on empty ones (the fail round)
+    def select(fn, cnt, first):
+        row = torch.zeros(4, dtype=torch.int32, device=dev)
+        flag = torch.full((1,), 99, dtype=torch.int32, device=dev)
+        fn(cnt, first, ids, flag, 5, row)
+        return row, flag
+
+    rk, flk = select(kernels.select_best, ck, fk)
+    rp, flp = select(kernels.select_best_plain, ck, fk)
+    zero = torch.zeros_like(ck)
+    none = torch.full_like(fk, -1)
+    rk0, flk0 = select(kernels.select_best, zero, none)
+    rp0, flp0 = select(kernels.select_best_plain, zero, none)
+    err2 = max_err(torch, [(rk, rp), (flk, flp), (rk0, rp0), (flk0, flp0)])
+    if int(flk0) != 5 or int(flk) != 99 or int(rk[2]) <= 0:
+        raise AssertionError(f"select_best: row {rk.tolist()}, fail "
+                             f"{int(flk)}, empty-matrix fail {int(flk0)}")
+    row = torch.zeros(4, dtype=torch.int32, device=dev)
+    rows.append(dict(
+        k=kernels.SELECT_BEST, err=err2,
+        ms=device_ms(torch, lambda: kernels.select_best(ck, fk, ids, big, 0,
+                                                        row), 50),
+        plain_ms=host_ms(torch, lambda: kernels.select_best_plain(
+            ck, fk, ids, big, 0, row), 5),
+        bytes=8 * W * W + 12, library_ms=None))
+
+    # K3 merge_apply: the homogeneous run pair and K2's winner
+    err3 = 0
+    for pair in ((7, 7), tuple(rk[:2].tolist()), (0, 1)):
+        pt = torch.tensor(pair, dtype=torch.int32, device=dev)
+        kk = torch.zeros(1, dtype=torch.int32, device=dev)
+        kp = torch.zeros(1, dtype=torch.int32, device=dev)
+        ok_ids, ok_live = kernels.merge_apply(ids, seg, nt, pt, 5000, big, 0,
+                                              kk)
+        op_ids, op_live = kernels.merge_apply_plain(ids, seg, nt, pt, 5000,
+                                                    big, 0, kp)
+        err3 = max(err3, max_err(torch, [(ok_ids[:n], op_ids[:n]),
+                                         (ok_live[:n], op_live[:n]),
+                                         (kk, kp)]))
+        if int(kk) <= 0:
+            raise AssertionError(f"merge_apply kept nothing for {pair}")
+    pt = torch.tensor((7, 7), dtype=torch.int32, device=dev)
+    rows.append(dict(
+        k=kernels.MERGE_APPLY, err=err3,
+        ms=device_ms(torch, lambda: kernels.merge_apply(ids, seg, nt, pt,
+                                                        5000, big, 0), 50),
+        plain_ms=host_ms(torch, lambda: kernels.merge_apply_plain(
+            ids, seg, nt, pt, 5000, big, 0), 5),
+        bytes=13 * n, library_ms=None))
+
+    # K4 compact, on the homogeneous merge's output
+    merged, live = kernels.merge_apply(ids, seg, nt, pt, 5000, big, 0)
+    ik, sk, nk = kernels.compact(merged, seg, live, nt, big, 0)
+    ip, sp, np_ = kernels.compact_plain(merged, seg, live, nt, big, 0)
+    k = int(np_)
+    err4 = max_err(torch, [(nk, np_), (ik[:k], ip[:k]), (sk[:k], sp[:k])])
+    lv = live[:n]
+
+    def library_compact():  # the new length is the outputs' size
+        return merged[:n][lv], seg[:n][lv]
+
+    rows.append(dict(
+        k=kernels.COMPACT, err=err4,
+        ms=device_ms(torch, lambda: kernels.compact(merged, seg, live, nt,
+                                                    big, 0), 50),
+        plain_ms=host_ms(torch, lambda: kernels.compact_plain(
+            merged, seg, live, nt, big, 0), 5),
+        bytes=9 * n + 8 * k,
+        library_ms=profiled_ms(torch, library_compact, 50)))
+
+    for r in rows:
+        print(f"kernel {r['k'].name}: max_abs_err {r['err']}, "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms)")
+        if r["err"] != 0:
+            raise AssertionError(f"{r['k'].name} disagrees with its plain "
+                                 f"version (max_abs_err {r['err']})")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the main path
+# ---------------------------------------------------------------------------
+
+def merges_in_rank_order(np, merges):
+    items = sorted(merges.items(), key=lambda kv: kv[1])
+    return np.array([list(p) for p, _ in items], dtype=np.int32)
+
+
+ALL_KERNELS = ("pair_stats", "select_best", "merge_apply", "compact")
+ENCODE_KERNELS = ("merge_apply", "compact")
+
+
+def phase_main_path(torch, np, kernels, golden_mod, scratch):
+    """Returns (timings, launches), launches = {path: {kernel: count}}."""
+    from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer
+
+    timings = {}
+    launches = {}
+
+    @contextlib.contextmanager
+    def path(name, must_launch):
+        """Count this path's launches alone; each kernel it must run has to
+        have launched at least once."""
+        kernels.reset_launches()
+        yield
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        launches[name] = counts
+        missing = [k for k in must_launch if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"path {name} launched no {missing}: "
+                                 f"{counts}")
+        if not must_launch and any(counts.values()):
+            raise AssertionError(f"path {name} launched kernels: {counts}")
+
+    golden = golden_mod.load_golden()
+    corpus = golden_mod.smoke_corpus(ROOT)
+    nbytes = len(corpus.encode("utf-8"))
+    print(f"corpus: {nbytes} bytes")
+
+    # train, through the verbose lines (they carry the per-merge counts)
+    tok = RegexTokenizer(device="cuda")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    with path("train", ALL_KERNELS):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            tok.train(corpus, golden_mod.VOCAB_SIZE, verbose=True)
+        torch.cuda.synchronize()
+        timings["train_s"] = time.perf_counter() - t0
+    counts = np.array([int(c) for c in
+                       re.findall(r"had (\d+) occurrences", out.getvalue())])
+    if not np.array_equal(merges_in_rank_order(np, tok.merges),
+                          golden["merges"]):
+        raise AssertionError("trained merges differ from the golden")
+    if not np.array_equal(counts, golden["counts"]):
+        raise AssertionError("merge counts differ from the golden")
+    print(f"train: {len(tok.merges)} merges equal to the golden "
+          f"({timings['train_s']:.3f} s)")
+
+    # encode / decode
+    with path("encode", ENCODE_KERNELS):
+        t0 = time.perf_counter()
+        ids = tok.encode(corpus)
+        timings["encode_s"] = time.perf_counter() - t0
+    if golden_mod.ids_digest(ids) != golden["encode_sha256"]:
+        raise AssertionError("encode ids differ from the golden")
+    with path("decode", ()):
+        t0 = time.perf_counter()
+        back = tok.decode(ids)
+        timings["decode_s"] = time.perf_counter() - t0
+    if back != corpus:
+        raise AssertionError("decode(encode(corpus)) != corpus")
+    timings["encode_MB_per_s"] = nbytes / timings["encode_s"] / 1e6
+    timings["decode_MB_per_s"] = nbytes / timings["decode_s"] / 1e6
+    print(f"encode: {len(ids)} ids, sha256 equal to the golden; "
+          f"decode round trip ok")
+
+    # encode_batch of 256 documents against per-document encode
+    step = -(-len(corpus) // 256)
+    docs = [corpus[i:i + step] for i in range(0, len(corpus), step)]
+    with path("encode_batch", ENCODE_KERNELS):
+        t0 = time.perf_counter()
+        batch = tok.encode_batch(docs)
+        timings["encode_batch_s"] = time.perf_counter() - t0
+    with path("encode_per_doc", ENCODE_KERNELS):
+        t0 = time.perf_counter()
+        single = [tok.encode(d) for d in docs]
+        timings["encode_per_doc_s"] = time.perf_counter() - t0
+    if batch != single:
+        raise AssertionError("encode_batch differs from per-document encode")
+    print(f"encode_batch: {len(docs)} documents equal to per-document encode")
+
+    # special tokens
+    # names that the corpus does not hold, so only the joins are specials
+    specials = {"<|smoke_doc|>": 1024, "<|smoke_end|>": 1025}
+    tok.register_special_tokens(specials)
+    names = list(specials)
+    text = "".join(docs[k] + names[k % 2] for k in range(8))
+    want = []
+    with path("specials", ENCODE_KERNELS):
+        for k in range(8):
+            want += tok.encode_ordinary(docs[k]) + [specials[names[k % 2]]]
+        got = tok.encode(text, allowed_special="all")
+    if got != want or tok.decode(got) != text:
+        raise AssertionError("special-token encode or decode is wrong")
+    print("specials: encode(allowed_special='all') and decode ok")
+
+    # save / load (a loaded vocab also holds the specials, as in minbpe, so
+    # the .vocab bytes are compared from the first load on)
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    prefix = os.path.join(scratch, "smoke")
+    tok.save(prefix)
+    tok2 = RegexTokenizer(device="cuda")
+    tok2.load(prefix + ".model")
+    tok2.save(prefix + "2")
+    tok3 = RegexTokenizer(device="cuda")
+    tok3.load(prefix + "2.model")
+    tok3.save(prefix + "3")
+    if (read(prefix + ".model") != read(prefix + "2.model")
+            or read(prefix + "2.vocab") != read(prefix + "3.vocab")):
+        raise AssertionError("save/load changed the saved bytes")
+    if tok2.merges != tok.merges or tok2.special_tokens != specials:
+        raise AssertionError("save/load changed the merges or specials")
+    with path("save_load", ENCODE_KERNELS):
+        if tok2.encode(text, allowed_special="all") != got:
+            raise AssertionError("the loaded tokenizer encodes differently")
+    print("save/load: identical bytes after the round trip")
+
+    # BasicTokenizer at vocab 512 on the first 64 KB, against the CPU
+    head = corpus[:65536]
+    gb, cb = BasicTokenizer(device="cuda"), BasicTokenizer(device="cpu")
+    with path("basic_512", ALL_KERNELS):
+        t0 = time.perf_counter()
+        gb.train(head, 512)
+        timings["basic_512_train_s"] = time.perf_counter() - t0
+        gb_ids = gb.encode(head)
+    cb.train(head, 512)
+    if gb.merges != cb.merges or gb_ids != cb.encode(head):
+        raise AssertionError("BasicTokenizer on the card differs from CPU")
+    print("basic 512: equal to the plain path on the CPU")
+
+    # adversarial: one 1 MiB run of a single byte
+    run = "a" * (1 << 20)
+    ga, ca = BasicTokenizer(device="cuda"), BasicTokenizer(device="cpu")
+    with path("run_264", ALL_KERNELS):
+        t0 = time.perf_counter()
+        ga.train(run, 264)
+        timings["run_264_train_s"] = time.perf_counter() - t0
+        ga_ids = ga.encode(run)
+    ca.train(run, 264)
+    if ga.merges != ca.merges or ga_ids != ca.encode(run):
+        raise AssertionError("single-byte run differs from the plain path")
+    print("run of 2^20 'a': equal to the plain path on the CPU")
+    return timings, launches
+
+
+def _kernel_name(key: str) -> str:
+    m = re.search(r"::(\w+(?:<[^>]*>)?)\(", key)
+    return m.group(1) if m else key[:40]
+
+
+def phase_device_time(torch, golden_mod):
+    """Device busy time against wall time of the training and encode runs on
+    the smoke corpus. The wall time is a plain run's; the busy time is the
+    sum of device activity (kernels, memsets, copies) that torch.profiler
+    records for the same call, which runs on one stream, so nothing
+    overlaps. The idle share is 1 - busy / wall."""
+    from minbpe_tpu_torch import RegexTokenizer
+    from minbpe_tpu_torch.engine import device_table
+    from minbpe_tpu_torch.ops.encode import encode_stream
+    from minbpe_tpu_torch.ops.stream import build_stream
+    from minbpe_tpu_torch.ops.train import train_merges
+
+    corpus = golden_mod.smoke_corpus(ROOT)
+    tok = RegexTokenizer(device="cuda")
+    tok.train(corpus, golden_mod.VOCAB_SIZE)
+    table = device_table(tok)
+    data, ends = tok._split_arrays(corpus)
+    ids, seg = build_stream(data, ends, "cuda")
+    M = golden_mod.VOCAB_SIZE - 256
+    runs = {
+        "train": lambda: train_merges(ids, seg, M),
+        "encode": lambda: encode_stream(ids, seg, table.pairs,
+                                        table.new_ids)[2].item(),
+    }
+    out = {}
+    for name, fn in runs.items():
+        fn()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        parts = profiled_events(torch, fn)
+        busy = sum(p[0] for p in parts)
+        out[name] = {
+            "wall_ms": wall,
+            "device_busy_ms": busy if busy else None,
+            "idle_share": 1 - busy / wall if busy else None,
+            "by_kernel": [[_kernel_name(k), ms, c] for ms, c, k in parts[:9]],
+        }
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        return fail("CUDA is not available")
+    try:
+        import numpy as np
+
+        from minbpe_tpu_torch import kernels
+        from minbpe_tpu_torch.utils import golden as golden_mod
+        from minbpe_tpu_torch.utils import native
+    except ImportError as e:
+        return fail(f"the package is not beside this script ({e})")
+
+    scratch = os.path.join(kernels.BUILD_DIR, "smoke")
+    shutil.rmtree(scratch, ignore_errors=True)
+    os.makedirs(scratch)
+    try:
+        phase_build(kernels, native)
+        rows = phase_kernels(torch, np, kernels)
+        timings, launches = phase_main_path(torch, np, kernels, golden_mod,
+                                            scratch)
+        device_time = phase_device_time(torch, golden_mod)
+    except Exception as e:  # report the failing phase, exit non-zero
+        import traceback
+
+        traceback.print_exc()
+        return fail(f"{type(e).__name__}: {e}")
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+    def by_path(name):
+        return {p: c[name] for p, c in launches.items() if c[name]}
+
+    line = {"kernels": [
+        {"name": r["k"].name, "route": "cuda", "source": r["k"].source,
+         "replaces": r["k"].replaces,
+         "launches": sum(by_path(r["k"].name).values()),
+         "launches_by_path": by_path(r["k"].name),
+         "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+         "library_ms": r["library_ms"]}
+        for r in rows]}
+    print(json.dumps(line))
+    print(json.dumps({"main_path": timings}))
+    print(json.dumps({"device_time": device_time}))
+    print(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,20 @@
+"""minbpe_tpu_torch — the PyTorch and CUDA port of minbpe_tpu.
+
+Byte-level BPE (the karpathy/minbpe contract: train, encode, decode,
+``minbpe v1`` save/load, special tokens) for one NVIDIA H100. Training and
+encode run through hand-written sm_90a kernels (csrc/bpe_kernels.cu);
+``device="cpu"`` runs their plain PyTorch versions instead. The public API
+mirrors minbpe_tpu's.
+"""
+
+from .base import Tokenizer
+from .basic import BasicTokenizer
+from .regex import RegexTokenizer, GPT2_SPLIT_PATTERN, GPT4_SPLIT_PATTERN
+
+__all__ = [
+    "Tokenizer",
+    "BasicTokenizer",
+    "RegexTokenizer",
+    "GPT2_SPLIT_PATTERN",
+    "GPT4_SPLIT_PATTERN",
+]
