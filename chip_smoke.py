@@ -8,18 +8,22 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 1. build the CUDA kernels (nvcc) and the native pre-split scanner (g++)
    from the checkout's sources, both at once;
 2. hold each kernel against its plain PyTorch version on the card, on
-   numpy-seeded inputs at the main path's shapes (400K tokens, W = 1024);
-   the outputs are integers and must be exactly equal;
+   numpy-seeded inputs at the main path's shapes (400K tokens, W = 1024,
+   the rebuild of merge 768, a batch of 16 candidates drawn from the
+   stream), and K1 and K6 once more at the XL bound (48M tokens); the
+   outputs are integers and must be exactly equal;
 3. drive the main path through the user's entry points, one path at a
    time, with every launch count set to 0 just before each path and read
    just after it: RegexTokenizer (GPT-4 pattern) training at vocab 1024 on
    the frozen in-repo smoke corpus (merges and counts equal to the golden
-   that minbpe_tpu produced), encode (ids' sha256 equal to the golden's),
-   decode, encode_batch and the same documents encoded one by one, special
-   tokens, save/load, a BasicTokenizer at vocab 512 and one on 2^20 copies
-   of "a", both equal to the plain path on the CPU;
-4. the device's busy time in the training and encode runs (torch.profiler)
-   against their wall time: the idle share;
+   that minbpe_tpu produced, in fewer rebuilds than merges), encode (ids'
+   sha256 equal to the golden's), decode, encode_batch and the same
+   documents encoded one by one, special tokens, save/load, a
+   BasicTokenizer at vocab 512 and one on 2^20 copies of "a", both equal to
+   the plain path on the CPU, and the large-corpus route: vocab 1024 on the
+   12,588,338-byte XL corpus, equal to the XL golden;
+4. the device's busy time in the training runs on both corpora and the
+   encode run (torch.profiler) against their wall time: the idle share;
 5. print the kernels line (launches of each path in phase 3, errors and
    times of phase 2), the main path's timings, the busy times, the card's
    name and power limit, and last the result line.
@@ -173,68 +177,122 @@ def smoke_stream(np, n: int, W: int):
     return ids, seg
 
 
-def phase_kernels(torch, np, kernels):
+def draw_batch(np, cnt, first, K):
+    """K heterogeneous candidates from the count matrix in descending key
+    order, no two sharing a cross-side token (the shape of a real batch)."""
+    c = cnt.astype(np.int64)
+    key = np.where(c > 0, (c << 32) | (0xFFFFFFFF - (first.astype(np.int64)
+                                                      & 0xFFFFFFFF)), 0)
+    flat = np.argsort(-key, axis=None, kind="stable")
+    W = cnt.shape[1]
+    out = []
+    for e in flat:
+        if key.flat[e] == 0 or len(out) == K:
+            break
+        a, b = divmod(int(e), W)
+        if a != b and all(a != qb and b != qa for qa, qb, _ in out):
+            out.append((a, b, int(c.flat[e])))
+    return out
+
+
+def batch_state(torch, kernels, dev, pairs, i, M):
+    """(slot, ctl, log) of an M-merge run at merge i with ``pairs`` (pa, pb,
+    count) accepted by the walk."""
+    slot = kernels.new_slot("cpu")
+    for j, (a, b, c) in enumerate(pairs):
+        slot[2 * j], slot[2 * j + 1] = a, b
+        slot[kernels.SLOT_COUNT + j] = c
+    slot[kernels.SLOT_BSEL] = len(pairs)
+    slot[kernels.SLOT_ZBASE] = 256 + i
+    slot[kernels.SLOT_I] = i
+    ctl = kernels.new_ctl(M, "cpu")
+    ctl[kernels.CTL_I] = i
+    log = torch.zeros((M, 4), dtype=torch.int32)
+    return slot.to(dev), ctl.to(dev), log.to(dev)
+
+
+def xl_stream(torch, ids, seg, n: int):
+    """The 400K stream repeated to n tokens on the device, its chunks
+    renumbered so that no chunk spans two copies."""
+    reps = -(-n // ids.numel())
+    span = int(seg[-1]) + 1
+    off = torch.arange(reps, dtype=torch.int32, device=ids.device) * span
+    big_ids = ids.repeat(reps)[:n].contiguous()
+    big_seg = (seg.view(1, -1) + off.view(-1, 1)).view(-1)[:n].contiguous()
+    return big_ids, big_seg
+
+
+def phase_kernels(torch, np, kernels, xl_max_n: int):
     W = 1024
     n = 400_000
+    I = W - 256  # the merge whose rebuild the shapes are those of
+    M = 2 * W  # log rows for the timing calls' advances
     dev = torch.device("cuda")
     ids_h, seg_h = smoke_stream(np, n, W)
     ids = torch.from_numpy(ids_h).to(dev)
     seg = torch.from_numpy(seg_h).to(dev)
     nt = torch.tensor([n], dtype=torch.int32, device=dev)
-    big = torch.tensor([1 << 30], dtype=torch.int32, device=dev)
     rows = []
 
     # K1 pair_stats
-    ck, fk = kernels.pair_stats(ids, seg, nt, W, big, 0)
-    cp, fp = kernels.pair_stats_plain(ids, seg, nt, W, big, 0)
+    ck, fk = kernels.pair_stats(ids, seg, nt, W)
+    cp, fp = kernels.pair_stats_plain(ids, seg, nt, W)
     err1 = max_err(torch, [(ck, cp), (fk, fp)])
     key = (ids[:-1].long() * W + ids[1:].long())[seg[:-1] == seg[1:]]
     rows.append(dict(
         k=kernels.PAIR_STATS, err=err1,
-        ms=device_ms(torch, lambda: kernels.pair_stats(ids, seg, nt, W, big,
-                                                       0), 50),
+        ms=device_ms(torch, lambda: kernels.pair_stats(ids, seg, nt, W), 50),
         plain_ms=host_ms(torch, lambda: kernels.pair_stats_plain(
-            ids, seg, nt, W, big, 0), 5),
+            ids, seg, nt, W), 5),
         bytes=8 * n + 8 * W * W,
         library_ms=profiled_ms(torch, lambda: torch.bincount(
             key, minlength=W * W), 50)))
 
-    # K2 select_best, on K1's matrices and on empty ones (the fail round)
+    # K5 select_batch on K1's matrices at merge I, and on empty ones (the
+    # fail round); its state is compared whole
     def select(fn, cnt, first):
-        row = torch.zeros(4, dtype=torch.int32, device=dev)
-        flag = torch.full((1,), 99, dtype=torch.int32, device=dev)
-        fn(cnt, first, ids, flag, 5, row)
-        return row, flag
+        _, ctl, log = batch_state(torch, kernels, dev, [], I, M)
+        slot = kernels.new_slot(dev)
+        fn(cnt, first, ids, ctl, slot, log)
+        return slot, ctl, log
 
-    rk, flk = select(kernels.select_best, ck, fk)
-    rp, flp = select(kernels.select_best_plain, ck, fk)
+    got = select(kernels.select_batch, ck, fk)
+    want = select(kernels.select_batch_plain, ck, fk)
     zero = torch.zeros_like(ck)
     none = torch.full_like(fk, -1)
-    rk0, flk0 = select(kernels.select_best, zero, none)
-    rp0, flp0 = select(kernels.select_best_plain, zero, none)
-    err2 = max_err(torch, [(rk, rp), (flk, flp), (rk0, rp0), (flk0, flp0)])
-    if int(flk0) != 5 or int(flk) != 99 or int(rk[2]) <= 0:
-        raise AssertionError(f"select_best: row {rk.tolist()}, fail "
-                             f"{int(flk)}, empty-matrix fail {int(flk0)}")
-    row = torch.zeros(4, dtype=torch.int32, device=dev)
+    got0 = select(kernels.select_batch, zero, none)
+    want0 = select(kernels.select_batch_plain, zero, none)
+    err5 = max_err(torch, list(zip(got, want)) + list(zip(got0, want0)))
+    bsel = int(got[0][kernels.SLOT_BSEL])
+    if bsel < 1 or int(got0[1][kernels.CTL_FAIL]) != I:
+        raise AssertionError(f"select_batch: bsel {bsel}, empty-matrix fail "
+                             f"{int(got0[1][kernels.CTL_FAIL])}")
+    _, tctl, tlog = batch_state(torch, kernels, dev, [], I, M)
+    tslot = kernels.new_slot(dev)
+    scratch = kernels.select_scratch(W, dev)
+    packed = torch.where(ck > 0, (ck.long() << 32) | (0xFFFFFFFF - (
+        fk.long() & 0xFFFFFFFF)), torch.zeros_like(ck, dtype=torch.long))
+    flat = packed.view(-1)
     rows.append(dict(
-        k=kernels.SELECT_BEST, err=err2,
-        ms=device_ms(torch, lambda: kernels.select_best(ck, fk, ids, big, 0,
-                                                        row), 50),
-        plain_ms=host_ms(torch, lambda: kernels.select_best_plain(
-            ck, fk, ids, big, 0, row), 5),
-        bytes=8 * W * W + 12, library_ms=None))
+        k=kernels.SELECT_BATCH, err=err5,
+        ms=device_ms(torch, lambda: kernels.select_batch(
+            ck, fk, ids, tctl, tslot, tlog, scratch), 50),
+        plain_ms=host_ms(torch, lambda: kernels.select_batch_plain(
+            ck, fk, ids, tctl, tslot, tlog), 5),
+        bytes=8 * W * W + 4 * kernels.SLOT_SIZE,
+        library_ms=profiled_ms(torch, lambda: torch.topk(
+            flat, kernels.K_CAP), 50)))
+    print(f"select_batch: {bsel} candidates accepted at merge {I}")
 
-    # K3 merge_apply: the homogeneous run pair and K2's winner
+    # K3 merge_apply: the homogeneous run pair and K5's first candidate
     err3 = 0
-    for pair in ((7, 7), tuple(rk[:2].tolist()), (0, 1)):
+    for pair in ((7, 7), tuple(got[0][:2].tolist()), (0, 1)):
         pt = torch.tensor(pair, dtype=torch.int32, device=dev)
         kk = torch.zeros(1, dtype=torch.int32, device=dev)
         kp = torch.zeros(1, dtype=torch.int32, device=dev)
-        ok_ids, ok_live = kernels.merge_apply(ids, seg, nt, pt, 5000, big, 0,
-                                              kk)
+        ok_ids, ok_live = kernels.merge_apply(ids, seg, nt, pt, 5000, kk)
         op_ids, op_live = kernels.merge_apply_plain(ids, seg, nt, pt, 5000,
-                                                    big, 0, kp)
+                                                    kp)
         err3 = max(err3, max_err(torch, [(ok_ids[:n], op_ids[:n]),
                                          (ok_live[:n], op_live[:n]),
                                          (kk, kp)]))
@@ -244,15 +302,86 @@ def phase_kernels(torch, np, kernels):
     rows.append(dict(
         k=kernels.MERGE_APPLY, err=err3,
         ms=device_ms(torch, lambda: kernels.merge_apply(ids, seg, nt, pt,
-                                                        5000, big, 0), 50),
+                                                        5000), 50),
         plain_ms=host_ms(torch, lambda: kernels.merge_apply_plain(
-            ids, seg, nt, pt, 5000, big, 0), 5),
+            ids, seg, nt, pt, 5000), 5),
         bytes=13 * n, library_ms=None))
 
+    # K6-K8 on a batch of K_CAP candidates drawn from the stream
+    pairs = draw_batch(np, ck.cpu().numpy(), fk.cpu().numpy(), kernels.K_CAP)
+    if len(pairs) != kernels.K_CAP:
+        raise AssertionError(f"drew {len(pairs)} candidates")
+    slot, ctl, log = batch_state(torch, kernels, dev, pairs, I, M)
+    acc_k, acc_p = kernels.new_hist(dev), kernels.new_hist(dev)
+    cand_k, F_k = kernels.batch_mark(ids, seg, nt, slot, acc_k[0])
+    cand_p, F_p = kernels.batch_mark_plain(ids, seg, nt, slot, acc_p[0])
+    err6 = max_err(torch, [(cand_k[:n], cand_p[:n]), (F_k[:n], F_p[:n]),
+                           (acc_k[0], acc_p[0])])
+    kernels.batch_hist_rev(ids, seg, nt, cand_k, F_k, slot, acc_k[1])
+    kernels.batch_hist_rev_plain(ids, seg, nt, cand_k, F_k, slot, acc_p[1])
+    err7 = max_err(torch, [(acc_k[1], acc_p[1])])
+    sites = cand_k[:n] >= 0
+    nsites = int(sites.sum())
+    site_pos = torch.nonzero(sites).flatten()
+    zb = 256 + I
+    pF = F_k[site_pos - 1].long()
+    hist_key = (pF & 127) * kernels.K_CAP + cand_k[site_pos].long()
+    acc_t = kernels.new_hist(dev)
+    rows.append(dict(
+        k=kernels.BATCH_MARK, err=err6,
+        ms=device_ms(torch, lambda: kernels.batch_mark(
+            ids, seg, nt, slot, acc_t[0]), 50),
+        plain_ms=host_ms(torch, lambda: kernels.batch_mark_plain(
+            ids, seg, nt, slot, acc_t[0]), 5),
+        bytes=16 * n + 4 * kernels.HIST_BUCKETS * kernels.K_CAP,
+        library_ms=profiled_ms(torch, lambda: torch.bincount(
+            hist_key, minlength=kernels.HIST_BUCKETS * kernels.K_CAP), 50)))
+    rows.append(dict(
+        k=kernels.BATCH_HIST_REV, err=err7,
+        ms=device_ms(torch, lambda: kernels.batch_hist_rev(
+            ids, seg, nt, cand_k, F_k, slot, acc_t[1]), 50),
+        plain_ms=host_ms(torch, lambda: kernels.batch_hist_rev_plain(
+            ids, seg, nt, cand_k, F_k, slot, acc_t[1]), 5),
+        bytes=4 * n + 16 * nsites + 4 * kernels.HIST_BUCKETS * kernels.K_CAP,
+        library_ms=profiled_ms(torch, lambda: torch.bincount(
+            hist_key, minlength=kernels.HIST_BUCKETS * kernels.K_CAP), 50)))
+    print(f"batch: {len(pairs)} candidates, {nsites} sites; left partners "
+          f"in a site: {int((pF >= zb).sum())}")
+
+    # K8 batch_apply: the trim on these histograms, then the apply
+    def apply(fn):
+        s2, c2, l2 = slot.clone(), ctl.clone(), log.clone()
+        a2 = acc_k.clone()
+        out = torch.empty_like(ids)
+        live = torch.empty(ids.shape, dtype=torch.bool, device=dev)
+        fn(ids, nt, cand_k, s2, a2, c2, l2, M, out, live)
+        return out[:n], live[:n], s2, c2, l2, a2
+
+    got8, want8 = apply(kernels.batch_apply), apply(kernels.batch_apply_plain)
+    err8 = max_err(torch, list(zip(got8, want8)))
+    bstar = int(got8[2][kernels.SLOT_BSTAR])
+    t_out = torch.empty_like(ids)
+    t_live = torch.empty(ids.shape, dtype=torch.bool, device=dev)
+    t_slot, t_ctl, t_log = slot.clone(), ctl.clone(), log.clone()
+    # timing: the advance of i per call stays inside the log's M rows
+    t_ctl[kernels.CTL_I] = 0
+    t_slot[kernels.SLOT_I] = 0
+    rows.append(dict(
+        k=kernels.BATCH_APPLY, err=err8,
+        ms=device_ms(torch, lambda: kernels.batch_apply(
+            ids, nt, cand_k, t_slot, acc_t, t_ctl, t_log, M, t_out, t_live),
+            50),
+        plain_ms=host_ms(torch, lambda: kernels.batch_apply_plain(
+            ids, nt, cand_k, t_slot, acc_t, t_ctl, t_log, M, t_out, t_live),
+            5),
+        bytes=13 * n + 8 * kernels.HIST_BUCKETS * kernels.K_CAP,
+        library_ms=None))
+    print(f"batch_apply: the trim kept {bstar} of {len(pairs)}")
+
     # K4 compact, on the homogeneous merge's output
-    merged, live = kernels.merge_apply(ids, seg, nt, pt, 5000, big, 0)
-    ik, sk, nk = kernels.compact(merged, seg, live, nt, big, 0)
-    ip, sp, np_ = kernels.compact_plain(merged, seg, live, nt, big, 0)
+    merged, live = kernels.merge_apply(ids, seg, nt, pt, 5000)
+    ik, sk, nk = kernels.compact(merged, seg, live, nt)
+    ip, sp, np_ = kernels.compact_plain(merged, seg, live, nt)
     k = int(np_)
     err4 = max_err(torch, [(nk, np_), (ik[:k], ip[:k]), (sk[:k], sp[:k])])
     lv = live[:n]
@@ -262,19 +391,45 @@ def phase_kernels(torch, np, kernels):
 
     rows.append(dict(
         k=kernels.COMPACT, err=err4,
-        ms=device_ms(torch, lambda: kernels.compact(merged, seg, live, nt,
-                                                    big, 0), 50),
+        ms=device_ms(torch, lambda: kernels.compact(merged, seg, live, nt),
+                     50),
         plain_ms=host_ms(torch, lambda: kernels.compact_plain(
-            merged, seg, live, nt, big, 0), 5),
+            merged, seg, live, nt), 5),
         bytes=9 * n + 8 * k,
         library_ms=profiled_ms(torch, library_compact, 50)))
+
+    # K1 and K6 at the XL bound: the same stream repeated to XL_MAX_N tokens
+    big_ids, big_seg = xl_stream(torch, ids, seg, xl_max_n)
+    big_n = torch.tensor([xl_max_n], dtype=torch.int32, device=dev)
+    xk = kernels.pair_stats(big_ids, big_seg, big_n, W)
+    xp = kernels.pair_stats_plain(big_ids, big_seg, big_n, W)
+    xl1 = max_err(torch, list(zip(xk, xp)))
+    xa_k, xa_p = kernels.new_hist(dev), kernels.new_hist(dev)
+    mk = kernels.batch_mark(big_ids, big_seg, big_n, slot, xa_k[0])
+    mp = kernels.batch_mark_plain(big_ids, big_seg, big_n, slot, xa_p[0])
+    xl6 = max_err(torch, list(zip(mk, mp)) + [(xa_k, xa_p)])
+    rows[0]["xl"] = dict(
+        n=xl_max_n, max_abs_err=xl1,
+        ms=device_ms(torch, lambda: kernels.pair_stats(
+            big_ids, big_seg, big_n, W), 5))
+    rows[3]["xl"] = dict(
+        n=xl_max_n, max_abs_err=xl6,
+        ms=device_ms(torch, lambda: kernels.batch_mark(
+            big_ids, big_seg, big_n, slot, acc_t[0]), 5))
+    if int(xk[0].sum()) <= 0:
+        raise AssertionError("pair_stats counted nothing at the XL size")
+    print(f"xl size {xl_max_n}: pair_stats max_abs_err {xl1} "
+          f"({rows[0]['xl']['ms']:.4f} ms), batch_mark max_abs_err {xl6} "
+          f"({rows[3]['xl']['ms']:.4f} ms)")
+    del big_ids, big_seg, xk, xp, mk, mp
 
     for r in rows:
         print(f"kernel {r['k'].name}: max_abs_err {r['err']}, "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms)")
-        if r["err"] != 0:
+        err = max(r["err"], r.get("xl", {}).get("max_abs_err", 0))
+        if err != 0:
             raise AssertionError(f"{r['k'].name} disagrees with its plain "
-                                 f"version (max_abs_err {r['err']})")
+                                 f"version (max_abs_err {err})")
     return rows
 
 
@@ -287,13 +442,15 @@ def merges_in_rank_order(np, merges):
     return np.array([list(p) for p, _ in items], dtype=np.int32)
 
 
-ALL_KERNELS = ("pair_stats", "select_best", "merge_apply", "compact")
+TRAIN_KERNELS = ("pair_stats", "select_batch", "merge_apply", "batch_mark",
+                 "batch_hist_rev", "batch_apply", "compact")
 ENCODE_KERNELS = ("merge_apply", "compact")
 
 
 def phase_main_path(torch, np, kernels, golden_mod, scratch):
     """Returns (timings, launches), launches = {path: {kernel: count}}."""
     from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer
+    from minbpe_tpu_torch.ops import train as train_mod
 
     timings = {}
     launches = {}
@@ -322,7 +479,7 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
     tok = RegexTokenizer(device="cuda")
     out = io.StringIO()
     torch.cuda.synchronize()
-    with path("train", ALL_KERNELS):
+    with path("train", TRAIN_KERNELS):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
             tok.train(corpus, golden_mod.VOCAB_SIZE, verbose=True)
@@ -335,8 +492,12 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
         raise AssertionError("trained merges differ from the golden")
     if not np.array_equal(counts, golden["counts"]):
         raise AssertionError("merge counts differ from the golden")
+    note_batching(train_mod, timings, "train", len(tok.merges))
     print(f"train: {len(tok.merges)} merges equal to the golden "
-          f"({timings['train_s']:.3f} s)")
+          f"({timings['train_s']:.3f} s, {timings['train_rebuilds']} "
+          f"rebuilds, {timings['train_merges_per_rebuild']:.3f} merges per "
+          f"rebuild, {timings['train_slots']} slots, "
+          f"{timings['train_syncs']} syncs)")
 
     # encode / decode
     with path("encode", ENCODE_KERNELS):
@@ -413,7 +574,7 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
     # BasicTokenizer at vocab 512 on the first 64 KB, against the CPU
     head = corpus[:65536]
     gb, cb = BasicTokenizer(device="cuda"), BasicTokenizer(device="cpu")
-    with path("basic_512", ALL_KERNELS):
+    with path("basic_512", TRAIN_KERNELS):
         t0 = time.perf_counter()
         gb.train(head, 512)
         timings["basic_512_train_s"] = time.perf_counter() - t0
@@ -426,7 +587,7 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
     # adversarial: one 1 MiB run of a single byte
     run = "a" * (1 << 20)
     ga, ca = BasicTokenizer(device="cuda"), BasicTokenizer(device="cpu")
-    with path("run_264", ALL_KERNELS):
+    with path("run_264", TRAIN_KERNELS):
         t0 = time.perf_counter()
         ga.train(run, 264)
         timings["run_264_train_s"] = time.perf_counter() - t0
@@ -435,7 +596,50 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
     if ga.merges != ca.merges or ga_ids != ca.encode(run):
         raise AssertionError("single-byte run differs from the plain path")
     print("run of 2^20 'a': equal to the plain path on the CPU")
+
+    # the large-corpus route: the XL corpus (3x the old 4M-token ceiling)
+    xl_golden = golden_mod.load_xl_golden()
+    xl_text = golden_mod.xl_corpus(ROOT)
+    if golden_mod.text_digest(xl_text) != xl_golden["corpus_sha256"]:
+        raise AssertionError("the XL corpus differs from the golden's")
+    xl_tok = RegexTokenizer(device="cuda")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    with path("train_xl", TRAIN_KERNELS):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            xl_tok.train(xl_text, golden_mod.VOCAB_SIZE, verbose=True)
+        torch.cuda.synchronize()
+        timings["train_xl_s"] = time.perf_counter() - t0
+    counts = np.array([int(c) for c in
+                       re.findall(r"had (\d+) occurrences", out.getvalue())])
+    if not np.array_equal(merges_in_rank_order(np, xl_tok.merges),
+                          xl_golden["merges"]):
+        raise AssertionError("XL merges differ from the XL golden")
+    if not np.array_equal(counts, xl_golden["counts"]):
+        raise AssertionError("XL merge counts differ from the XL golden")
+    if len(xl_tok.merges) != xl_golden["fail_round"]:
+        raise AssertionError("the XL fail round differs from the golden")
+    note_batching(train_mod, timings, "train_xl", len(xl_tok.merges))
+    print(f"train_xl: {xl_golden['corpus_bytes']} bytes, "
+          f"{len(xl_tok.merges)} merges equal to the XL golden "
+          f"({timings['train_xl_s']:.3f} s, {timings['train_xl_rebuilds']} "
+          f"rebuilds, {timings['train_xl_merges_per_rebuild']:.3f} merges "
+          f"per rebuild, {timings['train_xl_slots']} slots, "
+          f"{timings['train_xl_syncs']} syncs)")
     return timings, launches
+
+
+def note_batching(train_mod, timings, name: str, merges: int):
+    """Rebuilds, slots and syncs of the run just made; batching must have
+    taken fewer rebuilds than merges."""
+    timings[f"{name}_rebuilds"] = train_mod.LAST_REBUILDS
+    timings[f"{name}_slots"] = train_mod.LAST_SLOTS
+    timings[f"{name}_syncs"] = train_mod.LAST_SYNCS
+    timings[f"{name}_merges_per_rebuild"] = merges / train_mod.LAST_REBUILDS
+    if not 0 < train_mod.LAST_REBUILDS < merges:
+        raise AssertionError(f"{name}: {train_mod.LAST_REBUILDS} rebuilds "
+                             f"for {merges} merges")
 
 
 def _kernel_name(key: str) -> str:
@@ -445,10 +649,11 @@ def _kernel_name(key: str) -> str:
 
 def phase_device_time(torch, golden_mod):
     """Device busy time against wall time of the training and encode runs on
-    the smoke corpus. The wall time is a plain run's; the busy time is the
-    sum of device activity (kernels, memsets, copies) that torch.profiler
-    records for the same call, which runs on one stream, so nothing
-    overlaps. The idle share is 1 - busy / wall."""
+    the smoke corpus, and of the training run on the XL corpus. The wall
+    time is a plain run's; the busy time is the sum of device activity
+    (kernels, memsets, copies) that torch.profiler records for the same
+    call, which runs on one stream, so nothing overlaps. The idle share is
+    1 - busy / wall."""
     from minbpe_tpu_torch import RegexTokenizer
     from minbpe_tpu_torch.engine import device_table
     from minbpe_tpu_torch.ops.encode import encode_stream
@@ -461,9 +666,12 @@ def phase_device_time(torch, golden_mod):
     table = device_table(tok)
     data, ends = tok._split_arrays(corpus)
     ids, seg = build_stream(data, ends, "cuda")
+    xl_ids, xl_seg = build_stream(*tok._split_arrays(
+        golden_mod.xl_corpus(ROOT)), "cuda")
     M = golden_mod.VOCAB_SIZE - 256
     runs = {
         "train": lambda: train_merges(ids, seg, M),
+        "train_xl": lambda: train_merges(xl_ids, xl_seg, M),
         "encode": lambda: encode_stream(ids, seg, table.pairs,
                                         table.new_ids)[2].item(),
     }
@@ -495,6 +703,7 @@ def main() -> int:
         import numpy as np
 
         from minbpe_tpu_torch import kernels
+        from minbpe_tpu_torch.ops.train import XL_MAX_N
         from minbpe_tpu_torch.utils import golden as golden_mod
         from minbpe_tpu_torch.utils import native
     except ImportError as e:
@@ -505,7 +714,7 @@ def main() -> int:
     os.makedirs(scratch)
     try:
         phase_build(kernels, native)
-        rows = phase_kernels(torch, np, kernels)
+        rows = phase_kernels(torch, np, kernels, XL_MAX_N)
         timings, launches = phase_main_path(torch, np, kernels, golden_mod,
                                             scratch)
         device_time = phase_device_time(torch, golden_mod)
@@ -527,7 +736,8 @@ def main() -> int:
          "launches_by_path": by_path(r["k"].name),
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"], **({"xl": r["xl"]} if "xl" in r
+                                           else {})}
         for r in rows]}
     print(json.dumps(line))
     print(json.dumps({"main_path": timings}))

@@ -2,7 +2,8 @@
 and the encoder, and turns results back into the dict-of-merges API.
 
 The port's counterpart of minbpe_tpu/engine.py, for the slice it covers:
-the fused training route of ``run_train`` (engine.py:97-106, 130-151),
+the fused and fused_xl training routes of ``run_train`` (engine.py:97-111,
+130-166), one trainer for both,
 ``train_offsets``/``train_bytes`` (468-484) and
 ``encode_bytes``/``encode_offsets``/``encode_parts`` (322-423). A kernel that
 fails raises: there is no fallback route. Options and sizes outside the
@@ -46,6 +47,20 @@ def device_table(tokenizer) -> DeviceMergeTable:
     return tokenizer._dev
 
 
+def _check_train_size(n_tokens: int, num_merges: int):
+    """The trainer's bounds: V <= 1024 and N <= XL_MAX_N tokens. Beyond
+    either, minbpe_tpu takes its sort-loop route (engine.py:112-120)."""
+    V = 256 + num_merges
+    if V > TRAIN_MAX_V:
+        raise NotImplementedError(
+            f"vocab_size {V} > {TRAIN_MAX_V} is not ported yet: ROADMAP.md "
+            "A11 (vocab > 1024 training)")
+    if n_tokens > TRAIN_MAX_N:
+        raise NotImplementedError(
+            f"{n_tokens} training tokens > {TRAIN_MAX_N} is not ported yet: "
+            "ROADMAP.md A11 (the sort-loop route)")
+
+
 def run_train(ids, seg, num_merges: int, verbose: bool = False, **opts):
     """Train on the device stream (ids, seg); return the merges dict and the
     vocab dict, as minbpe_tpu's run_train does (minbpe/basic.py:29-45 for
@@ -57,15 +72,7 @@ def run_train(ids, seg, num_merges: int, verbose: bool = False, **opts):
             raise TypeError(f"unexpected training option {name!r}")
         raise NotImplementedError(
             f"training option {name!r} is not ported yet: ROADMAP.md {item}")
-    V = 256 + num_merges
-    if V > TRAIN_MAX_V:
-        raise NotImplementedError(
-            f"vocab_size {V} > {TRAIN_MAX_V} is not ported yet: ROADMAP.md "
-            "A11 (vocab > 1024 training)")
-    if ids.numel() > TRAIN_MAX_N:
-        raise NotImplementedError(
-            f"{ids.numel()} training tokens > {TRAIN_MAX_N} is not ported "
-            "yet: ROADMAP.md A8 (large-N training)")
+    _check_train_size(ids.numel(), num_merges)
     pairs, counts, fail_round = train_merges(ids, seg, num_merges)
     if fail_round < num_merges:
         raise ValueError(
@@ -90,6 +97,7 @@ def run_train(ids, seg, num_merges: int, verbose: bool = False, **opts):
 
 def train_offsets(data, ends, num_merges: int, verbose: bool = False, *,
                   device, **opts):
+    _check_train_size(int(data.shape[0]), num_merges)
     ids, seg = stream_ops.build_stream(data, ends, device)
     return run_train(ids, seg, num_merges, verbose, **opts)
 

@@ -64,5 +64,5 @@ def build_stream(data: np.ndarray, ends: np.ndarray, device):
     d, e = d.to(device), e.to(device)
     ids = d.to(torch.int32)
     pos = torch.arange(n, dtype=torch.int32, device=device)
-    seg = torch.searchsorted(e, pos, right=True).to(torch.int32)
+    seg = torch.searchsorted(e, pos, right=True, out_int32=True)
     return ids, seg

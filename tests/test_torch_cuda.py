@@ -56,18 +56,19 @@ def test_kernels_match_plain(dev, seed, n, run_at):
     ids, seg = _stream(seed, max(n, 1), 6, run_at, run_len)
     nt = np.array([n], np.int32)
     (ci, cs, cn), (gi, gs, gn) = _both(dev, ids, seg, nt)
-    stop_c = torch.tensor([99], dtype=torch.int32)
-    stop_g = stop_c.to(dev)
 
-    cc, cf = kernels.pair_stats(ci, cs, cn, W, stop_c, 0)
-    gc, gf = kernels.pair_stats(gi, gs, gn, W, stop_g, 0)
+    cc, cf = kernels.pair_stats(ci, cs, cn, W)
+    gc, gf = kernels.pair_stats(gi, gs, gn, W)
     assert torch.equal(cc, gc.cpu()) and torch.equal(cf, gf.cpu())
 
-    rc = torch.zeros(4, dtype=torch.int32)
-    rg = rc.to(dev)
-    kernels.select_best(cc, cf, ci, stop_c, 0, rc)
-    kernels.select_best(gc, gf, gi, stop_g, 0, rg)
-    assert torch.equal(rc, rg.cpu()) and torch.equal(stop_c, stop_g.cpu())
+    # K5 at i = W - 256 of a 100-merge run
+    (ctl_c, slot_c, log_c), (ctl_g, slot_g, log_g) = _state(dev, 100, W)
+    kernels.select_batch(cc, cf, ci, ctl_c, slot_c, log_c)
+    kernels.select_batch(gc, gf, gi, ctl_g, slot_g, log_g)
+    assert torch.equal(slot_c, slot_g.cpu()) and torch.equal(ctl_c,
+                                                             ctl_g.cpu())
+    assert torch.equal(log_c, log_g.cpu())
+    rc = slot_c[:2]
 
     for pair in ((3, 3), (0, 1), tuple(rc[:2].tolist())):
         pc = torch.tensor(pair, dtype=torch.int32)
@@ -86,16 +87,96 @@ def test_kernels_match_plain(dev, seed, n, run_at):
         assert torch.equal(xc[1][:k], xg[1][:k].cpu())
 
 
+def _state(dev, M, W):
+    """(ctl, slot, log) of an M-merge run at i = W - 256, on the CPU and on
+    the card."""
+    ctl = kernels.new_ctl(M, "cpu")
+    ctl[kernels.CTL_I] = W - 256
+    slot = kernels.new_slot("cpu")
+    log = torch.zeros((M, 4), dtype=torch.int32)
+    cpu = (ctl, slot, log)
+    return cpu, tuple(t.to(dev) for t in cpu)
+
+
 def test_stopped_rounds_do_nothing(dev):
     ids, seg = _stream(1, 3000, 5)
     (ci, cs), (gi, gs) = _both(dev, ids, seg)
     n = torch.tensor([3000], dtype=torch.int32, device=dev)
-    stop = torch.tensor([2], dtype=torch.int32, device=dev)
-    cnt, first = kernels.pair_stats(gi, gs, n, 256, stop, 2)
+    _, (ctl, slot, log) = _state(dev, 4, 258)
+    ctl[kernels.CTL_FAIL] = 2
+    cnt, first = kernels.pair_stats(gi, gs, n, 260, ctl)
     assert int(cnt.sum()) == 0 and int(first.max()) == -1
-    row = torch.zeros(4, dtype=torch.int32, device=dev)
-    kernels.select_best(cnt, first, gi, stop, 3, row)
-    assert row.tolist() == [0, 0, 0, 0] and int(stop) == 2
+    slot[kernels.SLOT_BSEL] = 1
+    kernels.select_batch(cnt, first, gi, ctl, slot, log)
+    assert int(slot[kernels.SLOT_BSEL]) == 0
+    assert ctl.tolist()[:3] == [2, 2, 0] and int(log.abs().sum()) == 0
+
+
+def _batch_slot(dev, pairs, zbase):
+    slot = kernels.new_slot("cpu")
+    for j, (a, b) in enumerate(pairs):
+        slot[2 * j], slot[2 * j + 1] = a, b
+        slot[kernels.SLOT_COUNT + j] = 1000 - j
+    slot[kernels.SLOT_BSEL] = len(pairs)
+    slot[kernels.SLOT_ZBASE] = zbase
+    slot[kernels.SLOT_I] = zbase - 256
+    return slot, slot.to(dev)
+
+
+@pytest.mark.parametrize("seed, n, k", [(0, 1, 2), (1, 2, 2), (2, 1500, 5),
+                                        (3, 70_000, 16), (4, 0, 3)])
+def test_batch_kernels_match_plain(dev, seed, n, k):
+    """K6, K7, K8 and K4 on a slot of k disjoint candidates, against the
+    plain versions; streams shorter than three tokens and empty included."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(100, 140, max(n, 2)).astype(np.int32)
+    seg = np.cumsum(rng.random(max(n, 2)) < 0.2).astype(np.int32)
+    pairs = list(zip(range(100, 100 + k), range(120, 120 + k)))
+    ids[:2] = pairs[0]
+    nt = np.array([n], np.int32)
+    (ci, cs, cn), (gi, gs, gn) = _both(dev, ids, seg, nt)
+    M = 40
+    sc, sg = _batch_slot(dev, pairs, 290)
+    (ctl_c, _, log_c), (ctl_g, _, log_g) = _state(dev, M, 290)
+    acc_c, acc_g = kernels.new_hist("cpu"), kernels.new_hist(dev)
+    cand_c, F_c = kernels.batch_mark(ci, cs, cn, sc, acc_c[0])
+    cand_g, F_g = kernels.batch_mark(gi, gs, gn, sg, acc_g[0])
+    assert torch.equal(cand_c[:n], cand_g[:n].cpu())
+    assert torch.equal(F_c[:n], F_g[:n].cpu())
+    kernels.batch_hist_rev(ci, cs, cn, cand_c, F_c, sc, acc_c[1])
+    kernels.batch_hist_rev(gi, gs, gn, cand_g, F_g, sg, acc_g[1])
+    assert torch.equal(acc_c, acc_g.cpu())
+    out_c, live_c = torch.empty_like(ci), torch.empty(ci.shape, dtype=bool)
+    out_g, live_g = torch.empty_like(gi), torch.empty(gi.shape, dtype=bool,
+                                                      device=dev)
+    kernels.batch_apply(ci, cn, cand_c, sc, acc_c, ctl_c, log_c, M, out_c,
+                        live_c)
+    kernels.batch_apply(gi, gn, cand_g, sg, acc_g, ctl_g, log_g, M, out_g,
+                        live_g)
+    assert torch.equal(out_c[:n], out_g[:n].cpu())
+    assert torch.equal(live_c[:n], live_g[:n].cpu())
+    assert torch.equal(sc, sg.cpu()) and torch.equal(ctl_c, ctl_g.cpu())
+    assert torch.equal(log_c, log_g.cpu()) and int(acc_g.abs().sum()) == 0
+    xc = kernels.compact(out_c, cs, live_c, cn, sc)
+    xg = kernels.compact(out_g, gs, live_g, gn, sg)
+    m = int(xc[2])
+    assert int(xg[2]) == m
+    assert torch.equal(xc[0][:m], xg[0][:m].cpu())
+    assert torch.equal(xc[1][:m], xg[1][:m].cpu())
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_trainer_on_card_matches_cpu(dev, seed):
+    """Whole batched runs: merges, counts, fail round and rebuilds."""
+    from minbpe_tpu_torch.ops import train
+
+    ids, seg = _stream(seed, 60_000, 40, 20_000, 3000)
+    (ci, cs), (gi, gs) = _both(dev, ids, seg)
+    want = train.train_merges(ci, cs, 200)
+    rebuilds = train.LAST_REBUILDS
+    got = train.train_merges(gi, gs, 200)
+    assert all(np.array_equal(a, b) for a, b in zip(want[:2], got[:2]))
+    assert want[2] == got[2] and train.LAST_REBUILDS == rebuilds < 200
 
 
 def _words(seed, n):

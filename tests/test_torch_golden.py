@@ -6,6 +6,11 @@ tests hold the port's plain CPU path and minbpe_tpu itself to it. Rewrite
 it (only when the corpus or the reference changes) with
 
     PYTHONPATH= JAX_PLATFORMS=cpu python tests/test_torch_golden.py --write
+
+and the XL golden (minbpe_tpu_torch/data/xl_golden.npz: the 12,588,338-byte
+XL corpus at vocab 1024, through minbpe_tpu's stepped route, ~7 minutes on
+a CPU) with ``--write-xl``. Both XL tests are marked slow: each trains the
+whole XL corpus on the CPU.
 """
 
 import contextlib
@@ -51,6 +56,22 @@ def _reference_result():
     return merges, counts, len(merges), tok.encode(text)
 
 
+def _reference_xl_result():
+    from minbpe_tpu import RegexTokenizer
+
+    text = golden.xl_corpus(ROOT)
+    tok = RegexTokenizer()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        tok.train(text, golden.VOCAB_SIZE, verbose=True,
+                  select_mode="stepped")
+    counts = [int(c) for c in re.findall(r"had (\d+) occurrences",
+                                         out.getvalue())]
+    items = sorted(tok.merges.items(), key=lambda kv: kv[1])
+    merges = np.array([list(p) for p, _ in items], dtype=np.int32)
+    return merges, np.array(counts, dtype=np.int32), len(merges), text
+
+
 def test_corpus_is_frozen():
     text = golden.smoke_corpus(ROOT)
     assert len(text.encode("utf-8")) == 397366
@@ -83,9 +104,40 @@ def test_minbpe_tpu_reproduces_golden():
     assert golden.ids_digest(ids) == want["encode_sha256"]
 
 
+@pytest.mark.slow
+def test_minbpe_tpu_reproduces_xl_golden():
+    pytest.importorskip("jax")
+    want = golden.load_xl_golden()
+    merges, counts, fail_round, text = _reference_xl_result()
+    assert golden.text_digest(text) == want["corpus_sha256"]
+    assert np.array_equal(merges, want["merges"])
+    assert np.array_equal(counts, want["counts"])
+    assert fail_round == want["fail_round"]
+
+
+@pytest.mark.slow
+def test_port_plain_path_matches_xl_golden():
+    from minbpe_tpu_torch import RegexTokenizer
+
+    want = golden.load_xl_golden()
+    text = golden.xl_corpus(ROOT)
+    assert len(text.encode("utf-8")) == want["corpus_bytes"] == 12588338
+    assert golden.text_digest(text) == want["corpus_sha256"]
+    merges, counts = _train_verbose(RegexTokenizer(device="cpu"), text)
+    assert np.array_equal(merges, want["merges"])
+    assert np.array_equal(counts, want["counts"])
+    assert want["fail_round"] == golden.VOCAB_SIZE - 256
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] != ["--write"]:
-        sys.exit(f"usage: {sys.argv[0]} --write")
-    merges, counts, fail_round, ids = _reference_result()
-    golden.save_golden(merges, counts, fail_round, ids)
-    print(f"wrote {golden.GOLDEN}: {len(merges)} merges, {len(ids)} ids")
+    if sys.argv[1:] == ["--write"]:
+        merges, counts, fail_round, ids = _reference_result()
+        golden.save_golden(merges, counts, fail_round, ids)
+        print(f"wrote {golden.GOLDEN}: {len(merges)} merges, {len(ids)} ids")
+    elif sys.argv[1:] == ["--write-xl"]:
+        merges, counts, fail_round, text = _reference_xl_result()
+        golden.save_xl_golden(merges, counts, fail_round, text)
+        print(f"wrote {golden.XL_GOLDEN}: {len(merges)} merges, "
+              f"{len(text.encode('utf-8'))} corpus bytes")
+    else:
+        sys.exit(f"usage: {sys.argv[0]} --write | --write-xl")

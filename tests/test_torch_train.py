@@ -107,11 +107,13 @@ def test_kept_column_counts_consumed_tokens():
     seg = torch.zeros(9, dtype=torch.int32)
     n = torch.tensor([9], dtype=torch.int32)
     log = torch.zeros((1, 4), dtype=torch.int32)
-    fail = torch.tensor([1], dtype=torch.int32)
-    cnt, first = kernels.pair_stats(ids, seg, n, 256, fail, 0)
-    kernels.select_best(cnt, first, ids, fail, 0, log[0])
-    kernels.merge_apply(ids, seg, n, log[0], 256, fail, 0, kept=log[0, 3:4])
+    ctl = kernels.new_ctl(1, "cpu")
+    slot = kernels.new_slot("cpu")
+    cnt, first = kernels.pair_stats(ids, seg, n, 257, ctl)
+    kernels.select_batch(cnt, first, ids, ctl, slot, log)
+    kernels.merge_apply(ids, seg, n, slot=slot, log=log)
     assert log[0].tolist() == [7, 7, 8, 4]
+    assert ctl.tolist()[:3] == [1, 1, 1]
 
 
 # ---------------------------------------------------------------------------
@@ -139,6 +141,7 @@ def test_pair_stats_plain(seed):
     ids[7] = 299
     cnt, first = kernels.pair_stats(_t(ids), _t(seg),
                                     torch.tensor([450], dtype=torch.int32), W)
+    assert cnt.shape == first.shape == (W, W)
     want_c = np.zeros((W, W), np.int64)
     want_f = np.full((W, W), -1, np.int64)
     for i in range(449):
@@ -153,6 +156,9 @@ def test_pair_stats_plain(seed):
 
 @pytest.mark.parametrize("seed", range(3))
 def test_select_best_plain(seed):
+    """K5's first candidate is the reference's argmax: the largest count,
+    the earliest first occurrence among equal counts; an empty matrix is
+    the fail round."""
     rng = np.random.default_rng(seed)
     W = 260
     ids = rng.integers(0, W, 8000).astype(np.int32)
@@ -165,14 +171,58 @@ def test_select_best_plain(seed):
     # the reference: the max count, the earliest first occurrence among ties
     best = max((int(cnt[a, b]), -int(first[a, b]), a, b) for a, b in nz)
     p = -best[1]
-    row = torch.zeros(4, dtype=torch.int32)
-    fail = torch.tensor([10], dtype=torch.int32)
-    kernels.select_best(_t(cnt), _t(first), _t(ids), fail, 3, row)
-    assert row[:3].tolist() == [int(ids[p]), int(ids[p + 1]), best[0]]
-    assert int(fail) == 10
-    kernels.select_best(_t(np.zeros_like(cnt)), _t(np.full_like(first, -1)),
-                        _t(ids), fail, 3, row)
-    assert int(fail) == 3
+    log = torch.zeros((10, 4), dtype=torch.int32)
+    ctl = kernels.new_ctl(10, "cpu")
+    ctl[kernels.CTL_I] = 4  # W = 256 + 4
+    slot = kernels.new_slot("cpu")
+    kernels.select_batch(_t(cnt), _t(first), _t(ids), ctl, slot, log)
+    assert slot[:2].tolist() == [int(ids[p]), int(ids[p + 1])]
+    assert int(slot[kernels.SLOT_COUNT]) == best[0]
+    assert int(slot[kernels.SLOT_BSEL]) >= 1
+    assert int(ctl[kernels.CTL_FAIL]) == 10
+    ctl[kernels.CTL_I] = 4  # a single merge advanced it
+    kernels.select_batch(_t(np.zeros_like(cnt)), _t(np.full_like(first, -1)),
+                         _t(ids), ctl, slot, log)
+    assert int(ctl[kernels.CTL_FAIL]) == 4
+    assert int(slot[kernels.SLOT_BSEL]) == 0
+
+
+def _walk_model(keys, ids):
+    """The Pallas selection walk, candidate by candidate."""
+    acc = []
+    for key in sorted(keys, reverse=True)[:kernels.K_CAP]:
+        pos = 0xFFFFFFFF - (key & 0xFFFFFFFF)
+        pa, pb = int(ids[pos]), int(ids[pos + 1])
+        if acc:
+            if pa == pb or acc[0][0] == acc[0][1]:
+                break
+            if any(qa == pb or qb == pa for qa, qb, _ in acc):
+                break
+        acc.append((pa, pb, key >> 32))
+    return acc
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_select_batch_walk_plain(seed):
+    """K5's accepted batch on K1's counts of a small-alphabet stream against
+    a direct model of the walk: keys in descending order, stopped at the
+    first homogeneous or cross-side-sharing candidate."""
+    ids, seg = _stream(seed, 3000, 12)
+    n = torch.tensor([3000], dtype=torch.int32)
+    ctl = kernels.new_ctl(8, "cpu")
+    slot = kernels.new_slot("cpu")
+    log = torch.zeros((8, 4), dtype=torch.int32)
+    cnt, first = kernels.pair_stats(_t(ids), _t(seg), n, 264, ctl)
+    kernels.select_batch(cnt, first, _t(ids), ctl, slot, log)
+    c, f = cnt.numpy().astype(np.int64), first.numpy().astype(np.int64)
+    keys = [int(c[a, b]) << 32 | (0xFFFFFFFF - int(f[a, b]))
+            for a, b in np.argwhere(c > 0)]
+    want = _walk_model(keys, ids)
+    bsel = int(slot[kernels.SLOT_BSEL])
+    got = [(int(slot[2 * j]), int(slot[2 * j + 1]),
+            int(slot[kernels.SLOT_COUNT + j])) for j in range(bsel)]
+    assert got == want and bsel >= 1
+    assert int(ctl[kernels.CTL_REBUILDS]) == 1
 
 
 def _walk(ids, seg, n, pa, pb):
@@ -220,15 +270,21 @@ def test_compact_plain():
 
 
 def test_stopped_round_changes_nothing():
-    """After the fail round every kernel's round is a no-op."""
+    """After the fail round every kernel of a slot is a no-op."""
     ids, seg = _stream(2, 100, 4)
     n = torch.tensor([100], dtype=torch.int32)
-    stop = torch.tensor([3], dtype=torch.int32)
-    cnt, first = kernels.pair_stats(_t(ids), _t(seg), n, 256, stop, 3)
+    ctl = kernels.new_ctl(5, "cpu")
+    ctl[kernels.CTL_I] = 3
+    ctl[kernels.CTL_FAIL] = 3
+    cnt, first = kernels.pair_stats(_t(ids), _t(seg), n, 261, ctl)
     assert int(cnt.sum()) == 0 and int(first.max()) == -1
-    row = torch.zeros(4, dtype=torch.int32)
-    kernels.select_best(cnt, first, _t(ids), stop, 5, row)
-    assert row.tolist() == [0, 0, 0, 0] and int(stop) == 3
-    pair = torch.tensor([1, 1], dtype=torch.int32)
-    out, live = kernels.merge_apply(_t(ids), _t(seg), n, pair, 300, stop, 3)
+    slot = kernels.new_slot("cpu")
+    slot[kernels.SLOT_BSEL] = 1
+    log = torch.zeros((5, 4), dtype=torch.int32)
+    kernels.select_batch(cnt, first, _t(ids), ctl, slot, log)
+    assert int(slot[kernels.SLOT_BSEL]) == 0
+    assert ctl.tolist()[:3] == [3, 3, 0] and int(log.abs().sum()) == 0
+    out, live = kernels.merge_apply(_t(ids), _t(seg), n, slot=slot, log=log)
     assert np.array_equal(out.numpy(), ids) and bool(live.all())
+    ci, cs, cn = kernels.compact(out, _t(seg), live, n, slot)
+    assert np.array_equal(ci.numpy(), ids) and int(cn) == 100
