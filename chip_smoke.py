@@ -10,8 +10,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 2. hold each kernel against its plain PyTorch version on the card, on
    numpy-seeded inputs at the main path's shapes (400K tokens, W = 1024,
    the rebuild of merge 768, a batch of 16 candidates drawn from the
-   stream), and K1 and K6 once more at the XL bound (48M tokens); the
-   outputs are integers and must be exactly equal;
+   stream), K1 and K6 once more at the XL bound (48M tokens), and K9 also
+   at V = 2048 and at the stepped route's bound (4M tokens); the outputs
+   are integers and must be exactly equal;
 3. drive the main path through the user's entry points, one path at a
    time, with every launch count set to 0 just before each path and read
    just after it: RegexTokenizer (GPT-4 pattern) training at vocab 1024 on
@@ -21,9 +22,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    documents encoded one by one, special tokens, save/load, a
    BasicTokenizer at vocab 512 and one on 2^20 copies of "a", both equal to
    the plain path on the CPU, and the large-corpus route: vocab 1024 on the
-   12,588,338-byte XL corpus, equal to the XL golden;
-4. the device's busy time in the training runs on both corpora and the
-   encode run (torch.profiler) against their wall time: the idle share;
+   12,588,338-byte XL corpus, equal to the XL golden. Then the selection
+   and stepped routes on the smoke corpus: select_mode "pallas", "sort",
+   "dense" and "stepped" at vocab 1024 (each equal to the golden, with the
+   launches of each kernel counted exactly), the default route at vocab
+   2048 (the stepped trainer; equal to the 2048 golden and to "sort" at
+   2048), a checkpointed run interrupted after round 512 and resumed, and
+   a run with a profile_dir, which must leave a trace;
+4. the device's busy time in the training runs on both corpora, the
+   "pallas" and stepped runs on the smoke corpus and the encode run
+   (torch.profiler) against their wall time: the idle share;
 5. print the kernels line (launches of each path in phase 3, errors and
    times of phase 2), the main path's timings, the busy times, the card's
    name and power limit, and last the result line.
@@ -222,7 +230,7 @@ def xl_stream(torch, ids, seg, n: int):
     return big_ids, big_seg
 
 
-def phase_kernels(torch, np, kernels, xl_max_n: int):
+def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int):
     W = 1024
     n = 400_000
     I = W - 256  # the merge whose rebuild the shapes are those of
@@ -398,6 +406,44 @@ def phase_kernels(torch, np, kernels, xl_max_n: int):
         bytes=9 * n + 8 * k,
         library_ms=profiled_ms(torch, library_compact, 50)))
 
+    # K9 pair_count at the main path's shape, at V = 2048 (a stream of its
+    # own with ids below 2048) and at the stepped route's 4 * 2^20 tokens
+    def count_case(c_ids, c_seg, V):
+        c_n = torch.full((1,), c_ids.numel(), dtype=torch.int32, device=dev)
+        got = kernels.pair_count(c_ids, c_seg, c_n, V)
+        err = max_err(torch, [(got, kernels.pair_count_plain(
+            c_ids, c_seg, c_n, V))])
+        if int(got.sum()) <= 0:
+            raise AssertionError(f"pair_count counted nothing at V = {V}")
+        same = c_seg[:-1] == c_seg[1:]
+        keys = (c_ids[:-1].long() * V + c_ids[1:].long())[same]
+        return dict(
+            n=c_ids.numel(), V=V, max_abs_err=err,
+            ms=device_ms(torch, lambda: kernels.pair_count(
+                c_ids, c_seg, c_n, V), 50),
+            plain_ms=host_ms(torch, lambda: kernels.pair_count_plain(
+                c_ids, c_seg, c_n, V), 5),
+            bytes=8 * c_ids.numel() + 4 * V * V,
+            bound_ms=(8 * c_ids.numel() + 4 * V * V) / HBM_BYTES_PER_S * 1e3,
+            library_ms=profiled_ms(torch, lambda: torch.bincount(
+                keys, minlength=V * V), 50))
+
+    main = count_case(ids, seg, W)
+    ids2k, seg2k = (torch.from_numpy(a).to(dev)
+                    for a in smoke_stream(np, n, 2048))
+    big_ids, big_seg = xl_stream(torch, ids, seg, stepped_max_n)
+    others = [count_case(ids2k, seg2k, 2048),
+              count_case(big_ids, big_seg, W)]
+    del ids2k, seg2k, big_ids, big_seg
+    rows.append(dict(k=kernels.PAIR_COUNT, err=main["max_abs_err"],
+                     ms=main["ms"], plain_ms=main["plain_ms"],
+                     bytes=main["bytes"], library_ms=main["library_ms"],
+                     shapes=others))
+    for c in others:
+        print(f"pair_count at n {c['n']}, V {c['V']}: max_abs_err "
+              f"{c['max_abs_err']} ({c['ms']:.4f} ms, bound "
+              f"{c['bound_ms']:.4f} ms)")
+
     # K1 and K6 at the XL bound: the same stream repeated to XL_MAX_N tokens
     big_ids, big_seg = xl_stream(torch, ids, seg, xl_max_n)
     big_n = torch.tensor([xl_max_n], dtype=torch.int32, device=dev)
@@ -426,7 +472,8 @@ def phase_kernels(torch, np, kernels, xl_max_n: int):
     for r in rows:
         print(f"kernel {r['k'].name}: max_abs_err {r['err']}, "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms)")
-        err = max(r["err"], r.get("xl", {}).get("max_abs_err", 0))
+        err = max([r["err"], r.get("xl", {}).get("max_abs_err", 0)]
+                  + [c["max_abs_err"] for c in r.get("shapes", ())])
         if err != 0:
             raise AssertionError(f"{r['k'].name} disagrees with its plain "
                                  f"version (max_abs_err {err})")
@@ -456,9 +503,10 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
     launches = {}
 
     @contextlib.contextmanager
-    def path(name, must_launch):
+    def path(name, must_launch, exact=None):
         """Count this path's launches alone; each kernel it must run has to
-        have launched at least once."""
+        have launched at least once, and with ``exact`` ({kernel: count})
+        every kernel exactly so often (0 where it is not named)."""
         kernels.reset_launches()
         yield
         counts = {k.name: k.launches for k in kernels.KERNELS}
@@ -469,6 +517,10 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
                                  f"{counts}")
         if not must_launch and any(counts.values()):
             raise AssertionError(f"path {name} launched kernels: {counts}")
+        if exact is not None and any(counts[k] != exact.get(k, 0)
+                                     for k in counts):
+            raise AssertionError(f"path {name} launched {counts}, expected "
+                                 f"{exact}")
 
     golden = golden_mod.load_golden()
     corpus = golden_mod.smoke_corpus(ROOT)
@@ -627,7 +679,114 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
           f"rebuilds, {timings['train_xl_merges_per_rebuild']:.3f} merges "
           f"per rebuild, {timings['train_xl_slots']} slots, "
           f"{timings['train_xl_syncs']} syncs)")
+
+    selection_paths(torch, np, golden_mod, corpus, path, timings, head, gb,
+                    scratch)
     return timings, launches
+
+
+def selection_paths(torch, np, golden_mod, corpus, path, timings, head, gb,
+                    scratch):
+    """The selection and stepped routes on the smoke corpus, the default
+    route at vocab 2048, checkpoint and resume, and profile_dir."""
+    from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer
+    from minbpe_tpu_torch.utils import checkpoint as ckpt
+
+    golden = golden_mod.load_golden()
+    golden2k = golden_mod.load_golden_2048()
+    V, V2k = golden_mod.VOCAB_SIZE, golden_mod.VOCAB_SIZE_2048
+    M, M2k = V - 256, V2k - 256
+
+    def train(name, vocab, exact, **opts):
+        """(merges, counts) of one training run on the corpus, the path's
+        launches counted exactly."""
+        tok = RegexTokenizer(device="cuda")
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        with path(name, [k for k, c in exact.items() if c], exact):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                tok.train(corpus, vocab, verbose=True, **opts)
+            torch.cuda.synchronize()
+            timings[f"{name}_s"] = time.perf_counter() - t0
+        counts = np.array([int(c) for c in re.findall(
+            r"had (\d+) occurrences", out.getvalue())])
+        return merges_in_rank_order(np, tok.merges), counts
+
+    def check(name, got, want, rows=None):
+        merges, counts = got
+        if rows is not None:
+            merges, counts = merges[:rows], counts[:rows]
+        if not (np.array_equal(merges, want["merges"][:len(merges)])
+                and np.array_equal(counts, want["counts"][:len(counts)])
+                and len(merges) == (rows or want["fail_round"])):
+            raise AssertionError(f"{name}: merges or counts differ from the "
+                                 "golden")
+        print(f"{name}: {len(merges)} merges equal to the golden "
+              f"({timings[f'{name}_s']:.3f} s)")
+
+    per_round = {"merge_apply": M, "compact": M}
+    check("train_pallas", train("train_pallas", V, {
+        "pair_count": M, **per_round}, select_mode="pallas"), golden)
+    check("train_sort", train("train_sort", V, per_round,
+                              select_mode="sort"), golden)
+    check("train_dense", train("train_dense", V, per_round,
+                               select_mode="dense"), golden)
+    check("train_stepped", train("train_stepped", V, {"pair_count": 1},
+                                 select_mode="stepped"), golden)
+
+    # the default route at vocab 2048 is the stepped trainer
+    auto2k = train("train_auto_2048", V2k, {"pair_count": 1})
+    check("train_auto_2048", auto2k, golden, rows=M)
+    check("train_auto_2048", auto2k, golden2k)
+    sort2k = train("train_sort_2048", V2k,
+                   {"merge_apply": M2k, "compact": M2k}, select_mode="sort")
+    if not all(np.array_equal(a, b) for a, b in zip(auto2k, sort2k)):
+        raise AssertionError("train_auto_2048 differs from train_sort_2048")
+    check("train_sort_2048", sort2k, golden2k)
+
+    # checkpoint every 256 rounds, interrupted after round 512, resumed
+    ck = os.path.join(scratch, "smoke.ckpt.npz")
+    every = M // 3
+    stop_at = 2 * every
+
+    def stop(done, total):
+        if done > stop_at:
+            raise KeyboardInterrupt
+
+    cut = RegexTokenizer(device="cuda")
+    with path("checkpoint_resume", ("pair_count", "merge_apply", "compact"),
+              {"pair_count": 2, "merge_apply": stop_at, "compact": stop_at}):
+        t0 = time.perf_counter()
+        try:
+            cut.train(corpus, V, checkpoint_path=ck, checkpoint_every=every,
+                      progress=stop)
+            raise AssertionError("the progress callback did not interrupt")
+        except KeyboardInterrupt:
+            pass
+        if ckpt.load(ck)["round_idx"] != stop_at:
+            raise AssertionError(f"the checkpoint is not at round {stop_at}")
+        resumed = RegexTokenizer(device="cuda")
+        resumed.train(corpus, V, resume_from=ck)
+        torch.cuda.synchronize()
+        timings["checkpoint_resume_s"] = time.perf_counter() - t0
+    if not np.array_equal(merges_in_rank_order(np, resumed.merges),
+                          golden["merges"]):
+        raise AssertionError("the resumed run differs from the golden")
+    print(f"checkpoint_resume: interrupted after round {stop_at}, resumed "
+          "from the checkpoint, equal to the golden")
+
+    # profile_dir: the trace of a training run
+    trace_dir = os.path.join(scratch, "trace")
+    traced = BasicTokenizer(device="cuda")
+    with path("profile_dir", TRAIN_KERNELS):
+        traced.train(head, 512, profile_dir=trace_dir)
+    traces = [f for f in os.listdir(trace_dir) if f.endswith(".json")]
+    if not traces or traced.merges != gb.merges:
+        raise AssertionError(f"profile_dir: traces {traces}, merges equal "
+                             f"{traced.merges == gb.merges}")
+    print(f"profile_dir: {traces[0]} "
+          f"({os.path.getsize(os.path.join(trace_dir, traces[0]))} bytes)")
 
 
 def note_batching(train_mod, timings, name: str, merges: int):
@@ -659,6 +818,8 @@ def phase_device_time(torch, golden_mod):
     from minbpe_tpu_torch.ops.encode import encode_stream
     from minbpe_tpu_torch.ops.stream import build_stream
     from minbpe_tpu_torch.ops.train import train_merges
+    from minbpe_tpu_torch.ops.train_inc import train_merges_stepped
+    from minbpe_tpu_torch.ops.train_select import train_merges_select
 
     corpus = golden_mod.smoke_corpus(ROOT)
     tok = RegexTokenizer(device="cuda")
@@ -672,6 +833,8 @@ def phase_device_time(torch, golden_mod):
     runs = {
         "train": lambda: train_merges(ids, seg, M),
         "train_xl": lambda: train_merges(xl_ids, xl_seg, M),
+        "train_pallas": lambda: train_merges_select(ids, seg, M, "pallas"),
+        "train_stepped": lambda: train_merges_stepped(ids, seg, M),
         "encode": lambda: encode_stream(ids, seg, table.pairs,
                                         table.new_ids)[2].item(),
     }
@@ -703,6 +866,7 @@ def main() -> int:
         import numpy as np
 
         from minbpe_tpu_torch import kernels
+        from minbpe_tpu_torch.engine import STEPPED_AUTO_MAX_N
         from minbpe_tpu_torch.ops.train import XL_MAX_N
         from minbpe_tpu_torch.utils import golden as golden_mod
         from minbpe_tpu_torch.utils import native
@@ -714,7 +878,8 @@ def main() -> int:
     os.makedirs(scratch)
     try:
         phase_build(kernels, native)
-        rows = phase_kernels(torch, np, kernels, XL_MAX_N)
+        rows = phase_kernels(torch, np, kernels, XL_MAX_N,
+                             STEPPED_AUTO_MAX_N)
         timings, launches = phase_main_path(torch, np, kernels, golden_mod,
                                             scratch)
         device_time = phase_device_time(torch, golden_mod)
@@ -736,8 +901,8 @@ def main() -> int:
          "launches_by_path": by_path(r["k"].name),
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": r["library_ms"], **({"xl": r["xl"]} if "xl" in r
-                                           else {})}
+         "library_ms": r["library_ms"],
+         **{k: r[k] for k in ("xl", "shapes") if k in r}}
         for r in rows]}
     print(json.dumps(line))
     print(json.dumps({"main_path": timings}))

@@ -35,6 +35,8 @@
 //   K4 compact        <- _compact_inplace (fused_train.py:641-736),
 //                        _compact_kernel (fused_train_xl.py:300-326) and the
 //                        encoder's output compaction (fused_encode.py:91-119)
+//   K9 pair_count     <- ops/pallas/pair_count.py::_kernel (:29-53), the
+//                        dense pair-count matrix of the selection paths
 //
 // Training runs in rebuild SLOTS. The host enqueues slots without knowing
 // what a slot does: that lives in device memory.
@@ -205,6 +207,45 @@ __global__ void pair_stats_kernel(const int* __restrict__ ids,
       atomicAdd(&cnt[key], (unsigned)__popc(group));
       atomicMin(&first[key], (unsigned)i);
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K9 pair_count: the dense V x V pair-count matrix of a stream, without
+// first positions and without the trainer's state.
+//
+// The Pallas kernel builds bf16 one-hot slabs of each (8, 256) tile of pairs
+// and accumulates (V, 256) @ (256, V) MXU products into a VMEM (V, V)
+// accumulator: 2 N V^2 operations for what is a histogram of N entries. This
+// is the histogram: cnt[a * V + b] += 1 for every p with p + 1 < n,
+// seg[p] == seg[p + 1] and 0 <= a, b < V, (a, b) = (ids[p], ids[p + 1]); an
+// id outside [0, V) has an all-zero one-hot row there and counts nowhere
+// here. The clear is a memset of the matrix. One thread per position, in a
+// grid-stride loop whose bound depends on the block only, so a warp
+// aggregates equal pairs with __match_any_sync: one atomicAdd of the group
+// size per distinct pair.
+//
+// Bound: bytes (8 B read per token, 4 B per matrix entry cleared and
+// written); the matrix (16 MB at V = 2048) stays in L2, where the atomics of
+// a hot pair serialize.
+// ---------------------------------------------------------------------------
+__global__ void pair_count_kernel(const int* __restrict__ ids,
+                                  const int* __restrict__ seg,
+                                  const int* __restrict__ n_ptr,
+                                  unsigned* __restrict__ cnt, int V) {
+  const int n = *n_ptr;
+  const int stride = gridDim.x * blockDim.x;
+  for (int base = blockIdx.x * blockDim.x; base < n - 1; base += stride) {
+    const int i = base + threadIdx.x;
+    long long key = -1;
+    if (i < n - 1 && seg[i] == seg[i + 1]) {
+      const int a = ids[i];
+      const int b = ids[i + 1];
+      if (a >= 0 && a < V && b >= 0 && b < V) key = (long long)a * V + b;
+    }
+    const unsigned group = __match_any_sync(0xffffffffu, key);
+    if (key >= 0 && (threadIdx.x & 31) == __ffs(group) - 1)
+      atomicAdd(&cnt[key], (unsigned)__popc(group));
   }
 }
 
@@ -766,6 +807,17 @@ int bpe_pair_stats(const int* ids, const int* seg, const int* n,
       ctl, cnt, first, V);
   pair_stats_kernel<<<stat_blocks(cap), TPB, 0, s>>>(ids, seg, n, ctl, cnt,
                                                      first, V);
+  return cudaGetLastError();
+}
+
+// cnt: V x V, overwritten
+int bpe_pair_count(const int* ids, const int* seg, const int* n,
+                   unsigned* cnt, int V, int cap, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t e =
+      cudaMemsetAsync(cnt, 0, (size_t)V * V * sizeof(unsigned), s);
+  if (e != cudaSuccess) return e;
+  pair_count_kernel<<<stat_blocks(cap), TPB, 0, s>>>(ids, seg, n, cnt, V);
   return cudaGetLastError();
 }
 

@@ -1,16 +1,19 @@
 """Host <-> device glue: builds device streams from text, runs the trainer
 and the encoder, and turns results back into the dict-of-merges API.
 
-The port's counterpart of minbpe_tpu/engine.py, for the slice it covers:
-the fused and fused_xl training routes of ``run_train`` (engine.py:97-111,
-130-166), one trainer for both,
+The port's counterpart of minbpe_tpu/engine.py, for the slices it covers:
+``run_train`` (engine.py:57-238) with its route choice, the whole-run,
+selection and stepped routes, checkpoints, progress and ``profile_dir``;
 ``train_offsets``/``train_bytes`` (468-484) and
 ``encode_bytes``/``encode_offsets``/``encode_parts`` (322-423). A kernel that
-fails raises: there is no fallback route. Options and sizes outside the
-slice raise NotImplementedError naming the ROADMAP.md item that brings them.
+fails raises: there is no fallback route. Routes and sizes outside the
+slices raise NotImplementedError naming the ROADMAP.md item that brings
+them.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -18,16 +21,22 @@ import torch
 from .ops import stream as stream_ops
 from .ops.encode import ENCODE_MAX_M, ENCODE_MAX_N, encode_stream
 from .ops.train import TRAIN_MAX_N, TRAIN_MAX_V, train_merges
+from .ops.train_inc import train_merges_incremental, train_merges_stepped
+from .ops.train_select import DENSE_SELECT_MAX, train_merges_select
+from .utils import checkpoint as ckpt
 
-# training options of minbpe_tpu's run_train -> the ROADMAP.md item
-_TRAIN_OPTION_ITEMS = {
-    "select_mode": "A9 (selection paths)",
-    "checkpoint_path": "A10 (checkpoint/resume/progress)",
-    "checkpoint_every": "A10 (checkpoint/resume/progress)",
-    "resume_from": "A10 (checkpoint/resume/progress)",
-    "progress": "A10 (checkpoint/resume/progress)",
-    "profile_dir": "A17 (tracing)",
+# the token bound of the stepped route under "auto": minbpe_tpu's
+# FUSED_MAX_N (ops/pallas/fused_train.py:71, engine.py:112)
+STEPPED_AUTO_MAX_N = 1 << 22
+# select_mode -> route; "auto" is chosen by train_route
+_ROUTES = {
+    "fused": "whole", "fused_xl": "whole",
+    "sort": "sort", "dense": "dense",
+    "pallas": "pallas", "pallas_interpret": "pallas",
+    "stepped": "stepped", "incremental": "incremental",
 }
+_SORTLOOP_MODES = ("sortloop", "sortloop_inc", "sparse", "sparse_inc")
+_A11 = "ROADMAP.md A11 (the sort-loop and sparse routes)"
 
 
 class DeviceMergeTable:
@@ -47,33 +56,85 @@ def device_table(tokenizer) -> DeviceMergeTable:
     return tokenizer._dev
 
 
-def _check_train_size(n_tokens: int, num_merges: int):
-    """The trainer's bounds: V <= 1024 and N <= XL_MAX_N tokens. Beyond
-    either, minbpe_tpu takes its sort-loop route (engine.py:112-120)."""
+def train_route(select_mode: str, n_tokens: int, num_merges: int,
+                plain: bool = True) -> str:
+    """The route of a training run: "whole" (ops/train.py), "sort",
+    "dense" or "pallas" (ops/train_select.py), "stepped" or "incremental"
+    (ops/train_inc.py). ``plain``: no checkpoint, resume or progress
+    option. "auto" mirrors minbpe_tpu/engine.py:87-120 with its TPU test
+    read as true, since the whole-run trainer serves both devices here; its
+    "pallas_interpret" is "pallas", as the port has no interpret mode.
+    Raises NotImplementedError for the sort-loop and sparse routes and
+    ValueError for an unknown mode or a whole-run request beyond its
+    bounds."""
     V = 256 + num_merges
-    if V > TRAIN_MAX_V:
+    whole_fits = V <= TRAIN_MAX_V and n_tokens <= TRAIN_MAX_N
+    if select_mode == "auto":
+        if plain and whole_fits:
+            return "whole"
+        if V <= DENSE_SELECT_MAX and n_tokens <= STEPPED_AUTO_MAX_N:
+            return "stepped"
         raise NotImplementedError(
-            f"vocab_size {V} > {TRAIN_MAX_V} is not ported yet: ROADMAP.md "
-            "A11 (vocab > 1024 training)")
-    if n_tokens > TRAIN_MAX_N:
+            f"vocab_size {V} on {n_tokens} training tokens takes the "
+            f"sort-loop route, which is not ported yet: {_A11}")
+    if select_mode in _SORTLOOP_MODES:
         raise NotImplementedError(
-            f"{n_tokens} training tokens > {TRAIN_MAX_N} is not ported yet: "
-            "ROADMAP.md A11 (the sort-loop route)")
+            f"select_mode={select_mode!r} is not ported yet: {_A11}")
+    route = _ROUTES.get(select_mode)
+    if route is None:
+        raise ValueError(f"unknown select_mode {select_mode!r}")
+    if route == "whole" and not whole_fits:
+        raise ValueError(
+            f"select_mode={select_mode!r} trains vocab <= {TRAIN_MAX_V} on "
+            f"<= {TRAIN_MAX_N} tokens (got {V}, {n_tokens}); use 'auto' or "
+            "'stepped'")
+    return route
 
 
-def run_train(ids, seg, num_merges: int, verbose: bool = False, **opts):
+def _trace(profile_dir: str | None, device):
+    """torch.profiler over the run, written into profile_dir by
+    tensorboard_trace_handler: the counterpart of jax.profiler.trace."""
+    if profile_dir is None:
+        return contextlib.nullcontext()
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts,
+                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+
+
+def run_train(ids, seg, num_merges: int, verbose: bool = False,
+              select_mode: str = "auto", checkpoint_path: str | None = None,
+              checkpoint_every: int | None = None,
+              resume_from: str | None = None, profile_dir: str | None = None,
+              progress=None, fingerprint: str | None = None):
     """Train on the device stream (ids, seg); return the merges dict and the
     vocab dict, as minbpe_tpu's run_train does (minbpe/basic.py:29-45 for
     the bookkeeping: new ids are 256 + round, and verbose prints one line per
-    round in the reference's format)."""
-    for name in opts:
-        item = _TRAIN_OPTION_ITEMS.get(name)
-        if item is None:
-            raise TypeError(f"unexpected training option {name!r}")
-        raise NotImplementedError(
-            f"training option {name!r} is not ported yet: ROADMAP.md {item}")
-    _check_train_size(ids.numel(), num_merges)
-    pairs, counts, fail_round = train_merges(ids, seg, num_merges)
+    round in the reference's format). The checkpoint and progress options
+    act on the stepped route, which "auto" takes when any is set;
+    ``fingerprint`` is the corpus's, for checkpoints (train_offsets makes
+    it)."""
+    plain = (checkpoint_path is None and resume_from is None
+             and progress is None)
+    route = train_route(select_mode, ids.numel(), num_merges, plain)
+    with _trace(profile_dir, ids.device):
+        if route == "whole":
+            pairs, counts, fail_round = train_merges(ids, seg, num_merges)
+        elif route == "stepped":
+            pairs, counts, fail_round = train_merges_stepped(
+                ids, seg, num_merges, checkpoint_path=checkpoint_path,
+                checkpoint_every=checkpoint_every, resume_from=resume_from,
+                progress=progress, fingerprint=fingerprint)
+        elif route == "incremental":
+            pairs, counts, fail_round = train_merges_incremental(
+                ids, seg, num_merges)
+        else:
+            pairs, counts, fail_round = train_merges_select(
+                ids, seg, num_merges, route)
     if fail_round < num_merges:
         raise ValueError(
             f"no mergeable pair available at merge round {fail_round} "
@@ -97,7 +158,18 @@ def run_train(ids, seg, num_merges: int, verbose: bool = False, **opts):
 
 def train_offsets(data, ends, num_merges: int, verbose: bool = False, *,
                   device, **opts):
-    _check_train_size(int(data.shape[0]), num_merges)
+    """Choose the route (raising before any work where none applies), and
+    for a run that checkpoints or resumes, fingerprint the corpus as
+    minbpe_tpu does: the padded host arrays of ops/stream.pack_offsets,
+    so a checkpoint of either package resumes in the other."""
+    plain = all(opts.get(k) is None
+                for k in ("checkpoint_path", "resume_from", "progress"))
+    train_route(opts.get("select_mode", "auto"), int(data.shape[0]),
+                num_merges, plain)
+    if (opts.get("checkpoint_path") is not None
+            or opts.get("resume_from") is not None):
+        opts["fingerprint"] = ckpt.corpus_fingerprint(
+            *stream_ops.pack_offsets(data, ends))
     ids, seg = stream_ops.build_stream(data, ends, device)
     return run_train(ids, seg, num_merges, verbose, **opts)
 

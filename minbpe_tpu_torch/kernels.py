@@ -1,6 +1,6 @@
 """The CUDA kernels of the main path, their build, bindings and plain twins.
 
-Seven kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
+Eight kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
 token stream (ids, seg) whose live length n is an int32[1] tensor on the
 same device, so a whole run launches without a host sync per merge:
 
@@ -13,7 +13,9 @@ same device, so a whole run launches without a host sync per merge:
   histogram;
 - ``batch_hist_rev`` K7: the right-creation histogram;
 - ``batch_apply``    K8: the trim, then the batch's combined apply;
-- ``compact``        K4: order-preserving compaction by the live mask.
+- ``compact``        K4: order-preserving compaction by the live mask;
+- ``pair_count``     K9: the dense V x V pair-count matrix of the selection
+  paths and the stepped trainer's first count.
 
 Training state lives in two small device tensors: ``ctl`` (merges done,
 fail round, rebuilds; see ``new_ctl``) and the slot record ``slot`` that K5
@@ -111,8 +113,12 @@ COMPACT = KernelInfo(
     ":641-736); minbpe_tpu/ops/pallas/fused_train_xl.py:300 "
     "(_compact_kernel); minbpe_tpu/ops/pallas/fused_encode.py:45 (_kernel: "
     "output compaction :91-119)")
+PAIR_COUNT = KernelInfo(
+    "pair_count",
+    "minbpe_tpu/ops/pallas/pair_count.py:29 (_kernel, launched by "
+    "count_pairs_pallas :56-90)")
 KERNELS = (PAIR_STATS, SELECT_BATCH, MERGE_APPLY, BATCH_MARK, BATCH_HIST_REV,
-           BATCH_APPLY, COMPACT)
+           BATCH_APPLY, COMPACT, PAIR_COUNT)
 
 
 def reset_launches():
@@ -181,6 +187,7 @@ def _load():
             "bpe_batch_hist_rev": [P, P, P, P, P, P, I, P, P],
             "bpe_batch_apply": [P, P, P, P, P, P, P, I, I, P, P, P],
             "bpe_compact": [P, P, P, P, P, I, P, P, P, P, P],
+            "bpe_pair_count": [P, P, P, P, I, I, P],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -669,3 +676,37 @@ def compact(ids, seg, live, n, slot=None):
          _ptr(agg))
     COMPACT.launches += 1
     return ids_out, seg_out, n_out
+
+
+# ---------------------------------------------------------------------------
+# K9 pair_count
+# ---------------------------------------------------------------------------
+
+def pair_count_plain(ids, seg, n, V: int):
+    """int32 (V, V): cnt[a, b] = the number of positions p with p + 1 < n,
+    seg[p] == seg[p + 1] and (ids[p], ids[p + 1]) == (a, b), for a and b in
+    [0, V); a pair with an id outside it counts nowhere."""
+    VV = V * V
+    nn = int(n.item())
+    if nn < 2:
+        return torch.zeros((V, V), dtype=torch.int32, device=ids.device)
+    a, b = ids[:nn - 1].long(), ids[1:nn].long()
+    ok = ((seg[:nn - 1] == seg[1:nn]) & (a >= 0) & (a < V) & (b >= 0)
+          & (b < V))
+    # pairs that do not count go to one extra bin, dropped at the end
+    key = torch.where(ok, a * V + b, VV)
+    return torch.bincount(key, minlength=VV + 1)[:VV].to(
+        torch.int32).view(V, V)
+
+
+def pair_count(ids, seg, n, V: int):
+    if not ids.is_cuda:
+        return pair_count_plain(ids, seg, n, V)
+    dev = ids.device
+    _check_stream(ids, seg, n)
+    cnt = torch.empty((V, V), dtype=torch.int32, device=dev)
+    lib = _load()
+    _run(dev, lib.bpe_pair_count, _ptr(ids), _ptr(seg), _ptr(n), _ptr(cnt),
+         V, ids.numel())
+    PAIR_COUNT.launches += 1
+    return cnt

@@ -56,17 +56,23 @@ def device_bytes(n_tokens: int, num_merges: int) -> int:
     return BYTES_PER_TOKEN * n_tokens + 8 * V * V
 
 
-def _check_memory(device, n_tokens: int, num_merges: int):
-    need = device_bytes(n_tokens, num_merges)
+def check_device_memory(device, need: int, what: str):
+    """Raise MemoryError, before any work, when ``need`` bytes do not fit in
+    the device's free memory."""
     free, _ = torch.cuda.mem_get_info(device)
     # blocks the caching allocator holds but no tensor uses are free too
     free += (torch.cuda.memory_reserved(device)
              - torch.cuda.memory_allocated(device))
     if need > free:
         raise MemoryError(
-            f"training {n_tokens} tokens needs ~{need / 2**30:.2f} GiB of "
-            f"device memory ({BYTES_PER_TOKEN} B/token); {device} has "
-            f"{free / 2**30:.2f} GiB free")
+            f"{what} needs ~{need / 2**30:.2f} GiB of device memory; "
+            f"{device} has {free / 2**30:.2f} GiB free")
+
+
+def _check_memory(device, n_tokens: int, num_merges: int):
+    check_device_memory(device, device_bytes(n_tokens, num_merges),
+                        f"training {n_tokens} tokens ({BYTES_PER_TOKEN} "
+                        "B/token)")
 
 
 def _slot(ids, seg, n, st):

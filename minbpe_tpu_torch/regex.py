@@ -48,7 +48,10 @@ class RegexTokenizer(Tokenizer):
         (minbpe/regex.py:24-34); device as in BasicTokenizer."""
         super().__init__(device)
         self.pattern = GPT4_SPLIT_PATTERN if pattern is None else pattern
-        self.compiled_pattern = (None if self.pattern in _SCANNER_MODES
+        # the split the constructor fixed: a scanner mode, or a compiled
+        # custom pattern
+        self._split_mode = _SCANNER_MODES.get(self.pattern)
+        self.compiled_pattern = (None if self._split_mode is not None
                                  else _compile_custom(self.pattern))
         self.special_tokens: dict[str, int] = {}
         self.inverse_special_tokens: dict[int, str] = {}
@@ -57,18 +60,20 @@ class RegexTokenizer(Tokenizer):
     def _split_arrays(self, text: str):
         """(byte array, chunk-end offsets) for the whole text: the native
         scanner for the two GPT patterns (the pure-Python scanner where no
-        C++ compiler exists), else ``regex`` findall."""
+        C++ compiler exists), else ``regex`` findall.
+
+        The scanner follows ``self.pattern``. Any other pattern splits with
+        the pattern the tokenizer was constructed with, as in minbpe_tpu
+        and the reference: load() replaces ``pattern`` but not
+        ``compiled_pattern``. The scanners equal findall with the GPT
+        patterns."""
         data = text.encode("utf-8")
-        mode = _SCANNER_MODES.get(self.pattern)
+        mode = _SCANNER_MODES.get(self.pattern, self._split_mode)
         if mode is not None:
             ends = native.split_offsets(data, mode)
             if ends is None:
                 ends = presplit.split_offsets(text, mode)
         else:
-            # load() may have replaced the pattern
-            if (self.compiled_pattern is None
-                    or self.compiled_pattern.pattern != self.pattern):
-                self.compiled_pattern = _compile_custom(self.pattern)
             lengths = [len(c.encode("utf-8"))
                        for c in self.compiled_pattern.findall(text)]
             ends = np.cumsum(np.asarray(lengths, dtype=np.int64))

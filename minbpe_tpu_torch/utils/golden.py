@@ -14,6 +14,9 @@ The XL corpus is the smoke corpus's lines drawn with replacement, blocks of
 ceiling). ``data/xl_golden.npz`` holds what minbpe_tpu's RegexTokenizer
 (``select_mode="stepped"``) produced on it at vocab 1024: the merges, their
 counts, the fail round and the corpus's sha256 (``--write-xl``).
+``data/smoke2048_golden.npz`` holds minbpe_tpu's RegexTokenizer on the
+smoke corpus at vocab 2048 (its default route there, the stepped trainer):
+the merges, their counts and the fail round (``--write-2048``).
 """
 
 from __future__ import annotations
@@ -28,7 +31,9 @@ DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data")
 GOLDEN = os.path.join(DATA, "smoke_golden.npz")
 XL_GOLDEN = os.path.join(DATA, "xl_golden.npz")
+GOLDEN_2048 = os.path.join(DATA, "smoke2048_golden.npz")
 VOCAB_SIZE = 1024
+VOCAB_SIZE_2048 = 2048
 XL_MIN_BYTES = 12 << 20
 XL_BLOCK = 4096
 
@@ -106,3 +111,15 @@ def save_xl_golden(merges, counts, fail_round: int, text: str):
              fail_round=np.int32(fail_round),
              corpus_sha256=np.str_(text_digest(text)),
              corpus_bytes=np.int64(len(text.encode("utf-8"))))
+
+
+def load_golden_2048() -> dict:
+    z = np.load(GOLDEN_2048)
+    return {"merges": z["merges"], "counts": z["counts"],
+            "fail_round": int(z["fail_round"])}
+
+
+def save_golden_2048(merges, counts, fail_round: int):
+    np.savez(GOLDEN_2048, merges=np.asarray(merges, np.int32),
+             counts=np.asarray(counts, np.int32),
+             fail_round=np.int32(fail_round))

@@ -213,3 +213,53 @@ def test_too_small_corpus_fails_on_card(dev):
         BasicTokenizer(device="cuda").train("ab", 300)
     with pytest.raises(ValueError, match="merge round 0"):
         BasicTokenizer(device="cuda").train("", 300)
+
+
+@pytest.mark.parametrize("seed, n, V", [(0, 0, 300), (1, 1, 300),
+                                        (2, 1025, 300), (3, 70_000, 1024),
+                                        (4, 70_000, 2048), (5, 5000, 40)])
+def test_pair_count_matches_plain(dev, seed, n, V):
+    """K9 on short, tile-crossing and long streams, with a run of one id
+    and, at V = 40, ids outside [0, V) that count nowhere."""
+    ids, seg = _stream(seed, max(n, 1), 300, n // 2, min(3000, n // 3))
+    nt = np.array([n], np.int32)
+    (ci, cs, cn), (gi, gs, gn) = _both(dev, ids, seg, nt)
+    got = kernels.pair_count(gi, gs, gn, V)
+    assert torch.equal(kernels.pair_count_plain(ci, cs, cn, V), got.cpu())
+    assert int(got.sum()) == int(((seg[:max(n - 1, 0)] == seg[1:n])
+                                  & (ids[:max(n - 1, 0)] < V)
+                                  & (ids[1:n] < V)).sum())
+
+
+@pytest.mark.parametrize("mode", ["pallas", "sort", "dense", "stepped",
+                                  "incremental"])
+def test_selection_routes_on_card_match_cpu(dev, mode):
+    """The explicit routes on the card against the CPU: merges, and K9
+    launched on the pallas and stepped routes."""
+    text = _words(5, 3000)
+    g, c = BasicTokenizer(device="cuda"), BasicTokenizer(device="cpu")
+    kernels.reset_launches()
+    g.train(text, 300, select_mode=mode)
+    c.train(text, 300, select_mode=mode)
+    assert g.merges == c.merges
+    want = {"pallas": 44, "stepped": 1, "incremental": 1}.get(mode, 0)
+    assert kernels.PAIR_COUNT.launches == want
+
+
+def test_checkpoint_resume_on_card(dev, tmp_path):
+    text = _words(6, 3000)
+    ck = str(tmp_path / "ck.npz")
+    full = BasicTokenizer(device="cpu")
+    full.train(text, 300)
+    cut = BasicTokenizer(device="cuda")
+
+    def stop(done, total):
+        if done > 16:
+            raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        cut.train(text, 300, checkpoint_path=ck, checkpoint_every=8,
+                  progress=stop)
+    resumed = BasicTokenizer(device="cuda")
+    resumed.train(text, 300, resume_from=ck)
+    assert resumed.merges == full.merges

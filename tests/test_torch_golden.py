@@ -10,7 +10,9 @@ it (only when the corpus or the reference changes) with
 and the XL golden (minbpe_tpu_torch/data/xl_golden.npz: the 12,588,338-byte
 XL corpus at vocab 1024, through minbpe_tpu's stepped route, ~7 minutes on
 a CPU) with ``--write-xl``. Both XL tests are marked slow: each trains the
-whole XL corpus on the CPU.
+whole XL corpus on the CPU. ``--write-2048`` writes
+minbpe_tpu_torch/data/smoke2048_golden.npz: the smoke corpus at vocab 2048,
+the default route of both packages there (the stepped trainer).
 """
 
 import contextlib
@@ -34,12 +36,12 @@ if ROOT not in sys.path:
 from minbpe_tpu_torch.utils import golden  # noqa: E402
 
 
-def _train_verbose(tok, text):
+def _train_verbose(tok, text, vocab_size=golden.VOCAB_SIZE):
     """Train through the public API; the per-merge counts come from the
     verbose lines, whose format both packages share."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        tok.train(text, golden.VOCAB_SIZE, verbose=True)
+        tok.train(text, vocab_size, verbose=True)
     counts = [int(c) for c in re.findall(r"had (\d+) occurrences",
                                          out.getvalue())]
     items = sorted(tok.merges.items(), key=lambda kv: kv[1])
@@ -54,6 +56,14 @@ def _reference_result():
     tok = RegexTokenizer()
     merges, counts = _train_verbose(tok, text)
     return merges, counts, len(merges), tok.encode(text)
+
+
+def _reference_2048_result():
+    from minbpe_tpu import RegexTokenizer
+
+    merges, counts = _train_verbose(RegexTokenizer(), golden.smoke_corpus(
+        ROOT), golden.VOCAB_SIZE_2048)
+    return merges, counts, len(merges)
 
 
 def _reference_xl_result():
@@ -104,6 +114,38 @@ def test_minbpe_tpu_reproduces_golden():
     assert golden.ids_digest(ids) == want["encode_sha256"]
 
 
+def test_minbpe_tpu_reproduces_2048_golden():
+    pytest.importorskip("jax")
+    want = golden.load_golden_2048()
+    merges, counts, fail_round = _reference_2048_result()
+    assert np.array_equal(merges, want["merges"])
+    assert np.array_equal(counts, want["counts"])
+    assert fail_round == want["fail_round"]
+
+
+@pytest.mark.slow
+def test_port_plain_path_matches_2048_golden():
+    """The port's default route at vocab 2048 (the stepped trainer), ~140 s
+    on a CPU."""
+    from minbpe_tpu_torch import RegexTokenizer
+
+    want = golden.load_golden_2048()
+    merges, counts = _train_verbose(RegexTokenizer(device="cpu"),
+                                    golden.smoke_corpus(ROOT),
+                                    golden.VOCAB_SIZE_2048)
+    assert np.array_equal(merges, want["merges"])
+    assert np.array_equal(counts, want["counts"])
+
+
+def test_2048_golden_extends_the_1024_golden():
+    """Training is greedy, so the first 768 merges at vocab 2048 are those
+    at vocab 1024."""
+    small, big = golden.load_golden(), golden.load_golden_2048()
+    assert big["fail_round"] == golden.VOCAB_SIZE_2048 - 256
+    assert np.array_equal(big["merges"][:768], small["merges"])
+    assert np.array_equal(big["counts"][:768], small["counts"])
+
+
 @pytest.mark.slow
 def test_minbpe_tpu_reproduces_xl_golden():
     pytest.importorskip("jax")
@@ -134,10 +176,14 @@ if __name__ == "__main__":
         merges, counts, fail_round, ids = _reference_result()
         golden.save_golden(merges, counts, fail_round, ids)
         print(f"wrote {golden.GOLDEN}: {len(merges)} merges, {len(ids)} ids")
+    elif sys.argv[1:] == ["--write-2048"]:
+        merges, counts, fail_round = _reference_2048_result()
+        golden.save_golden_2048(merges, counts, fail_round)
+        print(f"wrote {golden.GOLDEN_2048}: {len(merges)} merges")
     elif sys.argv[1:] == ["--write-xl"]:
         merges, counts, fail_round, text = _reference_xl_result()
         golden.save_xl_golden(merges, counts, fail_round, text)
         print(f"wrote {golden.XL_GOLDEN}: {len(merges)} merges, "
               f"{len(text.encode('utf-8'))} corpus bytes")
     else:
-        sys.exit(f"usage: {sys.argv[0]} --write | --write-xl")
+        sys.exit(f"usage: {sys.argv[0]} --write | --write-2048 | --write-xl")

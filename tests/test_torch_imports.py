@@ -66,10 +66,14 @@ def test_import_leaves_jax_minbpe_tpu_and_regex_out():
         "import sys\n"
         "import minbpe_tpu_torch\n"
         "from minbpe_tpu_torch import convert, engine, kernels\n"
-        "from minbpe_tpu_torch.ops import encode, stream, train\n"
-        "from minbpe_tpu_torch.utils import golden, native, presplit\n"
+        "from minbpe_tpu_torch.ops import (encode, merge, select, stream,\n"
+        "    train, train_inc, train_select)\n"
+        "from minbpe_tpu_torch.utils import (checkpoint, golden, native,\n"
+        "    presplit)\n"
         "t = minbpe_tpu_torch.RegexTokenizer(device='cpu')\n"
         "t.train('hello world, hello there', 260)\n"
+        "for mode in ('sort', 'dense', 'pallas', 'stepped'):\n"
+        "    t.train('hello world, hello there', 260, select_mode=mode)\n"
         "assert t.decode(t.encode('hello')) == 'hello'\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'minbpe_tpu', 'regex')]\n"

@@ -134,15 +134,15 @@ def test_from_arrays_encodes_like_minbpe_tpu(pair):
 
 def test_options_outside_the_slice_raise():
     tok = port.BasicTokenizer(device="cpu")
-    for opt in ({"select_mode": "sort"}, {"checkpoint_path": "x"},
-                {"checkpoint_every": 5}, {"resume_from": "x"},
-                {"progress": print}, {"profile_dir": "x"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A"):
-            tok.train(TEXT, 260, **opt)
+    for mode in ("sortloop", "sortloop_inc", "sparse", "sparse_inc"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
+            tok.train(TEXT, 260, select_mode=mode)
+    with pytest.raises(ValueError, match="unknown select_mode"):
+        tok.train(TEXT, 260, select_mode="bogus")
     with pytest.raises(TypeError):
         tok.train(TEXT, 260, bogus=1)
     with pytest.raises(NotImplementedError, match="A11"):
-        tok.train(TEXT, 1025)
+        tok.train(TEXT, 2049)
     # a table deeper than the encoder's 2048 ranks: (97, 97) -> 256, then
     # (z, 97) -> z + 1 for every later rank
     M = 2049
@@ -168,3 +168,30 @@ def test_custom_pattern_needs_regex(monkeypatch):
     with pytest.raises(ImportError):
         port.RegexTokenizer(r"\w+", device="cpu")
     port.RegexTokenizer(device="cpu")  # the GPT patterns need no regex
+
+
+@pytest.mark.parametrize("saved, loaded", [("custom", "gpt4"),
+                                           ("gpt4", "custom")])
+def test_load_keeps_the_constructors_split(tmp_path, saved, loaded):
+    """After load(), a pattern other than the scanners' splits with the
+    pattern the tokenizer was constructed with, in both packages (and the
+    reference): a custom model loaded into RegexTokenizer() splits GPT-4
+    chunks, a GPT-4 model loaded into RegexTokenizer(custom) keeps the
+    scanner the loaded pattern names."""
+    patterns = {"custom": r"\w+|\s+|[^\w\s]+", "gpt4": None}
+    trained = minbpe_tpu.RegexTokenizer(patterns[saved])
+    trained.train(TEXT, 300)
+    prefix = str(tmp_path / "m")
+    trained.save(prefix)
+    j = minbpe_tpu.RegexTokenizer(patterns[loaded])
+    p = port.RegexTokenizer(patterns[loaded], device="cpu")
+    j.load(prefix + ".model")
+    p.load(prefix + ".model")
+    assert p.pattern == j.pattern == trained.pattern
+    text = TEXT[:4000] + " don't   stop\n\n  123456 "
+    assert p.encode(text) == j.encode(text)
+    assert p.encode_batch([text, text[:99]]) == j.encode_batch(
+        [text, text[:99]])
+    if saved == "custom":
+        # the loaded pattern's own chunks would give other ids
+        assert p.encode(text) != trained.encode(text)
