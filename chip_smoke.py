@@ -10,9 +10,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 2. hold each kernel against its plain PyTorch version on the card, on
    numpy-seeded inputs at the main path's shapes (400K tokens, W = 1024,
    the rebuild of merge 768, a batch of 16 candidates drawn from the
-   stream), K1 and K6 once more at the XL bound (48M tokens), and K9 also
-   at V = 2048 and at the stepped route's bound (4M tokens); the outputs
-   are integers and must be exactly equal;
+   stream; K3 timed at a homogeneous and at a heterogeneous pair), K1 and
+   K6 once more at the XL bound (48M tokens), K9 also at V = 2048 and at
+   the stepped route's bound (4M tokens), and K10 over the smoke corpus's
+   stream with the golden's 768 merges, over 2^20 copies of "a" and over
+   the first of phase 3's 256 documents (one block); the outputs are
+   integers and must be exactly equal;
 3. drive the main path through the user's entry points, one path at a
    time, with every launch count set to 0 just before each path and read
    just after it: RegexTokenizer (GPT-4 pattern) training at vocab 1024 on
@@ -21,17 +24,19 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    sha256 equal to the golden's), decode, encode_batch and the same
    documents encoded one by one, special tokens, save/load, a
    BasicTokenizer at vocab 512 and one on 2^20 copies of "a", both equal to
-   the plain path on the CPU, and the large-corpus route: vocab 1024 on the
-   12,588,338-byte XL corpus, equal to the XL golden. Then the selection
+   the plain path on the CPU (every encode path launching K10 once per
+   device stream and K3/K4 never), and the large-corpus route: vocab 1024
+   on the 12,588,338-byte XL corpus, equal to the XL golden. Then the selection
    and stepped routes on the smoke corpus: select_mode "pallas", "sort",
    "dense" and "stepped" at vocab 1024 (each equal to the golden, with the
    launches of each kernel counted exactly), the default route at vocab
    2048 (the stepped trainer; equal to the 2048 golden and to "sort" at
    2048), a checkpointed run interrupted after round 512 and resumed, and
    a run with a profile_dir, which must leave a trace;
-4. the device's busy time in the training runs on both corpora, the
-   "pallas" and stepped runs on the smoke corpus and the encode run
-   (torch.profiler) against their wall time: the idle share;
+4. in a process of its own, the device's busy time (torch.profiler) in
+   the encode run, the training runs on both corpora and the "pallas" and
+   stepped runs on the smoke corpus against their wall time: the idle
+   share;
 5. print the kernels line (launches of each path in phase 3, errors and
    times of phase 2), the main path's timings, the busy times, the card's
    name and power limit, and last the result line.
@@ -174,7 +179,7 @@ def max_err(torch, pairs) -> int:
 def smoke_stream(np, n: int, W: int):
     """A seeded stream like a pre-split corpus: skewed ids (hot pairs),
     chunks of 1-8 tokens, and long runs of one id inside one chunk, some of
-    them crossing the kernels' 1024-position tiles."""
+    them crossing the kernels' 2048-position tiles."""
     rng = np.random.default_rng(SEED)
     ids = np.minimum(rng.zipf(1.3, n) - 1, W - 1).astype(np.int32)
     seg = np.cumsum(rng.random(n) < 0.3).astype(np.int32)
@@ -306,14 +311,23 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int):
                                          (kk, kp)]))
         if int(kk) <= 0:
             raise AssertionError(f"merge_apply kept nothing for {pair}")
+    # timed at the run pair (homogeneous: the run-start chain) and at the
+    # stream's top heterogeneous pair (the common case: no chain)
+    hetero = draw_batch(np, ck.cpu().numpy(), fk.cpu().numpy(), 1)[0][:2]
+    by_pair = []
+    for pair in ((7, 7), hetero):
+        pt = torch.tensor(pair, dtype=torch.int32, device=dev)
+        by_pair.append(dict(pair=list(pair), ms=device_ms(
+            torch, lambda: kernels.merge_apply(ids, seg, nt, pt, 5000), 50)))
     pt = torch.tensor((7, 7), dtype=torch.int32, device=dev)
     rows.append(dict(
-        k=kernels.MERGE_APPLY, err=err3,
-        ms=device_ms(torch, lambda: kernels.merge_apply(ids, seg, nt, pt,
-                                                        5000), 50),
+        k=kernels.MERGE_APPLY, err=err3, ms=by_pair[0]["ms"],
+        by_pair=by_pair,
         plain_ms=host_ms(torch, lambda: kernels.merge_apply_plain(
             ids, seg, nt, pt, 5000), 5),
         bytes=13 * n, library_ms=None))
+    print(f"merge_apply: {by_pair[0]['ms']:.5f} ms at {by_pair[0]['pair']}, "
+          f"{by_pair[1]['ms']:.5f} ms at {by_pair[1]['pair']}")
 
     # K6-K8 on a batch of K_CAP candidates drawn from the stream
     pairs = draw_batch(np, ck.cpu().numpy(), fk.cpu().numpy(), kernels.K_CAP)
@@ -469,6 +483,67 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int):
           f"({rows[3]['xl']['ms']:.4f} ms)")
     del big_ids, big_seg, xk, xp, mk, mp
 
+    return rows
+
+
+def phase_sweep(torch, np, kernels, golden_mod):
+    """K10 against its plain rank loop on the card: the smoke corpus's
+    device stream with the golden's 768 merges, 2^20 copies of "a" (one
+    chunk, the pair (97, 97) over every tile) with BasicTokenizer's 8
+    merges at vocab 264, and one short document with the 768 merges. Its
+    bound: the function reads the stream's n_0 tokens and the table's M
+    rows once and writes the n_M tokens left and n (8 B a token, 12 B a
+    row), as B2 keeps the stream in VMEM through every rank."""
+    from minbpe_tpu_torch import RegexTokenizer
+    from minbpe_tpu_torch.convert import tokenizer_from_arrays
+    from minbpe_tpu_torch.ops.stream import build_stream
+
+    dev = torch.device("cuda")
+    golden = golden_mod.load_golden()
+    M = len(golden["merges"])
+    tok = tokenizer_from_arrays(RegexTokenizer, golden["merges"],
+                                256 + np.arange(M), device="cuda")
+    corpus = golden_mod.smoke_corpus(ROOT)
+    ids, seg = build_stream(*tok._split_arrays(corpus), "cuda")
+    run = torch.full((1 << 20,), 97, dtype=torch.int32, device=dev)
+    run_pairs = [(97, 97)] + [(256 + r, 256 + r) for r in range(7)]
+    doc = corpus[:-(-len(corpus) // 256)]  # the first of phase 3's documents
+    doc_ids, doc_seg = build_stream(*tok._split_arrays(doc), "cuda")
+    cases = [("smoke", ids, seg, golden["merges"], 256 + np.arange(M)),
+             ("run_a", run, torch.zeros_like(run), run_pairs,
+              256 + np.arange(8)),
+             ("doc", doc_ids, doc_seg, golden["merges"], 256 + np.arange(M))]
+    out = []
+    for name, c_ids, c_seg, pairs, new_ids in cases:
+        pt = torch.tensor(np.asarray(pairs), dtype=torch.int32, device=dev)
+        zt = torch.tensor(np.asarray(new_ids), dtype=torch.int32, device=dev)
+        want = kernels.encode_sweep_plain(c_ids, c_seg, pt, zt)
+        got = kernels.encode_sweep(c_ids, c_seg, pt, zt)
+        k = int(want[2])
+        err = max_err(torch, [(got[2], want[2]), (got[0][:k], want[0][:k]),
+                              (got[1][:k], want[1][:k])])
+        nbytes = 8 * c_ids.numel() + 12 * len(pairs) + 8 * k + 4
+        out.append(dict(
+            case=name, n=c_ids.numel(), ranks=len(pairs), n_out=k,
+            max_abs_err=err,
+            grid=kernels._load().bpe_encode_grid(c_ids.numel()),
+            ms=device_ms(torch, lambda: kernels.encode_sweep(
+                c_ids, c_seg, pt, zt), 20),
+            plain_ms=host_ms(torch, lambda: kernels.encode_sweep_plain(
+                c_ids, c_seg, pt, zt), 1),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+        print(f"encode_sweep {name}: {c_ids.numel()} tokens, {len(pairs)} "
+              f"ranks -> {k}, grid {out[-1]['grid']}, max_abs_err {err}, "
+              f"{out[-1]['ms']:.4f} ms ({out[-1]['ms'] / len(pairs) * 1e3:.3f}"
+              f" us a rank), bound {out[-1]['bound_ms']:.4f} ms")
+    main = out[0]
+    return dict(k=kernels.ENCODE_SWEEP, err=main["max_abs_err"],
+                ms=main["ms"], plain_ms=main["plain_ms"], bytes=main["bytes"],
+                library_ms=None, shapes=out[1:],
+                ms_per_rank=main["ms"] / main["ranks"])
+
+
+def check_rows(rows):
     for r in rows:
         print(f"kernel {r['k'].name}: max_abs_err {r['err']}, "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.3f} ms)")
@@ -477,7 +552,6 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int):
         if err != 0:
             raise AssertionError(f"{r['k'].name} disagrees with its plain "
                                  f"version (max_abs_err {err})")
-    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -491,7 +565,7 @@ def merges_in_rank_order(np, merges):
 
 TRAIN_KERNELS = ("pair_stats", "select_batch", "merge_apply", "batch_mark",
                  "batch_hist_rev", "batch_apply", "compact")
-ENCODE_KERNELS = ("merge_apply", "compact")
+ENCODE_KERNELS = ("encode_sweep",)
 
 
 def phase_main_path(torch, np, kernels, golden_mod, scratch):
@@ -503,10 +577,11 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
     launches = {}
 
     @contextlib.contextmanager
-    def path(name, must_launch, exact=None):
+    def path(name, must_launch, exact=None, some=None):
         """Count this path's launches alone; each kernel it must run has to
-        have launched at least once, and with ``exact`` ({kernel: count})
-        every kernel exactly so often (0 where it is not named)."""
+        have launched at least once, with ``exact`` ({kernel: count})
+        every kernel exactly so often (0 where it is not named), and with
+        ``some`` the kernels it names exactly so often."""
         kernels.reset_launches()
         yield
         counts = {k.name: k.launches for k in kernels.KERNELS}
@@ -521,6 +596,13 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
                                      for k in counts):
             raise AssertionError(f"path {name} launched {counts}, expected "
                                  f"{exact}")
+        if some is not None and any(counts[k] != c for k, c in some.items()):
+            raise AssertionError(f"path {name} launched {counts}, expected "
+                                 f"{some} of them")
+
+    def sweeps(count):  # an encode path: K10 once per device stream
+        return dict(must_launch=ENCODE_KERNELS,
+                    exact={"encode_sweep": count})
 
     golden = golden_mod.load_golden()
     corpus = golden_mod.smoke_corpus(ROOT)
@@ -552,7 +634,7 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
           f"{timings['train_syncs']} syncs)")
 
     # encode / decode
-    with path("encode", ENCODE_KERNELS):
+    with path("encode", **sweeps(1)):
         t0 = time.perf_counter()
         ids = tok.encode(corpus)
         timings["encode_s"] = time.perf_counter() - t0
@@ -572,11 +654,11 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
     # encode_batch of 256 documents against per-document encode
     step = -(-len(corpus) // 256)
     docs = [corpus[i:i + step] for i in range(0, len(corpus), step)]
-    with path("encode_batch", ENCODE_KERNELS):
+    with path("encode_batch", **sweeps(1)):
         t0 = time.perf_counter()
         batch = tok.encode_batch(docs)
         timings["encode_batch_s"] = time.perf_counter() - t0
-    with path("encode_per_doc", ENCODE_KERNELS):
+    with path("encode_per_doc", **sweeps(len(docs))):
         t0 = time.perf_counter()
         single = [tok.encode(d) for d in docs]
         timings["encode_per_doc_s"] = time.perf_counter() - t0
@@ -591,7 +673,7 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
     names = list(specials)
     text = "".join(docs[k] + names[k % 2] for k in range(8))
     want = []
-    with path("specials", ENCODE_KERNELS):
+    with path("specials", **sweeps(9)):  # 8 documents, then the joined text
         for k in range(8):
             want += tok.encode_ordinary(docs[k]) + [specials[names[k % 2]]]
         got = tok.encode(text, allowed_special="all")
@@ -618,7 +700,7 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
         raise AssertionError("save/load changed the saved bytes")
     if tok2.merges != tok.merges or tok2.special_tokens != specials:
         raise AssertionError("save/load changed the merges or specials")
-    with path("save_load", ENCODE_KERNELS):
+    with path("save_load", **sweeps(1)):
         if tok2.encode(text, allowed_special="all") != got:
             raise AssertionError("the loaded tokenizer encodes differently")
     print("save/load: identical bytes after the round trip")
@@ -626,7 +708,8 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
     # BasicTokenizer at vocab 512 on the first 64 KB, against the CPU
     head = corpus[:65536]
     gb, cb = BasicTokenizer(device="cuda"), BasicTokenizer(device="cpu")
-    with path("basic_512", TRAIN_KERNELS):
+    with path("basic_512", TRAIN_KERNELS + ENCODE_KERNELS,
+              some={"encode_sweep": 1}):
         t0 = time.perf_counter()
         gb.train(head, 512)
         timings["basic_512_train_s"] = time.perf_counter() - t0
@@ -639,7 +722,8 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
     # adversarial: one 1 MiB run of a single byte
     run = "a" * (1 << 20)
     ga, ca = BasicTokenizer(device="cuda"), BasicTokenizer(device="cpu")
-    with path("run_264", TRAIN_KERNELS):
+    with path("run_264", TRAIN_KERNELS + ENCODE_KERNELS,
+              some={"encode_sweep": 1}):
         t0 = time.perf_counter()
         ga.train(run, 264)
         timings["run_264_train_s"] = time.perf_counter() - t0
@@ -830,13 +914,17 @@ def phase_device_time(torch, golden_mod):
     xl_ids, xl_seg = build_stream(*tok._split_arrays(
         golden_mod.xl_corpus(ROOT)), "cuda")
     M = golden_mod.VOCAB_SIZE - 256
+    # The encode run goes first: once a process has profiled a run of tens
+    # of thousands of device activities (train_pallas), the profiler
+    # records no device activity for a later run of a few, such as the
+    # encode run's one launch and one copy.
     runs = {
+        "encode": lambda: encode_stream(ids, seg, table.pairs,
+                                        table.new_ids)[2].item(),
         "train": lambda: train_merges(ids, seg, M),
         "train_xl": lambda: train_merges(xl_ids, xl_seg, M),
         "train_pallas": lambda: train_merges_select(ids, seg, M, "pallas"),
         "train_stepped": lambda: train_merges_stepped(ids, seg, M),
-        "encode": lambda: encode_stream(ids, seg, table.pairs,
-                                        table.new_ids)[2].item(),
     }
     out = {}
     for name, fn in runs.items():
@@ -848,13 +936,43 @@ def phase_device_time(torch, golden_mod):
         wall = (time.perf_counter() - t0) * 1e3
         parts = profiled_events(torch, fn)
         busy = sum(p[0] for p in parts)
+        if not busy:
+            raise RuntimeError(f"{name}: the profiler recorded no device time")
         out[name] = {
             "wall_ms": wall,
-            "device_busy_ms": busy if busy else None,
-            "idle_share": 1 - busy / wall if busy else None,
+            "device_busy_ms": busy,
+            "idle_share": 1 - busy / wall,
             "by_kernel": [[_kernel_name(k), ms, c] for ms, c, k in parts[:9]],
         }
     return out
+
+
+DEVICE_TIME_ARG = "--device-time"
+
+
+def phase_device_time_fresh(torch):
+    """phase_device_time in a process of its own, which has profiled and
+    run nothing before: after phases 2 and 3 in one process the profiler
+    recorded no device activity for the encode run, even as the phase's
+    first profile (PERF.md §6). The child prints its result as the last
+    line."""
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           DEVICE_TIME_ARG], capture_output=True, text=True,
+                          timeout=600, cwd=ROOT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"phase 4's process exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def device_time_main() -> int:
+    import torch
+
+    from minbpe_tpu_torch.utils import golden as golden_mod
+
+    print(json.dumps(phase_device_time(torch, golden_mod)))
+    return 0
 
 
 def main() -> int:
@@ -880,9 +998,11 @@ def main() -> int:
         phase_build(kernels, native)
         rows = phase_kernels(torch, np, kernels, XL_MAX_N,
                              STEPPED_AUTO_MAX_N)
+        rows.append(phase_sweep(torch, np, kernels, golden_mod))
+        check_rows(rows)
         timings, launches = phase_main_path(torch, np, kernels, golden_mod,
                                             scratch)
-        device_time = phase_device_time(torch, golden_mod)
+        device_time = phase_device_time_fresh(torch)
     except Exception as e:  # report the failing phase, exit non-zero
         import traceback
 
@@ -902,7 +1022,8 @@ def main() -> int:
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": r["library_ms"],
-         **{k: r[k] for k in ("xl", "shapes") if k in r}}
+         **{k: r[k] for k in ("xl", "shapes", "by_pair", "ms_per_rank")
+            if k in r}}
         for r in rows]}
     print(json.dumps(line))
     print(json.dumps({"main_path": timings}))
@@ -915,4 +1036,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(device_time_main() if sys.argv[1:] == [DEVICE_TIME_ARG]
+             else main())

@@ -23,8 +23,7 @@
 //                        (fused_train_xl.py:158-173), _tie_kernel (:176-244)
 //                        and _train_xl's walk (:689-731)
 //   K3 merge_apply    <- tiled_apply (fused_train.py:293-340), _apply_kernel
-//                        (fused_train_xl.py:247-297) and the per-rank body of
-//                        the encoder (fused_encode.py:58-87)
+//                        (fused_train_xl.py:247-297)
 //   K6 batch_mark     <- tiled_batch_mark (fused_train.py:452-521),
 //                        _mark_kernel (fused_train_xl.py:328-389)
 //   K7 batch_hist_rev <- tiled_batch_hist_rev (fused_train.py:524-593),
@@ -33,8 +32,9 @@
 //                        tiled_batch_apply (:596-634), _batch_apply_kernel
 //                        (fused_train_xl.py:442-508)
 //   K4 compact        <- _compact_inplace (fused_train.py:641-736),
-//                        _compact_kernel (fused_train_xl.py:300-326) and the
-//                        encoder's output compaction (fused_encode.py:91-119)
+//                        _compact_kernel (fused_train_xl.py:300-326)
+//   K10 encode_sweep  <- fused_encode.py::_kernel (:45-127): the whole rank
+//                        sweep and its compaction, one launch
 //   K9 pair_count     <- ops/pallas/pair_count.py::_kernel (:29-53), the
 //                        dense pair-count matrix of the selection paths
 //
@@ -51,22 +51,24 @@
 // are still queued. The gates: K3 runs when bsel == 1, K6-K8 when
 // bsel >= 2, K4 when bsel >= 1; an idle slot has bsel = 0.
 //
-// Each extern "C" entry point launches on the caller's stream, allocates
-// nothing, and returns cudaGetLastError() (0 on success).
+// Each extern "C" entry point launches one kernel on the caller's stream
+// (K1 and K8 two, K9 a memset and one), allocates nothing, and returns
+// cudaGetLastError() (0 on success).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libbpe_kernels.so bpe_kernels.cu
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int TPB = 256;              // threads per block, tiled kernels
-constexpr int IPT = 4;                // consecutive items per thread
-constexpr int TILE = TPB * IPT;       // stream positions per block
-constexpr int SCAN_TPB = 1024;        // threads of the one-block tile scan
-constexpr int SCAN_CHUNK = SCAN_TPB * 4;
+constexpr int IPT = 8;                // consecutive positions per thread
+constexpr int TILE = TPB * IPT;       // positions per tile, K3 / K4 / K10
 constexpr int MAX_STAT_BLOCKS = 132 * 8;
 
 // the batch: K_CAP candidates at most, creation histograms of HB buckets
@@ -401,157 +403,6 @@ __global__ void select_batch_kernel(const unsigned* __restrict__ cnt,
 }
 
 // ---------------------------------------------------------------------------
-// K3 merge_apply: apply (pa, pb) -> z at every occurrence, left first.
-//
-// m[i] = match at i. A match is kept when its distance from the start of its
-// run of consecutive matches is even (a run only exists when pa == pb: a
-// run of k equal tokens keeps the even offsets, as the reference's
-// left-to-right walk does). The token after a kept match dies.
-//   ids_out[i] = kept ? z : ids[i];  live[i] = !kept[i - 1];
-//   *kept += number of kept matches (what leaves the live count).
-// In slot mode (the trainer) the pair is the slot's candidate 0, z is its
-// 256 + i, the kept count goes to log row i, and it runs only for bsel == 1.
-//
-// Run starts come from an inclusive max-scan of "i if a run starts at i",
-// carried across tiles by a second, one-block scan of per-tile maxima, so a
-// run of L equal tokens costs O(L) and not O(L^2) (a 1 MB run of one byte is
-// the case to survive). For pa != pb every match starts its own run; the
-// tile passes see that from the pair and return at once.
-//
-// Bound: bytes (8 B read, 5 B written per live token).
-// ---------------------------------------------------------------------------
-__device__ __forceinline__ bool match_at(const int* ids, const int* seg, int i,
-                                         int n, int pa, int pb) {
-  return i >= 0 && i + 1 < n && ids[i] == pa && ids[i + 1] == pb &&
-         seg[i] == seg[i + 1];
-}
-
-__global__ void run_starts_kernel(const int* __restrict__ ids,
-                                  const int* __restrict__ seg,
-                                  const int* __restrict__ n_ptr,
-                                  const int* __restrict__ pair,
-                                  const int* slot, int* __restrict__ agg) {
-  if (gated_off(slot, 1, 1)) return;
-  const int pa = pair[0], pb = pair[1];
-  if (pa != pb) return;
-  const int n = *n_ptr;
-  const int t0 = blockIdx.x * TILE;
-  if (t0 >= n) return;
-  int s = -1;
-#pragma unroll
-  for (int k = 0; k < IPT; ++k) {
-    const int i = t0 + k * TPB + threadIdx.x;
-    if (match_at(ids, seg, i, n, pa, pb) &&
-        !match_at(ids, seg, i - 1, n, pa, pb))
-      s = max(s, i);
-  }
-  int tile_max;
-  block_exclusive_scan<false, TPB>(s, &tile_max);
-  if (threadIdx.x == 0) agg[blockIdx.x] = tile_max;
-}
-
-// One block: exclusive scan of the per-tile values agg[0 .. ceil(n/TILE)),
-// in place, in chunks with a running carry (no limit on the tile count).
-// Gated on the slot's bsel in [lo, hi]. With `pair` given it runs only for a
-// homogeneous pair (K3's run starts); with `total` given it stores the grand
-// total there (K4's new length).
-template <bool SUM>
-__global__ void scan_tiles_kernel(int* agg, const int* __restrict__ n_ptr,
-                                  const int* slot, int lo, int hi,
-                                  const int* pair, int* total) {
-  if (gated_off(slot, lo, hi)) return;
-  if (pair != nullptr && pair[0] != pair[1]) return;
-  const int nb = (*n_ptr + TILE - 1) / TILE;
-  int carry = identity<SUM>();
-  for (int c0 = 0; c0 < nb; c0 += SCAN_CHUNK) {
-    int loc[4];
-    int t = identity<SUM>();
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int idx = c0 + threadIdx.x * 4 + k;
-      loc[k] = t;
-      t = op<SUM>(t, idx < nb ? agg[idx] : identity<SUM>());
-    }
-    int chunk_total;
-    const int ex = block_exclusive_scan<SUM, SCAN_TPB>(t, &chunk_total);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int idx = c0 + threadIdx.x * 4 + k;
-      if (idx < nb) agg[idx] = op<SUM>(carry, op<SUM>(ex, loc[k]));
-    }
-    carry = op<SUM>(carry, chunk_total);
-  }
-  if (total != nullptr && threadIdx.x == 0) *total = carry;
-}
-
-__global__ void merge_apply_kernel(const int* __restrict__ ids,
-                                   const int* __restrict__ seg,
-                                   const int* __restrict__ n_ptr,
-                                   const int* __restrict__ pair, int z,
-                                   const int* slot,
-                                   const int* __restrict__ prefix,
-                                   int* __restrict__ ids_out,
-                                   unsigned char* __restrict__ live,
-                                   int* kept) {
-  if (gated_off(slot, 1, 1)) return;
-  const int n = *n_ptr;
-  const int t0 = blockIdx.x * TILE;
-  if (t0 >= n) return;
-  const int pa = pair[0], pb = pair[1];
-  if (slot != nullptr) {
-    z = slot[SLOT_ZBASE];
-    kept += 4 * slot[SLOT_I] + 3;  // kept points at the merge log
-  }
-  const bool homog = pa == pb;
-  // latest run start before this tile (only read for a homogeneous pair)
-  const int pre = homog ? prefix[blockIdx.x] : -1;
-
-  __shared__ unsigned char keep_sh[TILE + 1];  // [0] = keep at t0 - 1
-  const int base = t0 + threadIdx.x * IPT;
-  bool m[IPT];
-  int s[IPT];
-  int run = -1;
-  bool prev = match_at(ids, seg, base - 1, n, pa, pb);
-#pragma unroll
-  for (int k = 0; k < IPT; ++k) {
-    m[k] = match_at(ids, seg, base + k, n, pa, pb);
-    if (m[k] && !prev) run = base + k;
-    s[k] = run;  // thread-local inclusive max-scan of run starts
-    prev = m[k];
-  }
-  int unused;
-  const int carry = max(pre, block_exclusive_scan<false, TPB>(run, &unused));
-  int nkeep = 0;
-#pragma unroll
-  for (int k = 0; k < IPT; ++k) {
-    const int i = base + k;
-    const bool kp = m[k] && (!homog || ((i - max(carry, s[k])) & 1) == 0);
-    keep_sh[threadIdx.x * IPT + k + 1] = kp;
-    nkeep += kp;
-  }
-  if (threadIdx.x == 0) {
-    const int j = t0 - 1;
-    keep_sh[0] = match_at(ids, seg, j, n, pa, pb) &&
-                 (!homog || ((j - pre) & 1) == 0);
-  }
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < IPT; ++k) {
-    const int i = base + k;
-    const int t = threadIdx.x * IPT + k;
-    if (i < n) {
-      ids_out[i] = keep_sh[t + 1] ? z : ids[i];
-      live[i] = !keep_sh[t];
-    }
-  }
-  if (kept != nullptr) {
-    int tile_kept;
-    block_exclusive_scan<true, TPB>(nkeep, &tile_kept);
-    if (threadIdx.x == 0 && tile_kept) atomicAdd(kept, tile_kept);
-  }
-}
-
-// ---------------------------------------------------------------------------
 // The batch (bsel >= 2): K6, K7, K8.
 //
 // The accepted candidates are heterogeneous and share no cross-side token,
@@ -724,63 +575,636 @@ __global__ void batch_apply_kernel(const int* __restrict__ ids,
 }
 
 // ---------------------------------------------------------------------------
-// K4 compact: order-preserving compaction of ids and seg by the live mask.
-// Per-tile live counts, a one-block exclusive scan of them (which also
-// yields the new length), then each tile scatters its live tokens to its
-// offset plus its in-tile exclusive scan. Order is kept, so first positions
-// keep the reference's first-occurrence order. In slot mode it runs when
-// the slot applied a merge (bsel >= 1).
+// The apply-and-compact pass: K3 merge_apply, K4 compact, K10 encode_sweep.
 //
-// Bound: bytes (9 B read per token, 8 B written per live token).
+// One merge (pa, pb) -> z over the dense stream. m[i] = match at i. A match
+// is kept when its distance from the start of its run of consecutive
+// matches is even (a run only exists when pa == pb: a run of k equal tokens
+// keeps the even offsets, as the reference's left-to-right walk does). The
+// token after a kept match dies; the live tokens, moved to the front in
+// order, are the stream after the merge.
+//
+// A block takes a tile of TILE positions. It stages the tile's ids and seg
+// in shared memory with 16-byte loads, plus a halo of one position on each
+// side, so each token is read from device memory once, and decides matches,
+// run parity and the kept / dead flags from shared memory and registers.
+// Two values chain the tiles:
+//   (a) the latest run start before the tile, combined by max. Only a
+//       homogeneous pair has runs, and only a tile that starts inside one
+//       (a match at t0 - 1) needs it;
+//   (b) the live tokens before the tile, combined by sum: the tile's output
+//       offset. The last tile's inclusive sum is the new n.
+// K3 (a only) and K4 (b only) chain them in one pass with a decoupled
+// look-back (Merrill & Garland, 2016): tiles claim their index in launch
+// order from a counter (tile_ticket), so every earlier tile is running or
+// done and no wait can deadlock; each tile publishes its own aggregate at
+// once and its inclusive prefix when it knows it, in a 64-bit status word
+// per tile, and warp 0 combines the words back to the nearest prefix. A
+// status word carries the generation of its launch, which the wrapper
+// passes by value and increments per call, so no launch has to clear the
+// words first. Two launches in flight at once must not share the counter
+// and the words, so the wrapper keeps them per stream (launches on one
+// stream run in order).
+//
+// K10 runs B2's whole rank sweep in one cooperative persistent launch: a
+// grid sized by occupancy and capped at the stream's tiles loops over the
+// ranks, each rank an apply-and-compact pass from one ping-pong buffer into
+// the other. Each block owns a static range of tiles and the ranges chain
+// by reduce-then-scan through a grid barrier: run starts (homogeneous pairs
+// only), then live counts, then the scatter; a rank that merges nothing
+// skips its scatter. A stream of one tile (a short document) runs in one
+// block that keeps it in shared memory through all ranks.
+//
+// Bound: bytes. K3 reads 8 B and writes 5 B per token; K4 reads 9 B per
+// token and writes 8 B per live token; K10 reads 8 B per token and writes
+// 8 B per live token at every rank.
 // ---------------------------------------------------------------------------
-__global__ void live_count_kernel(const unsigned char* __restrict__ live,
-                                  const int* __restrict__ n_ptr,
-                                  const int* slot, int* __restrict__ agg) {
-  if (gated_off(slot, 1, K_CAP)) return;
-  const int n = *n_ptr;
-  const int t0 = blockIdx.x * TILE;
-  if (t0 >= n) return;
-  int c = 0;
-#pragma unroll
-  for (int k = 0; k < IPT; ++k) {
-    const int i = t0 + k * TPB + threadIdx.x;
-    if (i < n) c += live[i];
-  }
-  int tile_count;
-  block_exclusive_scan<true, TPB>(c, &tile_count);
-  if (threadIdx.x == 0) agg[blockIdx.x] = tile_count;
+constexpr unsigned long long ST_A = 1;  // the tile's own aggregate
+constexpr unsigned long long ST_P = 2;  // the prefix through the tile
+constexpr unsigned GEN_MASK = (1u << 30) - 1;
+
+struct Stage {
+  int4 ids[TILE / 4];
+  int4 seg[TILE / 4];
+  int halo_id[2];  // positions t0 - 1 and t0 + TILE (-1 outside the stream)
+  int halo_seg[2];
+  unsigned char keep_last[TPB + 1];  // [0]: keep at t0 - 1; [k + 1]: at
+                                     // thread k's last position
+};
+
+// One thread's IPT consecutive positions of a staged tile.
+struct Lane {
+  int id[IPT];
+  unsigned m;  // bit k: a match at the thread's position k
+  bool mb;     // a match at the position before its first
+};
+
+template <bool CG>
+__device__ __forceinline__ int ld1(const int* p) {
+  if constexpr (CG) return __ldcg(p);
+  else return __ldg(p);
 }
 
-__global__ void compact_scatter_kernel(const int* __restrict__ ids,
-                                       const int* __restrict__ seg,
-                                       const unsigned char* __restrict__ live,
-                                       const int* __restrict__ n_ptr,
-                                       const int* slot,
-                                       const int* __restrict__ offs,
-                                       int* __restrict__ ids_out,
-                                       int* __restrict__ seg_out) {
-  if (gated_off(slot, 1, K_CAP)) return;
-  const int n = *n_ptr;
-  const int t0 = blockIdx.x * TILE;
-  if (t0 >= n) return;
-  const int base = t0 + threadIdx.x * IPT;
-  bool f[IPT];
-  int c = 0;
+template <bool CG>
+__device__ __forceinline__ int4 ld4(const int* p) {
+  if constexpr (CG) return __ldcg(reinterpret_cast<const int4*>(p));
+  else return __ldg(reinterpret_cast<const int4*>(p));
+}
+
+__device__ __forceinline__ bool aligned16(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
+          15) == 0;
+}
+
+// The tile at t0 of ids[0 .. n), seg[0 .. n) into sh (positions from n on
+// read as 0). CG: the stream was written by this launch (K10's ping-pong
+// buffers), so it is read through L2 and not the read-only path.
+template <bool CG>
+__device__ void stage_tile(const int* ids, const int* seg, int t0, int n,
+                           Stage& sh) {
+  const bool vec = aligned16(ids, seg);
+  __syncthreads();  // the previous tile's readers are done
+  for (int q = threadIdx.x; q < TILE / 4; q += TPB) {
+    const int p = t0 + 4 * q;
+    int4 a = make_int4(0, 0, 0, 0), b = a;
+    if (vec && p + 4 <= n) {
+      a = ld4<CG>(ids + p);
+      b = ld4<CG>(seg + p);
+    } else if (p < n) {
+      int x[4], y[4];
 #pragma unroll
-  for (int k = 0; k < IPT; ++k) {
-    f[k] = base + k < n && live[base + k];
-    c += f[k];
+      for (int k = 0; k < 4; ++k) {
+        x[k] = p + k < n ? ld1<CG>(ids + p + k) : 0;
+        y[k] = p + k < n ? ld1<CG>(seg + p + k) : 0;
+      }
+      a = make_int4(x[0], x[1], x[2], x[3]);
+      b = make_int4(y[0], y[1], y[2], y[3]);
+    }
+    sh.ids[q] = a;
+    sh.seg[q] = b;
   }
-  int unused;
-  int o = offs[blockIdx.x] + block_exclusive_scan<true, TPB>(c, &unused);
+  if (threadIdx.x < 2) {
+    const int p = threadIdx.x == 0 ? t0 - 1 : t0 + TILE;
+    const bool in = p >= 0 && p < n;
+    sh.halo_id[threadIdx.x] = in ? ld1<CG>(ids + p) : -1;
+    sh.halo_seg[threadIdx.x] = in ? ld1<CG>(seg + p) : -1;
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ int staged_at(const int4* v, const int* halo,
+                                         int l) {
+  return l < 0 ? halo[0]
+               : (l >= TILE ? halo[1] : reinterpret_cast<const int*>(v)[l]);
+}
+
+__device__ __forceinline__ void unpack4(int4 v, int* o) {
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+
+__device__ __forceinline__ Lane lane_matches(const Stage& sh, int t0, int n,
+                                             int pa, int pb) {
+  const int l0 = threadIdx.x * IPT;
+  int id[IPT + 2], sg[IPT + 2];  // positions l0 - 1 .. l0 + IPT
+#pragma unroll
+  for (int v = 0; v < IPT / 4; ++v) {
+    unpack4(sh.ids[l0 / 4 + v], id + 1 + 4 * v);
+    unpack4(sh.seg[l0 / 4 + v], sg + 1 + 4 * v);
+  }
+  id[0] = staged_at(sh.ids, sh.halo_id, l0 - 1);
+  sg[0] = staged_at(sh.seg, sh.halo_seg, l0 - 1);
+  id[IPT + 1] = staged_at(sh.ids, sh.halo_id, l0 + IPT);
+  sg[IPT + 1] = staged_at(sh.seg, sh.halo_seg, l0 + IPT);
+  Lane x;
+  x.m = 0;
+  x.mb = false;
+  const int p0 = t0 + l0 - 1;
+#pragma unroll
+  for (int k = 0; k <= IPT; ++k) {
+    const int p = p0 + k;
+    const bool mk = p >= 0 && p + 1 < n && id[k] == pa && id[k + 1] == pb &&
+                    sg[k] == sg[k + 1];
+    if (k == 0) x.mb = mk;
+    else x.m |= (unsigned)mk << (k - 1);
+  }
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) x.id[k] = id[k + 1];
+  return x;
+}
+
+// s[k]: the latest run start at or before the thread's position k, within
+// the tile (-1: none); *tile_max: the tile's latest run start. Block-wide.
+__device__ __forceinline__ void run_starts(const Lane& x, int t0,
+                                           int (&s)[IPT], int* tile_max) {
+  const int base = t0 + threadIdx.x * IPT;
+  int run = -1;
+  bool prev = x.mb;
 #pragma unroll
   for (int k = 0; k < IPT; ++k) {
-    if (f[k]) {
-      ids_out[o] = ids[base + k];
-      seg_out[o] = seg[base + k];
-      ++o;
+    const bool mk = (x.m >> k) & 1u;
+    if (mk && !prev) run = base + k;
+    s[k] = run;
+    prev = mk;
+  }
+  const int pre = block_exclusive_scan<false, TPB>(run, tile_max);
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) s[k] = max(s[k], pre);
+}
+
+// Bit k: the match at the thread's position k is kept. carry: the latest
+// run start before the tile.
+__device__ __forceinline__ unsigned keep_mask(const Lane& x,
+                                              const int (&s)[IPT], int t0,
+                                              bool homog, int carry) {
+  if (!homog) return x.m;
+  const int base = t0 + threadIdx.x * IPT;
+  unsigned kp = 0;
+#pragma unroll
+  for (int k = 0; k < IPT; ++k)
+    if (((x.m >> k) & 1u) && ((base + k - max(carry, s[k])) & 1) == 0)
+      kp |= 1u << k;
+  return kp;
+}
+
+// Bit k: the token at the thread's position k dies (the one before it is a
+// kept match). Block-wide.
+__device__ __forceinline__ unsigned dead_mask(Stage& sh, const Lane& x,
+                                              unsigned kp, int t0, bool homog,
+                                              int carry) {
+  if (threadIdx.x == 0)
+    sh.keep_last[0] = x.mb && (!homog || ((t0 - 1 - carry) & 1) == 0);
+  sh.keep_last[threadIdx.x + 1] = (kp >> (IPT - 1)) & 1u;
+  __syncthreads();
+  const unsigned before = sh.keep_last[threadIdx.x];
+  __syncthreads();
+  return ((kp << 1) | before) & ((1u << IPT) - 1);
+}
+
+// Bits of the thread's positions below n.
+__device__ __forceinline__ unsigned valid_mask(int t0, int n) {
+  const int v = min(max(n - (t0 + (int)threadIdx.x * IPT), 0), IPT);
+  return (1u << v) - 1;
+}
+
+__device__ __forceinline__ int tile_ticket(unsigned* counter) {
+  __shared__ int t;
+  if (threadIdx.x == 0) {
+    t = (int)atomicAdd(counter, 1u);
+    // the last claim of this launch: every other one came before it
+    if (t == (int)gridDim.x - 1) atomicExch(counter, 0u);
+  }
+  __syncthreads();
+  return t;
+}
+
+__device__ __forceinline__ void st_publish(unsigned long long* st, int t,
+                                           unsigned gen,
+                                           unsigned long long flag, int v) {
+  const unsigned long long tag = ((unsigned long long)(gen & GEN_MASK) << 2) |
+                                 flag;
+  atomicExch(st + t, (tag << 32) | (unsigned)v);
+}
+
+// Warp 0: the combination of tiles 0 .. t-1 (identity for t = 0), in every
+// lane. Reads the words 32 at a time backwards, waiting for each to carry
+// this launch's generation, and stops at the nearest inclusive prefix.
+template <bool SUM>
+__device__ int look_back(const unsigned long long* st, int t, unsigned gen) {
+  const int lane = threadIdx.x & 31;
+  const unsigned want = gen & GEN_MASK;
+  int acc = identity<SUM>();
+  for (int top = t - 1;; top -= 32) {
+    const int j = top - lane;
+    int v = identity<SUM>();
+    bool p = true;  // before tile 0: the identity, final
+    if (j >= 0) {
+      unsigned long long w;
+      while (true) {
+        w = *reinterpret_cast<const volatile unsigned long long*>(st + j);
+        const unsigned tag = (unsigned)(w >> 32);
+        if ((tag >> 2) == want && (tag & 3u) != 0) break;
+        __nanosleep(32);
+      }
+      v = (int)(unsigned)w;
+      p = ((w >> 32) & 3u) == ST_P;
+    }
+    const unsigned ps = __ballot_sync(0xffffffffu, p);
+    const int stop = ps ? __ffs(ps) - 1 : 32;
+    if (lane > stop) v = identity<SUM>();
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      v = op<SUM>(v, __shfl_xor_sync(0xffffffffu, v, d));
+    acc = op<SUM>(acc, v);
+    if (ps) return acc;
+  }
+}
+
+// K3: ids_out[i] = kept ? z : ids[i]; live[i] = !kept[i - 1];
+// *kept += the kept matches. In slot mode (the trainer) the pair is the
+// slot's candidate 0, z its 256 + i, the kept count goes to log row i, and
+// it runs only for bsel == 1. A heterogeneous pair has no runs: its tiles
+// need no chain, take their block's index, and touch neither the counter
+// nor the status words.
+__global__ void __launch_bounds__(TPB)
+    merge_apply_kernel(const int* __restrict__ ids,
+                       const int* __restrict__ seg,
+                       const int* __restrict__ n_ptr,
+                       const int* __restrict__ pair, int z, const int* slot,
+                       int* __restrict__ ids_out,
+                       unsigned char* __restrict__ live, int* kept,
+                       unsigned long long* st, unsigned* counter,
+                       unsigned gen) {
+  if (gated_off(slot, 1, 1)) return;
+  __shared__ Stage sh;
+  __shared__ int bcast;
+  const int n = *n_ptr;
+  const int pa = pair[0], pb = pair[1];
+  if (slot != nullptr) {
+    z = slot[SLOT_ZBASE];
+    kept += 4 * slot[SLOT_I] + 3;  // kept points at the merge log
+  }
+  const bool homog = pa == pb;
+  const int t = homog ? tile_ticket(counter) : (int)blockIdx.x;
+  const int t0 = t * TILE;
+  if (t0 >= n) return;
+  stage_tile<false>(ids, seg, t0, n, sh);
+  const Lane x = lane_matches(sh, t0, n, pa, pb);
+  int s[IPT];
+  int carry = -1;
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) s[k] = -1;
+  if (homog) {
+    int tmax;
+    run_starts(x, t0, s, &tmax);
+    if (threadIdx.x == 0) {
+      // a tile with a run start knows its inclusive max at once
+      st_publish(st, t, gen, tmax >= 0 ? ST_P : ST_A, tmax);
+      bcast = x.mb;  // the tile starts inside a run: it needs the carry
+    }
+    __syncthreads();
+    const bool need = bcast;
+    __syncthreads();
+    if (need) {
+      if (threadIdx.x < 32) {
+        const int c = look_back<false>(st, t, gen);
+        if (threadIdx.x == 0) {
+          bcast = c;
+          if (tmax < 0) st_publish(st, t, gen, ST_P, c);
+        }
+      }
+      __syncthreads();
+      carry = bcast;
     }
   }
+  const unsigned kp = keep_mask(x, s, t0, homog, carry);
+  const unsigned lv = valid_mask(t0, n) &
+                      ~dead_mask(sh, x, kp, t0, homog, carry);
+  const int base = t0 + threadIdx.x * IPT;
+  int out[IPT];
+#pragma unroll
+  for (int k = 0; k < IPT; ++k) out[k] = ((kp >> k) & 1u) ? z : x.id[k];
+  if (base + IPT <= n) {  // the wrapper's outputs are 16-byte aligned
+    int4* o = reinterpret_cast<int4*>(ids_out + base);
+#pragma unroll
+    for (int v = 0; v < IPT / 4; ++v)
+      o[v] = make_int4(out[4 * v], out[4 * v + 1], out[4 * v + 2],
+                       out[4 * v + 3]);
+    unsigned w[2] = {0, 0};
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) w[k / 4] |= ((lv >> k) & 1u) << (8 * (k % 4));
+    *reinterpret_cast<uint2*>(live + base) = make_uint2(w[0], w[1]);
+  } else {
+    for (int k = 0; k < IPT && base + k < n; ++k) {
+      ids_out[base + k] = out[k];
+      live[base + k] = (lv >> k) & 1u;
+    }
+  }
+  if (kept != nullptr) {
+    int tile_kept;
+    block_exclusive_scan<true, TPB>(__popc(kp), &tile_kept);
+    if (threadIdx.x == 0 && tile_kept) atomicAdd(kept, tile_kept);
+  }
+}
+
+// K4: the live tokens of ids[0 .. n), seg[0 .. n) moved to the front in
+// order (so first positions keep the reference's first-occurrence order),
+// *n_out = their count. In slot mode it runs when the slot applied a merge
+// (bsel >= 1). Each tile compacts into shared memory while it looks back,
+// then writes its run of outputs with consecutive stores.
+__global__ void __launch_bounds__(TPB)
+    compact_kernel(const int* __restrict__ ids, const int* __restrict__ seg,
+                   const unsigned char* __restrict__ live,
+                   const int* __restrict__ n_ptr, const int* slot,
+                   int* __restrict__ ids_out, int* __restrict__ seg_out,
+                   int* __restrict__ n_out, unsigned long long* st,
+                   unsigned* counter, unsigned gen) {
+  if (gated_off(slot, 1, K_CAP)) return;
+  __shared__ int o_ids[TILE];
+  __shared__ int o_seg[TILE];
+  __shared__ int prefix;
+  const int n = *n_ptr;
+  const int t = tile_ticket(counter);
+  const int last = max((n + TILE - 1) / TILE, 1) - 1;
+  if (t > last) return;
+  const int t0 = t * TILE;
+  const int base = t0 + threadIdx.x * IPT;
+  int id[IPT], sg[IPT];
+  unsigned lv = 0;
+  if (base + IPT <= n && aligned16(ids, seg) &&
+      (reinterpret_cast<uintptr_t>(live) & 7) == 0) {
+#pragma unroll
+    for (int v = 0; v < IPT / 4; ++v) {
+      unpack4(ld4<false>(ids + base + 4 * v), id + 4 * v);
+      unpack4(ld4<false>(seg + base + 4 * v), sg + 4 * v);
+    }
+    const uint2 w = __ldg(reinterpret_cast<const uint2*>(live + base));
+#pragma unroll
+    for (int k = 0; k < IPT; ++k)
+      lv |= (unsigned)((((k < 4 ? w.x : w.y) >> (8 * (k % 4))) & 0xffu) != 0)
+            << k;
+  } else {
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      const bool in = base + k < n;
+      id[k] = in ? ids[base + k] : 0;
+      sg[k] = in ? seg[base + k] : 0;
+      lv |= (unsigned)(in && live[base + k]) << k;
+    }
+  }
+  int tile_total;
+  int o = block_exclusive_scan<true, TPB>(__popc(lv), &tile_total);
+  if (threadIdx.x == 0) st_publish(st, t, gen, t == 0 ? ST_P : ST_A,
+                                   tile_total);
+#pragma unroll
+  for (int k = 0; k < IPT; ++k)
+    if ((lv >> k) & 1u) {
+      o_ids[o] = id[k];
+      o_seg[o] = sg[k];
+      ++o;
+    }
+  if (threadIdx.x < 32) {
+    const int pre = look_back<true>(st, t, gen);
+    if (threadIdx.x == 0) {
+      prefix = pre;
+      if (t > 0) st_publish(st, t, gen, ST_P, pre + tile_total);
+      if (t == last) *n_out = pre + tile_total;
+    }
+  }
+  __syncthreads();
+  const int pre = prefix;
+  for (int i = threadIdx.x; i < tile_total; i += TPB) {
+    ids_out[pre + i] = o_ids[i];
+    seg_out[pre + i] = o_seg[i];
+  }
+}
+
+// The max of v[0 .. cnt), written earlier in this launch, in every thread
+// of the block.
+__device__ int block_max(const int* v, int cnt) {
+  int a = -1;
+  for (int i = threadIdx.x; i < cnt; i += TPB) a = max(a, __ldcg(v + i));
+  int total;
+  block_exclusive_scan<false, TPB>(a, &total);
+  return total;
+}
+
+// The sums of v[0 .. cnt) and of v[0 .. upto), in one pass.
+__device__ void block_sums(const int* v, int cnt, int upto, int* total,
+                           int* prefix) {
+  int a = 0, p = 0;
+  for (int i = threadIdx.x; i < cnt; i += TPB) {
+    const int x = __ldcg(v + i);
+    a += x;
+    p += i < upto ? x : 0;
+  }
+  block_exclusive_scan<true, TPB>(a, total);
+  block_exclusive_scan<true, TPB>(p, prefix);
+}
+
+// A stream of one tile (a short document) in a grid of one block: the
+// block keeps it in shared memory through every rank and compacts it in
+// place, so a rank reads and writes no device memory, and a rank whose
+// pair occurs nowhere costs one barrier.
+__device__ void sweep_one_tile(const int* ids, const int* seg, int n,
+                               const int* __restrict__ pairs,
+                               const int* __restrict__ new_ids, int M,
+                               int* w_ids0, int* w_seg0, int* n_out,
+                               Stage& sh) {
+  stage_tile<false>(ids, seg, 0, n, sh);
+  int* const t_ids = reinterpret_cast<int*>(sh.ids);
+  int* const t_seg = reinterpret_cast<int*>(sh.seg);
+  for (int r = 0; r < M && n >= 2; ++r) {
+    const int pa = pairs[2 * r], pb = pairs[2 * r + 1];
+    const bool homog = pa == pb;
+    const Lane x = lane_matches(sh, 0, n, pa, pb);
+    int sg[IPT];
+#pragma unroll
+    for (int v = 0; v < IPT / 4; ++v)
+      unpack4(sh.seg[threadIdx.x * (IPT / 4) + v], sg + 4 * v);
+    // every read of the tile is done once this barrier passes
+    if (!__syncthreads_or(x.m != 0)) continue;
+    int s[IPT];
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) s[k] = -1;
+    int tmax;
+    if (homog) run_starts(x, 0, s, &tmax);
+    const unsigned kp = keep_mask(x, s, 0, homog, -1);
+    const unsigned lv =
+        valid_mask(0, n) & ~dead_mask(sh, x, kp, 0, homog, -1);
+    int total;
+    int o = block_exclusive_scan<true, TPB>(__popc(lv), &total);
+    const int z = new_ids[r];
+#pragma unroll
+    for (int k = 0; k < IPT; ++k)
+      if ((lv >> k) & 1u) {
+        t_ids[o] = ((kp >> k) & 1u) ? z : x.id[k];
+        t_seg[o] = sg[k];
+        ++o;
+      }
+    __syncthreads();
+    n = total;
+  }
+  for (int i = threadIdx.x; i < n; i += TPB) {
+    w_ids0[i] = t_ids[i];
+    w_seg0[i] = t_seg[i];
+  }
+  if (threadIdx.x == 0) *n_out = n;
+}
+
+// K10: merges r = 0 .. M-1 (pairs[2r], pairs[2r + 1]) -> new_ids[r] over
+// ids[0 .. n0), seg[0 .. n0), each applied everywhere, left first, and
+// compacted, from one ping-pong buffer into the other. The result lands in
+// buffer 0 (w_ids0, w_seg0) and its length in *n_out; the input is not
+// written. blk: int32[3 * gridDim.x] (block values; the live counts
+// alternate between two halves by rank, so a rank that skips its scatter,
+// and with it a barrier, never overwrites counts a slow block still reads).
+// Launched cooperatively: every block is resident, so the grid barrier
+// holds.
+
+__global__ void __launch_bounds__(TPB)
+    encode_sweep_kernel(const int* ids, const int* seg, int n0,
+                        const int* __restrict__ pairs,
+                        const int* __restrict__ new_ids, int M, int* w_ids0,
+                        int* w_seg0, int* w_ids1, int* w_seg1, int* blk,
+                        int* n_out) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ Stage sh;
+  __shared__ int o_ids[TILE];
+  __shared__ int o_seg[TILE];
+  const int G = gridDim.x, b = blockIdx.x;
+  if (G == 1 && n0 <= TILE) {
+    sweep_one_tile(ids, seg, n0, pairs, new_ids, M, w_ids0, w_seg0, n_out,
+                   sh);
+    return;
+  }
+  int* const w_ids[2] = {w_ids0, w_ids1};
+  int* const w_seg[2] = {w_seg0, w_seg1};
+  const int* src_ids = ids;
+  const int* src_seg = seg;
+  int src = -1;  // -1: the input, else the work buffer it lies in
+  int n = n0;
+  for (int r = 0; r < M && n >= 2; ++r) {
+    const int pa = pairs[2 * r], pb = pairs[2 * r + 1], z = new_ids[r];
+    const bool homog = pa == pb;
+    const int T = (n + TILE - 1) / TILE;
+    const int lo = (int)((long long)b * T / G);
+    const int hi = (int)((long long)(b + 1) * T / G);
+    int staged = -1;  // the tile in sh (this rank's source and n)
+    auto stage = [&](int t) {
+      if (staged != t) stage_tile<true>(src_ids, src_seg, t * TILE, n, sh);
+      staged = t;
+    };
+    int s[IPT];
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) s[k] = -1;
+
+    // (a) the latest run start before this block's range
+    int carry = -1;
+    if (homog) {
+      int mx = -1;
+      for (int t = lo; t < hi; ++t) {
+        stage(t);
+        int tmax;
+        run_starts(lane_matches(sh, t * TILE, n, pa, pb), t * TILE, s, &tmax);
+        mx = max(mx, tmax);
+      }
+      if (threadIdx.x == 0) blk[b] = mx;
+      grid.sync();
+      carry = block_max(blk, b);
+    }
+
+    // (b) live counts. One tile's keep and live bits, given the latest run
+    // start before it; rc moves on to the next tile. A block of one tile
+    // keeps them in registers for (c).
+    int rc = carry;
+    auto decide = [&](int t, unsigned& kp, unsigned& lv, Lane& x) {
+      stage(t);
+      x = lane_matches(sh, t * TILE, n, pa, pb);
+      int tmax = -1;
+      if (homog) run_starts(x, t * TILE, s, &tmax);
+      kp = keep_mask(x, s, t * TILE, homog, rc);
+      lv = valid_mask(t * TILE, n) &
+           ~dead_mask(sh, x, kp, t * TILE, homog, rc);
+      rc = max(rc, tmax);
+    };
+    const bool one = hi - lo == 1;
+    unsigned kp1 = 0, lv1 = 0;
+    Lane x1{};
+    int cnt = 0;
+    for (int t = lo; t < hi; ++t) {
+      decide(t, kp1, lv1, x1);
+      int tile_total;
+      block_exclusive_scan<true, TPB>(__popc(lv1), &tile_total);
+      cnt += tile_total;
+    }
+    int* counts = blk + G * (1 + (r & 1));
+    if (threadIdx.x == 0) counts[b] = cnt;
+    grid.sync();
+    int total, off;
+    block_sums(counts, G, b, &total, &off);
+    if (total == n) continue;  // nothing merged: the stream stays
+
+    // (c) the scatter into the other buffer
+    const int dst = src == 0 ? 1 : 0;
+    rc = carry;
+    for (int t = lo; t < hi; ++t) {
+      unsigned kp = kp1, lv = lv1;
+      Lane x = x1;
+      if (!one) decide(t, kp, lv, x);
+      int tile_total;
+      int o = block_exclusive_scan<true, TPB>(__popc(lv), &tile_total);
+#pragma unroll
+      for (int k = 0; k < IPT; ++k)
+        if ((lv >> k) & 1u) {
+          o_ids[o] = ((kp >> k) & 1u) ? z : x.id[k];
+          o_seg[o] = reinterpret_cast<const int*>(
+              sh.seg)[threadIdx.x * IPT + k];
+          ++o;
+        }
+      __syncthreads();
+      for (int i = threadIdx.x; i < tile_total; i += TPB) {
+        w_ids[dst][off + i] = o_ids[i];
+        w_seg[dst][off + i] = o_seg[i];
+      }
+      off += tile_total;
+      __syncthreads();  // o_ids / o_seg are reused by the next tile
+    }
+    grid.sync();
+    src = dst;
+    src_ids = w_ids[dst];
+    src_seg = w_seg[dst];
+    n = total;
+  }
+  if (src != 0) {  // the result goes to buffer 0
+    for (int i = b * TPB + threadIdx.x; i < n; i += G * TPB) {
+      w_ids0[i] = __ldcg(src_ids + i);
+      w_seg0[i] = __ldcg(src_seg + i);
+    }
+  }
+  if (b == 0 && threadIdx.x == 0) *n_out = n;
 }
 
 inline int tiles_for(int cap) { return cap > 0 ? (cap + TILE - 1) / TILE : 1; }
@@ -834,19 +1258,18 @@ int bpe_select_batch(const unsigned* cnt, const unsigned* first, int V,
   return cudaGetLastError();
 }
 
-// agg: int32[tiles_for(cap)] scratch; kept may be null. With slot given:
-// pair = slot, z and kept's row from the slot, kept = the merge log.
+// state: uint64[1 + tiles_for(cap)], zero before its first call: word 0
+// holds the tile counter (each launch leaves it 0), then one status word
+// per tile; gen: 1 .. 2^30 - 1, a new one per call on the state. kept may
+// be null. With slot given: pair = slot, z and kept's row from the slot,
+// kept = the merge log.
 int bpe_merge_apply(const int* ids, const int* seg, const int* n,
                     const int* pair, int z, const int* slot, int cap,
-                    int* ids_out, unsigned char* live, int* kept, int* agg,
-                    void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nb = tiles_for(cap);
-  run_starts_kernel<<<nb, TPB, 0, s>>>(ids, seg, n, pair, slot, agg);
-  scan_tiles_kernel<false><<<1, SCAN_TPB, 0, s>>>(agg, n, slot, 1, 1, pair,
-                                                  nullptr);
-  merge_apply_kernel<<<nb, TPB, 0, s>>>(ids, seg, n, pair, z, slot, agg,
-                                        ids_out, live, kept);
+                    int* ids_out, unsigned char* live, int* kept,
+                    unsigned long long* state, int gen, void* stream) {
+  merge_apply_kernel<<<tiles_for(cap), TPB, 0, (cudaStream_t)stream>>>(
+      ids, seg, n, pair, z, slot, ids_out, live, kept, state + 1,
+      reinterpret_cast<unsigned*>(state), (unsigned)gen);
   return cudaGetLastError();
 }
 
@@ -881,17 +1304,49 @@ int bpe_batch_apply(const int* ids, const int* n, const int* cand, int* slot,
   return cudaGetLastError();
 }
 
-// agg: int32[tiles_for(cap)] scratch; n_out: int32[1]
+// n_out: int32[1]; state and gen as for bpe_merge_apply
 int bpe_compact(const int* ids, const int* seg, const unsigned char* live,
                 const int* n, const int* slot, int cap, int* ids_out,
-                int* seg_out, int* n_out, int* agg, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int nb = tiles_for(cap);
-  live_count_kernel<<<nb, TPB, 0, s>>>(live, n, slot, agg);
-  scan_tiles_kernel<true><<<1, SCAN_TPB, 0, s>>>(agg, n, slot, 1, K_CAP,
-                                                 nullptr, n_out);
-  compact_scatter_kernel<<<nb, TPB, 0, s>>>(ids, seg, live, n, slot, agg,
-                                            ids_out, seg_out);
+                int* seg_out, int* n_out, unsigned long long* state, int gen,
+                void* stream) {
+  compact_kernel<<<tiles_for(cap), TPB, 0, (cudaStream_t)stream>>>(
+      ids, seg, live, n, slot, ids_out, seg_out, n_out, state + 1,
+      reinterpret_cast<unsigned*>(state), (unsigned)gen);
+  return cudaGetLastError();
+}
+
+// K10's grid for a stream of cap tokens on the current device: the blocks
+// that can be resident at once, capped at the stream's tiles; a negative
+// CUDA error when the device takes no cooperative launch.
+int bpe_encode_grid(int cap) {
+  int dev, coop, sms, per;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per, encode_sweep_kernel, TPB, 0);
+  if (e != cudaSuccess) return -(int)e;
+  if (!coop || per < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
+  const int tiles = tiles_for(cap);
+  return per * sms < tiles ? per * sms : tiles;
+}
+
+// pairs: int32[M][2], new_ids: int32[M]; w_*: int32[max(n, 1)] each, 16-byte
+// aligned; blk: int32[3 * grid]; n_out: int32[1]. The result is in w_ids0,
+// w_seg0. A refused cooperative launch returns its error.
+int bpe_encode_sweep(const int* ids, const int* seg, int n, const int* pairs,
+                     const int* new_ids, int M, int* w_ids0, int* w_seg0,
+                     int* w_ids1, int* w_seg1, int* blk, int grid,
+                     int* n_out, void* stream) {
+  void* args[] = {&ids,    &seg,    &n,      &pairs,  &new_ids, &M,
+                  &w_ids0, &w_seg0, &w_ids1, &w_seg1, &blk,     &n_out};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)encode_sweep_kernel, dim3(grid), dim3(TPB), args, 0,
+      (cudaStream_t)stream);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 

@@ -40,13 +40,15 @@ _A11 = "ROADMAP.md A11 (the sort-loop and sparse routes)"
 
 
 class DeviceMergeTable:
-    """Frozen merge table: pairs on the tokenizer's device, new ids on the
-    host (each rank passes its new id to the kernel by value)."""
+    """Frozen merge table on the tokenizer's device: pairs (int32 (M, 2))
+    and new_ids (int32 (M,)), which the encoder's one launch reads rank by
+    rank."""
 
     def __init__(self, pairs: np.ndarray, new_ids: np.ndarray, device):
         self.pairs = torch.as_tensor(
             np.ascontiguousarray(pairs, dtype=np.int32)).to(device)
-        self.new_ids = [int(z) for z in new_ids]
+        self.new_ids = torch.as_tensor(
+            np.ascontiguousarray(new_ids, dtype=np.int32)).to(device)
 
 
 def device_table(tokenizer) -> DeviceMergeTable:
@@ -187,7 +189,7 @@ def _encode_arrays(tokenizer, data, ends):
     """(ids, seg) numpy int32 arrays of the encoded stream: the output
     tokens in order, each with the chunk id it came from."""
     dev = device_table(tokenizer)
-    M = len(dev.new_ids)
+    M = dev.pairs.shape[0]
     if M > ENCODE_MAX_M:
         raise NotImplementedError(
             f"encode with {M} merges > {ENCODE_MAX_M} is not ported yet: "

@@ -1,6 +1,6 @@
 """The CUDA kernels of the main path, their build, bindings and plain twins.
 
-Eight kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
+Nine kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
 token stream (ids, seg) whose live length n is an int32[1] tensor on the
 same device, so a whole run launches without a host sync per merge:
 
@@ -15,7 +15,13 @@ same device, so a whole run launches without a host sync per merge:
 - ``batch_apply``    K8: the trim, then the batch's combined apply;
 - ``compact``        K4: order-preserving compaction by the live mask;
 - ``pair_count``     K9: the dense V x V pair-count matrix of the selection
-  paths and the stepped trainer's first count.
+  paths and the stepped trainer's first count;
+- ``encode_sweep``   K10: the encoder's whole rank sweep, every merge of a
+  table applied and compacted in turn, in one cooperative launch.
+
+K3 and K4 chain their tiles with a decoupled look-back over status words
+that persist per stream (``_lookback_state``); each call tags them with a
+new generation, so no call clears them first.
 
 Training state lives in two small device tensors: ``ctl`` (merges done,
 fail round, rebuilds; see ``new_ctl``) and the slot record ``slot`` that K5
@@ -50,6 +56,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+# positions per tile of K3, K4 and K10 (bpe_tile_size() on the card)
+TILE = 2048
 # the batch (fused_train.py:398 K_CAP) and its creation histograms
 K_CAP = 16
 HIST_BUCKETS = 128
@@ -91,8 +99,7 @@ MERGE_APPLY = KernelInfo(
     "merge_apply",
     "minbpe_tpu/ops/pallas/fused_train.py:754 (_kernel: tiled_apply "
     ":293-340); minbpe_tpu/ops/pallas/fused_train_xl.py:247 "
-    "(_apply_kernel); minbpe_tpu/ops/pallas/fused_encode.py:45 (_kernel: "
-    "per-rank body :58-87)")
+    "(_apply_kernel)")
 BATCH_MARK = KernelInfo(
     "batch_mark",
     "minbpe_tpu/ops/pallas/fused_train.py:754 (_kernel: tiled_batch_mark "
@@ -111,14 +118,16 @@ COMPACT = KernelInfo(
     "compact",
     "minbpe_tpu/ops/pallas/fused_train.py:754 (_kernel: _compact_inplace "
     ":641-736); minbpe_tpu/ops/pallas/fused_train_xl.py:300 "
-    "(_compact_kernel); minbpe_tpu/ops/pallas/fused_encode.py:45 (_kernel: "
-    "output compaction :91-119)")
+    "(_compact_kernel)")
 PAIR_COUNT = KernelInfo(
     "pair_count",
     "minbpe_tpu/ops/pallas/pair_count.py:29 (_kernel, launched by "
     "count_pairs_pallas :56-90)")
+ENCODE_SWEEP = KernelInfo(
+    "encode_sweep",
+    "minbpe_tpu/ops/pallas/fused_encode.py:45 (_kernel, pallas_call :137)")
 KERNELS = (PAIR_STATS, SELECT_BATCH, MERGE_APPLY, BATCH_MARK, BATCH_HIST_REV,
-           BATCH_APPLY, COMPACT, PAIR_COUNT)
+           BATCH_APPLY, COMPACT, PAIR_COUNT, ENCODE_SWEEP)
 
 
 def reset_launches():
@@ -182,17 +191,22 @@ def _load():
             "bpe_select_blocks": [I],
             "bpe_pair_stats": [P, P, P, P, P, P, I, I, P],
             "bpe_select_batch": [P, P, I, P, P, P, P, P, P],
-            "bpe_merge_apply": [P, P, P, P, I, P, I, P, P, P, P, P],
+            "bpe_merge_apply": [P, P, P, P, I, P, I, P, P, P, P, I, P],
             "bpe_batch_mark": [P, P, P, P, I, P, P, P, P],
             "bpe_batch_hist_rev": [P, P, P, P, P, P, I, P, P],
             "bpe_batch_apply": [P, P, P, P, P, P, P, I, I, P, P, P],
-            "bpe_compact": [P, P, P, P, P, I, P, P, P, P, P],
+            "bpe_compact": [P, P, P, P, P, I, P, P, P, P, I, P],
+            "bpe_encode_grid": [I],
+            "bpe_encode_sweep": [P, P, I, P, P, I, P, P, P, P, P, I, P, P],
             "bpe_pair_count": [P, P, P, P, I, I, P],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
+        if lib.bpe_tile_size() != TILE:
+            raise RuntimeError(f"the kernels' tile is {lib.bpe_tile_size()} "
+                               f"positions, kernels.TILE {TILE}")
         _lib = lib
         return _lib
 
@@ -241,8 +255,34 @@ def _check_state(ctl=None, slot=None, log=None, device=None):
 
 
 def _tiles(cap: int) -> int:
-    tile = _load().bpe_tile_size()
-    return max(1, -(-cap // tile))
+    return max(1, -(-cap // TILE))
+
+
+# K3's and K4's look-back state, per (device, stream): [tensor, last
+# generation]
+_LOOKBACK: dict = {}
+_LOOKBACK_LOCK = threading.Lock()
+_GEN_MAX = (1 << 30) - 1
+
+
+def _lookback_state(device, cap: int):
+    """(state, gen) for one K3 or K4 launch over cap positions on
+    ``device``'s current stream: state is int64[1 + tiles], word 0 the tile
+    counter (each launch leaves it 0), then a status word per tile, zeroed
+    once when it is allocated or grown; gen is this call's generation
+    (1 .. 2^30 - 1), which tells the launch's status words from those left
+    by earlier ones. Each stream has its own state, and launches on one
+    stream run in order, so no two launches in flight share it."""
+    tiles = _tiles(cap)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    with _LOOKBACK_LOCK:
+        ent = _LOOKBACK.get(key)
+        if ent is None or ent[0].numel() < 1 + tiles:
+            ent = [torch.zeros(1 + tiles, dtype=torch.int64, device=device),
+                   0 if ent is None else ent[1]]
+            _LOOKBACK[key] = ent
+        ent[1] = ent[1] % _GEN_MAX + 1
+        return ent[0], ent[1]
 
 
 def new_ctl(num_merges: int, device) -> torch.Tensor:
@@ -467,11 +507,11 @@ def merge_apply(ids, seg, n, pair=None, z: int = 0, kept=None, *, slot=None,
     cap = ids.numel()
     ids_out = torch.empty_like(ids)
     live = torch.empty(cap, dtype=torch.bool, device=dev)
-    agg = torch.empty(_tiles(cap), dtype=torch.int32, device=dev)
     lib = _load()
+    state, gen = _lookback_state(dev, cap)
     _run(dev, lib.bpe_merge_apply, _ptr(ids), _ptr(seg), _ptr(n),
          _ptr(pair), z, _ptr(slot), cap, _ptr(ids_out), _ptr(live),
-         _ptr(kept), _ptr(agg))
+         _ptr(kept), _ptr(state), gen)
     MERGE_APPLY.launches += 1
     return ids_out, live
 
@@ -669,11 +709,11 @@ def compact(ids, seg, live, n, slot=None):
     ids_out = torch.empty_like(ids)
     seg_out = torch.empty_like(seg)
     n_out = torch.empty_like(n)
-    agg = torch.empty(_tiles(cap), dtype=torch.int32, device=dev)
     lib = _load()
+    state, gen = _lookback_state(dev, cap)
     _run(dev, lib.bpe_compact, _ptr(ids), _ptr(seg), _ptr(live), _ptr(n),
          _ptr(slot), cap, _ptr(ids_out), _ptr(seg_out), _ptr(n_out),
-         _ptr(agg))
+         _ptr(state), gen)
     COMPACT.launches += 1
     return ids_out, seg_out, n_out
 
@@ -710,3 +750,55 @@ def pair_count(ids, seg, n, V: int):
          V, ids.numel())
     PAIR_COUNT.launches += 1
     return cnt
+
+
+# ---------------------------------------------------------------------------
+# K10 encode_sweep
+# ---------------------------------------------------------------------------
+
+def encode_sweep_plain(ids, seg, pairs, new_ids):
+    """(ids, seg, n): the merges of ``pairs`` (int32 (M, 2)) applied in rank
+    order over the whole of ids, seg, merge r creating new_ids[r], each
+    left first and followed by a compaction (K3's and K4's plain versions,
+    rank by rank); n is an int32[1] tensor."""
+    n = torch.full((1,), ids.numel(), dtype=torch.int32, device=ids.device)
+    for r in range(pairs.shape[0]):
+        merged, live = merge_apply_plain(ids, seg, n, pairs[r],
+                                         int(new_ids[r]))
+        ids, seg, n = compact_plain(merged, seg, live, n)
+    return ids, seg, n
+
+
+def encode_sweep(ids, seg, pairs, new_ids):
+    """One launch for the whole sweep on the card. ``new_ids``: int32 (M,)
+    on the stream's device. The result's ids and seg are views of one new
+    allocation; the inputs are not written. Raises where the cooperative
+    launch is refused."""
+    if not ids.is_cuda:
+        return encode_sweep_plain(ids, seg, pairs, new_ids)
+    dev = ids.device
+    cap = ids.numel()
+    _check("ids", ids, torch.int32, dev, 0)
+    _check("seg", seg, torch.int32, dev, cap)
+    M = pairs.shape[0]
+    _check("pairs", pairs, torch.int32, dev, 0)
+    _check("new_ids", new_ids, torch.int32, dev, 0)
+    if pairs.shape != (M, 2) or new_ids.shape != (M,):
+        raise ValueError(f"pairs {tuple(pairs.shape)} and new_ids "
+                         f"{tuple(new_ids.shape)}: expected (M, 2) and (M,)")
+    lib = _load()
+    with torch.cuda.device(dev):
+        grid = lib.bpe_encode_grid(cap)
+    if grid < 1:
+        raise RuntimeError(f"encode_sweep: no cooperative launch on {dev} "
+                           f"(CUDA error {-grid})")
+    # four 16-byte aligned buffers: ids and seg, twice (ping-pong)
+    row = max(-(-cap // 4) * 4, 4)
+    w = torch.empty((4, row), dtype=torch.int32, device=dev)
+    blk = torch.empty(3 * grid, dtype=torch.int32, device=dev)
+    n_out = torch.empty(1, dtype=torch.int32, device=dev)
+    _run(dev, lib.bpe_encode_sweep, _ptr(ids), _ptr(seg), cap, _ptr(pairs),
+         _ptr(new_ids), M, _ptr(w[0]), _ptr(w[1]), _ptr(w[2]), _ptr(w[3]),
+         _ptr(blk), grid, _ptr(n_out))
+    ENCODE_SWEEP.launches += 1
+    return w[0, :cap], w[1, :cap], n_out

@@ -263,3 +263,218 @@ def test_checkpoint_resume_on_card(dev, tmp_path):
     resumed = BasicTokenizer(device="cuda")
     resumed.train(text, 300, resume_from=ck)
     assert resumed.merges == full.merges
+
+
+# ---------------------------------------------------------------------------
+# K3 and K4 as single-pass kernels, K10 encode_sweep
+# ---------------------------------------------------------------------------
+
+TILE = kernels.TILE
+
+
+def _apply_compact(dev, ids, seg, n, pair, z=777):
+    """K3 then K4 on the card against their plain versions on the CPU."""
+    nt = np.array([n], np.int32)
+    (ci, cs, cn), (gi, gs, gn) = _both(dev, ids, seg, nt)
+    pc = torch.tensor(pair, dtype=torch.int32)
+    kc = torch.zeros(1, dtype=torch.int32)
+    kg = kc.to(dev)
+    oc, lc = kernels.merge_apply(ci, cs, cn, pc, z, kept=kc)
+    og, lg = kernels.merge_apply(gi, gs, gn, pc.to(dev), z, kept=kg)
+    assert torch.equal(oc[:n], og[:n].cpu())
+    assert torch.equal(lc[:n], lg[:n].cpu())
+    assert torch.equal(kc, kg.cpu())
+    xc = kernels.compact(oc, cs, lc, cn)
+    xg = kernels.compact(og, gs, lg, gn)
+    k = int(xc[2])
+    assert int(xg[2]) == k
+    assert torch.equal(xc[0][:k], xg[0][:k].cpu())
+    assert torch.equal(xc[1][:k], xg[1][:k].cpu())
+    return int(kc)
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, TILE - 1, TILE, TILE + 1, 400_000])
+def test_apply_compact_sizes(dev, n):
+    """Streams of 0-2 tokens, one tile and a position either side of it,
+    and the main path's 400K, each with a run of one id across its end."""
+    ids, seg = _stream(n, max(n, 1), 5, max(n - 3000, 0), min(n, 2999))
+    for pair in ((3, 3), (0, 1), (4, 4)):
+        _apply_compact(dev, ids, seg, n, pair)
+
+
+@pytest.mark.parametrize("tiles", [1, 2, 5])
+def test_runs_spanning_tiles(dev, tiles):
+    """A run of one id inside one chunk that covers parts of 1, 2 and 5
+    tiles, odd and even lengths, starting mid-tile."""
+    n = (tiles + 2) * TILE + 77
+    for start, extra in ((TILE // 2 + 1, 0), (TILE + 5, 1)):
+        length = max((tiles - 1) * TILE + 3 + extra, 2)
+        ids, seg = _stream(tiles, n, 6, start, length)
+        kept = _apply_compact(dev, ids, seg, n, (3, 3))
+        assert kept >= length // 2
+
+
+@pytest.mark.parametrize("bsel", [0, 1, 2])
+def test_apply_compact_slot_mode(dev, bsel):
+    """Slot mode: K3 runs for bsel == 1 only (the kept count to log row
+    i), K4 for bsel >= 1; gated calls leave the log and the tile counter
+    as they were, so the next call is still right."""
+    n = 3 * TILE + 11
+    ids, seg = _stream(11, n, 4, TILE - 7, 2 * TILE)
+    nt = np.array([n], np.int32)
+    (ci, cs, cn), (gi, gs, gn) = _both(dev, ids, seg, nt)
+    sc, sg = _batch_slot(dev, [(3, 3), (0, 1)][:max(bsel, 1)], 290)
+    sc[kernels.SLOT_BSEL] = bsel
+    sg[kernels.SLOT_BSEL] = bsel
+    (_, _, log_c), (_, _, log_g) = _state(dev, 40, 290)
+    oc, lc = kernels.merge_apply(ci, cs, cn, slot=sc, log=log_c)
+    og, lg = kernels.merge_apply(gi, gs, gn, slot=sg, log=log_g)
+    assert torch.equal(log_c, log_g.cpu())
+    if bsel == 1:
+        assert torch.equal(oc[:n], og[:n].cpu())
+        assert torch.equal(lc[:n], lg[:n].cpu())
+        assert int(log_g[34, 3]) > 0
+    else:  # the batch kernels write these in the trainer
+        lc = torch.from_numpy(np.random.default_rng(bsel).random(n) < 0.7)
+        lg = lc.to(dev)
+        oc, og = ci, gi
+    xc = kernels.compact(oc, cs, lc, cn, sc)
+    xg = kernels.compact(og, gs, lg, gn, sg)
+    if bsel >= 1:
+        k = int(xc[2])
+        assert int(xg[2]) == k
+        assert torch.equal(xc[0][:k], xg[0][:k].cpu())
+        assert torch.equal(xc[1][:k], xg[1][:k].cpu())
+    _apply_compact(dev, ids, seg, n, (3, 3))
+    state, _ = kernels._lookback_state(gi.device, n)
+    assert int(state[0]) == 0
+
+
+def test_status_words_across_calls(dev):
+    """Three K3 / K4 rounds back to back on one status scratch, each over
+    other data and sizes: the generation tag keeps every launch from
+    reading an earlier launch's words."""
+    for r, n in enumerate((5 * TILE + 3, 2 * TILE, 7 * TILE - 1)):
+        ids, seg = _stream(20 + r, n, 3, r * TILE + 9, 3 * TILE)
+        for pair in ((3, 3), (r % 3, r % 3), (1, 2)):
+            _apply_compact(dev, ids, seg, n, pair)
+    state, gen = kernels._lookback_state(
+        torch.empty(0, device=dev).device, 7 * TILE)
+    assert int(state[0]) == 0 and gen > 18
+
+
+def test_status_words_per_stream(dev):
+    """K3 and K4 enqueued on two streams before either is read: each stream
+    has its own status words and tile counter, and both equal the plain
+    versions."""
+    n = 5 * TILE + 3
+    ids, seg = _stream(21, n, 3, TILE + 9, 3 * TILE)
+    (ci, cs, cn), (gi, gs, gn) = _both(dev, ids, seg, np.array([n], np.int32))
+    pc = torch.tensor((3, 3), dtype=torch.int32)
+    oc, lc = kernels.merge_apply(ci, cs, cn, pc, 777)
+    want = kernels.compact(oc, cs, lc, cn)
+    k = int(want[2])
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream(dev))
+    got, states = [], []
+    for _ in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                og, lg = kernels.merge_apply(gi, gs, gn, pc.to(dev), 777)
+                got.append(kernels.compact(og, gs, lg, gn))
+                states.append(kernels._lookback_state(gi.device, n)[0])
+    torch.cuda.synchronize()
+    assert states[0].data_ptr() != states[1].data_ptr()
+    for xi, xs, xn in got:
+        assert int(xn) == k
+        assert torch.equal(xi[:k].cpu(), want[0][:k])
+        assert torch.equal(xs[:k].cpu(), want[1][:k])
+    assert all(int(st[0]) == 0 for st in states)
+
+
+def _sweep_both(dev, ids, seg, pairs, new_ids):
+    """K10 on the card against the plain rank loop on the CPU."""
+    ci, cs = torch.from_numpy(ids), torch.from_numpy(seg)
+    cp = torch.from_numpy(np.asarray(pairs, np.int32).reshape(-1, 2))
+    cz = torch.from_numpy(np.asarray(new_ids, np.int32))
+    wi, ws, wn = kernels.encode_sweep_plain(ci, cs, cp, cz)
+    kernels.reset_launches()
+    gi, gs, gn = kernels.encode_sweep(ci.to(dev), cs.to(dev), cp.to(dev),
+                                      cz.to(dev))
+    assert kernels.ENCODE_SWEEP.launches == 1
+    assert kernels.MERGE_APPLY.launches == kernels.COMPACT.launches == 0
+    k = int(wn)
+    assert int(gn) == k
+    assert torch.equal(wi[:k], gi[:k].cpu()) and torch.equal(ws[:k],
+                                                              gs[:k].cpu())
+    return k
+
+
+def test_encode_sweep_smoke_size(dev):
+    """A 400K-token stream and a 300-merge table trained on it."""
+    from minbpe_tpu_torch.ops import train
+
+    ids, seg = _stream(30, 400_000, 40, 100_000, 5001)
+    _, (gi, gs) = _both(dev, ids, seg)
+    pairs, _, fail = train.train_merges(gi, gs, 300)
+    assert fail == 300
+    assert _sweep_both(dev, ids, seg, pairs, 256 + np.arange(300)) < 400_000
+
+
+def test_encode_sweep_run_of_one_byte(dev):
+    """BasicTokenizer's 1 MiB of "a": one chunk, (97, 97) across every
+    tile, then the pairs of its doubled tokens; a rank whose pair never
+    occurs, and M = 0."""
+    n = 1 << 20
+    ids = np.full(n, 97, np.int32)
+    seg = np.zeros(n, np.int32)
+    pairs = [(97, 97), (5, 6)] + [(256 + r, 256 + r) for r in range(7)]
+    new_ids = [256, 300] + [257 + r for r in range(7)]
+    assert _sweep_both(dev, ids, seg, pairs, new_ids) == n >> 8
+    assert _sweep_both(dev, ids[:5000], seg[:5000], np.zeros((0, 2)),
+                       []) == 5000
+
+
+def test_encode_sweep_one_block(dev):
+    """A 1.5 KB document runs one block."""
+    text = _words(8, 300).encode()[:1500]
+    ids = np.frombuffer(text, np.uint8).astype(np.int32)
+    seg = np.cumsum(ids == 32).astype(np.int32)
+    assert kernels._load().bpe_encode_grid(ids.size) == 1
+    tok = BasicTokenizer(device="cpu")
+    tok.train(_words(9, 2000), 320)
+    pairs, new_ids = tok._merge_arrays()
+    _sweep_both(dev, ids, seg, pairs, new_ids)
+
+
+def test_encode_launches_once(dev):
+    """encode, encode_batch and encode with specials: one K10 launch per
+    device stream, no K3 or K4."""
+    tok = RegexTokenizer(device="cuda")
+    text = _words(10, 2000)
+    tok.train(text, 270)
+    tok.register_special_tokens({"<|x|>": 270})
+    for fn, want in ((lambda: tok.encode(text), 1),
+                     (lambda: tok.encode_batch([text[:50], text]), 1),
+                     (lambda: tok.encode(text + "<|x|>" + text,
+                                         allowed_special="all"), 1)):
+        kernels.reset_launches()
+        fn()
+        assert kernels.ENCODE_SWEEP.launches == want
+        assert kernels.MERGE_APPLY.launches == kernels.COMPACT.launches == 0
+
+
+@pytest.mark.parametrize("n", [1, 2, TILE - 1, TILE, TILE + 1, 3 * TILE])
+def test_encode_sweep_one_tile_edge(dev, n):
+    """Streams of one tile stay in shared memory, longer ones take the
+    grid path: both sides of the edge, on one chunk of "a" and on text."""
+    tok = BasicTokenizer(device="cpu")
+    tok.train(_words(11, 3000), 330)
+    pairs, new_ids = tok._merge_arrays()
+    text = np.frombuffer(_words(12, n).encode()[:n], np.uint8)
+    for ids in (np.full(n, 97, np.int32), text.astype(np.int32)):
+        seg = np.zeros(n, np.int32)
+        run = [(97, 97), (256, 256), (257, 257)]
+        _sweep_both(dev, ids, seg, run, [256, 257, 258])
+        _sweep_both(dev, ids, seg, pairs, new_ids)

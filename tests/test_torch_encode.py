@@ -20,7 +20,7 @@ from minbpe_tpu.ops import stream as jstream  # noqa: E402
 from minbpe_tpu.ops.pallas.fused_encode import encode_fused  # noqa: E402
 
 from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer  # noqa: E402
-from minbpe_tpu_torch import engine  # noqa: E402
+from minbpe_tpu_torch import engine, kernels  # noqa: E402
 from minbpe_tpu_torch.convert import tokenizer_from_arrays  # noqa: E402
 from minbpe_tpu_torch.ops.encode import encode_stream  # noqa: E402
 
@@ -30,7 +30,7 @@ def _port_encode(ids, seg, n, pairs, nids):
     out, _, k = encode_stream(
         torch.from_numpy(ids[:n].copy()), torch.from_numpy(seg[:n].copy()),
         torch.from_numpy(np.asarray(pairs, np.int32).reshape(-1, 2)),
-        [int(z) for z in nids])
+        torch.tensor(np.asarray(nids, np.int32).reshape(-1)))
     return out[:int(k)].tolist()
 
 
@@ -110,3 +110,79 @@ def test_encode_parts_splits_by_part():
     assert [g.tolist() for g in got] == want
     assert [engine.encode_offsets(tok, d, e) for d, e in parts] == want
     assert engine.encode_parts(tok, []) == []
+
+
+# ---------------------------------------------------------------------------
+# encode_sweep_plain, the plain version of K10: the port's rank sweep, held
+# to the fused Pallas encoder and the oracle where K10's tiles and chains
+# have their edges
+# ---------------------------------------------------------------------------
+
+TILE = kernels.TILE
+# (7, 7) and its doublings make runs; (5, 6) never occurs
+RUN_PAIRS = [(7, 7), (256, 256), (5, 6), (257, 7), (256, 7)]
+
+
+def _sweep_plain(ids, seg, n, pairs, nids):
+    n = int(n)
+    out, _, k = kernels.encode_sweep_plain(
+        torch.from_numpy(ids[:n].copy()), torch.from_numpy(seg[:n].copy()),
+        torch.from_numpy(np.asarray(pairs, np.int32).reshape(-1, 2)),
+        torch.tensor(np.asarray(nids, np.int32)))
+    return out[:int(k)].tolist()
+
+
+def _check_sweep(chunks, pairs):
+    nids = [256 + r for r in range(len(pairs))]
+    ranks = {tuple(p): (r, z) for r, (p, z) in enumerate(zip(pairs, nids))}
+    want = [t for c in chunks for t in oracle.encode(list(c), ranks)]
+    ids, seg, n = jstream.pack_chunks([bytes(c) for c in chunks])
+    got = _sweep_plain(ids, seg, n, pairs, nids)
+    assert got == want
+    assert got == encode_fused(ids, seg, n, np.asarray(pairs, np.int32),
+                               np.asarray(nids, np.int32),
+                               interpret=True).tolist()
+    return got
+
+
+@pytest.mark.parametrize("length", [TILE - 1, TILE, TILE + 1, 3 * TILE + 5])
+def test_sweep_runs_straddling_tiles(length):
+    """A run of one homogeneous pair whose length straddles a multiple of
+    K10's tile, after a token that shifts it off the tile start."""
+    _check_sweep([[1] + [7] * length + [2]], RUN_PAIRS)
+
+
+def test_sweep_equal_runs_cut_by_chunks():
+    """One id repeated across chunk ends: each chunk's run is its own, and
+    a run cut at a tile boundary too."""
+    chunks = [[7] * 5, [7] * 6, [7] * (TILE + 3), [7], [7, 7]]
+    got = _check_sweep(chunks, RUN_PAIRS)
+    assert len(got) < sum(map(len, chunks)) // 2
+
+
+def test_sweep_no_merges():
+    """M = 0: the stream comes back whole."""
+    chunks = [[1, 2, 3], [7, 7]]
+    got = _check_sweep(chunks, np.zeros((0, 2), np.int32))
+    assert got == [1, 2, 3, 7, 7]
+
+
+def test_sweep_rank_that_never_occurs():
+    """Ranks whose pairs are absent merge nothing, before and between the
+    ranks that do."""
+    pairs = [(300, 301), (1, 2), (9, 9), (256, 3), (2, 1)]
+    _check_sweep([[1, 2, 3, 1, 2, 3], [2, 1], [4]], pairs)
+
+
+def test_device_table_carries_new_ids():
+    """The encoder reads each rank's new id from the table on the device:
+    the same list as the host's."""
+    tok = tokenizer_from_arrays(BasicTokenizer, [[97, 98], [256, 99]],
+                                [256, 257], device="cpu")
+    dev = engine.device_table(tok)
+    assert dev.new_ids.dtype == torch.int32
+    assert dev.new_ids.device == tok.device
+    assert dev.new_ids.tolist() == tok._merge_arrays()[1].tolist() == \
+        [256, 257]
+    assert dev.pairs.tolist() == [[97, 98], [256, 99]]
+    assert tok.encode("abcab") == [257, 256]

@@ -81,3 +81,14 @@ def test_absent_pair_merges_nothing():
     assert int(k) == 0 and int(n) == 5
     assert ids[:5].tolist() == [5, 5, 5, 1, 2]
     assert seg[:5].tolist() == p[1].tolist()
+
+
+@pytest.mark.parametrize("length", [2047, 2048, 2049, 3 * 2048 + 5])
+def test_runs_straddling_tiles(length):
+    """Runs of one id whose lengths straddle multiples of the card
+    kernels' 2048-position tile (K3's run-start chain, K4's offsets), in a
+    chunk of their own and cut by a chunk end."""
+    got, kept = _apply_both([[1] + [7] * length + [2], [7] * 3], (7, 7), 300)
+    assert kept == length // 2 + 1
+    _apply_both([[7] * (length // 2), [7] * (length - length // 2)], (7, 7),
+                300)
