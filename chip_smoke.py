@@ -12,10 +12,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the rebuild of merge 768, a batch of 16 candidates drawn from the
    stream; K3 timed at a homogeneous and at a heterogeneous pair), K1 and
    K6 once more at the XL bound (48M tokens), K9 also at V = 2048 and at
-   the stepped route's bound (4M tokens), and K10 over the smoke corpus's
-   stream with the golden's 768 merges, over 2^20 copies of "a" and over
-   the first of phase 3's 256 documents (one block); the outputs are
-   integers and must be exactly equal;
+   the stepped route's bound (4M tokens), K1 and K9 also on real text (the
+   smoke corpus's stream as pre-split, W = 256; the same after the
+   golden's 768 merges, W = 1024; the XL corpus's stream, W = 256), each
+   shape with its bytes bound and torch.bincount's time, and K10 over the
+   smoke corpus's stream with the golden's 768 merges, over 2^20 copies of
+   "a" and over the first of phase 3's 256 documents (one block); the
+   outputs are integers and must be exactly equal;
 3. drive the main path through the user's entry points, one path at a
    time, with every launch count set to 0 just before each path and read
    just after it: RegexTokenizer (GPT-4 pattern) training at vocab 1024 on
@@ -235,7 +238,92 @@ def xl_stream(torch, ids, seg, n: int):
     return big_ids, big_seg
 
 
-def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int):
+def text_streams(torch, np, kernels, golden_mod):
+    """[(name, ids, seg, W)]: the real-text streams K1 and K9 are timed on,
+    on the card: the smoke corpus as pre-split (the first rebuild, W =
+    256), the same stream after the golden's 768 merges (K10's plain rank
+    loop; W = 1024) and the XL corpus as pre-split (W = 256)."""
+    from minbpe_tpu_torch import RegexTokenizer
+    from minbpe_tpu_torch.convert import tokenizer_from_arrays
+    from minbpe_tpu_torch.ops.stream import build_stream
+
+    golden = golden_mod.load_golden()
+    M = len(golden["merges"])
+    tok = tokenizer_from_arrays(RegexTokenizer, golden["merges"],
+                                256 + np.arange(M), device="cuda")
+    ids, seg = build_stream(*tok._split_arrays(golden_mod.smoke_corpus(ROOT)),
+                            "cuda")
+    pairs = torch.from_numpy(np.asarray(golden["merges"], np.int32)).to(
+        ids.device)
+    new_ids = torch.arange(256, 256 + M, dtype=torch.int32, device=ids.device)
+    m_ids, m_seg, m_n = kernels.encode_sweep_plain(ids, seg, pairs, new_ids)
+    k = int(m_n)
+    xl_ids, xl_seg = build_stream(*tok._split_arrays(
+        golden_mod.xl_corpus(ROOT)), "cuda")
+    return [("smoke_w256", ids, seg, 256),
+            ("smoke_768_merges_w1024", m_ids[:k].contiguous(),
+             m_seg[:k].contiguous(), 256 + M),
+            ("xl_w256", xl_ids, xl_seg, 256)]
+
+
+def hist_case(torch, kernels, name, c_ids, c_seg, W: int, stats: bool):
+    """K1 (stats) or K9 over a whole stream at width W, against its plain
+    version. Returns (the record, the kernel's outputs). K1 writes into
+    matrices allocated once, as the trainer calls it. The bound: each
+    token's id and seg read once, each entry of the W x W matrices written
+    once (K1 cnt and first, 8 B; K9 cnt, 4 B); the library call:
+    torch.bincount over the countable pairs' keys."""
+    dev = c_ids.device
+    n = c_ids.numel()
+    c_n = torch.full((1,), n, dtype=torch.int32, device=dev)
+    if stats:
+        out = (torch.zeros((W, W), dtype=torch.int32, device=dev),
+               torch.full((W, W), -1, dtype=torch.int32, device=dev))
+
+        def run():
+            return kernels.pair_stats(c_ids, c_seg, c_n, W, out=out)
+
+        def plain():
+            return kernels.pair_stats_plain(c_ids, c_seg, c_n, W)
+    else:
+        def run():
+            return (kernels.pair_count(c_ids, c_seg, c_n, W),)
+
+        def plain():
+            return (kernels.pair_count_plain(c_ids, c_seg, c_n, W),)
+    got = run()
+    err = max_err(torch, list(zip(got, plain())))
+    if int(got[0].sum()) <= 0:
+        raise AssertionError(f"{'pair_stats' if stats else 'pair_count'} "
+                             f"counted nothing on {name}")
+    a, b = c_ids[:-1].long(), c_ids[1:].long()
+    keys = (a * W + b)[(c_seg[:-1] == c_seg[1:]) & (a >= 0) & (a < W)
+                       & (b >= 0) & (b < W)]
+    del a, b
+    big = n > (1 << 22)
+    nbytes = 8 * n + (8 if stats else 4) * W * W
+    rec = dict(
+        case=name, n=n, W=W, max_abs_err=err,
+        grid=kernels._load().bpe_pair_hist_grid(int(stats), n, 0),
+        ms=device_ms(torch, run, 10 if big else 50),
+        plain_ms=host_ms(torch, plain, 1 if big else 5),
+        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        library_ms=profiled_ms(torch, lambda: torch.bincount(
+            keys, minlength=W * W), 10 if big else 50))
+    print(f"{'pair_stats' if stats else 'pair_count'} {name}: n {n}, W {W}, "
+          f"grid {rec['grid']}, max_abs_err {err}, {rec['ms']:.5f} ms, bound "
+          f"{rec['bound_ms']:.5f} ms, bincount {rec['library_ms']:.5f} ms")
+    return rec, got
+
+
+def hist_row(info, main, shapes):
+    return dict(k=info, err=main["max_abs_err"], ms=main["ms"],
+                plain_ms=main["plain_ms"], bytes=main["bytes"],
+                library_ms=main["library_ms"], shapes=shapes)
+
+
+def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int,
+                  texts):
     W = 1024
     n = 400_000
     I = W - 256  # the merge whose rebuild the shapes are those of
@@ -247,19 +335,10 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int):
     nt = torch.tensor([n], dtype=torch.int32, device=dev)
     rows = []
 
-    # K1 pair_stats
-    ck, fk = kernels.pair_stats(ids, seg, nt, W)
-    cp, fp = kernels.pair_stats_plain(ids, seg, nt, W)
-    err1 = max_err(torch, [(ck, cp), (fk, fp)])
-    key = (ids[:-1].long() * W + ids[1:].long())[seg[:-1] == seg[1:]]
-    rows.append(dict(
-        k=kernels.PAIR_STATS, err=err1,
-        ms=device_ms(torch, lambda: kernels.pair_stats(ids, seg, nt, W), 50),
-        plain_ms=host_ms(torch, lambda: kernels.pair_stats_plain(
-            ids, seg, nt, W), 5),
-        bytes=8 * n + 8 * W * W,
-        library_ms=profiled_ms(torch, lambda: torch.bincount(
-            key, minlength=W * W), 50)))
+    # K1 pair_stats (its other shapes after K9's)
+    main1, (ck, fk) = hist_case(torch, kernels, "zipf_400k", ids, seg, W,
+                                True)
+    rows.append(hist_row(kernels.PAIR_STATS, main1, []))
 
     # K5 select_batch on K1's matrices at merge I, and on empty ones (the
     # fail round); its state is compared whole
@@ -421,67 +500,41 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int):
         library_ms=profiled_ms(torch, library_compact, 50)))
 
     # K9 pair_count at the main path's shape, at V = 2048 (a stream of its
-    # own with ids below 2048) and at the stepped route's 4 * 2^20 tokens
-    def count_case(c_ids, c_seg, V):
-        c_n = torch.full((1,), c_ids.numel(), dtype=torch.int32, device=dev)
-        got = kernels.pair_count(c_ids, c_seg, c_n, V)
-        err = max_err(torch, [(got, kernels.pair_count_plain(
-            c_ids, c_seg, c_n, V))])
-        if int(got.sum()) <= 0:
-            raise AssertionError(f"pair_count counted nothing at V = {V}")
-        same = c_seg[:-1] == c_seg[1:]
-        keys = (c_ids[:-1].long() * V + c_ids[1:].long())[same]
-        return dict(
-            n=c_ids.numel(), V=V, max_abs_err=err,
-            ms=device_ms(torch, lambda: kernels.pair_count(
-                c_ids, c_seg, c_n, V), 50),
-            plain_ms=host_ms(torch, lambda: kernels.pair_count_plain(
-                c_ids, c_seg, c_n, V), 5),
-            bytes=8 * c_ids.numel() + 4 * V * V,
-            bound_ms=(8 * c_ids.numel() + 4 * V * V) / HBM_BYTES_PER_S * 1e3,
-            library_ms=profiled_ms(torch, lambda: torch.bincount(
-                keys, minlength=V * V), 50))
-
-    main = count_case(ids, seg, W)
+    # own with ids below 2048), at the stepped route's 4 * 2^20 tokens and
+    # on the real-text streams; K1 on those too
+    main9, _ = hist_case(torch, kernels, "zipf_400k", ids, seg, W, False)
     ids2k, seg2k = (torch.from_numpy(a).to(dev)
                     for a in smoke_stream(np, n, 2048))
+    shapes9 = [hist_case(torch, kernels, "zipf_400k_v2048", ids2k, seg2k,
+                         2048, False)[0]]
+    del ids2k, seg2k
     big_ids, big_seg = xl_stream(torch, ids, seg, stepped_max_n)
-    others = [count_case(ids2k, seg2k, 2048),
-              count_case(big_ids, big_seg, W)]
-    del ids2k, seg2k, big_ids, big_seg
-    rows.append(dict(k=kernels.PAIR_COUNT, err=main["max_abs_err"],
-                     ms=main["ms"], plain_ms=main["plain_ms"],
-                     bytes=main["bytes"], library_ms=main["library_ms"],
-                     shapes=others))
-    for c in others:
-        print(f"pair_count at n {c['n']}, V {c['V']}: max_abs_err "
-              f"{c['max_abs_err']} ({c['ms']:.4f} ms, bound "
-              f"{c['bound_ms']:.4f} ms)")
+    shapes9.append(hist_case(torch, kernels, "zipf_4m", big_ids, big_seg, W,
+                             False)[0])
+    del big_ids, big_seg
+    for name, t_ids, t_seg, t_W in texts:
+        rows[0]["shapes"].append(hist_case(torch, kernels, name, t_ids, t_seg,
+                                           t_W, True)[0])
+        shapes9.append(hist_case(torch, kernels, name, t_ids, t_seg, t_W,
+                                 False)[0])
+    rows.append(hist_row(kernels.PAIR_COUNT, main9, shapes9))
 
     # K1 and K6 at the XL bound: the same stream repeated to XL_MAX_N tokens
     big_ids, big_seg = xl_stream(torch, ids, seg, xl_max_n)
     big_n = torch.tensor([xl_max_n], dtype=torch.int32, device=dev)
-    xk = kernels.pair_stats(big_ids, big_seg, big_n, W)
-    xp = kernels.pair_stats_plain(big_ids, big_seg, big_n, W)
-    xl1 = max_err(torch, list(zip(xk, xp)))
+    rows[0]["shapes"].append(hist_case(torch, kernels, "zipf_48m", big_ids,
+                                       big_seg, W, True)[0])
     xa_k, xa_p = kernels.new_hist(dev), kernels.new_hist(dev)
     mk = kernels.batch_mark(big_ids, big_seg, big_n, slot, xa_k[0])
     mp = kernels.batch_mark_plain(big_ids, big_seg, big_n, slot, xa_p[0])
     xl6 = max_err(torch, list(zip(mk, mp)) + [(xa_k, xa_p)])
-    rows[0]["xl"] = dict(
-        n=xl_max_n, max_abs_err=xl1,
-        ms=device_ms(torch, lambda: kernels.pair_stats(
-            big_ids, big_seg, big_n, W), 5))
     rows[3]["xl"] = dict(
         n=xl_max_n, max_abs_err=xl6,
         ms=device_ms(torch, lambda: kernels.batch_mark(
             big_ids, big_seg, big_n, slot, acc_t[0]), 5))
-    if int(xk[0].sum()) <= 0:
-        raise AssertionError("pair_stats counted nothing at the XL size")
-    print(f"xl size {xl_max_n}: pair_stats max_abs_err {xl1} "
-          f"({rows[0]['xl']['ms']:.4f} ms), batch_mark max_abs_err {xl6} "
+    print(f"xl size {xl_max_n}: batch_mark max_abs_err {xl6} "
           f"({rows[3]['xl']['ms']:.4f} ms)")
-    del big_ids, big_seg, xk, xp, mk, mp
+    del big_ids, big_seg, mk, mp
 
     return rows
 
@@ -885,6 +938,11 @@ def note_batching(train_mod, timings, name: str, merges: int):
                              f"for {merges} merges")
 
 
+# K1's two kernels and K9's (its memset is not told apart from others)
+PAIR_HIST_KERNELS = ("pair_stats_kernel", "clear_stats_kernel",
+                     "pair_count_kernel")
+
+
 def _kernel_name(key: str) -> str:
     m = re.search(r"::(\w+(?:<[^>]*>)?)\(", key)
     return m.group(1) if m else key[:40]
@@ -943,6 +1001,8 @@ def phase_device_time(torch, golden_mod):
             "device_busy_ms": busy,
             "idle_share": 1 - busy / wall,
             "by_kernel": [[_kernel_name(k), ms, c] for ms, c, k in parts[:9]],
+            "pair_hist": [[_kernel_name(k), ms, c] for ms, c, k in parts
+                          if _kernel_name(k) in PAIR_HIST_KERNELS],
         }
     return out
 
@@ -997,7 +1057,8 @@ def main() -> int:
     try:
         phase_build(kernels, native)
         rows = phase_kernels(torch, np, kernels, XL_MAX_N,
-                             STEPPED_AUTO_MAX_N)
+                             STEPPED_AUTO_MAX_N,
+                             text_streams(torch, np, kernels, golden_mod))
         rows.append(phase_sweep(torch, np, kernels, golden_mod))
         check_rows(rows)
         timings, launches = phase_main_path(torch, np, kernels, golden_mod,

@@ -16,7 +16,8 @@
 //
 //   K1 pair_stats     <- tiled_adjacency + count_width/count_blocked/
 //                        count_full (fused_train.py:251-290, :816-891);
-//                        _adjcount_kernel (fused_train_xl.py:74-157)
+//                        _adjcount_kernel (fused_train_xl.py:74-157);
+//                        one counting core with K9 (count_pairs)
 //   K5 select_batch   <- the selection walk sel_body + select_candidate +
 //                        no_pair (fused_train.py:915-1000, :1042-1084,
 //                        :1118-1123); _adjcount_kernel's _select
@@ -36,7 +37,8 @@
 //   K10 encode_sweep  <- fused_encode.py::_kernel (:45-127): the whole rank
 //                        sweep and its compaction, one launch
 //   K9 pair_count     <- ops/pallas/pair_count.py::_kernel (:29-53), the
-//                        dense pair-count matrix of the selection paths
+//                        dense pair-count matrix of the selection paths;
+//                        K1's counting core without first positions
 //
 // Training runs in rebuild SLOTS. The host enqueues slots without knowing
 // what a slot does: that lives in device memory.
@@ -53,10 +55,13 @@
 //
 // Each extern "C" entry point launches one kernel on the caller's stream
 // (K1 and K8 two, K9 a memset and one), allocates nothing, and returns
-// cudaGetLastError() (0 on success).
+// cudaGetLastError() (0 on success). K1 and K9 also return the error of
+// allowing their shared-memory table (once per device).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libbpe_kernels.so bpe_kernels.cu
+
+#include <atomic>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -102,6 +107,30 @@ __device__ __forceinline__ bool gated_off(const int* slot, int lo, int hi) {
   if (slot == nullptr) return false;
   const int b = slot[SLOT_BSEL];
   return b < lo || b > hi;
+}
+
+template <bool CG>
+__device__ __forceinline__ int ld1(const int* p) {
+  if constexpr (CG) return __ldcg(p);
+  else return __ldg(p);
+}
+
+template <bool CG>
+__device__ __forceinline__ int4 ld4(const int* p) {
+  if constexpr (CG) return __ldcg(reinterpret_cast<const int4*>(p));
+  else return __ldg(reinterpret_cast<const int4*>(p));
+}
+
+__device__ __forceinline__ bool aligned16(const void* a, const void* b) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
+          15) == 0;
+}
+
+__device__ __forceinline__ void unpack4(int4 v, int* o) {
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
 }
 
 template <bool SUM>
@@ -150,105 +179,259 @@ __device__ int block_exclusive_scan(int v, int* total) {
 }
 
 // ---------------------------------------------------------------------------
-// K1 pair_stats: exact pair counts and first positions over the live prefix.
+// K1 pair_stats and K9 pair_count: one block-privatised pair histogram.
 //
-// The matrices are V x V (row stride V); the ids present are below
-// W = 256 + i (the trainer's ctl) or W = V (no ctl). The clear kernel resets
-// the W x W corner (cnt to 0, first to 0xFFFFFFFF, read as -1 from int32);
-// entries outside it are never written, so they keep the 0 / -1 they were
-// allocated with. Then cnt[a * V + b] += 1 and first[a * V + b] =
-// min(position) for every countable pair (a, b) with a, b < W.
+// Both count cnt[a * V + b] += 1 for every countable pair: a position p with
+// p + 1 < n and seg[p] == seg[p + 1] whose ids a = ids[p], b = ids[p + 1]
+// both lie in [0, W); an id outside it counts nowhere. The matrices are
+// V x V (row stride V).
+//   K1 (W = 256 + i from the trainer's ctl, or V without ctl) also keeps
+//      first[a * V + b] = min(p), and rewrites only the W x W corner: its
+//      clear kernel sets the corner's cnt to 0 and first to 0xFFFFFFFF (-1
+//      as int32), one warp a row, and entries outside it keep what they
+//      hold. An idle ctl returns before either kernel touches anything.
+//   K9 (W = V) memsets the whole matrix first.
 //
-// Bound: the atomics, not the bytes (8 B read per token, 8 B per matrix
-// entry written). A hot pair (" t", "e ") sends thousands of atomics to one
-// address, and those serialize in L2. Each warp therefore aggregates equal
-// pairs with __match_any_sync first: one atomicAdd of the group size and one
-// atomicMin of the group's lowest lane, which holds its lowest position.
-// Over the whole stream this is B3's count: segments were a VMEM limit, and
-// 48M tokens of ids and seg are 384 MB of the card's 80 GB.
+// Bound: bytes, 8 B read per token and 8 B (K1) or 4 B (K9) written per
+// matrix entry: 8 n + 8 W^2 and 8 n + 4 V^2. The grid-stride kernels they
+// replace sent about one L2 atomic per position (K1 two), because 32
+// consecutive positions of text hold mostly distinct pairs, and a hot pair
+// such as (" ", "t") serialised thousands of them at one address: 10-24x
+// the bytes bound.
+//
+// So the histogram is privatised per block. A persistent grid (the blocks
+// that fit on the device at once, capped at the stream's chunks of TILE
+// positions) gives each block one contiguous range of chunks. A thread
+// loads its IPT consecutive ids and seg with 16-byte loads and takes the
+// token after them from its neighbour lane (lane 31 from memory), so each
+// token is read from device memory once, and the pair at a chunk's last
+// position belongs to that chunk alone. Equal pairs of a warp merge with
+// __match_any_sync first (it collapses runs); each group's leader adds its
+// size, and its position, which is the group's smallest, into an
+// open-addressing table in dynamic shared memory: a key, a count and (K1)
+// a first position per slot, the key claimed with a shared atomicCAS (the
+// empty key is 0xFFFFFFFF, since key 0 is the pair (0, 0)). After its range
+// the block flushes the table: one global atomicAdd (and one atomicMin) per
+// occupied slot. On text the distinct pairs of a range are a small part of
+// its positions, and a hot pair costs one global atomic per block. A table
+// more than half full is flushed and cleared at the next chunk's end, and
+// an insert that finds neither its key nor an empty slot within HIST_PROBES
+// slots sends the global atomics itself; counts add and first is a min, so
+// the result is exact either way.
+//
+// Geometry, tuned on the H100 with scripts/tune_pair_hist.py: 8,192 slots
+// (96 KB for K1, 64 KB for K9: 2 and 3 blocks an SM), and a range of
+// n / grid positions in whole chunks (47,683 for K1 on a 12.6M-token
+// stream). What bounds them now is the shared-memory work per position:
+// 3.4-6.3x the bytes bound on large streams, where the loads and matches
+// alone take 1.4-1.6x. Where no pair is hot and a block gets one chunk,
+// direct L2 atomics were faster (PERF.md).
 // ---------------------------------------------------------------------------
+constexpr unsigned EMPTY_KEY = 0xFFFFFFFFu;
+constexpr int HIST_PROBES = 16;
+// table slots 1 << log2: HIST_LOG2 by default (tuned on the H100 with
+// scripts/tune_pair_hist.py), HIST_LOG2_MIN .. HIST_LOG2_MAX on request
+constexpr int HIST_LOG2 = 13;
+constexpr int HIST_LOG2_MIN = 5;
+constexpr int HIST_LOG2_MAX = 14;
+
 __device__ __forceinline__ int width_of(const int* ctl, int V) {
   return ctl == nullptr ? V : min(V, 256 + ctl[CTL_I]);
 }
 
-__global__ void clear_stats_kernel(const int* ctl, unsigned* __restrict__ cnt,
-                                   unsigned* __restrict__ first, int V) {
-  if (idle(ctl)) return;
-  const int W = width_of(ctl, V);
-  const int WW = W * W;
-  for (int idx = blockIdx.x * blockDim.x + threadIdx.x; idx < WW;
-       idx += gridDim.x * blockDim.x) {
-    const int e = (idx / W) * V + idx % W;
-    cnt[e] = 0u;
-    first[e] = 0xFFFFFFFFu;
+// A block's table in dynamic shared memory, 1 << log2 slots: keys, counts
+// and (FIRST) first positions, each array 16-byte aligned.
+template <bool FIRST>
+struct PairTable {
+  unsigned* key;
+  unsigned* cnt;
+  unsigned* first;
+  int log2;
+
+  // every slot empty; block-wide, the caller synchronises
+  __device__ void clear() {
+    const uint4 none = make_uint4(EMPTY_KEY, EMPTY_KEY, EMPTY_KEY, EMPTY_KEY);
+    for (int q = threadIdx.x; q < (1 << log2) / 4; q += blockDim.x) {
+      reinterpret_cast<uint4*>(key)[q] = none;
+      reinterpret_cast<uint4*>(cnt)[q] = make_uint4(0, 0, 0, 0);
+      if (FIRST) reinterpret_cast<uint4*>(first)[q] = none;
+    }
+  }
+
+  // c occurrences of key k, the first at p; false when neither k nor an
+  // empty slot lies within HIST_PROBES slots of its hash. ++*fresh when it
+  // claims a slot.
+  __device__ bool add(unsigned k, unsigned c, unsigned p, int* fresh) {
+    const unsigned mask = (1u << log2) - 1;
+    unsigned s = (k * 0x9E3779B1u) >> (32 - log2);
+    for (int probe = 0; probe < HIST_PROBES; ++probe, s = (s + 1) & mask) {
+      // a slot's key changes once per clear, from empty to its owner
+      unsigned held = reinterpret_cast<volatile unsigned*>(key)[s];
+      if (held == EMPTY_KEY) {
+        held = atomicCAS(key + s, EMPTY_KEY, k);
+        if (held == EMPTY_KEY) {
+          held = k;
+          ++*fresh;
+        }
+      }
+      if (held == k) {
+        atomicAdd(cnt + s, c);
+        if (FIRST) atomicMin(first + s, p);
+        return true;
+      }
+    }
+    return false;
+  }
+
+  // each occupied slot into the matrices, and emptied when reset; block-wide,
+  // after a barrier
+  __device__ void flush(unsigned* g_cnt, unsigned* g_first, bool reset) {
+    for (int q = threadIdx.x; q < (1 << log2) / 4; q += blockDim.x) {
+      const uint4 k4 = reinterpret_cast<const uint4*>(key)[q];
+      const uint4 c4 = reinterpret_cast<const uint4*>(cnt)[q];
+      uint4 f4 = make_uint4(0, 0, 0, 0);
+      if (FIRST) f4 = reinterpret_cast<const uint4*>(first)[q];
+      const unsigned ks[4] = {k4.x, k4.y, k4.z, k4.w};
+      const unsigned cs[4] = {c4.x, c4.y, c4.z, c4.w};
+      const unsigned fs[4] = {f4.x, f4.y, f4.z, f4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (ks[j] == EMPTY_KEY) continue;
+        atomicAdd(g_cnt + ks[j], cs[j]);
+        if (FIRST) atomicMin(g_first + ks[j], fs[j]);
+      }
+    }
+    if (reset) clear();
+  }
+};
+
+// ids and seg at p0 .. p0 + IPT - 1 into id[0 .. IPT), sg[0 .. IPT) (0 from
+// n on), and at p0 + IPT into id[IPT], sg[IPT] from the next lane (lane 31
+// from memory; meaningless from n on). Every lane of the warp calls it.
+__device__ __forceinline__ void load_pairs(const int* ids, const int* seg,
+                                           int p0, int n, bool vec,
+                                           int (&id)[IPT + 1],
+                                           int (&sg)[IPT + 1]) {
+  if (vec && p0 + IPT <= n) {
+#pragma unroll
+    for (int v = 0; v < IPT / 4; ++v) {
+      unpack4(ld4<false>(ids + p0 + 4 * v), id + 4 * v);
+      unpack4(ld4<false>(seg + p0 + 4 * v), sg + 4 * v);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      id[k] = p0 + k < n ? __ldg(ids + p0 + k) : 0;
+      sg[k] = p0 + k < n ? __ldg(seg + p0 + k) : 0;
+    }
+  }
+  id[IPT] = __shfl_down_sync(0xffffffffu, id[0], 1);
+  sg[IPT] = __shfl_down_sync(0xffffffffu, sg[0], 1);
+  if ((threadIdx.x & 31) == 31 && p0 + IPT < n) {
+    id[IPT] = __ldg(ids + p0 + IPT);
+    sg[IPT] = __ldg(seg + p0 + IPT);
   }
 }
 
-__global__ void pair_stats_kernel(const int* __restrict__ ids,
-                                  const int* __restrict__ seg,
-                                  const int* __restrict__ n_ptr,
-                                  const int* ctl,
-                                  unsigned* __restrict__ cnt,
-                                  unsigned* __restrict__ first, int V) {
-  if (idle(ctl)) return;
-  const int W = width_of(ctl, V);
-  const int n = *n_ptr;
-  const int stride = gridDim.x * blockDim.x;
+// The counting core of K1 (FIRST) and K9: the countable pairs of
+// ids[0 .. n), seg[0 .. n) with both ids below W, added into g_cnt (and
+// their smallest positions min-ed into g_first) through the block's table.
+// Chunk c holds the pairs at positions c * TILE .. c * TILE + TILE - 1.
+template <bool FIRST>
+__device__ void count_pairs(const int* __restrict__ ids,
+                            const int* __restrict__ seg, int n, int W, int V,
+                            unsigned* g_cnt, unsigned* g_first, int log2) {
+  extern __shared__ uint4 hist_smem[];
+  __shared__ int used;  // slots claimed since the last flush
+  const int chunks = n >= 2 ? (n - 2) / TILE + 1 : 0;
+  const int lo = (int)((long long)blockIdx.x * chunks / gridDim.x);
+  const int hi = (int)((long long)(blockIdx.x + 1) * chunks / gridDim.x);
+  if (lo >= hi) return;
+  unsigned* const smem = reinterpret_cast<unsigned*>(hist_smem);
+  const int T = 1 << log2;
+  PairTable<FIRST> tab{smem, smem + T, FIRST ? smem + 2 * T : nullptr, log2};
+  tab.clear();
+  if (threadIdx.x == 0) used = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const bool vec = aligned16(ids, seg);
   // the loop bound depends on the block only, so whole warps iterate
   // together and __match_any_sync sees every lane
-  for (int base = blockIdx.x * blockDim.x; base < n - 1; base += stride) {
-    const int i = base + threadIdx.x;
-    int key = -1;
-    if (i < n - 1 && seg[i] == seg[i + 1]) {
-      const int a = ids[i];
-      const int b = ids[i + 1];
-      if (a >= 0 && a < W && b >= 0 && b < W) key = a * V + b;
+  for (int c = lo; c < hi; ++c) {
+    const int p0 = c * TILE + threadIdx.x * IPT;
+    int id[IPT + 1], sg[IPT + 1];
+    load_pairs(ids, seg, p0, n, vec, id, sg);
+    int fresh = 0;
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      const int a = id[k], b = id[k + 1];
+      const bool ok = p0 + k + 1 < n && sg[k] == sg[k + 1] &&
+                      (unsigned)a < (unsigned)W && (unsigned)b < (unsigned)W;
+      const unsigned key = ok ? (unsigned)(a * V + b) : EMPTY_KEY;
+      const unsigned group = __match_any_sync(0xffffffffu, key);
+      if (ok && lane == __ffs(group) - 1) {
+        const unsigned m = __popc(group);
+        const unsigned p = (unsigned)(p0 + k);
+        if (!tab.add(key, m, p, &fresh)) {
+          atomicAdd(g_cnt + key, m);
+          if (FIRST) atomicMin(g_first + key, p);
+        }
+      }
     }
-    const unsigned group = __match_any_sync(0xffffffffu, key);
-    if (key >= 0 && (threadIdx.x & 31) == __ffs(group) - 1) {
-      atomicAdd(&cnt[key], (unsigned)__popc(group));
-      atomicMin(&first[key], (unsigned)i);
+    fresh = __reduce_add_sync(0xffffffffu, fresh);
+    if (lane == 0 && fresh) atomicAdd(&used, fresh);
+    // thread 0 may read used before later warps add theirs: the flush then
+    // comes a chunk later, and a full table only sends more global atomics
+    const bool full = __syncthreads_or(
+        threadIdx.x == 0 && *reinterpret_cast<volatile int*>(&used) > T / 2);
+    if (full || c + 1 == hi) {
+      tab.flush(g_cnt, g_first, c + 1 < hi);
+      if (threadIdx.x == 0) used = 0;
+      __syncthreads();
     }
   }
 }
 
-// ---------------------------------------------------------------------------
-// K9 pair_count: the dense V x V pair-count matrix of a stream, without
-// first positions and without the trainer's state.
-//
-// The Pallas kernel builds bf16 one-hot slabs of each (8, 256) tile of pairs
-// and accumulates (V, 256) @ (256, V) MXU products into a VMEM (V, V)
-// accumulator: 2 N V^2 operations for what is a histogram of N entries. This
-// is the histogram: cnt[a * V + b] += 1 for every p with p + 1 < n,
-// seg[p] == seg[p + 1] and 0 <= a, b < V, (a, b) = (ids[p], ids[p + 1]); an
-// id outside [0, V) has an all-zero one-hot row there and counts nowhere
-// here. The clear is a memset of the matrix. One thread per position, in a
-// grid-stride loop whose bound depends on the block only, so a warp
-// aggregates equal pairs with __match_any_sync: one atomicAdd of the group
-// size per distinct pair.
-//
-// Bound: bytes (8 B read per token, 4 B per matrix entry cleared and
-// written); the matrix (16 MB at V = 2048) stays in L2, where the atomics of
-// a hot pair serialize.
-// ---------------------------------------------------------------------------
-__global__ void pair_count_kernel(const int* __restrict__ ids,
-                                  const int* __restrict__ seg,
-                                  const int* __restrict__ n_ptr,
-                                  unsigned* __restrict__ cnt, int V) {
-  const int n = *n_ptr;
-  const int stride = gridDim.x * blockDim.x;
-  for (int base = blockIdx.x * blockDim.x; base < n - 1; base += stride) {
-    const int i = base + threadIdx.x;
-    long long key = -1;
-    if (i < n - 1 && seg[i] == seg[i + 1]) {
-      const int a = ids[i];
-      const int b = ids[i + 1];
-      if (a >= 0 && a < V && b >= 0 && b < V) key = (long long)a * V + b;
+// K1's clear: the W x W corner, one warp a row, 16-byte stores when every
+// row is 16-byte aligned.
+__global__ void __launch_bounds__(TPB)
+    clear_stats_kernel(const int* ctl, unsigned* __restrict__ cnt,
+                       unsigned* __restrict__ first, int V) {
+  if (idle(ctl)) return;
+  const int W = width_of(ctl, V);
+  const int lane = threadIdx.x & 31;
+  const int quads = V % 4 == 0 && aligned16(cnt, first) ? W / 4 : 0;
+  const uint4 none = make_uint4(EMPTY_KEY, EMPTY_KEY, EMPTY_KEY, EMPTY_KEY);
+  for (int r = blockIdx.x * (TPB / 32) + (threadIdx.x >> 5); r < W;
+       r += gridDim.x * (TPB / 32)) {
+    unsigned* const c = cnt + (size_t)r * V;
+    unsigned* const f = first + (size_t)r * V;
+    for (int q = lane; q < quads; q += 32) {
+      reinterpret_cast<uint4*>(c)[q] = make_uint4(0, 0, 0, 0);
+      reinterpret_cast<uint4*>(f)[q] = none;
     }
-    const unsigned group = __match_any_sync(0xffffffffu, key);
-    if (key >= 0 && (threadIdx.x & 31) == __ffs(group) - 1)
-      atomicAdd(&cnt[key], (unsigned)__popc(group));
+    for (int j = 4 * quads + lane; j < W; j += 32) {
+      c[j] = 0u;
+      f[j] = EMPTY_KEY;
+    }
   }
+}
+
+__global__ void __launch_bounds__(TPB)
+    pair_stats_kernel(const int* __restrict__ ids,
+                      const int* __restrict__ seg,
+                      const int* __restrict__ n_ptr, const int* ctl,
+                      unsigned* cnt, unsigned* first, int V, int log2) {
+  if (idle(ctl)) return;
+  count_pairs<true>(ids, seg, *n_ptr, width_of(ctl, V), V, cnt, first, log2);
+}
+
+__global__ void __launch_bounds__(TPB)
+    pair_count_kernel(const int* __restrict__ ids,
+                      const int* __restrict__ seg,
+                      const int* __restrict__ n_ptr, unsigned* cnt, int V,
+                      int log2) {
+  count_pairs<false>(ids, seg, *n_ptr, V, V, cnt, nullptr, log2);
 }
 
 // ---------------------------------------------------------------------------
@@ -639,23 +822,6 @@ struct Lane {
   bool mb;     // a match at the position before its first
 };
 
-template <bool CG>
-__device__ __forceinline__ int ld1(const int* p) {
-  if constexpr (CG) return __ldcg(p);
-  else return __ldg(p);
-}
-
-template <bool CG>
-__device__ __forceinline__ int4 ld4(const int* p) {
-  if constexpr (CG) return __ldcg(reinterpret_cast<const int4*>(p));
-  else return __ldg(reinterpret_cast<const int4*>(p));
-}
-
-__device__ __forceinline__ bool aligned16(const void* a, const void* b) {
-  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) &
-          15) == 0;
-}
-
 // The tile at t0 of ids[0 .. n), seg[0 .. n) into sh (positions from n on
 // read as 0). CG: the stream was written by this launch (K10's ping-pong
 // buffers), so it is read through L2 and not the read-only path.
@@ -696,13 +862,6 @@ __device__ __forceinline__ int staged_at(const int4* v, const int* halo,
                                          int l) {
   return l < 0 ? halo[0]
                : (l >= TILE ? halo[1] : reinterpret_cast<const int*>(v)[l]);
-}
-
-__device__ __forceinline__ void unpack4(int4 v, int* o) {
-  o[0] = v.x;
-  o[1] = v.y;
-  o[2] = v.z;
-  o[3] = v.w;
 }
 
 __device__ __forceinline__ Lane lane_matches(const Stage& sh, int t0, int n,
@@ -1214,6 +1373,53 @@ inline int stat_blocks(long long items) {
   return g < 1 ? 1 : (g > MAX_STAT_BLOCKS ? MAX_STAT_BLOCKS : (int)g);
 }
 
+inline size_t hist_smem_bytes(bool first, int log2) {
+  return (size_t)(first ? 3 : 2) * sizeof(unsigned) << log2;
+}
+
+// K1's (first) or K9's launch geometry over cap positions on the current
+// device: *log2 = the table's slots (0 asks for HIST_LOG2), *grid = the
+// blocks (0 asks for as many as fit on the device at once, capped at the
+// stream's chunks). Once per device and kernel it allows the largest
+// table's shared memory and records the SM count.
+cudaError_t hist_geometry(bool first, int cap, int* log2, int* grid) {
+  static std::atomic<int> sms[64][2];
+  static std::atomic<int> per_sm[64][2][HIST_LOG2_MAX + 1];
+  const void* fn = first ? (const void*)pair_stats_kernel
+                         : (const void*)pair_count_kernel;
+  if (*log2 == 0) *log2 = HIST_LOG2;
+  if (*log2 < HIST_LOG2_MIN || *log2 > HIST_LOG2_MAX || *grid < 0)
+    return cudaErrorInvalidValue;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (sms[dev][first] == 0) {
+    int s;
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)hist_smem_bytes(first, HIST_LOG2_MAX));
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    sms[dev][first] = s;
+  }
+  if (*grid == 0) {
+    std::atomic<int>& per = per_sm[dev][first][*log2];
+    if (per == 0) {
+      int p;
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &p, fn, TPB, hist_smem_bytes(first, *log2));
+      if (e != cudaSuccess) return e;
+      if (p < 1) return cudaErrorInvalidConfiguration;
+      per = p;
+    }
+    const int chunks = cap >= 2 ? (cap - 2) / TILE + 1 : 1;
+    *grid = per * sms[dev][first];
+    if (*grid > chunks) *grid = chunks;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1222,27 +1428,42 @@ int bpe_tile_size() { return TILE; }
 
 int bpe_select_blocks(int V) { return (V * V + SEL_TILE - 1) / SEL_TILE; }
 
-// cnt, first: V x V; ctl may be null (W = V)
+// cnt, first: V x V; ctl may be null (W = V). log2: the table's slots,
+// grid: the blocks; 0 chooses either (hist_geometry).
 int bpe_pair_stats(const int* ids, const int* seg, const int* n,
                    const int* ctl, unsigned* cnt, unsigned* first, int V,
-                   int cap, void* stream) {
+                   int cap, int log2, int grid, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  clear_stats_kernel<<<stat_blocks((long long)V * V), TPB, 0, s>>>(
+  const cudaError_t e = hist_geometry(true, cap, &log2, &grid);
+  if (e != cudaSuccess) return e;
+  clear_stats_kernel<<<(V + TPB / 32 - 1) / (TPB / 32), TPB, 0, s>>>(
       ctl, cnt, first, V);
-  pair_stats_kernel<<<stat_blocks(cap), TPB, 0, s>>>(ids, seg, n, ctl, cnt,
-                                                     first, V);
+  pair_stats_kernel<<<grid, TPB, hist_smem_bytes(true, log2), s>>>(
+      ids, seg, n, ctl, cnt, first, V, log2);
   return cudaGetLastError();
 }
 
-// cnt: V x V, overwritten
+// cnt: V x V, overwritten; log2 and grid as for bpe_pair_stats
 int bpe_pair_count(const int* ids, const int* seg, const int* n,
-                   unsigned* cnt, int V, int cap, void* stream) {
+                   unsigned* cnt, int V, int cap, int log2, int grid,
+                   void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e =
-      cudaMemsetAsync(cnt, 0, (size_t)V * V * sizeof(unsigned), s);
+  cudaError_t e = hist_geometry(false, cap, &log2, &grid);
+  if (e == cudaSuccess)
+    e = cudaMemsetAsync(cnt, 0, (size_t)V * V * sizeof(unsigned), s);
   if (e != cudaSuccess) return e;
-  pair_count_kernel<<<stat_blocks(cap), TPB, 0, s>>>(ids, seg, n, cnt, V);
+  pair_count_kernel<<<grid, TPB, hist_smem_bytes(false, log2), s>>>(
+      ids, seg, n, cnt, V, log2);
   return cudaGetLastError();
+}
+
+// The grid K1 (first = 1) or K9 would launch over cap positions with
+// 1 << log2 table slots (0: the default) on the current device; a negative
+// CUDA error where it has none.
+int bpe_pair_hist_grid(int first, int cap, int log2) {
+  int grid = 0;
+  const cudaError_t e = hist_geometry(first != 0, cap, &log2, &grid);
+  return e == cudaSuccess ? grid : -(int)e;
 }
 
 // scratch: uint64[1 + bpe_select_blocks(V) * 16], zero before the first call

@@ -19,6 +19,11 @@ same device, so a whole run launches without a host sync per merge:
 - ``encode_sweep``   K10: the encoder's whole rank sweep, every merge of a
   table applied and compacted in turn, in one cooperative launch.
 
+K1 and K9 share one counting core: each block of a persistent grid counts
+one contiguous range of the stream into a hash table of pairs in shared
+memory and adds it into the matrices with one global atomic per distinct
+pair (K1 also a min of first positions).
+
 K3 and K4 chain their tiles with a decoupled look-back over status words
 that persist per stream (``_lookback_state``); each call tags them with a
 new generation, so no call clears them first.
@@ -189,7 +194,7 @@ def _load():
         sigs = {
             "bpe_tile_size": [],
             "bpe_select_blocks": [I],
-            "bpe_pair_stats": [P, P, P, P, P, P, I, I, P],
+            "bpe_pair_stats": [P, P, P, P, P, P, I, I, I, I, P],
             "bpe_select_batch": [P, P, I, P, P, P, P, P, P],
             "bpe_merge_apply": [P, P, P, P, I, P, I, P, P, P, P, I, P],
             "bpe_batch_mark": [P, P, P, P, I, P, P, P, P],
@@ -198,7 +203,8 @@ def _load():
             "bpe_compact": [P, P, P, P, P, I, P, P, P, P, I, P],
             "bpe_encode_grid": [I],
             "bpe_encode_sweep": [P, P, I, P, P, I, P, P, P, P, P, I, P, P],
-            "bpe_pair_count": [P, P, P, P, I, I, P],
+            "bpe_pair_count": [P, P, P, P, I, I, I, I, P],
+            "bpe_pair_hist_grid": [I, I, I],
         }
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
@@ -320,8 +326,14 @@ def _gated_off(slot, lo: int, hi: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# K1 pair_stats
+# K1 pair_stats (K9 shares its counting core, count_pairs in the CUDA source)
 # ---------------------------------------------------------------------------
+
+def _check_width(V: int):
+    """The kernels index the V x V matrices with 32-bit a * V + b."""
+    if not 1 <= V * V < 1 << 31:
+        raise ValueError(f"V = {V}: the kernels take 1 <= V * V < 2^31")
+
 
 def _stats_out(V, device, out):
     if out is not None:
@@ -366,12 +378,13 @@ def pair_stats(ids, seg, n, V: int, ctl=None, out=None):
     dev = ids.device
     _check_stream(ids, seg, n)
     _check_state(ctl, device=dev)
+    _check_width(V)
     cnt, first = _stats_out(V, dev, out)
     _check("cnt", cnt, torch.int32, dev, V * V)
     _check("first", first, torch.int32, dev, V * V)
     lib = _load()
     _run(dev, lib.bpe_pair_stats, _ptr(ids), _ptr(seg), _ptr(n), _ptr(ctl),
-         _ptr(cnt), _ptr(first), V, ids.numel())
+         _ptr(cnt), _ptr(first), V, ids.numel(), 0, 0)
     PAIR_STATS.launches += 1
     return cnt, first
 
@@ -719,7 +732,7 @@ def compact(ids, seg, live, n, slot=None):
 
 
 # ---------------------------------------------------------------------------
-# K9 pair_count
+# K9 pair_count (K1's counting core without first positions)
 # ---------------------------------------------------------------------------
 
 def pair_count_plain(ids, seg, n, V: int):
@@ -744,10 +757,11 @@ def pair_count(ids, seg, n, V: int):
         return pair_count_plain(ids, seg, n, V)
     dev = ids.device
     _check_stream(ids, seg, n)
+    _check_width(V)
     cnt = torch.empty((V, V), dtype=torch.int32, device=dev)
     lib = _load()
     _run(dev, lib.bpe_pair_count, _ptr(ids), _ptr(seg), _ptr(n), _ptr(cnt),
-         V, ids.numel())
+         V, ids.numel(), 0, 0)
     PAIR_COUNT.launches += 1
     return cnt
 

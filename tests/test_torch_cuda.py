@@ -231,6 +231,98 @@ def test_pair_count_matches_plain(dev, seed, n, V):
                                   & (ids[1:n] < V)).sum())
 
 
+# K1 and K9's counting core: each block of a persistent grid counts one
+# contiguous range of chunks of TILE pair positions into a shared-memory
+# table of 1 << log2 slots. Each case: (ids, seg, n, V, ctl's i or None,
+# log2, grid), 0 in log2 or grid for the kernels' own choice.
+def _uniform(seed, n, hi):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, hi, n).astype(np.int32),
+            np.cumsum(rng.random(n) < 0.01).astype(np.int32))
+
+
+def _one_pair(n, ends):
+    """One pair, (5, 5), over the whole stream, its chunk cut before each
+    position of ``ends``."""
+    seg = np.zeros(n, np.int32)
+    for e in ends:
+        seg[e:] += 1
+    return np.full(n, 5, np.int32), seg
+
+
+def _hist_case(name):
+    T = kernels.TILE
+    if name == "overflow":  # ~10^6 distinct pairs: every table overflows
+        return (*_uniform(40, 1 << 20, 1024), 1 << 20, 1024, None, 0, 0)
+    if name == "overflow_tiny_table":  # 32 slots: most inserts go global
+        return (*_uniform(41, 100_000, 1024), 100_000, 1024, None, 5, 0)
+    if name == "one_pair_ranges":  # 3 blocks of 3 chunks; chunk ends on
+        n = 9 * T + 1               # range ends, a chunk end and mid-chunk
+        return (*_one_pair(n, (T, 3 * T, 6 * T, 7 * T + 100)), n, 300, None,
+                0, 3)
+    if name == "one_pair_default":
+        n = 40 * T + 5
+        return (*_one_pair(n, (T, 8 * T, 8 * T + 1, 33 * T)), n, 300, None,
+                0, 0)
+    if name.startswith("n_"):  # n at a range length (one chunk) +- 1
+        n = T + int(name[2:])
+        ids, seg = _stream(42, n, 6, T - 40, 80)
+        return ids, seg, n, 300, None, 0, 0
+    if name == "ctl_w_below_v":  # W = 300 < V = 1024; ids up to 400
+        ids, seg = _stream(43, 50_000, 400, 10_000, 3000)
+        return ids, seg, 50_000, 1024, 44, 0, 0
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", [
+    "overflow", "overflow_tiny_table", "one_pair_ranges", "one_pair_default",
+    "n_-1", "n_0", "n_1", "n_2", "ctl_w_below_v"])
+def test_pair_hist_matches_plain(dev, name):
+    """K1 (with ctl: into matrices that hold other values outside the
+    W x W corner) and K9 against their plain versions."""
+    ids, seg, n, V, i, log2, grid = _hist_case(name)
+    nt = np.array([n], np.int32)
+    (ci, cs, cn), (gi, gs, gn) = _both(dev, ids, seg, nt)
+    rng = np.random.default_rng(7)
+    junk = [torch.from_numpy(rng.integers(-9, 9, (V, V)).astype(np.int32))
+            for _ in range(2)]
+    ctl_c = ctl_g = None
+    if i is not None:
+        (ctl_c, _, _), (ctl_g, _, _) = _state(dev, 1000, 256 + i)
+    want = kernels.pair_stats(ci, cs, cn, V, ctl_c,
+                              out=tuple(j.clone() for j in junk))
+    got = tuple(j.to(dev) for j in junk)
+    lib = kernels._load()
+    p = kernels._ptr
+    kernels._run(dev, lib.bpe_pair_stats, p(gi), p(gs), p(gn), p(ctl_g),
+                 p(got[0]), p(got[1]), V, n, log2, grid)
+    assert torch.equal(want[0], got[0].cpu())
+    assert torch.equal(want[1], got[1].cpu())
+    if i is None:
+        cnt = torch.empty((V, V), dtype=torch.int32, device=dev)
+        kernels._run(dev, lib.bpe_pair_count, p(gi), p(gs), p(gn), p(cnt), V,
+                     n, log2, grid)
+        assert torch.equal(kernels.pair_count_plain(ci, cs, cn, V),
+                           cnt.cpu())
+        assert torch.equal(kernels.pair_count(gi, gs, gn, V), cnt)
+
+
+def test_pair_stats_idle_ctl_leaves_matrices(dev):
+    """An idle ctl (i at the fail round): neither the clear nor the count
+    writes anything."""
+    ids, seg = _stream(44, 30_000, 300)
+    _, (gi, gs) = _both(dev, ids, seg)
+    n = torch.tensor([30_000], dtype=torch.int32, device=dev)
+    _, (ctl, _, _) = _state(dev, 100, 300)
+    ctl[kernels.CTL_FAIL] = 44
+    rng = np.random.default_rng(8)
+    before = [torch.from_numpy(rng.integers(-9, 9, (300, 300)).astype(
+        np.int32)).to(dev) for _ in range(2)]
+    out = tuple(t.clone() for t in before)
+    kernels.pair_stats(gi, gs, n, 300, ctl, out=out)
+    assert torch.equal(out[0], before[0]) and torch.equal(out[1], before[1])
+
+
 @pytest.mark.parametrize("mode", ["pallas", "sort", "dense", "stepped",
                                   "incremental"])
 def test_selection_routes_on_card_match_cpu(dev, mode):
