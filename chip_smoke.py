@@ -10,8 +10,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
 2. hold each kernel against its plain PyTorch version on the card, on
    numpy-seeded inputs at the main path's shapes (400K tokens, W = 1024,
    the rebuild of merge 768, a batch of 16 candidates drawn from the
-   stream; K3 timed at a homogeneous and at a heterogeneous pair), K1 and
-   K6 once more at the XL bound (48M tokens), K9 also at V = 2048 and at
+   stream; K3 timed at a homogeneous and at a heterogeneous pair; K5 at
+   W = 256, 512 and 1024, each with torch.topk's time), K1, K6 and K8
+   once more at the XL bound (48M tokens), K9 also at V = 2048 and at
    the stepped route's bound (4M tokens), K1 and K9 also on real text (the
    smoke corpus's stream as pre-split, W = 256; the same after the
    golden's 768 merges, W = 1024; the XL corpus's stream, W = 256), each
@@ -341,9 +342,11 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int,
     rows.append(hist_row(kernels.PAIR_STATS, main1, []))
 
     # K5 select_batch on K1's matrices at merge I, and on empty ones (the
-    # fail round); its state is compared whole
-    def select(fn, cnt, first):
-        _, ctl, log = batch_state(torch, kernels, dev, [], I, M)
+    # fail round); its state is compared whole. Timed at W = 256, 512 and
+    # 1024 (ctl's i = W - 256) on the same matrices: a smoke-1024 run
+    # spends most of its slots at the narrower widths
+    def select(fn, cnt, first, i=I):
+        _, ctl, log = batch_state(torch, kernels, dev, [], i, M)
         slot = kernels.new_slot(dev)
         fn(cnt, first, ids, ctl, slot, log)
         return slot, ctl, log
@@ -359,21 +362,37 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int,
     if bsel < 1 or int(got0[1][kernels.CTL_FAIL]) != I:
         raise AssertionError(f"select_batch: bsel {bsel}, empty-matrix fail "
                              f"{int(got0[1][kernels.CTL_FAIL])}")
-    _, tctl, tlog = batch_state(torch, kernels, dev, [], I, M)
-    tslot = kernels.new_slot(dev)
     scratch = kernels.select_scratch(W, dev)
     packed = torch.where(ck > 0, (ck.long() << 32) | (0xFFFFFFFF - (
         fk.long() & 0xFFFFFFFF)), torch.zeros_like(ck, dtype=torch.long))
-    flat = packed.view(-1)
+    shapes5 = []
+    for w in (256, 512, W):
+        got_w = select(kernels.select_batch, ck, fk, w - 256)
+        err = max_err(torch, list(zip(got_w, select(
+            kernels.select_batch_plain, ck, fk, w - 256))))
+        _, tctl, tlog = batch_state(torch, kernels, dev, [], w - 256, M)
+        tslot = kernels.new_slot(dev)
+        corner = packed[:w, :w].reshape(-1)
+        nbytes = 8 * w * w + 4 * kernels.SLOT_SIZE
+        shapes5.append(dict(
+            W=w, max_abs_err=err, bsel=int(got_w[0][kernels.SLOT_BSEL]),
+            ms=device_ms(torch, lambda: kernels.select_batch(
+                ck, fk, ids, tctl, tslot, tlog, scratch), 50),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            library_ms=profiled_ms(torch, lambda: torch.topk(
+                corner, kernels.K_CAP), 50)))
+        r = shapes5[-1]
+        print(f"select_batch W {w}: bsel {r['bsel']}, max_abs_err {err}, "
+              f"{r['ms']:.5f} ms, bound {r['bound_ms']:.5f} ms, topk "
+              f"{r['library_ms']:.5f} ms")
+    _, tctl, tlog = batch_state(torch, kernels, dev, [], I, M)
+    tslot = kernels.new_slot(dev)
     rows.append(dict(
-        k=kernels.SELECT_BATCH, err=err5,
-        ms=device_ms(torch, lambda: kernels.select_batch(
-            ck, fk, ids, tctl, tslot, tlog, scratch), 50),
+        k=kernels.SELECT_BATCH, err=err5, ms=shapes5[-1]["ms"],
         plain_ms=host_ms(torch, lambda: kernels.select_batch_plain(
             ck, fk, ids, tctl, tslot, tlog), 5),
-        bytes=8 * W * W + 4 * kernels.SLOT_SIZE,
-        library_ms=profiled_ms(torch, lambda: torch.topk(
-            flat, kernels.K_CAP), 50)))
+        bytes=shapes5[-1]["bytes"], library_ms=shapes5[-1]["library_ms"],
+        shapes=shapes5))
     print(f"select_batch: {bsel} candidates accepted at merge {I}")
 
     # K3 merge_apply: the homogeneous run pair and K5's first candidate
@@ -464,19 +483,21 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int,
     t_out = torch.empty_like(ids)
     t_live = torch.empty(ids.shape, dtype=torch.bool, device=dev)
     t_slot, t_ctl, t_log = slot.clone(), ctl.clone(), log.clone()
+    t_scratch = kernels.batch_scratch(dev)
     # timing: the advance of i per call stays inside the log's M rows
     t_ctl[kernels.CTL_I] = 0
     t_slot[kernels.SLOT_I] = 0
-    rows.append(dict(
+    row8 = dict(
         k=kernels.BATCH_APPLY, err=err8,
         ms=device_ms(torch, lambda: kernels.batch_apply(
-            ids, nt, cand_k, t_slot, acc_t, t_ctl, t_log, M, t_out, t_live),
-            50),
+            ids, nt, cand_k, t_slot, acc_t, t_ctl, t_log, M, t_out, t_live,
+            t_scratch), 50),
         plain_ms=host_ms(torch, lambda: kernels.batch_apply_plain(
             ids, nt, cand_k, t_slot, acc_t, t_ctl, t_log, M, t_out, t_live),
             5),
         bytes=13 * n + 8 * kernels.HIST_BUCKETS * kernels.K_CAP,
-        library_ms=None))
+        library_ms=None)
+    rows.append(row8)
     print(f"batch_apply: the trim kept {bstar} of {len(pairs)}")
 
     # K4 compact, on the homogeneous merge's output
@@ -534,7 +555,32 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int,
             big_ids, big_seg, big_n, slot, acc_t[0]), 5))
     print(f"xl size {xl_max_n}: batch_mark max_abs_err {xl6} "
           f"({rows[3]['xl']['ms']:.4f} ms)")
-    del big_ids, big_seg, mk, mp
+    del mp
+    # K8 there too, on K6's and K7's output: its bound at scale
+    kernels.batch_hist_rev(big_ids, big_seg, big_n, *mk, slot, xa_k[1])
+
+    def apply_big(fn):
+        s2, c2, l2 = slot.clone(), ctl.clone(), log.clone()
+        out = torch.empty_like(big_ids)
+        live = torch.empty(big_ids.shape, dtype=torch.bool, device=dev)
+        fn(big_ids, big_n, mk[0], s2, xa_k.clone(), c2, l2, M, out, live)
+        return out, live, s2, c2, l2
+
+    xl8 = max_err(torch, list(zip(apply_big(kernels.batch_apply),
+                                  apply_big(kernels.batch_apply_plain))))
+    x_out = torch.empty_like(big_ids)
+    x_live = torch.empty(big_ids.shape, dtype=torch.bool, device=dev)
+    nbytes = 13 * xl_max_n + 8 * kernels.HIST_BUCKETS * kernels.K_CAP
+    row8["xl"] = dict(
+        n=xl_max_n, max_abs_err=xl8,
+        ms=device_ms(torch, lambda: kernels.batch_apply(
+            big_ids, big_n, mk[0], t_slot, acc_t, t_ctl, t_log, M, x_out,
+            x_live, t_scratch), 5),
+        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    print(f"xl size {xl_max_n}: batch_apply max_abs_err {xl8} "
+          f"({row8['xl']['ms']:.4f} ms, bound "
+          f"{row8['xl']['bound_ms']:.4f} ms)")
+    del big_ids, big_seg, mk, x_out, x_live
 
     return rows
 

@@ -54,6 +54,15 @@ def render_token(t: bytes) -> str:
     return escape_control_characters(t.decode("utf-8", errors="replace"))
 
 
+def id_array(ids) -> np.ndarray:
+    """Any iterable of ints (list, tuple, range, numpy array, generator) as
+    one flat int64 array, materialised once, as the reference's
+    ``b"".join(vocab[idx] for idx in ids)`` takes any of them."""
+    if not isinstance(ids, (np.ndarray, list, tuple, range)):
+        ids = list(ids)
+    return np.asarray(ids, dtype=np.int64).ravel()
+
+
 class DecodeTable:
     """Vectorized id -> bytes concatenation for decode.
 
@@ -81,8 +90,9 @@ class DecodeTable:
         self.table = np.frombuffer(b"".join(parts), dtype=np.uint8)
 
     def lookup(self, ids) -> tuple[bytes, int]:
-        """(concatenated bytes, index of first unknown id or -1)."""
-        a = np.asarray(ids, dtype=np.int64).ravel()
+        """(concatenated bytes, index of first unknown id or -1); ids: any
+        iterable of ints, the index one into ``id_array(ids)``."""
+        a = id_array(ids)
         if a.size == 0:
             return b"", -1
         ok = (a >= 0) & (a < self.lens.size)

@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import engine
-from .base import Tokenizer
+from .base import Tokenizer, id_array
 
 
 class BasicTokenizer(Tokenizer):
@@ -52,8 +52,9 @@ class BasicTokenizer(Tokenizer):
     def decode(self, ids) -> str:
         """Concatenate vocab bytes; invalid UTF-8 becomes U+FFFD
         (minbpe/basic.py:51-55); unknown ids raise KeyError like the
-        reference's vocab[idx]."""
+        reference's vocab[idx]. ids: any iterable of ints."""
+        ids = id_array(ids)
         data, bad = self._decode_table(self.vocab).lookup(ids)
         if bad >= 0:
-            raise KeyError(ids[bad])
+            raise KeyError(int(ids[bad]))
         return data.decode("utf-8", errors="replace")

@@ -54,7 +54,7 @@
 // bsel >= 2, K4 when bsel >= 1; an idle slot has bsel = 0.
 //
 // Each extern "C" entry point launches one kernel on the caller's stream
-// (K1 and K8 two, K9 a memset and one), allocates nothing, and returns
+// (K1 two, K9 a memset and one), allocates nothing, and returns
 // cudaGetLastError() (0 on success). K1 and K9 also return the error of
 // allowing their shared-memory table (once per device).
 //
@@ -93,10 +93,6 @@ constexpr int SLOT_BSEL = 3 * K_CAP;  // candidates accepted (0: none, idle)
 constexpr int SLOT_ZBASE = SLOT_BSEL + 1;  // 256 + i
 constexpr int SLOT_I = SLOT_BSEL + 2;      // i at the slot's start
 constexpr int SLOT_BSTAR = SLOT_BSEL + 3;  // merges applied by the slot
-
-// K5's block: SEL_IPT matrix entries per thread
-constexpr int SEL_IPT = 16;
-constexpr int SEL_TILE = TPB * SEL_IPT;
 
 __device__ __forceinline__ bool idle(const int* ctl) {
   return ctl != nullptr && ctl[CTL_I] >= ctl[CTL_FAIL];
@@ -443,131 +439,233 @@ __global__ void __launch_bounds__(TPB)
 // counts, the earliest first occurrence. The Pallas walk takes that argmax,
 // zeroes it and takes the next one, K_CAP times at most; so it visits the
 // pairs in descending key order, and needs only the K_CAP largest keys. No
-// tie walk is needed, and no 64-tie cliff exists.
+// tie walk is needed, and no 64-tie cliff exists. Keys are unique, except
+// 0, because first positions are unique per pair.
 //
-// Each block takes SEL_TILE entries of the W x W corner into registers and
-// extracts its top K_CAP by K_CAP rounds of a block max; the last block to
-// finish (a done counter, reset by that block) merges the blocks' lists the
-// same way, and its thread 0 walks them: candidate j is accepted while its
+// A warp takes one row of the W x W corner: each lane loads its columns of
+// cnt and first with 16-byte loads, all at once, and forms their keys in
+// registers, with the pair (a, b) that the matrix index names, so nothing
+// reads the stream. The K_CAP largest keys of a block, and then of all the
+// blocks' lists, come from one selection (block_select): a bound lo at or
+// below the K_CAP-th largest key is known first, the keys at or above it
+// are gathered in shared memory, and each of those is placed by counting
+// the gathered keys above it (keys are unique, so ranks are too). A row's
+// bound is the K_CAP-th largest of its 32 lanes' maxima (16 distinct keys
+// are at least that large), a block's the largest of its rows', and the
+// blocks' lists give the largest of their K_CAP-th keys. On text few keys
+// pass the bound, so a key costs a compare and the gathering a few shared
+// atomics. The last block to finish (a done counter, which that block
+// leaves zero again) merges the blocks' lists, and its warp 0 walks the
+// candidates, candidate j in lane j: candidate j is accepted while its
 // count is > 0 and either j == 0, or it is heterogeneous, candidate 0 is
-// heterogeneous, and it shares no cross-side token with an accepted one
-// (qa != every accepted pb, qb != every accepted pa). The walk stops at the
-// first rejection (fused_train.py:1059-1064). It writes the slot record,
-// counts the rebuild, sets fail = i when nothing was accepted, and for a
-// single merge writes log row i and advances i.
+// heterogeneous, and it shares no cross-side token with an earlier one (qa
+// != pb, qb != pa); the walk stops at the first rejection
+// (fused_train.py:1059-1064). It writes the slot record, counts the
+// rebuild, sets fail = i when nothing was accepted, and for a single merge
+// writes log row i and advances i.
 //
+// Grid: a warp per row of the V x V matrices (V / 8 blocks, at most 128),
+// fixed per V since the host does not know W; warps past W's rows hold no
+// keys.
 // Bound: bytes (8 B per W x W entry read; 8 MB at W = 1024, which L2 holds).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ unsigned long long ullmax(unsigned long long a,
-                                                     unsigned long long b) {
-  return a > b ? a : b;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int SEL_WARPS = TPB / 32;
+constexpr int SEL_MAX_V = 1024;              // a row is 8 quads a lane
+constexpr int SEL_QUADS = SEL_MAX_V / 128;
+constexpr int SEL_KEYS = 4 * SEL_QUADS;      // a lane's keys of its row
+constexpr int SEL_MAX_GRID = SEL_MAX_V / SEL_WARPS;
+constexpr int SEL_LIST_KEYS = SEL_MAX_GRID * K_CAP / TPB;  // last block
+constexpr int SEL_CAP = 2048;                // keys gathered at once
+
+__device__ __forceinline__ unsigned long long sel_key(unsigned c,
+                                                      unsigned f) {
+  return c ? ((unsigned long long)c << 32) | (0xFFFFFFFFu - f) : 0ull;
 }
 
-// The K_CAP largest of the block's TPB * SEL_IPT keys (unique, except 0),
-// in descending order, into top[] (shared); zeros fill the tail.
-__device__ void block_top_keys(unsigned long long (&k)[SEL_IPT],
-                               unsigned long long* top) {
-  __shared__ unsigned long long warp_max[TPB / 32];
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
-  for (int r = 0; r < K_CAP; ++r) {
-    unsigned long long m = 0;
-#pragma unroll
-    for (int q = 0; q < SEL_IPT; ++q) m = ullmax(m, k[q]);
-#pragma unroll
-    for (int d = 16; d > 0; d >>= 1)
-      m = ullmax(m, __shfl_xor_sync(0xffffffffu, m, d));
-    if (lane == 0) warp_max[wid] = m;
+struct SelShared {
+  unsigned long long key[SEL_CAP];  // the gathered keys and their pairs
+  unsigned ab[SEL_CAP];
+  unsigned long long out_key[K_CAP];
+  unsigned out_ab[K_CAP];
+  unsigned long long lo;
+  int ncand;
+  bool last;
+};
+
+// Block-wide: the C gathered keys' K_CAP largest, descending, into
+// sh.out_key / sh.out_ab (zeros after the last); ends synchronised.
+__device__ void rank_gathered(SelShared& sh, int C) {
+  if (threadIdx.x < K_CAP) {
+    sh.out_key[threadIdx.x] = 0;
+    sh.out_ab[threadIdx.x] = 0;
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < C; s += TPB) {
+    const unsigned long long k = sh.key[s];
+    int rank = 0;
+    for (int u = 0; u < C; ++u) rank += sh.key[u] > k;
+    if (rank < K_CAP) {
+      sh.out_key[rank] = k;
+      sh.out_ab[rank] = sh.ab[s];
+    }
+  }
+  __syncthreads();
+}
+
+// Block-wide: the K_CAP largest of every thread's R keys k[j] (0: none;
+// pair ab_of(j)) into sh.out_key / sh.out_ab, given lo at or below the
+// K_CAP-th largest of them. Should more than SEL_CAP keys reach lo, the
+// K_CAP-th largest of SEL_CAP gathered ones is a higher bound, and the
+// gathering starts again (each round drops SEL_CAP - K_CAP keys).
+template <int R, class ABOf>
+__device__ void block_select(SelShared& sh, const unsigned long long (&k)[R],
+                             ABOf ab_of, unsigned long long lo) {
+  while (true) {
+    if (threadIdx.x == 0) sh.ncand = 0;
     __syncthreads();
-    if (threadIdx.x == 0) {
-      unsigned long long b = 0;
-      for (int w = 0; w < TPB / 32; ++w) b = ullmax(b, warp_max[w]);
-      top[r] = b;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (k[j] != 0 && k[j] >= lo) {
+        const int s = atomicAdd(&sh.ncand, 1);
+        if (s < SEL_CAP) {
+          sh.key[s] = k[j];
+          sh.ab[s] = ab_of(j);
+        }
+      }
     }
     __syncthreads();
-    const unsigned long long best = top[r];
-    if (best == 0) {  // the same in every thread: the rest is empty
-      if (threadIdx.x < K_CAP - r - 1) top[r + 1 + threadIdx.x] = 0;
-      __syncthreads();
+    const int C = sh.ncand;
+    if (C <= SEL_CAP) {
+      rank_gathered(sh, C);
       return;
     }
-#pragma unroll
-    for (int q = 0; q < SEL_IPT; ++q)
-      if (k[q] == best) k[q] = 0;
+    rank_gathered(sh, SEL_CAP);
+    lo = sh.out_key[K_CAP - 1];
   }
 }
 
-__global__ void select_batch_kernel(const unsigned* __restrict__ cnt,
-                                    const unsigned* __restrict__ first, int V,
-                                    const int* __restrict__ ids, int* ctl,
-                                    int* slot, int* log,
-                                    unsigned long long* scratch) {
-  __shared__ unsigned long long top[K_CAP];
-  __shared__ bool last;
+// scratch: uint64 [done counter][gridDim.x * K_CAP keys][as many pairs]
+__global__ void __launch_bounds__(TPB)
+    select_batch_kernel(const unsigned* __restrict__ cnt,
+                        const unsigned* __restrict__ first, int V, int* ctl,
+                        int* slot, int* log, unsigned long long* scratch) {
+  __shared__ SelShared sh;
   if (idle(ctl)) {
     if (blockIdx.x == 0 && threadIdx.x == 0) slot[SLOT_BSEL] = 0;
     return;
   }
   const int i = ctl[CTL_I];
   const int W = width_of(ctl, V);
-  const int WW = W * W;
-  unsigned long long* lists = scratch + 1;
-  unsigned* done = (unsigned*)scratch;
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  unsigned* done = reinterpret_cast<unsigned*>(scratch);
+  unsigned long long* g_key = scratch + 1;
+  unsigned long long* g_ab = g_key + gridDim.x * K_CAP;
+  if (threadIdx.x == 0) sh.lo = 0;
 
-  unsigned long long k[SEL_IPT];
+  // this warp's row: key j of a lane is column 4 (lane + 32 (j / 4)) + j % 4
+  const int r = blockIdx.x * SEL_WARPS + wid;
+  unsigned long long k[SEL_KEYS];
 #pragma unroll
-  for (int q = 0; q < SEL_IPT; ++q) {
-    const int idx = blockIdx.x * SEL_TILE + q * TPB + threadIdx.x;
-    k[q] = 0;
-    if (idx < WW) {
-      const int e = (idx / W) * V + idx % W;
-      const unsigned c = cnt[e];
-      if (c) k[q] = ((unsigned long long)c << 32) | (0xFFFFFFFFu - first[e]);
+  for (int j = 0; j < SEL_KEYS; ++j) k[j] = 0;
+  if (r < W) {
+    const unsigned* crow = cnt + (size_t)r * V;
+    const unsigned* frow = first + (size_t)r * V;
+    const bool vec = V % 4 == 0 && aligned16(cnt, first);
+#pragma unroll
+    for (int s = 0; s < SEL_QUADS; ++s) {
+      const int col = 4 * (lane + 32 * s);
+      if (vec && col + 4 <= W) {
+        const uint4 c = __ldg(reinterpret_cast<const uint4*>(crow + col));
+        const uint4 f = __ldg(reinterpret_cast<const uint4*>(frow + col));
+        k[4 * s + 0] = sel_key(c.x, f.x);
+        k[4 * s + 1] = sel_key(c.y, f.y);
+        k[4 * s + 2] = sel_key(c.z, f.z);
+        k[4 * s + 3] = sel_key(c.w, f.w);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (col + q < W)
+            k[4 * s + q] = sel_key(__ldg(crow + col + q),
+                                   __ldg(frow + col + q));
+      }
     }
   }
-  block_top_keys(k, top);
-  if (threadIdx.x < K_CAP) lists[blockIdx.x * K_CAP + threadIdx.x] =
-      top[threadIdx.x];
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(done, 1u) == gridDim.x - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-
-  // merge the blocks' lists: gridDim.x * K_CAP <= TPB * SEL_IPT keys
+  // the row's bound: the K_CAP-th largest lane maximum
+  unsigned long long m = 0;
 #pragma unroll
-  for (int q = 0; q < SEL_IPT; ++q) {
-    const int idx = q * TPB + threadIdx.x;
-    k[q] = idx < gridDim.x * K_CAP ? __ldcg(&lists[idx]) : 0ull;
+  for (int j = 0; j < SEL_KEYS; ++j) m = k[j] > m ? k[j] : m;
+  int above = 0;
+#pragma unroll
+  for (int q = 0; q < 32; ++q) above += __shfl_sync(FULL, m, q) > m;
+  const unsigned at = __ballot_sync(FULL, m != 0 && above == K_CAP - 1);
+  __syncthreads();  // sh.lo is zero
+  if (at && lane == __ffs(at) - 1) atomicMax(&sh.lo, m);
+  __syncthreads();
+  block_select(sh, k, [&](int j) {
+    return (unsigned)r << 16 |
+           (unsigned)(4 * (lane + 32 * (j >> 2)) + (j & 3));
+  }, sh.lo);
+  if (threadIdx.x < K_CAP) {
+    g_key[blockIdx.x * K_CAP + threadIdx.x] = sh.out_key[threadIdx.x];
+    g_ab[blockIdx.x * K_CAP + threadIdx.x] = sh.out_ab[threadIdx.x];
   }
-  block_top_keys(k, top);
-  if (threadIdx.x != 0) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) sh.last = atomicAdd(done, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!sh.last) return;
+  __threadfence();
 
-  int pa_v[K_CAP], pb_v[K_CAP], c_v[K_CAP];
-  int bsel = 0;
-  for (int j = 0; j < K_CAP; ++j) {
-    const unsigned long long key = top[j];
-    if (key == 0) break;
-    const int pos = (int)(0xFFFFFFFFu - (unsigned)(key & 0xFFFFFFFFull));
-    const int pa = ids[pos];
-    const int pb = ids[pos + 1];
-    if (j > 0) {
-      bool ok = pa != pb && pa_v[0] != pb_v[0];
-      for (int q = 0; q < bsel; ++q)
-        ok = ok && pa_v[q] != pb && pb_v[q] != pa;
-      if (!ok) break;
-    }
-    pa_v[bsel] = pa;
-    pb_v[bsel] = pb;
-    c_v[bsel] = (int)(key >> 32);
-    ++bsel;
+  // the last block: the K_CAP largest of the blocks' lists; entry e of
+  // list e / K_CAP in thread e % TPB, the lists' K_CAP-th keys the bound
+  unsigned long long lk[SEL_LIST_KEYS];
+  unsigned lab[SEL_LIST_KEYS];
+#pragma unroll
+  for (int j = 0; j < SEL_LIST_KEYS; ++j) {
+    const int e = threadIdx.x + j * TPB;
+    const bool in = e < gridDim.x * K_CAP;
+    lk[j] = in ? __ldcg(g_key + e) : 0ull;
+    lab[j] = in ? (unsigned)__ldcg(g_ab + e) : 0u;
   }
-  for (int j = 0; j < K_CAP; ++j) {
-    slot[SLOT_PAIRS + 2 * j] = j < bsel ? pa_v[j] : -1;
-    slot[SLOT_PAIRS + 2 * j + 1] = j < bsel ? pb_v[j] : -1;
-    slot[SLOT_COUNT + j] = j < bsel ? c_v[j] : 0;
+  if (threadIdx.x == 0) sh.lo = 0;
+  __syncthreads();
+  if (threadIdx.x % K_CAP == K_CAP - 1) {
+    unsigned long long f = 0;
+#pragma unroll
+    for (int j = 0; j < SEL_LIST_KEYS; ++j) f = lk[j] > f ? lk[j] : f;
+    if (f) atomicMax(&sh.lo, f);
   }
+  __syncthreads();
+  block_select(sh, lk, [&](int j) { return lab[j]; }, sh.lo);
+  if (wid != 0) return;
+
+  // the walk: candidate j in lane j
+  const unsigned long long key = lane < K_CAP ? sh.out_key[lane] : 0ull;
+  const unsigned ab = lane < K_CAP ? sh.out_ab[lane] : 0u;
+  const int pa = (int)(ab >> 16);
+  const int pb = (int)(ab & 0xFFFFu);
+  const int c = (int)(key >> 32);
+  const bool het = pa != pb;
+  const bool het0 = __shfl_sync(FULL, (int)het, 0) != 0;
+  bool clash = false;
+#pragma unroll
+  for (int q = 0; q < K_CAP; ++q) {
+    const int qa = __shfl_sync(FULL, pa, q);
+    const int qb = __shfl_sync(FULL, pb, q);
+    clash = clash || (q < lane && (qa == pb || qb == pa));
+  }
+  const bool ok = key != 0 && (lane == 0 || (het && het0 && !clash));
+  const unsigned okm = __ballot_sync(FULL, ok) & ((1u << K_CAP) - 1);
+  const int bsel = __ffs(~okm) - 1;  // the accepted prefix
+  if (lane < K_CAP) {
+    const bool in = lane < bsel;
+    slot[SLOT_PAIRS + 2 * lane] = in ? pa : -1;
+    slot[SLOT_PAIRS + 2 * lane + 1] = in ? pb : -1;
+    slot[SLOT_COUNT + lane] = in ? c : 0;
+  }
+  if (lane != 0) return;
   slot[SLOT_BSEL] = bsel;
   slot[SLOT_ZBASE] = 256 + i;
   slot[SLOT_I] = i;
@@ -576,9 +674,9 @@ __global__ void select_batch_kernel(const unsigned* __restrict__ cnt,
   if (bsel == 0) {
     ctl[CTL_FAIL] = i;
   } else if (bsel == 1) {
-    log[4 * i + 0] = pa_v[0];
-    log[4 * i + 1] = pb_v[0];
-    log[4 * i + 2] = c_v[0];
+    log[4 * i + 0] = pa;
+    log[4 * i + 1] = pb;
+    log[4 * i + 2] = c;
     log[4 * i + 3] = 0;  // K3 adds the kept count
     ctl[CTL_I] = i + 1;
   }
@@ -605,7 +703,8 @@ __global__ void select_batch_kernel(const unsigned* __restrict__ cnt,
 // and second-next live tokens, and their tile and segment carries, become
 // p - 1 and p + 2. K6 and K7 are one elementwise pass each, with the
 // histogram in shared memory per block (shared atomics) and one global
-// atomic per non-zero bin; K8 is a one-block trim and one elementwise pass.
+// atomic per non-zero bin; K8 is one launch: each block takes the trim
+// from the histograms itself, then applies a tiled range.
 // Bound: bytes. K6 reads ids and seg (8 B per token) and writes cand and F
 // (8 B); K7 reads cand, F, ids and seg (16 B); K8 reads ids and cand and
 // writes ids and live (13 B).
@@ -687,74 +786,198 @@ __global__ void batch_hist_rev_kernel(const int* __restrict__ ids,
   hist_flush(h, acc_r);
 }
 
-// The trim, one block: cm[j] = max over buckets of column j of acc_l and
-// acc_r; bstar = the longest prefix whose every later count strictly beats
-// the running max of cm[0 .. k-1], at most M - i. Writes log rows
-// i .. i + bstar - 1 (kept added by the apply), clears both histograms for
-// the next slot, and advances i.
-__global__ void batch_trim_kernel(int* acc, int* slot, int* ctl, int* log,
-                                  int M) {
-  if (gated_off(slot, 2, K_CAP)) return;
-  __shared__ int cm[K_CAP];
-  if (threadIdx.x < K_CAP) cm[threadIdx.x] = 0;
-  __syncthreads();
-  for (int t = threadIdx.x; t < 2 * HIST; t += blockDim.x) {
-    const int v = acc[t];
-    if (v) atomicMax(&cm[t % K_CAP], v);
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < 2 * HIST; t += blockDim.x) acc[t] = 0;
-  if (threadIdx.x != 0) return;
+// K8: the trim, then the combined apply, in one launch.
+//
+// The trim: cm[j] = the max over buckets of column j of acc_l and acc_r;
+// bstar = the longest prefix whose every later count strictly beats the
+// running max of cm[0 .. k-1], at most M - i. Every block computes it from
+// the 16 KB histogram itself (four 16-byte loads a thread, a column max by
+// shuffles, the prefix rule as a max-scan over 16 lanes and a ballot), so
+// no block waits for another; its first tile's loads are in flight
+// meanwhile.
+//
+// The apply: every site whose candidate is below bstar becomes
+// zbase + cand, and its next token dies. A thread takes IPT consecutive
+// positions with 16-byte loads of cand and ids, takes cand[p - 1] from the
+// lane before (lane 0 from memory), and stores its 8 live flags as one
+// 8-byte word. A thread counts its kept sites in 4-bit fields, one per
+// candidate; the warp sums each field with one reduction, and each block
+// adds its counts to scratch[1 + j] with one global atomic a candidate.
+//
+// The last block to finish (a done counter in scratch[0]) writes log rows
+// i .. i + bstar - 1 with their kept counts, slot[SLOT_BSTAR] and
+// ctl[CTL_I] = i + bstar, clears both histograms for the next slot (every
+// other block has read them by then), and leaves the scratch zero again.
+__global__ void __launch_bounds__(TPB)
+    batch_apply_kernel(const int* __restrict__ ids,
+                       const int* __restrict__ n_ptr,
+                       const int* __restrict__ cand, int* slot, int* acc,
+                       int* ctl, int* log, int M, int* __restrict__ ids_out,
+                       unsigned char* __restrict__ live, int* scratch) {
+  __shared__ int wmax[TPB / 32][K_CAP];
+  __shared__ int kept[K_CAP];
+  __shared__ int s_bstar;
+  __shared__ bool last;
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  // the slot's words, all read at once: candidate j's pair and count in
+  // lane j of every warp
   const int bsel = slot[SLOT_BSEL];
   const int i = slot[SLOT_I];
-  int bstar = 1;
-  int bnd = cm[0];
-  for (int k = 1; k < K_CAP; ++k) {
-    if (k < bsel && bstar == k && slot[SLOT_COUNT + k] > bnd) {
-      bstar = k + 1;
-      bnd = max(bnd, cm[k]);
-    }
-  }
-  bstar = min(bstar, M - i);
-  slot[SLOT_BSTAR] = bstar;
-  for (int j = 0; j < bstar; ++j) {
-    log[4 * (i + j) + 0] = slot[SLOT_PAIRS + 2 * j];
-    log[4 * (i + j) + 1] = slot[SLOT_PAIRS + 2 * j + 1];
-    log[4 * (i + j) + 2] = slot[SLOT_COUNT + j];
-    log[4 * (i + j) + 3] = 0;
-  }
-  ctl[CTL_I] = i + bstar;
-}
+  const int zbase = slot[SLOT_ZBASE];
+  const int pa = lane < K_CAP ? slot[SLOT_PAIRS + 2 * lane] : 0;
+  const int pb = lane < K_CAP ? slot[SLOT_PAIRS + 2 * lane + 1] : 0;
+  const int cj = lane < K_CAP ? slot[SLOT_COUNT + lane] : 0;
+  if (bsel < 2 || bsel > K_CAP) return;  // the gate: a batch
 
-// The apply: every site whose candidate is below bstar becomes
-// zbase + cand, and its next token dies; per-candidate kept counts go to
-// column 3 of log rows i + j.
-__global__ void batch_apply_kernel(const int* __restrict__ ids,
-                                   const int* __restrict__ n_ptr,
-                                   const int* __restrict__ cand,
-                                   const int* __restrict__ slot,
-                                   int* __restrict__ ids_out,
-                                   unsigned char* __restrict__ live,
-                                   int* log) {
-  if (gated_off(slot, 2, K_CAP)) return;
-  __shared__ int kept[K_CAP];
+  const int n = *n_ptr;
+  const bool vec = aligned16(ids, cand) && aligned16(ids_out, ids_out) &&
+                   (reinterpret_cast<uintptr_t>(live) & 7) == 0;
+  // positions p0 .. p0 + IPT - 1 of the tile at base, and cand[p0 - 1]
+  // from the lane before (lane 0 from memory)
+  int c[IPT], x[IPT], cb;
+  auto load = [&](int base) {
+    const int p0 = base + threadIdx.x * IPT;
+    if (vec && p0 + IPT <= n) {
+#pragma unroll
+      for (int v = 0; v < IPT / 4; ++v) {
+        unpack4(ld4<false>(cand + p0 + 4 * v), c + 4 * v);
+        unpack4(ld4<false>(ids + p0 + 4 * v), x + 4 * v);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < IPT; ++k) {
+        c[k] = p0 + k < n ? cand[p0 + k] : -1;
+        x[k] = p0 + k < n ? ids[p0 + k] : 0;
+      }
+    }
+    cb = lane == 0 && p0 > 0 && p0 <= n ? cand[p0 - 1] : -1;
+  };
+  int base = blockIdx.x * TILE;
+  load(base);  // in flight while the trim reads the histograms
+
+  // column maxima: thread t's quads t, t + TPB, ... all hold the columns
+  // 4 (t % 4) .. 4 (t % 4) + 3
+  int m[4] = {0, 0, 0, 0};
+  for (int q = threadIdx.x; q < 2 * HIST / 4; q += TPB) {
+    const int4 v = __ldcg(reinterpret_cast<const int4*>(acc) + q);
+    m[0] = max(m[0], v.x);
+    m[1] = max(m[1], v.y);
+    m[2] = max(m[2], v.z);
+    m[3] = max(m[3], v.w);
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+#pragma unroll
+    for (int d = 4; d < 32; d <<= 1)
+      m[k] = max(m[k], __shfl_xor_sync(FULL, m[k], d));
+  if (lane < 4)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) wmax[wid][4 * lane + k] = m[k];
   if (threadIdx.x < K_CAP) kept[threadIdx.x] = 0;
   __syncthreads();
-  const int bstar = slot[SLOT_BSTAR];
-  const int zbase = slot[SLOT_ZBASE];
-  const int n = *n_ptr;
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += gridDim.x * blockDim.x) {
-    const int c0 = cand[p];
-    const bool k0 = c0 >= 0 && c0 < bstar;
-    const int c1 = p > 0 ? cand[p - 1] : -1;
-    ids_out[p] = k0 ? zbase + c0 : ids[p];
-    live[p] = !(c1 >= 0 && c1 < bstar);
-    if (k0) atomicAdd(&kept[c0], 1);
+  if (wid == 0) {
+    // candidate k joins while its count beats max(cm[0 .. k-1]) (every
+    // earlier one joined): lane k's exclusive prefix max, then a ballot
+    int cm = 0;
+    if (lane < K_CAP)
+      for (int w = 0; w < TPB / 32; ++w) cm = max(cm, wmax[w][lane]);
+    int pre = cm;
+#pragma unroll
+    for (int d = 1; d < K_CAP; d <<= 1) {
+      const int y = __shfl_up_sync(FULL, pre, d);
+      if (lane >= d) pre = max(pre, y);
+    }
+    const int bnd = __shfl_up_sync(FULL, pre, 1);
+    const bool joins = lane == 0 || (lane < bsel && cj > bnd);
+    const int bstar = __ffs(~__ballot_sync(FULL, joins)) - 1;
+    if (lane == 0) s_bstar = min(bstar, M - i);
   }
   __syncthreads();
+  const int bstar = s_bstar;
+
+  int wk[K_CAP];  // this warp's kept sites per candidate (every lane)
+#pragma unroll
+  for (int j = 0; j < K_CAP; ++j) wk[j] = 0;
+  for (; base < n; base += gridDim.x * TILE) {
+    const int p0 = base + threadIdx.x * IPT;
+    if (base != blockIdx.x * TILE) load(base);
+    const int cl = __shfl_up_sync(FULL, c[IPT - 1], 1);
+    if (lane != 0) cb = cl;
+    unsigned kp = 0;
+    unsigned long long h = 0;  // 4 bits a candidate: its kept sites here
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      if (c[k] >= 0 && c[k] < bstar) {
+        kp |= 1u << k;
+        h += 1ull << (4 * c[k]);
+      }
+    }
+    const unsigned dead = ((kp << 1) | (cb >= 0 && cb < bstar)) & 0xFFu;
+    int y[IPT];
+    unsigned long long lv = 0;
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      y[k] = (kp >> k) & 1u ? zbase + c[k] : x[k];
+      lv |= (unsigned long long)(((dead >> k) & 1u) ^ 1u) << (8 * k);
+    }
+    if (vec && p0 + IPT <= n) {
+#pragma unroll
+      for (int v = 0; v < IPT / 4; ++v)
+        reinterpret_cast<int4*>(ids_out + p0)[v] =
+            make_int4(y[4 * v], y[4 * v + 1], y[4 * v + 2], y[4 * v + 3]);
+      *reinterpret_cast<unsigned long long*>(live + p0) = lv;
+    } else {
+#pragma unroll
+      for (int k = 0; k < IPT; ++k) {
+        if (p0 + k < n) {
+          ids_out[p0 + k] = y[k];
+          live[p0 + k] = (unsigned char)((lv >> (8 * k)) & 1u);
+        }
+      }
+    }
+    if (__any_sync(FULL, h != 0)) {
+#pragma unroll
+      for (int j = 0; j < K_CAP; ++j)
+        if (j < bstar)
+          wk[j] += (int)__reduce_add_sync(
+              FULL, (unsigned)(h >> (4 * j)) & 15u);
+    }
+  }
+  if (lane == 0)
+#pragma unroll
+    for (int j = 0; j < K_CAP; ++j)
+      if (wk[j]) atomicAdd(&kept[j], wk[j]);
+  __syncthreads();
   if (threadIdx.x < K_CAP && kept[threadIdx.x])
-    atomicAdd(&log[4 * (slot[SLOT_I] + threadIdx.x) + 3], kept[threadIdx.x]);
+    atomicAdd(&scratch[1 + threadIdx.x], kept[threadIdx.x]);
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u) ==
+           gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // the last block: the log, the slot's bstar, i; clear acc and scratch
+  for (int q = threadIdx.x; q < 2 * HIST / 4; q += TPB)
+    reinterpret_cast<int4*>(acc)[q] = make_int4(0, 0, 0, 0);
+  if (threadIdx.x < bstar) {
+    const int j = threadIdx.x;
+    int* row = log + 4 * (i + j);
+    row[0] = pa;
+    row[1] = pb;
+    row[2] = cj;
+    row[3] = __ldcg(scratch + 1 + j);
+  }
+  __syncthreads();  // every kept count is read before it is cleared
+  if (threadIdx.x < K_CAP) scratch[1 + threadIdx.x] = 0;
+  if (threadIdx.x == 0) {
+    slot[SLOT_BSTAR] = bstar;
+    ctl[CTL_I] = i + bstar;
+    scratch[0] = 0;
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1426,7 +1649,10 @@ extern "C" {
 
 int bpe_tile_size() { return TILE; }
 
-int bpe_select_blocks(int V) { return (V * V + SEL_TILE - 1) / SEL_TILE; }
+// K5's grid for V x V matrices: a warp per row; 0 for V outside 1 .. 1024
+int bpe_select_blocks(int V) {
+  return V < 1 || V > SEL_MAX_V ? 0 : (V + SEL_WARPS - 1) / SEL_WARPS;
+}
 
 // cnt, first: V x V; ctl may be null (W = V). log2: the table's slots,
 // grid: the blocks; 0 chooses either (hist_geometry).
@@ -1466,16 +1692,15 @@ int bpe_pair_hist_grid(int first, int cap, int log2) {
   return e == cudaSuccess ? grid : -(int)e;
 }
 
-// scratch: uint64[1 + bpe_select_blocks(V) * 16], zero before the first call
-// (the last block leaves it zero again)
+// scratch: uint64[1 + 2 * bpe_select_blocks(V) * 16], zero before the
+// first call (the last block leaves it zero again)
 int bpe_select_batch(const unsigned* cnt, const unsigned* first, int V,
-                     const int* ids, int* ctl, int* slot, int* log,
+                     int* ctl, int* slot, int* log,
                      unsigned long long* scratch, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
   const int nb = bpe_select_blocks(V);
-  if (nb * K_CAP > SEL_TILE) return cudaErrorInvalidValue;  // V > 1024
-  select_batch_kernel<<<nb, TPB, 0, s>>>(cnt, first, V, ids, ctl, slot, log,
-                                         scratch);
+  if (nb == 0) return cudaErrorInvalidValue;  // V > 1024
+  select_batch_kernel<<<nb, TPB, 0, (cudaStream_t)stream>>>(
+      cnt, first, V, ctl, slot, log, scratch);
   return cudaGetLastError();
 }
 
@@ -1514,14 +1739,18 @@ int bpe_batch_hist_rev(const int* ids, const int* seg, const int* n,
   return cudaGetLastError();
 }
 
-// acc: int32[2 * 128 * 16] (acc_l then acc_r), cleared here; log: (M, 4)
+// acc: int32[2 * 128 * 16] (acc_l then acc_r), 16-byte aligned, cleared
+// here; log: (M, 4); scratch: int32[1 + 16], zero before the first call
+// (the last block leaves it zero again)
 int bpe_batch_apply(const int* ids, const int* n, const int* cand, int* slot,
                     int* acc, int* ctl, int* log, int M, int cap,
-                    int* ids_out, unsigned char* live, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  batch_trim_kernel<<<1, TPB, 0, s>>>(acc, slot, ctl, log, M);
-  batch_apply_kernel<<<stat_blocks(cap), TPB, 0, s>>>(ids, n, cand, slot,
-                                                      ids_out, live, log);
+                    int* ids_out, unsigned char* live, int* scratch,
+                    void* stream) {
+  if (reinterpret_cast<uintptr_t>(acc) & 15) return cudaErrorInvalidValue;
+  const int tiles = tiles_for(cap);
+  batch_apply_kernel<<<tiles < MAX_STAT_BLOCKS ? tiles : MAX_STAT_BLOCKS, TPB,
+                       0, (cudaStream_t)stream>>>(
+      ids, n, cand, slot, acc, ctl, log, M, ids_out, live, scratch);
   return cudaGetLastError();
 }
 

@@ -12,7 +12,8 @@ same device, so a whole run launches without a host sync per merge:
 - ``batch_mark``     K6: the batch's sites, final ids and left-creation
   histogram;
 - ``batch_hist_rev`` K7: the right-creation histogram;
-- ``batch_apply``    K8: the trim, then the batch's combined apply;
+- ``batch_apply``    K8: the trim, then the batch's combined apply, in one
+  launch;
 - ``compact``        K4: order-preserving compaction by the live mask;
 - ``pair_count``     K9: the dense V x V pair-count matrix of the selection
   paths and the stepped trainer's first count;
@@ -23,6 +24,11 @@ K1 and K9 share one counting core: each block of a persistent grid counts
 one contiguous range of the stream into a hash table of pairs in shared
 memory and adds it into the matrices with one global atomic per distinct
 pair (K1 also a min of first positions).
+
+K5 and K8 each hand their blocks' partial results to the last block to
+finish through a done counter in a scratch tensor that the trainer makes
+once per run (``select_scratch``, ``batch_scratch``); that block leaves it
+zero again, so no launch clears it first.
 
 K3 and K4 chain their tiles with a decoupled look-back over status words
 that persist per stream (``_lookback_state``); each call tags them with a
@@ -144,6 +150,26 @@ def reset_launches():
 # build and bind
 # ---------------------------------------------------------------------------
 
+# the C entry points of csrc/bpe_kernels.cu and their argument types, as
+# ctypes passes them (a pointer or a stream as c_void_p, an int as c_int)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+SIGNATURES = {
+    "bpe_tile_size": [],
+    "bpe_select_blocks": [_I],
+    "bpe_pair_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bpe_select_batch": [_P, _P, _I, _P, _P, _P, _P, _P],
+    "bpe_merge_apply": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P],
+    "bpe_batch_mark": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
+    "bpe_batch_hist_rev": [_P, _P, _P, _P, _P, _P, _I, _P, _P],
+    "bpe_batch_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "bpe_compact": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
+    "bpe_encode_grid": [_I],
+    "bpe_encode_sweep": [_P, _P, _I, _P, _P, _I, _P,
+                         _P, _P, _P, _P, _I, _P, _P],
+    "bpe_pair_count": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bpe_pair_hist_grid": [_I, _I, _I],
+}
+
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -190,23 +216,7 @@ def _load():
         if _lib is not None:
             return _lib
         lib = ctypes.CDLL(build())
-        P, I = ctypes.c_void_p, ctypes.c_int
-        sigs = {
-            "bpe_tile_size": [],
-            "bpe_select_blocks": [I],
-            "bpe_pair_stats": [P, P, P, P, P, P, I, I, I, I, P],
-            "bpe_select_batch": [P, P, I, P, P, P, P, P, P],
-            "bpe_merge_apply": [P, P, P, P, I, P, I, P, P, P, P, I, P],
-            "bpe_batch_mark": [P, P, P, P, I, P, P, P, P],
-            "bpe_batch_hist_rev": [P, P, P, P, P, P, I, P, P],
-            "bpe_batch_apply": [P, P, P, P, P, P, P, I, I, P, P, P],
-            "bpe_compact": [P, P, P, P, P, I, P, P, P, P, I, P],
-            "bpe_encode_grid": [I],
-            "bpe_encode_sweep": [P, P, I, P, P, I, P, P, P, P, P, I, P, P],
-            "bpe_pair_count": [P, P, P, P, I, I, I, I, P],
-            "bpe_pair_hist_grid": [I, I, I],
-        }
-        for name, argtypes in sigs.items():
+        for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
@@ -309,12 +319,31 @@ def new_hist(device) -> torch.Tensor:
                        device=device)
 
 
+def _select_words(V: int) -> int:
+    """Words of K5's scratch for V x V matrices: a done counter, then each
+    block's K_CAP keys and K_CAP pairs."""
+    blocks = _load().bpe_select_blocks(V)
+    if blocks < 1:
+        raise ValueError(f"select_batch: V = {V} outside 1 .. 1024")
+    return 1 + 2 * blocks * K_CAP
+
+
 def select_scratch(V: int, device) -> torch.Tensor:
-    """K5's scratch (a done counter and each block's top keys), zero."""
+    """K5's scratch, zero; each launch leaves it zero again."""
     if device.type != "cuda":
         return None
-    blocks = _load().bpe_select_blocks(V)
-    return torch.zeros(1 + blocks * K_CAP, dtype=torch.int64, device=device)
+    return torch.zeros(_select_words(V), dtype=torch.int64, device=device)
+
+
+BATCH_SCRATCH = 1 + K_CAP
+
+
+def batch_scratch(device) -> torch.Tensor:
+    """K8's scratch (a done counter and the kept sites per candidate),
+    zero; each launch leaves it zero again."""
+    if device.type != "cuda":
+        return None
+    return torch.zeros(BATCH_SCRATCH, dtype=torch.int32, device=device)
 
 
 def _idle(ctl) -> bool:
@@ -458,11 +487,10 @@ def select_batch(cnt, first, ids, ctl, slot, log, scratch=None):
     _check_state(ctl, slot, log, dev)
     if scratch is None:
         scratch = select_scratch(V, dev)
+    _check("scratch", scratch, torch.int64, dev, _select_words(V))
     lib = _load()
-    _check("scratch", scratch, torch.int64, dev,
-           1 + lib.bpe_select_blocks(V) * K_CAP)
-    _run(dev, lib.bpe_select_batch, _ptr(cnt), _ptr(first), V, _ptr(ids),
-         _ptr(ctl), _ptr(slot), _ptr(log), _ptr(scratch))
+    _run(dev, lib.bpe_select_batch, _ptr(cnt), _ptr(first), V, _ptr(ctl),
+         _ptr(slot), _ptr(log), _ptr(scratch))
     SELECT_BATCH.launches += 1
 
 
@@ -670,7 +698,10 @@ def batch_apply_plain(ids, n, cand, slot, acc, ctl, log, M: int, ids_out,
             dtype=torch.int32)
 
 
-def batch_apply(ids, n, cand, slot, acc, ctl, log, M: int, ids_out, live):
+def batch_apply(ids, n, cand, slot, acc, ctl, log, M: int, ids_out, live,
+                scratch=None):
+    """One launch: the trim and the apply (batch_apply_plain). scratch:
+    ``batch_scratch``'s, allocated per call where not given."""
     if not ids.is_cuda:
         return batch_apply_plain(ids, n, cand, slot, acc, ctl, log, M,
                                  ids_out, live)
@@ -683,10 +714,15 @@ def batch_apply(ids, n, cand, slot, acc, ctl, log, M: int, ids_out, live):
     _check_state(ctl, slot, log, dev)
     _check("ids_out", ids_out, torch.int32, dev, cap)
     _check("live", live, torch.bool, dev, cap)
+    if acc.data_ptr() % 16:
+        raise ValueError("acc: must be 16-byte aligned")
+    if scratch is None:
+        scratch = batch_scratch(dev)
+    _check("scratch", scratch, torch.int32, dev, BATCH_SCRATCH)
     lib = _load()
     _run(dev, lib.bpe_batch_apply, _ptr(ids), _ptr(n), _ptr(cand),
          _ptr(slot), _ptr(acc), _ptr(ctl), _ptr(log), M, cap,
-         _ptr(ids_out), _ptr(live))
+         _ptr(ids_out), _ptr(live), _ptr(scratch))
     BATCH_APPLY.launches += 1
 
 

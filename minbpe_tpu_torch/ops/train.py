@@ -14,11 +14,12 @@ The run is a sequence of rebuild slots (kernels.py). A slot rebuilds the
 counts (K1), walks the K_CAP best candidates (K5), and applies either one
 merge with run parity (K3, when one candidate was accepted) or a batch:
 marks and creation histograms (K6, K7), the trim and the combined apply
-(K8). Then it compacts (K4). How many merges a slot applies, and whether
-it does anything at all, is known only on the device: the merges done, the
-fail round and the rebuild count live in ``ctl``. So the host enqueues
-SLOTS_PER_SYNC slots, reads (i, fail) once, and repeats until every merge
-is done or a rebuild found no pair; slots past the end return at once.
+(K8, one launch). Then it compacts (K4). How many merges a slot applies,
+and whether it does anything at all, is known only on the device: the
+merges done, the fail round and the rebuild count live in ``ctl``. So the
+host enqueues SLOTS_PER_SYNC slots, reads (i, fail) once, and repeats until
+every merge is done or a rebuild found no pair; slots past the end return
+at once.
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ def _slot(ids, seg, n, st):
     cand, F = kernels.batch_mark(ids, seg, n, slot, st["acc"][0])
     kernels.batch_hist_rev(ids, seg, n, cand, F, slot, st["acc"][1])
     kernels.batch_apply(ids, n, cand, slot, st["acc"], ctl, log, st["M"],
-                        merged, live)
+                        merged, live, st["apply_scratch"])
     return kernels.compact(merged, seg, live, n, slot)
 
 
@@ -116,6 +117,7 @@ def train_merges(ids, seg, num_merges: int):
                   torch.full((V, V), -1, dtype=torch.int32, device=dev)),
         "acc": kernels.new_hist(dev),
         "scratch": kernels.select_scratch(V, dev),
+        "apply_scratch": kernels.batch_scratch(dev),
     }
     slots = syncs = 0
     while True:

@@ -19,7 +19,7 @@ import re
 import numpy as np
 
 from . import engine
-from .base import DecodeTable, Tokenizer
+from .base import DecodeTable, Tokenizer, id_array
 from .utils import native, presplit
 
 # GPT split patterns, as published by tiktoken (minbpe/regex.py:18-19).
@@ -62,13 +62,14 @@ class RegexTokenizer(Tokenizer):
         scanner for the two GPT patterns (the pure-Python scanner where no
         C++ compiler exists), else ``regex`` findall.
 
-        The scanner follows ``self.pattern``. Any other pattern splits with
-        the pattern the tokenizer was constructed with, as in minbpe_tpu
-        and the reference: load() replaces ``pattern`` but not
-        ``compiled_pattern``. The scanners equal findall with the GPT
+        The split is the one the constructor fixed, whatever pattern load()
+        puts in ``self.pattern`` afterwards: the reference's load() replaces
+        ``pattern`` but never ``compiled_pattern`` (minbpe/base.py:140-165),
+        so save() writes the loaded pattern back while encode keeps the
+        constructor's split. The scanners equal findall with the GPT
         patterns."""
         data = text.encode("utf-8")
-        mode = _SCANNER_MODES.get(self.pattern, self._split_mode)
+        mode = self._split_mode
         if mode is not None:
             ends = native.split_offsets(data, mode)
             if ends is None:
@@ -103,7 +104,8 @@ class RegexTokenizer(Tokenizer):
     # -- decode -------------------------------------------------------------
     def decode(self, ids) -> str:
         """vocab or special lookup per id; unknown ids raise ValueError
-        (minbpe/regex.py:78-90); vocab wins over a special on the same id."""
+        (minbpe/regex.py:78-90); vocab wins over a special on the same id.
+        ids: any iterable of ints."""
         if self._dtab is None:
             merged = {
                 idx: s.encode("utf-8")
@@ -111,9 +113,10 @@ class RegexTokenizer(Tokenizer):
             }
             merged.update(self.vocab)
             self._dtab = DecodeTable(merged)
+        ids = id_array(ids)
         data, bad = self._dtab.lookup(ids)
         if bad >= 0:
-            raise ValueError(f"invalid token id: {ids[bad]}")
+            raise ValueError(f"invalid token id: {int(ids[bad])}")
         return data.decode("utf-8", errors="replace")
 
     # -- encode -------------------------------------------------------------

@@ -570,3 +570,252 @@ def test_encode_sweep_one_tile_edge(dev, n):
         run = [(97, 97), (256, 256), (257, 257)]
         _sweep_both(dev, ids, seg, run, [256, 257, 258])
         _sweep_both(dev, ids, seg, pairs, new_ids)
+
+
+# ---------------------------------------------------------------------------
+# K5 select_batch and K8 batch_apply as redesigned for Hopper
+# ---------------------------------------------------------------------------
+
+def _pair_stream(seed, pairs, counts, V, noise=0):
+    """A stream of two-token chunks: pair j occurs counts[j] times, in a
+    seeded order, after ``noise`` random ids below V in chunks of one
+    (which count nowhere). K1's plain version gives its matrices, so
+    ids[first] and ids[first + 1] are the pair, as in the trainer."""
+    rng = np.random.default_rng(seed)
+    order = rng.permutation(np.repeat(np.arange(len(pairs)),
+                                      np.asarray(counts, np.int64)))
+    body = np.asarray(pairs, np.int32).reshape(-1, 2)[order].reshape(-1)
+    ids = np.concatenate([rng.integers(0, V, noise).astype(np.int32), body])
+    seg = np.concatenate([np.arange(noise),
+                          noise + np.arange(body.size) // 2]).astype(np.int32)
+    if ids.size == 0:
+        ids, seg = np.zeros(1, np.int32), np.zeros(1, np.int32)
+    t = [torch.from_numpy(a) for a in (ids, seg)]
+    n = torch.tensor([body.size + noise], dtype=torch.int32)
+    cnt, first = kernels.pair_stats_plain(t[0], t[1], n, V)
+    return t[0], cnt, first
+
+
+def _select_both(dev, ids, cnt, first, W, M=1000, scratch=None, junk=0):
+    """K5 on the card against its plain version at W = 256 + i of an
+    M-merge run; entries outside the W x W corner hold junk (both sides).
+    Returns the CPU's (slot, ctl, log)."""
+    V = cnt.shape[0]
+    if junk:
+        rng = np.random.default_rng(junk)
+        cnt, first = cnt.clone(), first.clone()
+        outer = torch.ones((V, V), dtype=torch.bool)
+        outer[:W, :W] = False
+        cnt[outer] = torch.from_numpy(
+            rng.integers(1 << 20, 1 << 30, int(outer.sum())).astype(np.int32))
+        first[outer] = 0
+    (ctl_c, slot_c, log_c), (ctl_g, slot_g, log_g) = _state(dev, M, W)
+    kernels.select_batch_plain(cnt, first, ids, ctl_c, slot_c, log_c)
+    kernels.select_batch(cnt.to(dev), first.to(dev), ids.to(dev), ctl_g,
+                         slot_g, log_g, scratch)
+    assert torch.equal(slot_c, slot_g.cpu())
+    assert torch.equal(ctl_c, ctl_g.cpu())
+    assert torch.equal(log_c, log_g.cpu())
+    return slot_c, ctl_c, log_c
+
+
+def _spread(seed, k, W, rows=None):
+    """k distinct pairs (a, b) below W, in rows ``rows`` (all rows if
+    None), their counts between 2 and 9."""
+    rng = np.random.default_rng(seed)
+    rows = np.arange(W) if rows is None else np.asarray(rows)
+    cells = set()
+    while len(cells) < k:
+        cells.add((int(rng.choice(rows)), int(rng.integers(0, W))))
+    return sorted(cells), rng.integers(2, 10, k)
+
+
+@pytest.mark.parametrize("V, W", [(1024, 256), (1024, 257), (1024, 1000),
+                                  (1024, 1024), (1001, 1001), (300, 259)])
+def test_select_widths(dev, V, W):
+    """Corner widths that are and are not a multiple of 4, V not a multiple
+    of 4 (the scalar loads), junk outside the corner; the Zipf stream of
+    phase 2 at its width."""
+    rng = np.random.default_rng(W)
+    n = 60_000
+    ids = np.minimum(rng.zipf(1.3, n) - 1, W - 1).astype(np.int32)
+    seg = np.cumsum(rng.random(n) < 0.3).astype(np.int32)
+    t_ids, t_seg = torch.from_numpy(ids), torch.from_numpy(seg)
+    cnt, first = kernels.pair_stats_plain(
+        t_ids, t_seg, torch.tensor([n], dtype=torch.int32), V)
+    slot, _, _ = _select_both(dev, t_ids, cnt, first, W, junk=V + W)
+    assert int(slot[kernels.SLOT_BSEL]) >= 1
+
+
+@pytest.mark.parametrize("case", ["equal_counts", "one_row", "one_column",
+                                  "spread", "fifteen", "one", "none",
+                                  "homogeneous_first"])
+def test_select_cases(dev, case):
+    """Equal counts (first decides), the top 16 in one row or column or
+    over many blocks, fewer than 16 non-zero entries, one, none (the fail
+    round), and a homogeneous candidate 0 (a batch of one)."""
+    V = W = 1024
+    if case == "equal_counts":
+        pairs, counts = _spread(1, 300, W)
+        counts[:] = 3
+    elif case == "one_row":
+        pairs, counts = _spread(2, 40, W, rows=[517])
+    elif case == "one_column":
+        pairs = [(a, 77) for a in range(0, 1000, 25)]
+        counts = np.random.default_rng(3).integers(2, 10, len(pairs))
+    elif case == "spread":
+        pairs, counts = _spread(4, 2000, W)
+    elif case == "fifteen":
+        pairs, counts = _spread(5, 15, W)
+    elif case == "one":
+        pairs, counts = [(900, 3)], [4]
+    elif case == "none":
+        pairs, counts = [], []
+    else:
+        pairs, counts = [(8, 8), (1, 2), (3, 4)], [9, 5, 4]
+    ids, cnt, first = _pair_stream(6, pairs, counts, V, noise=500)
+    slot, ctl, _ = _select_both(dev, ids, cnt, first, W)
+    bsel = int(slot[kernels.SLOT_BSEL])
+    if case == "none":
+        assert bsel == 0 and int(ctl[kernels.CTL_FAIL]) == W - 256
+    elif case in ("one", "homogeneous_first"):
+        assert bsel == 1
+    else:
+        assert bsel >= 1
+
+
+def test_select_idle_ctl(dev):
+    """An idle ctl: only bsel = 0, nothing else written, the scratch left
+    zero."""
+    ids, cnt, first = _pair_stream(7, *_spread(7, 50, 300), 300)
+    _, (ctl, slot, log) = _state(dev, 100, 300)
+    ctl[kernels.CTL_FAIL] = 44
+    slot[:] = 5
+    scratch = kernels.select_scratch(300, dev)
+    kernels.select_batch(cnt.to(dev), first.to(dev), ids.to(dev), ctl, slot,
+                         log, scratch)
+    assert int(slot[kernels.SLOT_BSEL]) == 0
+    assert int((slot != 5).sum()) == 1
+    assert ctl.tolist()[:3] == [44, 44, 0] and int(log.abs().sum()) == 0
+    assert int(scratch.abs().sum()) == 0
+
+
+def test_select_fifty_calls_one_scratch(dev):
+    """50 calls in a row on one scratch, each at another width and on
+    other matrices: each equals the plain version, and the done counter
+    is back at 0 after every launch."""
+    V = 1024
+    scratch = kernels.select_scratch(V, dev)
+    rng = np.random.default_rng(8)
+    for r in range(50):
+        W = int(rng.integers(256, V + 1))
+        k = int(rng.integers(0, 60))
+        ids, cnt, first = _pair_stream(100 + r, *_spread(100 + r, k, W), V,
+                                       noise=int(rng.integers(0, 300)))
+        _select_both(dev, ids, cnt, first, W, scratch=scratch)
+        assert int(scratch[0]) == 0
+
+
+def _apply_case(seed, n, bsel, stop=None, sites=(), density=0.1):
+    """(ids, cand, slot, acc) of a batch of bsel candidates over n
+    positions: random sites (adjacent ones too) plus ``sites``; counts
+    1000 - j; the histograms crafted so that the trim stops after ``stop``
+    candidates (None: no stop)."""
+    rng = np.random.default_rng(seed)
+    m = max(n, 1)
+    ids = rng.integers(0, 256, m).astype(np.int32)
+    cand = np.where(rng.random(m) < density, rng.integers(0, bsel, m),
+                    -1).astype(np.int32)
+    for p in sites:
+        if p < m:
+            cand[p] = int(rng.integers(0, bsel))
+    slot = kernels.new_slot("cpu")
+    for j in range(bsel):
+        slot[2 * j], slot[2 * j + 1] = 100 + j, 130 + j
+        slot[kernels.SLOT_COUNT + j] = 1000 - j
+    slot[kernels.SLOT_BSEL] = bsel
+    slot[kernels.SLOT_ZBASE] = 290
+    slot[kernels.SLOT_I] = 34
+    acc = rng.integers(0, 10, (2, kernels.HIST_BUCKETS, kernels.K_CAP))
+    acc = np.where(rng.random(acc.shape) < 0.3, acc, 0).astype(np.int32)
+    if stop is not None and stop < kernels.K_CAP:
+        # cm[stop - 1] = count[stop]: candidate stop no longer beats it
+        acc[rng.integers(0, 2), rng.integers(0, kernels.HIST_BUCKETS),
+            stop - 1] = 1000 - stop
+    return (torch.from_numpy(ids), torch.from_numpy(cand), slot,
+            torch.from_numpy(acc))
+
+
+def _apply_both(dev, ids, cand, n, slot, acc, M=100, scratch=None,
+                offset=0):
+    """K8 on the card against its plain version; with ``offset`` the
+    outputs are views that many elements into their buffers (unaligned).
+    Returns the trim's bstar."""
+    cap = ids.numel()
+    (ctl_c, _, log_c), (ctl_g, _, log_g) = _state(dev, M, 290)
+    nt = torch.tensor([n], dtype=torch.int32)
+    out_c = torch.full((cap,), -7, dtype=torch.int32)
+    live_c = torch.zeros(cap, dtype=torch.bool)
+    sc, ac = slot.clone(), acc.clone()
+    kernels.batch_apply_plain(ids, nt, cand, sc, ac, ctl_c, log_c, M, out_c,
+                              live_c)
+    buf = torch.full((cap + offset,), -7, dtype=torch.int32, device=dev)
+    lbuf = torch.zeros(cap + offset, dtype=torch.bool, device=dev)
+    out_g, live_g = buf[offset:], lbuf[offset:]
+    sg, ag = slot.to(dev), acc.to(dev)
+    kernels.batch_apply(ids.to(dev), nt.to(dev), cand.to(dev), sg, ag, ctl_g,
+                        log_g, M, out_g, live_g, scratch)
+    assert torch.equal(out_c, out_g.cpu()) and torch.equal(live_c,
+                                                           live_g.cpu())
+    assert torch.equal(sc, sg.cpu()) and torch.equal(ctl_c, ctl_g.cpu())
+    assert torch.equal(log_c, log_g.cpu())
+    assert int(ag.abs().sum()) == 0 and int(ac.abs().sum()) == 0
+    return int(sc[kernels.SLOT_BSTAR])
+
+
+@pytest.mark.parametrize("stop", range(1, kernels.K_CAP + 1))
+def test_batch_apply_trim_stops(dev, stop):
+    """Histograms crafted so that the trim keeps exactly 1 .. 16
+    candidates."""
+    ids, cand, slot, acc = _apply_case(stop, 3 * TILE + 77, kernels.K_CAP,
+                                       stop)
+    assert _apply_both(dev, ids, cand, 3 * TILE + 77, slot, acc) == stop
+
+
+@pytest.mark.parametrize("n, bsel, M", [(0, 3, 40), (1, 3, 40), (2, 2, 40),
+                                        (5000, 16, 37), (5000, 5, 35),
+                                        (400_000, 16, 40)])
+def test_batch_apply_sizes(dev, n, bsel, M):
+    """Streams of 0-2 tokens, M - i below bsel (the trim capped at 3 and
+    1), and the main path's 400K tokens."""
+    ids, cand, slot, acc = _apply_case(n + bsel, n, bsel)
+    got = _apply_both(dev, ids, cand, n, slot, acc, M=M)
+    assert got == min(bsel, M - 34)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_batch_apply_tile_edges(dev, offset):
+    """Sites on either side of every warp boundary (256 positions) and
+    tile boundary (2048), at the stream's last position, n not a multiple
+    of 8; outputs 16-byte aligned and not (offset), and a stream longer
+    than its n."""
+    n = 2 * TILE + 5
+    edges = [p + d for p in range(256, 2 * TILE + 1, 256) for d in (-1, 0)]
+    ids, cand, slot, acc = _apply_case(9, n + 100, 7, sites=edges + [n - 1],
+                                       density=0.02)
+    assert _apply_both(dev, ids, cand, n, slot, acc, offset=offset) == 7
+
+
+def test_batch_apply_fifty_calls_one_scratch(dev):
+    """50 calls in a row on one scratch, over other sizes and trims: each
+    equals the plain version, and the scratch is zero after every one."""
+    scratch = kernels.batch_scratch(dev)
+    rng = np.random.default_rng(10)
+    for r in range(50):
+        n = int(rng.integers(0, 30_000))
+        bsel = int(rng.integers(2, kernels.K_CAP + 1))
+        stop = int(rng.integers(1, bsel + 1))
+        ids, cand, slot, acc = _apply_case(200 + r, n, bsel, stop)
+        assert _apply_both(dev, ids, cand, n, slot, acc,
+                           scratch=scratch) == stop
+        assert int(scratch.abs().sum()) == 0

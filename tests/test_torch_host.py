@@ -5,6 +5,7 @@ Inputs are seeded; every output is bytes or integers, so every comparison
 is exact."""
 
 import random
+import re
 
 import numpy as np
 import pytest
@@ -24,6 +25,7 @@ from minbpe_tpu.utils import presplit as jpresplit  # noqa: E402
 
 import minbpe_tpu_torch as port  # noqa: E402
 from minbpe_tpu_torch import base as pbase  # noqa: E402
+from minbpe_tpu_torch import kernels  # noqa: E402
 from minbpe_tpu_torch.ops import stream as pstream  # noqa: E402
 from minbpe_tpu_torch.utils import native, presplit  # noqa: E402
 
@@ -175,3 +177,27 @@ def test_pack_offsets_and_stream_build():
         assert np.array_equal(seg.numpy(), js[:n])
     assert pstream.unpack_ids(np.arange(5), 3) == [0, 1, 2]
     assert pstream.bucket_capacity(129) == jstream.bucket_capacity(129)
+
+
+def _c_entry_points():
+    """{name: number of parameters} of the extern "C" functions in the
+    kernels' source."""
+    import re
+
+    src = open(kernels.SOURCE).read()
+    body = src[src.index('extern "C" {'):]
+    found = {}
+    for m in re.finditer(r"\n(?:int|cudaError_t) (bpe_\w+)\(([^)]*)\)", body):
+        params = m.group(2).strip()
+        found[m.group(1)] = len(params.split(",")) if params else 0
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(kernels.SIGNATURES))
+def test_bound_entry_points_exist(name):
+    """Every C entry point the ctypes binding names is defined in the
+    source with as many parameters as the binding passes: a missing or
+    changed one would fail only when the library loads on the card."""
+    found = _c_entry_points()
+    assert name in found
+    assert found[name] == len(kernels.SIGNATURES[name])

@@ -173,11 +173,12 @@ def test_custom_pattern_needs_regex(monkeypatch):
 @pytest.mark.parametrize("saved, loaded", [("custom", "gpt4"),
                                            ("gpt4", "custom")])
 def test_load_keeps_the_constructors_split(tmp_path, saved, loaded):
-    """After load(), a pattern other than the scanners' splits with the
-    pattern the tokenizer was constructed with, in both packages (and the
-    reference): a custom model loaded into RegexTokenizer() splits GPT-4
-    chunks, a GPT-4 model loaded into RegexTokenizer(custom) keeps the
-    scanner the loaded pattern names."""
+    """After load(), the port splits with the pattern the tokenizer was
+    constructed with, as the reference does (its load() never touches
+    compiled_pattern): a custom model loaded into RegexTokenizer() splits
+    GPT-4 chunks, and a GPT-4 model loaded into RegexTokenizer(custom)
+    splits custom chunks, where minbpe_tpu takes the scanner the loaded
+    pattern names. save() writes the loaded pattern back."""
     patterns = {"custom": r"\w+|\s+|[^\w\s]+", "gpt4": None}
     trained = minbpe_tpu.RegexTokenizer(patterns[saved])
     trained.train(TEXT, 300)
@@ -188,10 +189,48 @@ def test_load_keeps_the_constructors_split(tmp_path, saved, loaded):
     j.load(prefix + ".model")
     p.load(prefix + ".model")
     assert p.pattern == j.pattern == trained.pattern
+    p.save(str(tmp_path / "p"))
+    with open(prefix + ".model", "rb") as a, open(
+            str(tmp_path / "p.model"), "rb") as b:
+        assert a.read() == b.read()
     text = TEXT[:4000] + " don't   stop\n\n  123456 "
-    assert p.encode(text) == j.encode(text)
-    assert p.encode_batch([text, text[:99]]) == j.encode_batch(
-        [text, text[:99]])
     if saved == "custom":
+        assert p.encode(text) == j.encode(text)
+        assert p.encode_batch([text, text[:99]]) == j.encode_batch(
+            [text, text[:99]])
         # the loaded pattern's own chunks would give other ids
         assert p.encode(text) != trained.encode(text)
+    else:
+        # the same merges under the constructor's pattern: the contract
+        pairs, new_ids = trained._merge_arrays()
+        want = tokenizer_from_arrays(port.RegexTokenizer, pairs, new_ids,
+                                     pattern=patterns[loaded], device="cpu")
+        assert p.encode(text) == want.encode(text)
+        assert p.encode_batch([text, text[:99]]) == want.encode_batch(
+            [text, text[:99]])
+        # minbpe_tpu departs from the contract here (ROADMAP.md queue C)
+        assert p.encode(text) != j.encode(text)
+
+
+def _bad_id_in(ids, bad):
+    yield from ids[:3]
+    yield bad
+    yield from ids[3:]
+
+
+@pytest.mark.parametrize("kind", ["list", "tuple", "numpy", "generator",
+                                  "iter"])
+def test_decode_takes_any_iterable(pair, kind):
+    """decode takes any iterable of ints, as the reference's
+    b"".join(vocab[idx] for idx in ids) does; an unknown id inside a
+    generator raises the reference's error, naming that id."""
+    name, _, p, _, _ = pair
+    ids = p.encode(TEXT[:3000])
+    wrap = {"list": list, "tuple": tuple,
+            "numpy": lambda x: np.asarray(x, np.int32),
+            "generator": lambda x: (i for i in x), "iter": iter}[kind]
+    assert p.decode(wrap(ids)) == TEXT[:3000]
+    assert p.decode(wrap([])) == ""
+    unknown = KeyError if name == "BasicTokenizer" else ValueError
+    with pytest.raises(unknown, match="5000"):
+        p.decode(_bad_id_in(ids, 5000))
