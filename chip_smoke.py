@@ -427,46 +427,43 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int,
     print(f"merge_apply: {by_pair[0]['ms']:.5f} ms at {by_pair[0]['pair']}, "
           f"{by_pair[1]['ms']:.5f} ms at {by_pair[1]['pair']}")
 
-    # K6-K8 on a batch of K_CAP candidates drawn from the stream
+    # K6 batch_hist, then K8, on a batch of K_CAP candidates drawn from the
+    # stream; K6's library call: bincount over the left partners' keys
     pairs = draw_batch(np, ck.cpu().numpy(), fk.cpu().numpy(), kernels.K_CAP)
     if len(pairs) != kernels.K_CAP:
         raise AssertionError(f"drew {len(pairs)} candidates")
     slot, ctl, log = batch_state(torch, kernels, dev, pairs, I, M)
     acc_k, acc_p = kernels.new_hist(dev), kernels.new_hist(dev)
-    cand_k, F_k = kernels.batch_mark(ids, seg, nt, slot, acc_k[0])
-    cand_p, F_p = kernels.batch_mark_plain(ids, seg, nt, slot, acc_p[0])
-    err6 = max_err(torch, [(cand_k[:n], cand_p[:n]), (F_k[:n], F_p[:n]),
-                           (acc_k[0], acc_p[0])])
-    kernels.batch_hist_rev(ids, seg, nt, cand_k, F_k, slot, acc_k[1])
-    kernels.batch_hist_rev_plain(ids, seg, nt, cand_k, F_k, slot, acc_p[1])
-    err7 = max_err(torch, [(acc_k[1], acc_p[1])])
+    cand_k = kernels.batch_hist(ids, seg, nt, slot, acc_k,
+                                torch.empty_like(ids))
+    cand_p = kernels.batch_hist_plain(ids, seg, nt, slot, acc_p,
+                                      torch.empty_like(ids))
+    err6 = max_err(torch, [(cand_k[:n], cand_p[:n]), (acc_k, acc_p)])
     sites = cand_k[:n] >= 0
     nsites = int(sites.sum())
     site_pos = torch.nonzero(sites).flatten()
     zb = 256 + I
-    pF = F_k[site_pos - 1].long()
+    _, F_p = kernels.batch_mark_plain(ids, seg, nt, slot,
+                                      kernels.new_hist(dev)[0])
+    pF = F_p[site_pos - 1].long()
     hist_key = (pF & 127) * kernels.K_CAP + cand_k[site_pos].long()
+    del F_p
     acc_t = kernels.new_hist(dev)
-    rows.append(dict(
-        k=kernels.BATCH_MARK, err=err6,
-        ms=device_ms(torch, lambda: kernels.batch_mark(
-            ids, seg, nt, slot, acc_t[0]), 50),
-        plain_ms=host_ms(torch, lambda: kernels.batch_mark_plain(
-            ids, seg, nt, slot, acc_t[0]), 5),
-        bytes=16 * n + 4 * kernels.HIST_BUCKETS * kernels.K_CAP,
+    cand_t = torch.empty_like(ids)
+    hist_bytes = 2 * 4 * kernels.HIST_BUCKETS * kernels.K_CAP
+    row6 = dict(
+        k=kernels.BATCH_HIST, err=err6,
+        ms=device_ms(torch, lambda: kernels.batch_hist(
+            ids, seg, nt, slot, acc_t, cand_t), 50),
+        plain_ms=host_ms(torch, lambda: kernels.batch_hist_plain(
+            ids, seg, nt, slot, acc_t, cand_t), 5),
+        bytes=12 * n + hist_bytes,
         library_ms=profiled_ms(torch, lambda: torch.bincount(
-            hist_key, minlength=kernels.HIST_BUCKETS * kernels.K_CAP), 50)))
-    rows.append(dict(
-        k=kernels.BATCH_HIST_REV, err=err7,
-        ms=device_ms(torch, lambda: kernels.batch_hist_rev(
-            ids, seg, nt, cand_k, F_k, slot, acc_t[1]), 50),
-        plain_ms=host_ms(torch, lambda: kernels.batch_hist_rev_plain(
-            ids, seg, nt, cand_k, F_k, slot, acc_t[1]), 5),
-        bytes=4 * n + 16 * nsites + 4 * kernels.HIST_BUCKETS * kernels.K_CAP,
-        library_ms=profiled_ms(torch, lambda: torch.bincount(
-            hist_key, minlength=kernels.HIST_BUCKETS * kernels.K_CAP), 50)))
+            hist_key, minlength=kernels.HIST_BUCKETS * kernels.K_CAP), 50))
+    rows.append(row6)
     print(f"batch: {len(pairs)} candidates, {nsites} sites; left partners "
-          f"in a site: {int((pF >= zb).sum())}")
+          f"in a site: {int((pF >= zb).sum())}; batch_hist "
+          f"{row6['ms']:.5f} ms")
 
     # K8 batch_apply: the trim on these histograms, then the apply
     def apply(fn):
@@ -540,30 +537,37 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int,
                                  False)[0])
     rows.append(hist_row(kernels.PAIR_COUNT, main9, shapes9))
 
-    # K1 and K6 at the XL bound: the same stream repeated to XL_MAX_N tokens
+    # K1, K6 and K8 at the XL bound: the same stream repeated to XL_MAX_N
+    # tokens
     big_ids, big_seg = xl_stream(torch, ids, seg, xl_max_n)
     big_n = torch.tensor([xl_max_n], dtype=torch.int32, device=dev)
     rows[0]["shapes"].append(hist_case(torch, kernels, "zipf_48m", big_ids,
                                        big_seg, W, True)[0])
     xa_k, xa_p = kernels.new_hist(dev), kernels.new_hist(dev)
-    mk = kernels.batch_mark(big_ids, big_seg, big_n, slot, xa_k[0])
-    mp = kernels.batch_mark_plain(big_ids, big_seg, big_n, slot, xa_p[0])
-    xl6 = max_err(torch, list(zip(mk, mp)) + [(xa_k, xa_p)])
-    rows[3]["xl"] = dict(
-        n=xl_max_n, max_abs_err=xl6,
-        ms=device_ms(torch, lambda: kernels.batch_mark(
-            big_ids, big_seg, big_n, slot, acc_t[0]), 5))
-    print(f"xl size {xl_max_n}: batch_mark max_abs_err {xl6} "
-          f"({rows[3]['xl']['ms']:.4f} ms)")
+    mk = kernels.batch_hist(big_ids, big_seg, big_n, slot, xa_k,
+                            torch.empty_like(big_ids))
+    mp = kernels.batch_hist_plain(big_ids, big_seg, big_n, slot, xa_p,
+                                  torch.empty_like(big_ids))
+    xl6 = max_err(torch, [(mk, mp), (xa_k, xa_p)])
     del mp
-    # K8 there too, on K6's and K7's output: its bound at scale
-    kernels.batch_hist_rev(big_ids, big_seg, big_n, *mk, slot, xa_k[1])
+    x_cand = torch.empty_like(big_ids)
+    nbytes = 12 * xl_max_n + hist_bytes
+    row6["xl"] = dict(
+        n=xl_max_n, max_abs_err=xl6,
+        ms=device_ms(torch, lambda: kernels.batch_hist(
+            big_ids, big_seg, big_n, slot, acc_t, x_cand), 5),
+        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    del x_cand
+    print(f"xl size {xl_max_n}: batch_hist max_abs_err {xl6} "
+          f"({row6['xl']['ms']:.4f} ms, bound "
+          f"{row6['xl']['bound_ms']:.4f} ms)")
 
+    # K8 there too, on K6's output: its bound at scale
     def apply_big(fn):
         s2, c2, l2 = slot.clone(), ctl.clone(), log.clone()
         out = torch.empty_like(big_ids)
         live = torch.empty(big_ids.shape, dtype=torch.bool, device=dev)
-        fn(big_ids, big_n, mk[0], s2, xa_k.clone(), c2, l2, M, out, live)
+        fn(big_ids, big_n, mk, s2, xa_k.clone(), c2, l2, M, out, live)
         return out, live, s2, c2, l2
 
     xl8 = max_err(torch, list(zip(apply_big(kernels.batch_apply),
@@ -574,7 +578,7 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int,
     row8["xl"] = dict(
         n=xl_max_n, max_abs_err=xl8,
         ms=device_ms(torch, lambda: kernels.batch_apply(
-            big_ids, big_n, mk[0], t_slot, acc_t, t_ctl, t_log, M, x_out,
+            big_ids, big_n, mk, t_slot, acc_t, t_ctl, t_log, M, x_out,
             x_live, t_scratch), 5),
         bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
     print(f"xl size {xl_max_n}: batch_apply max_abs_err {xl8} "
@@ -662,8 +666,8 @@ def merges_in_rank_order(np, merges):
     return np.array([list(p) for p, _ in items], dtype=np.int32)
 
 
-TRAIN_KERNELS = ("pair_stats", "select_batch", "merge_apply", "batch_mark",
-                 "batch_hist_rev", "batch_apply", "compact")
+TRAIN_KERNELS = ("pair_stats", "select_batch", "merge_apply", "batch_hist",
+                 "batch_apply", "compact")
 ENCODE_KERNELS = ("encode_sweep",)
 
 

@@ -25,10 +25,11 @@
 //                        and _train_xl's walk (:689-731)
 //   K3 merge_apply    <- tiled_apply (fused_train.py:293-340), _apply_kernel
 //                        (fused_train_xl.py:247-297)
-//   K6 batch_mark     <- tiled_batch_mark (fused_train.py:452-521),
-//                        _mark_kernel (fused_train_xl.py:328-389)
-//   K7 batch_hist_rev <- tiled_batch_hist_rev (fused_train.py:524-593),
-//                        _histrev_kernel (fused_train_xl.py:392-439)
+//   K6 batch_hist     <- tiled_batch_mark and tiled_batch_hist_rev
+//                        (fused_train.py:452-593), _mark_kernel and
+//                        _histrev_kernel (fused_train_xl.py:328-439): the
+//                        batch's sites and both creation histograms, one
+//                        pass
 //   K8 batch_apply    <- the trim (fused_train.py:1140-1153) and
 //                        tiled_batch_apply (:596-634), _batch_apply_kernel
 //                        (fused_train_xl.py:442-508)
@@ -50,7 +51,7 @@
 // candidates, their count bsel, and a snapshot of i), and every later kernel
 // of the slot reads only the record, so the one thread that advances i (K5
 // for a single merge, K8's trim for a batch) can do so while later kernels
-// are still queued. The gates: K3 runs when bsel == 1, K6-K8 when
+// are still queued. The gates: K3 runs when bsel == 1, K6 and K8 when
 // bsel >= 2, K4 when bsel >= 1; an idle slot has bsel = 0.
 //
 // Each extern "C" entry point launches one kernel on the caller's stream
@@ -684,7 +685,7 @@ __global__ void __launch_bounds__(TPB)
 }
 
 // ---------------------------------------------------------------------------
-// The batch (bsel >= 2): K6, K7, K8.
+// The batch (bsel >= 2): K6 batch_hist, then K8 batch_apply.
 //
 // The accepted candidates are heterogeneous and share no cross-side token,
 // so their match sites never overlap and every match is a kept site. The
@@ -701,20 +702,51 @@ __global__ void __launch_bounds__(TPB)
 //
 // The stream is dense, so the Pallas passes' select-scans for the previous
 // and second-next live tokens, and their tile and segment carries, become
-// p - 1 and p + 2. K6 and K7 are one elementwise pass each, with the
-// histogram in shared memory per block (shared atomics) and one global
-// atomic per non-zero bin; K8 is one launch: each block takes the trim
-// from the histograms itself, then applies a tiled range.
-// Bound: bytes. K6 reads ids and seg (8 B per token) and writes cand and F
-// (8 B); K7 reads cand, F, ids and seg (16 B); K8 reads ids and cand and
-// writes ids and live (13 B).
+// p - 1 and p + 2. With c(q) the candidate matching at q (-1 unless q + 1 <
+// n and seg[q] == seg[q + 1]) and F(q) = zbase + c(q), else zbase +
+// c(q - 1), else ids[q], a site p of candidate j adds (F(p - 1), ids[p - 1])
+// to acc_l's column j where seg[p - 1] == seg[p], and (F(p + 2), ids[p + 2])
+// to acc_r's where p + 2 < n and seg[p + 2] == seg[p].
+//
+// K6 batch_hist computes cand[p] = c(p) for every p < n and both histograms
+// in one pass (B7 _mark_kernel and B8 _histrev_kernel, fused_train_xl.py:328
+// and :392; B1's tiled_batch_mark and tiled_batch_hist_rev,
+// fused_train.py:452-593). F never leaves registers.
+// Bound: bytes, 8 B read (ids, seg) and 4 B written (cand) per token, plus
+// the two 8 KB histograms. So:
+//   - a persistent grid (the blocks that fit at once, capped at the
+//     stream's tiles at capacity) walks the live tiles of TILE positions;
+//     a block whose first tile lies past n returns before it touches
+//     shared memory, so slots late in a run pay for n, not for capacity;
+//   - a thread takes IPT consecutive ids and seg with 16-byte loads and
+//     the 2-before / 3-after halo from its neighbour lanes (lanes 0 and 31
+//     from memory), so each token is read from device memory about once,
+//     and writes its cand with 16-byte stores;
+//   - the candidate at q is one lookup, not a loop over 16 pairs: mask[x]
+//     has bit j where candidate j's left id is x (mod 1024) and bit 16 + j
+//     where its right id is, so mask[a] & mask[b] >> 16 names the one
+//     candidate (a, b) when every id is below 1024 (TRAIN_MAX_V), and the
+//     few it names are checked against the pairs otherwise;
+//   - each block counts into both histograms in shared memory (shared
+//     atomics) and adds its non-zero bins into acc once, after its last
+//     tile, one global atomic each.
+// Bound of K8: it reads ids and cand and writes ids and live (13 B).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ int cand_at(const int* ids, const int* seg, int q,
-                                       int n, const int* pairs, int bsel) {
-  if (q < 0 || q + 1 >= n || seg[q] != seg[q + 1]) return -1;
-  const int a = ids[q], b = ids[q + 1];
-  for (int j = 0; j < bsel; ++j)
+constexpr int MASK_IDS = 1024;  // entries of K6's match table: id & 1023
+
+// the candidate matching the pair (a, b): mask as above, pairs the
+// candidates' (pa, pb); exact when every candidate's ids are below MASK_IDS
+__device__ __forceinline__ int match_pair(const unsigned* mask,
+                                          const int* pairs, bool exact,
+                                          int a, int b) {
+  unsigned m =
+      mask[a & (MASK_IDS - 1)] & (mask[b & (MASK_IDS - 1)] >> K_CAP);
+  if (m == 0) return -1;
+  if (exact && (unsigned)(a | b) < (unsigned)MASK_IDS) return __ffs(m) - 1;
+  for (; m; m &= m - 1) {
+    const int j = __ffs(m) - 1;
     if (pairs[2 * j] == a && pairs[2 * j + 1] == b) return j;
+  }
   return -1;
 }
 
@@ -728,62 +760,148 @@ __device__ __forceinline__ void hist_add(int* h, int v, int vid, int zbase,
   }
 }
 
-__device__ __forceinline__ void hist_flush(const int* h, int* acc) {
-  __syncthreads();
-  for (int t = threadIdx.x; t < HIST; t += blockDim.x)
-    if (h[t]) atomicAdd(&acc[t], h[t]);
-}
-
-__global__ void batch_mark_kernel(const int* __restrict__ ids,
-                                  const int* __restrict__ seg,
-                                  const int* __restrict__ n_ptr,
-                                  const int* __restrict__ slot,
-                                  int* __restrict__ cand,
-                                  int* __restrict__ F, int* acc_l) {
-  if (gated_off(slot, 2, K_CAP)) return;
+// acc: acc_l then acc_r, [bucket][candidate] each
+__global__ void __launch_bounds__(TPB)
+    batch_hist_kernel(const int* __restrict__ ids,
+                      const int* __restrict__ seg,
+                      const int* __restrict__ n_ptr,
+                      const int* __restrict__ slot, int* __restrict__ cand,
+                      int* acc) {
+  __shared__ __align__(16) unsigned mask[MASK_IDS];
+  __shared__ __align__(16) int h[2 * HIST];
   __shared__ int pairs[2 * K_CAP];
-  __shared__ int h[HIST];
+  // the slot's words and n, all read at once
   const int bsel = slot[SLOT_BSEL];
   const int zbase = slot[SLOT_ZBASE];
-  if (threadIdx.x < 2 * K_CAP) pairs[threadIdx.x] = slot[threadIdx.x];
-  for (int t = threadIdx.x; t < HIST; t += blockDim.x) h[t] = 0;
-  __syncthreads();
+  const int pw = threadIdx.x < 2 * K_CAP ? slot[SLOT_PAIRS + threadIdx.x] : 0;
   const int n = *n_ptr;
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += gridDim.x * blockDim.x) {
-    const int c0 = cand_at(ids, seg, p, n, pairs, bsel);
-    const int c1 = cand_at(ids, seg, p - 1, n, pairs, bsel);
-    cand[p] = c0;
-    F[p] = c0 >= 0 ? zbase + c0 : (c1 >= 0 ? zbase + c1 : ids[p]);
-    if (c0 >= 0 && p >= 1 && seg[p - 1] == seg[p]) {
-      const int c2 = cand_at(ids, seg, p - 2, n, pairs, bsel);
-      const int v = c1 >= 0 ? zbase + c1 : (c2 >= 0 ? zbase + c2 : ids[p - 1]);
-      hist_add(h, v, ids[p - 1], zbase, c0);
-    }
-  }
-  hist_flush(h, acc_l);
-}
+  if (bsel < 2 || bsel > K_CAP || (int)blockIdx.x * TILE >= n) return;
 
-__global__ void batch_hist_rev_kernel(const int* __restrict__ ids,
-                                      const int* __restrict__ seg,
-                                      const int* __restrict__ n_ptr,
-                                      const int* __restrict__ cand,
-                                      const int* __restrict__ F,
-                                      const int* __restrict__ slot,
-                                      int* acc_r) {
-  if (gated_off(slot, 2, K_CAP)) return;
-  __shared__ int h[HIST];
-  const int zbase = slot[SLOT_ZBASE];
-  for (int t = threadIdx.x; t < HIST; t += blockDim.x) h[t] = 0;
+  const int lane = threadIdx.x & 31;
+  const bool vec = aligned16(ids, seg) && aligned16(cand, cand);
+  // id[t], sg[t]: ids and seg at p0 - 2 + t, t < IPT + 5 (0 outside the
+  // stream); t = 2 .. IPT + 1 are the thread's own positions
+  int id[IPT + 5], sg[IPT + 5];
+  auto load = [&](int base) {
+    const int p0 = base + threadIdx.x * IPT;
+    if (vec && p0 + IPT <= n) {
+#pragma unroll
+      for (int v = 0; v < IPT / 4; ++v) {
+        unpack4(ld4<false>(ids + p0 + 4 * v), id + 2 + 4 * v);
+        unpack4(ld4<false>(seg + p0 + 4 * v), sg + 2 + 4 * v);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < IPT; ++k) {
+        id[2 + k] = p0 + k < n ? __ldg(ids + p0 + k) : 0;
+        sg[2 + k] = p0 + k < n ? __ldg(seg + p0 + k) : 0;
+      }
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        const int q = p0 - 2 + t;
+        id[t] = q >= 0 && q < n ? __ldg(ids + q) : 0;
+        sg[t] = q >= 0 && q < n ? __ldg(seg + q) : 0;
+      }
+    }
+    if (lane == 31) {
+#pragma unroll
+      for (int t = IPT + 2; t < IPT + 5; ++t) {
+        const int q = p0 - 2 + t;
+        id[t] = q < n ? __ldg(ids + q) : 0;
+        sg[t] = q < n ? __ldg(seg + q) : 0;
+      }
+    }
+  };
+  int base = (int)blockIdx.x * TILE;
+  load(base);  // in flight while the tables are built
+
+  for (int t = threadIdx.x; t < MASK_IDS / 4; t += TPB)
+    reinterpret_cast<uint4*>(mask)[t] = make_uint4(0, 0, 0, 0);
+  for (int t = threadIdx.x; t < 2 * HIST / 4; t += TPB)
+    reinterpret_cast<int4*>(h)[t] = make_int4(0, 0, 0, 0);
+  if (threadIdx.x < 2 * K_CAP) pairs[threadIdx.x] = pw;
   __syncthreads();
-  const int n = *n_ptr;
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += gridDim.x * blockDim.x) {
-    const int c0 = cand[p];
-    if (c0 >= 0 && p + 2 < n && seg[p + 2] == seg[p])
-      hist_add(h, F[p + 2], ids[p + 2], zbase, c0);
+  bool mine_exact = true;
+  if (threadIdx.x < bsel) {
+    const int pa = pairs[2 * threadIdx.x], pb = pairs[2 * threadIdx.x + 1];
+    atomicOr(&mask[pa & (MASK_IDS - 1)], 1u << threadIdx.x);
+    atomicOr(&mask[pb & (MASK_IDS - 1)], 1u << (K_CAP + threadIdx.x));
+    mine_exact = (unsigned)(pa | pb) < (unsigned)MASK_IDS;
   }
-  hist_flush(h, acc_r);
+  const bool exact = __syncthreads_and(mine_exact);
+
+  while (true) {
+    const int p0 = base + threadIdx.x * IPT;
+    // the halo from the neighbour lanes (lanes 0 and 31 loaded theirs)
+    {
+      const int i0 = __shfl_up_sync(FULL, id[IPT], 1);
+      const int i1 = __shfl_up_sync(FULL, id[IPT + 1], 1);
+      const int s0 = __shfl_up_sync(FULL, sg[IPT], 1);
+      const int s1 = __shfl_up_sync(FULL, sg[IPT + 1], 1);
+      if (lane != 0) {
+        id[0] = i0;
+        id[1] = i1;
+        sg[0] = s0;
+        sg[1] = s1;
+      }
+#pragma unroll
+      for (int t = 0; t < 3; ++t) {
+        const int i = __shfl_down_sync(FULL, id[2 + t], 1);
+        const int s = __shfl_down_sync(FULL, sg[2 + t], 1);
+        if (lane != 31) {
+          id[IPT + 2 + t] = i;
+          sg[IPT + 2 + t] = s;
+        }
+      }
+    }
+    // c(q) and F(q) at q = p0 - 2 + t (F from t = 1 on)
+    int c[IPT + 4], F[IPT + 4];
+#pragma unroll
+    for (int t = 0; t < IPT + 4; ++t) {
+      const int q = p0 - 2 + t;
+      c[t] = q >= 0 && q + 1 < n && sg[t] == sg[t + 1]
+                 ? match_pair(mask, pairs, exact, id[t], id[t + 1])
+                 : -1;
+    }
+#pragma unroll
+    for (int t = 1; t < IPT + 4; ++t)
+      F[t] = c[t] >= 0 ? zbase + c[t]
+                       : (c[t - 1] >= 0 ? zbase + c[t - 1] : id[t]);
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      const int t = k + 2;
+      const int j = c[t];
+      if (j < 0) continue;
+      if (p0 + k >= 1 && sg[t - 1] == sg[t])
+        hist_add(h, F[t - 1], id[t - 1], zbase, j);
+      if (p0 + k + 2 < n && sg[t + 2] == sg[t])
+        hist_add(h + HIST, F[t + 2], id[t + 2], zbase, j);
+    }
+    if (vec && p0 + IPT <= n) {
+#pragma unroll
+      for (int v = 0; v < IPT / 4; ++v)
+        reinterpret_cast<int4*>(cand + p0)[v] =
+            make_int4(c[2 + 4 * v], c[3 + 4 * v], c[4 + 4 * v], c[5 + 4 * v]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < IPT; ++k)
+        if (p0 + k < n) cand[p0 + k] = c[2 + k];
+    }
+    base += (int)gridDim.x * TILE;
+    if (base >= n) break;
+    load(base);
+  }
+
+  __syncthreads();
+  for (int t = threadIdx.x; t < 2 * HIST / 4; t += TPB) {
+    const int4 v = reinterpret_cast<const int4*>(h)[t];
+    if (v.x) atomicAdd(acc + 4 * t, v.x);
+    if (v.y) atomicAdd(acc + 4 * t + 1, v.y);
+    if (v.z) atomicAdd(acc + 4 * t + 2, v.z);
+    if (v.w) atomicAdd(acc + 4 * t + 3, v.w);
+  }
 }
 
 // K8: the trim, then the combined apply, in one launch.
@@ -1591,9 +1709,27 @@ __global__ void __launch_bounds__(TPB)
 
 inline int tiles_for(int cap) { return cap > 0 ? (cap + TILE - 1) / TILE : 1; }
 
-inline int stat_blocks(long long items) {
-  long long g = (items + TPB - 1) / TPB;
-  return g < 1 ? 1 : (g > MAX_STAT_BLOCKS ? MAX_STAT_BLOCKS : (int)g);
+// K6's grid over a stream of cap positions on the current device: the
+// blocks that fit at once (cached per device), capped at cap's tiles
+cudaError_t batch_hist_grid(int cap, int* grid) {
+  static std::atomic<int> resident[64];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int sms, per;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, batch_hist_kernel, TPB, 0);
+    if (e != cudaSuccess) return e;
+    if (per < 1) return cudaErrorInvalidConfiguration;
+    resident[dev] = per * sms;
+  }
+  const int tiles = tiles_for(cap);
+  *grid = resident[dev] < tiles ? (int)resident[dev] : tiles;
+  return cudaSuccess;
 }
 
 inline size_t hist_smem_bytes(bool first, int log2) {
@@ -1719,23 +1855,16 @@ int bpe_merge_apply(const int* ids, const int* seg, const int* n,
   return cudaGetLastError();
 }
 
-// cand, F: int32[cap]; acc_l: int32[128 * 16], accumulated into
-int bpe_batch_mark(const int* ids, const int* seg, const int* n,
-                   const int* slot, int cap, int* cand, int* F, int* acc_l,
+// cand: int32[cap], written at every p < n; acc: int32[2 * 128 * 16]
+// (acc_l then acc_r), accumulated into
+int bpe_batch_hist(const int* ids, const int* seg, const int* n,
+                   const int* slot, int cap, int* cand, int* acc,
                    void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  batch_mark_kernel<<<stat_blocks(cap), TPB, 0, s>>>(ids, seg, n, slot, cand,
-                                                     F, acc_l);
-  return cudaGetLastError();
-}
-
-// acc_r: int32[128 * 16], accumulated into
-int bpe_batch_hist_rev(const int* ids, const int* seg, const int* n,
-                       const int* cand, const int* F, const int* slot,
-                       int cap, int* acc_r, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  batch_hist_rev_kernel<<<stat_blocks(cap), TPB, 0, s>>>(ids, seg, n, cand, F,
-                                                         slot, acc_r);
+  int grid;
+  const cudaError_t e = batch_hist_grid(cap, &grid);
+  if (e != cudaSuccess) return e;
+  batch_hist_kernel<<<grid, TPB, 0, (cudaStream_t)stream>>>(ids, seg, n, slot,
+                                                            cand, acc);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 """The CUDA kernels of the main path, their build, bindings and plain twins.
 
-Nine kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
+Eight kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
 token stream (ids, seg) whose live length n is an int32[1] tensor on the
 same device, so a whole run launches without a host sync per merge:
 
@@ -9,9 +9,8 @@ same device, so a whole run launches without a host sync per merge:
   K_CAP candidates in the reference's order, stopped at the first one that
   cannot join the batch;
 - ``merge_apply``    K3: apply one merge everywhere, left first;
-- ``batch_mark``     K6: the batch's sites, final ids and left-creation
-  histogram;
-- ``batch_hist_rev`` K7: the right-creation histogram;
+- ``batch_hist``     K6: the batch's sites and both creation histograms,
+  in one pass;
 - ``batch_apply``    K8: the trim, then the batch's combined apply, in one
   launch;
 - ``compact``        K4: order-preserving compaction by the live mask;
@@ -24,6 +23,10 @@ K1 and K9 share one counting core: each block of a persistent grid counts
 one contiguous range of the stream into a hash table of pairs in shared
 memory and adds it into the matrices with one global atomic per distinct
 pair (K1 also a min of first positions).
+
+K6 walks the live tiles of the stream with a persistent grid and keeps
+each block's histograms in shared memory; the trainer makes its ``cand``
+once per run.
 
 K5 and K8 each hand their blocks' partial results to the last block to
 finish through a done counter in a scratch tensor that the trainer makes
@@ -111,15 +114,11 @@ MERGE_APPLY = KernelInfo(
     "minbpe_tpu/ops/pallas/fused_train.py:754 (_kernel: tiled_apply "
     ":293-340); minbpe_tpu/ops/pallas/fused_train_xl.py:247 "
     "(_apply_kernel)")
-BATCH_MARK = KernelInfo(
-    "batch_mark",
+BATCH_HIST = KernelInfo(
+    "batch_hist",
     "minbpe_tpu/ops/pallas/fused_train.py:754 (_kernel: tiled_batch_mark "
-    ":452-521); minbpe_tpu/ops/pallas/fused_train_xl.py:328 (_mark_kernel)")
-BATCH_HIST_REV = KernelInfo(
-    "batch_hist_rev",
-    "minbpe_tpu/ops/pallas/fused_train.py:754 (_kernel: "
-    "tiled_batch_hist_rev :524-593); minbpe_tpu/ops/pallas/"
-    "fused_train_xl.py:392 (_histrev_kernel)")
+    ":452-521, tiled_batch_hist_rev :524-593); minbpe_tpu/ops/pallas/"
+    "fused_train_xl.py:328 (_mark_kernel), :392 (_histrev_kernel)")
 BATCH_APPLY = KernelInfo(
     "batch_apply",
     "minbpe_tpu/ops/pallas/fused_train.py:754 (_kernel: trim :1140-1153, "
@@ -137,8 +136,8 @@ PAIR_COUNT = KernelInfo(
 ENCODE_SWEEP = KernelInfo(
     "encode_sweep",
     "minbpe_tpu/ops/pallas/fused_encode.py:45 (_kernel, pallas_call :137)")
-KERNELS = (PAIR_STATS, SELECT_BATCH, MERGE_APPLY, BATCH_MARK, BATCH_HIST_REV,
-           BATCH_APPLY, COMPACT, PAIR_COUNT, ENCODE_SWEEP)
+KERNELS = (PAIR_STATS, SELECT_BATCH, MERGE_APPLY, BATCH_HIST, BATCH_APPLY,
+           COMPACT, PAIR_COUNT, ENCODE_SWEEP)
 
 
 def reset_launches():
@@ -159,8 +158,7 @@ SIGNATURES = {
     "bpe_pair_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bpe_select_batch": [_P, _P, _I, _P, _P, _P, _P, _P],
     "bpe_merge_apply": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P],
-    "bpe_batch_mark": [_P, _P, _P, _P, _I, _P, _P, _P, _P],
-    "bpe_batch_hist_rev": [_P, _P, _P, _P, _P, _P, _I, _P, _P],
+    "bpe_batch_hist": [_P, _P, _P, _P, _I, _P, _P, _P],
     "bpe_batch_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "bpe_compact": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
     "bpe_encode_grid": [_I],
@@ -558,7 +556,7 @@ def merge_apply(ids, seg, n, pair=None, z: int = 0, kept=None, *, slot=None,
 
 
 # ---------------------------------------------------------------------------
-# K6 batch_mark, K7 batch_hist_rev, K8 batch_apply (bsel >= 2)
+# K6 batch_hist, K8 batch_apply (bsel >= 2)
 # ---------------------------------------------------------------------------
 
 def _slot_batch(slot):
@@ -584,7 +582,8 @@ def batch_mark_plain(ids, seg, n, slot, acc_l):
     else -1; F[p] = the id at p after the whole batch (256 + i + j at a
     site start and its consumed token). Adds the left-creation histogram
     to acc_l (128, K_CAP): per site p of j, row F[p-1] & 127, and row
-    ids[p-1] & 127 too when p-1 lies in a site."""
+    ids[p-1] & 127 too when p-1 lies in a site. The first half of
+    batch_hist_plain."""
     cand = torch.full_like(ids, -1)
     F = ids.clone()
     if _gated_off(slot, 2, K_CAP):
@@ -611,27 +610,11 @@ def batch_mark_plain(ids, seg, n, slot, acc_l):
     return cand, F
 
 
-def batch_mark(ids, seg, n, slot, acc_l):
-    if not ids.is_cuda:
-        return batch_mark_plain(ids, seg, n, slot, acc_l)
-    dev = ids.device
-    _check_stream(ids, seg, n)
-    _check_state(slot=slot, device=dev)
-    _check("acc_l", acc_l, torch.int32, dev, HIST_BUCKETS * K_CAP)
-    cap = ids.numel()
-    cand = torch.empty_like(ids)
-    F = torch.empty_like(ids)
-    lib = _load()
-    _run(dev, lib.bpe_batch_mark, _ptr(ids), _ptr(seg), _ptr(n), _ptr(slot),
-         cap, _ptr(cand), _ptr(F), _ptr(acc_l))
-    BATCH_MARK.launches += 1
-    return cand, F
-
-
 def batch_hist_rev_plain(ids, seg, n, cand, F, slot, acc_r):
     """Adds the right-creation histogram to acc_r (128, K_CAP): per site p
     of j whose second-next token p+2 is in its chunk, row F[p+2] & 127, and
-    row ids[p+2] & 127 too when p+2 lies in a site."""
+    row ids[p+2] & 127 too when p+2 lies in a site. The second half of
+    batch_hist_plain."""
     if _gated_off(slot, 2, K_CAP):
         return
     zbase = int(slot[SLOT_ZBASE])
@@ -644,19 +627,38 @@ def batch_hist_rev_plain(ids, seg, n, cand, F, slot, acc_r):
     _hist_add(acc_r, F[p + 2], ids[p + 2], c[p], zbase)
 
 
-def batch_hist_rev(ids, seg, n, cand, F, slot, acc_r):
+def batch_hist_plain(ids, seg, n, slot, acc, cand):
+    """K6's function: cand[p] for every p < n (cand: int32, at least the
+    stream's length; positions from n on are left as they are) and both
+    creation histograms added to acc = (acc_l, acc_r), (2, 128, K_CAP):
+    batch_mark_plain, then batch_hist_rev_plain, without F. A slot outside
+    the batch gate leaves everything as it is. Returns cand."""
+    if _gated_off(slot, 2, K_CAP):
+        return cand
+    h = acc.view(2, HIST_BUCKETS, K_CAP)
+    c, F = batch_mark_plain(ids, seg, n, slot, h[0])
+    batch_hist_rev_plain(ids, seg, n, c, F, slot, h[1])
+    nn = int(n.item())
+    cand[:nn] = c[:nn]
+    return cand
+
+
+def batch_hist(ids, seg, n, slot, acc, cand):
+    """One launch for the batch's sites and both creation histograms
+    (batch_hist_plain). ``cand`` is written, not allocated: the trainer
+    makes it once per run."""
     if not ids.is_cuda:
-        return batch_hist_rev_plain(ids, seg, n, cand, F, slot, acc_r)
+        return batch_hist_plain(ids, seg, n, slot, acc, cand)
     dev = ids.device
     _check_stream(ids, seg, n)
-    _check("cand", cand, torch.int32, dev, ids.numel())
-    _check("F", F, torch.int32, dev, ids.numel())
     _check_state(slot=slot, device=dev)
-    _check("acc_r", acc_r, torch.int32, dev, HIST_BUCKETS * K_CAP)
+    _check("acc", acc, torch.int32, dev, 2 * HIST_BUCKETS * K_CAP)
+    _check("cand", cand, torch.int32, dev, ids.numel())
     lib = _load()
-    _run(dev, lib.bpe_batch_hist_rev, _ptr(ids), _ptr(seg), _ptr(n),
-         _ptr(cand), _ptr(F), _ptr(slot), ids.numel(), _ptr(acc_r))
-    BATCH_HIST_REV.launches += 1
+    _run(dev, lib.bpe_batch_hist, _ptr(ids), _ptr(seg), _ptr(n), _ptr(slot),
+         ids.numel(), _ptr(cand), _ptr(acc))
+    BATCH_HIST.launches += 1
+    return cand
 
 
 def trim(counts, bsel: int, cm, room: int) -> int:

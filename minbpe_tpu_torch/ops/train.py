@@ -13,8 +13,8 @@ while here the whole stream sits in HBM (48M tokens of ids and seg are
 The run is a sequence of rebuild slots (kernels.py). A slot rebuilds the
 counts (K1), walks the K_CAP best candidates (K5), and applies either one
 merge with run parity (K3, when one candidate was accepted) or a batch:
-marks and creation histograms (K6, K7), the trim and the combined apply
-(K8, one launch). Then it compacts (K4). How many merges a slot applies,
+the sites and both creation histograms (K6, one pass), the trim and the
+combined apply (K8, one launch). Then it compacts (K4). How many merges a slot applies,
 and whether it does anything at all, is known only on the device: the
 merges done, the fail round and the rebuild count live in ``ctl``. So the
 host enqueues SLOTS_PER_SYNC slots, reads (i, fail) once, and repeats until
@@ -38,10 +38,11 @@ TRAIN_MAX_V = 1024
 
 SLOTS_PER_SYNC = 16
 # device bytes per stream token at the peak of a slot: ids and seg of the
-# current stream (8), K3/K8's merged ids and live mask (5), K6's cand and F
-# (8), K4's compacted ids and seg (8); plus the caller's stream (8) and the
-# previous slot's merged/live/cand/F until their replacements exist (13)
-BYTES_PER_TOKEN = 50
+# current stream (8), K3/K8's merged ids and live mask (5), K6's cand, made
+# once per run (4), K4's compacted ids and seg (8); plus the caller's
+# stream (8) and the previous slot's merged/live until their replacements
+# exist (5)
+BYTES_PER_TOKEN = 38
 
 # the most recent run: count rebuilds (every active slot, the one that found
 # no pair included), slots enqueued, and host syncs
@@ -82,10 +83,9 @@ def _slot(ids, seg, n, st):
     kernels.pair_stats(ids, seg, n, st["V"], ctl, out=st["stats"])
     kernels.select_batch(*st["stats"], ids, ctl, slot, log, st["scratch"])
     merged, live = kernels.merge_apply(ids, seg, n, slot=slot, log=log)
-    cand, F = kernels.batch_mark(ids, seg, n, slot, st["acc"][0])
-    kernels.batch_hist_rev(ids, seg, n, cand, F, slot, st["acc"][1])
-    kernels.batch_apply(ids, n, cand, slot, st["acc"], ctl, log, st["M"],
-                        merged, live, st["apply_scratch"])
+    kernels.batch_hist(ids, seg, n, slot, st["acc"], st["cand"])
+    kernels.batch_apply(ids, n, st["cand"], slot, st["acc"], ctl, log,
+                        st["M"], merged, live, st["apply_scratch"])
     return kernels.compact(merged, seg, live, n, slot)
 
 
@@ -116,6 +116,8 @@ def train_merges(ids, seg, num_merges: int):
         "stats": (torch.zeros((V, V), dtype=torch.int32, device=dev),
                   torch.full((V, V), -1, dtype=torch.int32, device=dev)),
         "acc": kernels.new_hist(dev),
+        # K6's sites, for every position of the stream's capacity
+        "cand": torch.empty_like(ids),
         "scratch": kernels.select_scratch(V, dev),
         "apply_scratch": kernels.batch_scratch(dev),
     }

@@ -6,8 +6,11 @@ of the batch corpora of tests/test_fused.py:159-302. Merges, counts and the
 fail round must be equal, and so must the rebuild count: a batching rule
 that drifted (accepting a candidate it should not, or trimming one too
 many) changes no output on many corpora, so the rebuild count is the check
-of the rule itself. Then K6/K7's histograms and K8's trim are held against
-a small numpy model of the rule written here."""
+of the rule itself. Then K6's sites and creation histograms (batch_hist,
+and the two plain halves it is made of) and K8's trim are held against a
+small numpy model of the rule written here, on seeded streams and on the
+edges of the rule: short streams, sites at the stream's ends, chunk breaks
+around a site, adjacent sites and a hot bucket."""
 
 import random
 
@@ -207,7 +210,7 @@ def test_smoke_corpus_rebuilds_match_fused_trainer():
 
 
 # ---------------------------------------------------------------------------
-# K6/K7 histograms and K8's trim against a numpy model of the rule
+# K6's sites and histograms and K8's trim against a numpy model of the rule
 # ---------------------------------------------------------------------------
 
 def _model(ids, seg, pairs, zbase):
@@ -278,14 +281,18 @@ def test_batch_histograms_match_model(seed):
     acc = kernels.new_hist("cpu")
     n = torch.tensor([len(ids)], dtype=torch.int32)
     t_ids, t_seg = torch.from_numpy(ids), torch.from_numpy(seg)
-    cand, F = kernels.batch_mark(t_ids, t_seg, n, slot, acc[0])
-    kernels.batch_hist_rev(t_ids, t_seg, n, cand, F, slot, acc[1])
+    cand, F = kernels.batch_mark_plain(t_ids, t_seg, n, slot, acc[0])
+    kernels.batch_hist_rev_plain(t_ids, t_seg, n, cand, F, slot, acc[1])
     want_c, want_F, want_l, want_r = _model(ids, seg, pairs, zbase)
     assert (want_c >= 0).sum() > 50
     assert np.array_equal(cand.numpy(), want_c)
     assert np.array_equal(F.numpy(), want_F)
     assert np.array_equal(acc[0].numpy(), want_l)
     assert np.array_equal(acc[1].numpy(), want_r)
+    acc1 = kernels.new_hist("cpu")
+    cand1 = kernels.batch_hist(t_ids, t_seg, n, slot, acc1,
+                               torch.empty_like(t_ids))
+    assert torch.equal(cand1, cand) and torch.equal(acc1, acc)
 
 
 def test_hypotheses_in_one_bucket_count_once():
@@ -299,11 +306,126 @@ def test_hypotheses_in_one_bucket_count_once():
     slot = _slot([(3, 4), (1, 2)], [5, 4], zbase, 4)
     acc = kernels.new_hist("cpu")
     n = torch.tensor([5], dtype=torch.int32)
-    cand, F = kernels.batch_mark(torch.from_numpy(ids), torch.from_numpy(seg),
-                                 n, slot, acc[0])
+    t_ids, t_seg = torch.from_numpy(ids), torch.from_numpy(seg)
+    cand, F = kernels.batch_mark_plain(t_ids, t_seg, n, slot, acc[0])
     assert cand.tolist()[:4] == [0, -1, 1, -1]
     assert F.tolist() == [260, 260, 261, 261, 9]
     assert acc[0][4, 1] == 1 and int(acc[0].sum()) == 1
+    acc1 = kernels.new_hist("cpu")
+    cand1 = kernels.batch_hist(t_ids, t_seg, n, slot, acc1,
+                               torch.empty_like(t_ids))
+    assert torch.equal(cand1, cand) and torch.equal(acc1[0], acc[0])
+
+
+def _hist_all_ways(ids, seg, pairs, zbase, n=None):
+    """K6's function on a stream of capacity len(ids) with n live tokens,
+    three ways: batch_hist (its plain twin here), batch_mark_plain with
+    batch_hist_rev_plain, and the numpy model; all three must agree, and
+    cand must keep what it held from n on. Returns (cand[:n], acc_l,
+    acc_r) as numpy."""
+    ids = np.asarray(ids, np.int32)
+    seg = np.asarray(seg, np.int32)
+    n = len(ids) if n is None else n
+    slot = _slot(pairs, [9] * len(pairs), zbase, zbase - 256)
+    t_ids, t_seg = torch.from_numpy(ids), torch.from_numpy(seg)
+    nt = torch.tensor([n], dtype=torch.int32)
+    acc = kernels.new_hist("cpu")
+    cand = torch.full_like(t_ids, 777)
+    got = kernels.batch_hist(t_ids, t_seg, nt, slot, acc, cand)
+    assert got is cand
+    assert cand[n:].eq(777).all()
+    acc2 = kernels.new_hist("cpu")
+    cand2, F2 = kernels.batch_mark_plain(t_ids, t_seg, nt, slot, acc2[0])
+    kernels.batch_hist_rev_plain(t_ids, t_seg, nt, cand2, F2, slot, acc2[1])
+    assert torch.equal(cand[:n], cand2[:n]) and torch.equal(acc, acc2)
+    want_c, _, want_l, want_r = _model(ids[:n], seg[:n], pairs, zbase)
+    assert np.array_equal(cand[:n].numpy(), want_c)
+    assert np.array_equal(acc[0].numpy(), want_l)
+    assert np.array_equal(acc[1].numpy(), want_r)
+    return cand[:n].numpy(), acc[0].numpy(), acc[1].numpy()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_batch_hist_matches_model_and_plain_halves(seed):
+    """Seeded streams, each live only up to a random n below its
+    capacity, some of them short."""
+    ids, seg, pairs = _batch_stream(seed)
+    rng = np.random.default_rng(100 + seed)
+    n = int(rng.integers(0, 8)) if seed % 3 == 0 else int(
+        rng.integers(len(ids) // 2, len(ids)))
+    zbase = 300 + seed
+    cand, acc_l, acc_r = _hist_all_ways(ids, seg, pairs, zbase, n)
+    if n > 100:
+        assert (cand >= 0).sum() > 20 and acc_l.sum() > 0 and acc_r.sum() > 0
+
+
+# candidates (3, 4) and (1, 2); zbase 260, so 260 & 127 == 4 and
+# 261 & 127 == 5: (ids, seg, n or None, [(side, bucket, candidate, count)])
+# with every other bin zero, side 0 acc_l and 1 acc_r
+_PAIRS = [(3, 4), (1, 2)]
+HIST_EDGES = {
+    "n0": ([3, 4, 1, 2], [0] * 4, 0, []),
+    "n1": ([3, 4, 1, 2], [0] * 4, 1, []),
+    # a site at 0 = n - 2: no partner on either side
+    "n2": ([3, 4], [0, 0], None, []),
+    # a site at 0 = n - 3: its second-next token is the last one
+    "n3": ([3, 4, 9], [0] * 3, None, [(1, 9, 0, 1)]),
+    "site_at_n_minus_2": ([9, 8, 3, 4], [0] * 4, None, [(0, 8, 0, 1)]),
+    "site_at_n_minus_3": ([9, 3, 4, 7], [0] * 4, None,
+                          [(0, 9, 0, 1), (1, 7, 0, 1)]),
+    # the live length cuts the second-next token off
+    "site_at_n_minus_2_of_capacity": ([9, 3, 4, 7, 1], [0] * 5, 3,
+                                      [(0, 9, 0, 1)]),
+    "break_at_p_minus_1": ([9, 3, 4, 7], [0, 1, 1, 1], None, [(1, 7, 0, 1)]),
+    "break_at_p_plus_1": ([9, 3, 4, 7], [0, 0, 1, 1], None, []),
+    "break_at_p_plus_2": ([9, 3, 4, 7], [0, 0, 0, 1], None, [(0, 9, 0, 1)]),
+    # (1, 2) at p + 2 is split by the break, so F(p + 2) is 1, not 261
+    "break_at_p_plus_3": ([3, 4, 1, 2, 9], [0, 0, 0, 1, 1], None,
+                          [(1, 1, 0, 1)]),
+    "no_break_at_p_plus_3": ([3, 4, 1, 2, 9], [0] * 5, None,
+                             [(1, 5, 0, 1), (1, 1, 0, 1), (0, 4, 1, 1),
+                              (1, 9, 1, 1)]),
+    # adjacent sites of two candidates: each partner lies in the other
+    # site, so both hypotheses count where their buckets differ (5, 1) and
+    # once where they fall together (260 and 4 in bucket 4)
+    "adjacent_sites": ([9, 3, 4, 1, 2, 8], [0] * 6, None,
+                       [(0, 9, 0, 1), (1, 5, 0, 1), (1, 1, 0, 1),
+                        (0, 4, 1, 1), (1, 8, 1, 1)]),
+    "adjacent_sites_each_way": ([1, 2, 3, 4, 1, 2, 3, 4], [0] * 8, None,
+                                [(0, 5, 0, 2), (0, 2, 0, 2), (1, 5, 0, 1),
+                                 (1, 1, 0, 1), (0, 4, 1, 1), (1, 4, 1, 2),
+                                 (1, 3, 1, 2)]),
+}
+
+
+@pytest.mark.parametrize("name", list(HIST_EDGES))
+def test_batch_hist_edges(name):
+    ids, seg, n, bins = HIST_EDGES[name]
+    _, acc_l, acc_r = _hist_all_ways(ids, seg, _PAIRS, 260, n)
+    want = np.zeros((2, 128, kernels.K_CAP), np.int64)
+    for side, bucket, j, c in bins:
+        want[side, bucket, j] = c
+    assert np.array_equal(np.stack([acc_l, acc_r]), want)
+
+
+def test_batch_hist_hot_bucket():
+    """Most sites share one partner bucket on each side (a space before,
+    'h' after, as " th" on text): the hot bins hold the sums exactly."""
+    rng = np.random.default_rng(5)
+    words = [[32, 116, 104], [32, 97], [105, 110, 32]]
+    ids = []
+    for _ in range(1500):
+        ids += words[0] if rng.random() < 0.8 else words[int(
+            rng.integers(1, 3))]
+    ids = np.asarray(ids, np.int32)
+    seg = np.zeros(len(ids), np.int32)
+    pairs = [(32, 116), (105, 110)]
+    cand, acc_l, acc_r = _hist_all_ways(ids, seg, pairs, 300)
+    sites = int((cand == 0).sum())
+    assert sites > 1000
+    assert acc_r[104, 0] == sites == acc_r[:, 0].sum()
+    assert acc_l[:, 0].sum() == sites - int(cand[0] == 0)
+    assert acc_l[104, 0] > sites // 2
 
 
 def _trim_model(counts, bsel, cm, room):
@@ -344,8 +466,8 @@ def test_batch_apply_trims_and_logs():
     log = torch.zeros((4, 4), dtype=torch.int32)
     t_ids = torch.from_numpy(ids)
     n = torch.tensor([8], dtype=torch.int32)
-    cand, _ = kernels.batch_mark(t_ids, torch.from_numpy(seg), n, slot,
-                                 acc[0])
+    cand = kernels.batch_hist(t_ids, torch.from_numpy(seg), n, slot, acc,
+                              torch.empty_like(t_ids))
     out = torch.empty_like(t_ids)
     live = torch.empty(8, dtype=torch.bool)
     kernels.batch_apply(t_ids, n, cand, slot, acc, ctl, log, 4, out, live)

@@ -123,29 +123,57 @@ def _batch_slot(dev, pairs, zbase):
     return slot, slot.to(dev)
 
 
-@pytest.mark.parametrize("seed, n, k", [(0, 1, 2), (1, 2, 2), (2, 1500, 5),
-                                        (3, 70_000, 16), (4, 0, 3)])
-def test_batch_kernels_match_plain(dev, seed, n, k):
-    """K6, K7, K8 and K4 on a slot of k disjoint candidates, against the
-    plain versions; streams shorter than three tokens and empty included."""
+def _batch_case(seed, n, k, kind):
+    """(ids, seg, pairs) of a batch case: ids in [100, 140) with k disjoint
+    candidates (100 + j, 120 + j); "hot": most positions one word whose
+    pairs are candidate 0's site and its partners; "alias": ids also above
+    1024, where id & 1023 names a candidate's id and the match table's
+    hits are checked against the pairs."""
     rng = np.random.default_rng(seed)
-    ids = rng.integers(100, 140, max(n, 2)).astype(np.int32)
-    seg = np.cumsum(rng.random(max(n, 2)) < 0.2).astype(np.int32)
+    size = max(n, 2)
+    ids = rng.integers(100, 140, size).astype(np.int32)
+    seg = np.cumsum(rng.random(size) < 0.2).astype(np.int32)
     pairs = list(zip(range(100, 100 + k), range(120, 120 + k)))
+    if kind == "hot":
+        word = np.array([139, 100, 120, 139], np.int32)
+        hot = rng.random(size // 4) < 0.9
+        ids[:4 * (size // 4)] = np.where(
+            hot[:, None], word, ids[:4 * (size // 4)].reshape(-1, 4)
+        ).reshape(-1)
+    elif kind == "alias":
+        ids += 1024 * rng.integers(0, 2, size).astype(np.int32)
+        pairs[1] = (1024 + pairs[1][0], pairs[1][1])
     ids[:2] = pairs[0]
+    return ids, seg, pairs
+
+
+@pytest.mark.parametrize("seed, n, k, cap, kind", [
+    (0, 1, 2, 1, ""), (1, 2, 2, 2, ""), (2, 1500, 5, 1500, ""),
+    (3, 70_000, 16, 70_000, ""), (4, 0, 3, 0, ""),
+    (5, 70_000, 16, 70_000, "hot"), (6, 3000, 16, 400_000, ""),
+    (7, 30_000, 8, 30_000, "alias")])
+def test_batch_kernels_match_plain(dev, seed, n, k, cap, kind):
+    """K6, K8 and K4 on a slot of k disjoint candidates, against the plain
+    versions; streams shorter than three tokens and empty included, one
+    where one word (candidate 0's site) is most of the stream, one whose n
+    is far below its capacity (K6's blocks past n return at once), and one
+    with ids above 1024."""
+    ids, seg, pairs = _batch_case(seed, cap, k, kind)
     nt = np.array([n], np.int32)
     (ci, cs, cn), (gi, gs, gn) = _both(dev, ids, seg, nt)
-    M = 40
-    sc, sg = _batch_slot(dev, pairs, 290)
-    (ctl_c, _, log_c), (ctl_g, _, log_g) = _state(dev, M, 290)
+    zbase = 2100 if kind == "alias" else 290  # above every id
+    M = zbase - 256 + 40
+    sc, sg = _batch_slot(dev, pairs, zbase)
+    (ctl_c, _, log_c), (ctl_g, _, log_g) = _state(dev, M, zbase)
     acc_c, acc_g = kernels.new_hist("cpu"), kernels.new_hist(dev)
-    cand_c, F_c = kernels.batch_mark(ci, cs, cn, sc, acc_c[0])
-    cand_g, F_g = kernels.batch_mark(gi, gs, gn, sg, acc_g[0])
-    assert torch.equal(cand_c[:n], cand_g[:n].cpu())
-    assert torch.equal(F_c[:n], F_g[:n].cpu())
-    kernels.batch_hist_rev(ci, cs, cn, cand_c, F_c, sc, acc_c[1])
-    kernels.batch_hist_rev(gi, gs, gn, cand_g, F_g, sg, acc_g[1])
+    cand_c = kernels.batch_hist(ci, cs, cn, sc, acc_c,
+                                torch.full_like(ci, 777))
+    cand_g = kernels.batch_hist(gi, gs, gn, sg, acc_g,
+                                torch.full_like(gi, 777))
+    assert torch.equal(cand_c, cand_g.cpu())  # from n on: left as it was
     assert torch.equal(acc_c, acc_g.cpu())
+    if kind == "hot":
+        assert int(acc_c[1, 139 & 127, 0]) > n // 16
     out_c, live_c = torch.empty_like(ci), torch.empty(ci.shape, dtype=bool)
     out_g, live_g = torch.empty_like(gi), torch.empty(gi.shape, dtype=bool,
                                                       device=dev)
