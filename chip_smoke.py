@@ -18,8 +18,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    golden's 768 merges, W = 1024; the XL corpus's stream, W = 256), each
    shape with its bytes bound and torch.bincount's time, and K10 over the
    smoke corpus's stream with the golden's 768 merges, over 2^20 copies of
-   "a" and over the first of phase 3's 256 documents (one block); the
-   outputs are integers and must be exactly equal;
+   "a", over the first of phase 3's 256 documents (one block), over the
+   smoke stream with the 3,840 merges of smoke_plus_4096 and over the XL
+   corpus's stream; K11 and K12 (the sorted route) over the smoke corpus's
+   GPT-4 split with the GPT-4 table at 100,256 ranks and with
+   smoke_plus_4353, and over its first 65,536 bytes as one chunk with
+   both; the outputs are integers and must be exactly equal;
 3. drive the main path through the user's entry points, one path at a
    time, with every launch count set to 0 just before each path and read
    just after it: RegexTokenizer (GPT-4 pattern) training at vocab 1024 on
@@ -36,11 +40,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    launches of each kernel counted exactly), the default route at vocab
    2048 (the stepped trainer; equal to the 2048 golden and to "sort" at
    2048), a checkpointed run interrupted after round 512 and resumed, and
-   a run with a profile_dir, which must leave a trace;
+   a run with a profile_dir, which must leave a trace. The encode routes
+   past the fused Pallas encoder's bounds, each equal to the encode golden
+   minbpe_tpu wrote: GPT4Tokenizer at 100,256 synthetic ranks (encode,
+   decode, the 256 documents as one batch, special tokens), RegexTokenizer
+   on smoke_plus_4096 (dense) and smoke_plus_4353 (sorted), the
+   BasicTokenizer on the latter (one chunk), and the XL corpus through the
+   dense route;
 4. in a process of its own, the device's busy time (torch.profiler) in
-   the encode run, the training runs on both corpora and the "pallas" and
-   stepped runs on the smoke corpus against their wall time: the idle
-   share;
+   the encode runs (the 768-merge table and GPT-4's), the training runs
+   on both corpora and the "pallas" and stepped runs on the smoke corpus
+   against their wall time: the idle share;
 5. print the kernels line (launches of each path in phase 3, errors and
    times of phase 2), the main path's timings, the busy times, the card's
    name and power limit, and last the result line.
@@ -593,7 +603,10 @@ def phase_sweep(torch, np, kernels, golden_mod):
     """K10 against its plain rank loop on the card: the smoke corpus's
     device stream with the golden's 768 merges, 2^20 copies of "a" (one
     chunk, the pair (97, 97) over every tile) with BasicTokenizer's 8
-    merges at vocab 264, and one short document with the 768 merges. Its
+    merges at vocab 264, one short document with the 768 merges, and the
+    dense route past the fused Pallas encoder's bounds: the smoke stream
+    with smoke_plus_4096's 3,840 merges and the XL corpus's stream
+    (12,588,338 tokens) with the 768 merges. Its
     bound: the function reads the stream's n_0 tokens and the table's M
     rows once and writes the n_M tokens left and n (8 B a token, 12 B a
     row), as B2 keeps the stream in VMEM through every rank."""
@@ -612,10 +625,15 @@ def phase_sweep(torch, np, kernels, golden_mod):
     run_pairs = [(97, 97)] + [(256 + r, 256 + r) for r in range(7)]
     doc = corpus[:-(-len(corpus) // 256)]  # the first of phase 3's documents
     doc_ids, doc_seg = build_stream(*tok._split_arrays(doc), "cuda")
+    xl_ids, xl_seg = build_stream(*tok._split_arrays(
+        golden_mod.xl_corpus(ROOT)), "cuda")
     cases = [("smoke", ids, seg, golden["merges"], 256 + np.arange(M)),
              ("run_a", run, torch.zeros_like(run), run_pairs,
               256 + np.arange(8)),
-             ("doc", doc_ids, doc_seg, golden["merges"], 256 + np.arange(M))]
+             ("doc", doc_ids, doc_seg, golden["merges"], 256 + np.arange(M)),
+             ("smoke_m3840", ids, seg,
+              *golden_mod.smoke_plus_merges(golden_mod.DENSE_VOCAB)),
+             ("xl", xl_ids, xl_seg, golden["merges"], 256 + np.arange(M))]
     out = []
     for name, c_ids, c_seg, pairs, new_ids in cases:
         pt = torch.tensor(np.asarray(pairs), dtype=torch.int32, device=dev)
@@ -629,7 +647,7 @@ def phase_sweep(torch, np, kernels, golden_mod):
         out.append(dict(
             case=name, n=c_ids.numel(), ranks=len(pairs), n_out=k,
             max_abs_err=err,
-            grid=kernels._load().bpe_encode_grid(c_ids.numel()),
+            grid=kernels._load().bpe_encode_grid(c_ids.numel(), 0),
             ms=device_ms(torch, lambda: kernels.encode_sweep(
                 c_ids, c_seg, pt, zt), 20),
             plain_ms=host_ms(torch, lambda: kernels.encode_sweep_plain(
@@ -644,6 +662,133 @@ def phase_sweep(torch, np, kernels, golden_mod):
                 ms=main["ms"], plain_ms=main["plain_ms"], bytes=main["bytes"],
                 library_ms=None, shapes=out[1:],
                 ms_per_rank=main["ms"] / main["ranks"])
+
+
+def sorted_tables(golden_mod):
+    """The sorted route's tables: GPT-4's width (synthetic_ranks(100_256,
+    seed=7), through GPT4Tokenizer.from_mergeable_ranks on the card) and
+    smoke_plus_4353 (the 2048 golden's merges and seeded filler). Returns
+    (the GPT-4 tokenizer, the 4,353 table's (pairs, new_ids), seconds the
+    GPT-4 build took on the host)."""
+    from minbpe_tpu_torch import GPT4Tokenizer
+    from minbpe_tpu_torch.engine import device_table
+    from minbpe_tpu_torch.utils.synthranks import synthetic_ranks
+
+    t0 = time.perf_counter()
+    ranks, _, specials = synthetic_ranks(golden_mod.GPT4_RANKS,
+                                         seed=golden_mod.GPT4_SEED)
+    gpt4 = GPT4Tokenizer.from_mergeable_ranks(ranks, specials, device="cuda")
+    table = device_table(gpt4).cuckoo
+    build_s = time.perf_counter() - t0
+    print(f"gpt4_100k: {len(gpt4.merges)} merges, cuckoo H {table.H} "
+          f"({table.rows.numel() * 4} bytes), built in {build_s:.2f} s")
+    return gpt4, golden_mod.smoke_plus_merges(golden_mod.SORTED_VOCAB), \
+        build_s
+
+
+def flat_case(torch, np, kernels, name, data, ends, table, long_only):
+    """K11 over the chunks of (data, ends) of at most CHUNK_WARP_MAX tokens,
+    or (long_only) K12 over the whole as one stream of its chunks, against
+    the plain version on the card's tensors. The bound: the bytes the
+    function must move: each input token (4 B) and each chunk's bounds (and
+    for K11 its index, 4 B) read once, each output token and length written
+    once (4 B), and two 16-byte table rows for each distinct pair of the
+    input (the rows its first round must probe; later rounds' pairs are
+    not counted)."""
+    dev = table.rows.device
+    N, C = len(data), len(ends)
+    L = np.diff(ends, prepend=0)
+    ids = torch.from_numpy(data.astype(np.int32)).to(dev)
+    seg_h = np.repeat(np.arange(C, dtype=np.int32), L)
+    seg = torch.from_numpy(seg_h).to(dev)
+    same = seg[:-1] == seg[1:]
+    pair_keys = (ids[:-1].long() << 32 | ids[1:].long())[same]
+    distinct = int(torch.unique(pair_keys).numel())
+    if long_only:
+        if (L <= kernels.CHUNK_WARP_MAX).any():
+            raise AssertionError(f"{name}: a chunk is short")
+
+        def run():
+            return kernels.encode_min_sweep(ids, seg, table)
+
+        def plain():
+            return kernels.encode_min_sweep_plain(ids, seg, table)
+
+        got, want = run(), plain()
+        k = int(want[2])
+        err = max_err(torch, [(got[2], want[2]), (got[0][:k], want[0][:k]),
+                              (got[1][:k], want[1][:k])])
+        nbytes = 8 * N + 8 * k + 4 + 32 * distinct
+        info = kernels.ENCODE_MIN_SWEEP
+    else:
+        short = L <= kernels.CHUNK_WARP_MAX
+        which = torch.from_numpy(np.flatnonzero(short).astype(np.int32)).to(
+            dev)
+        bounds = torch.from_numpy(np.r_[0, ends].astype(np.int32)).to(dev)
+        out = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+        lens = torch.zeros(C + 1, dtype=torch.int32, device=dev)
+
+        def run():
+            kernels.chunk_encode(ids, bounds, which, table, out, lens)
+            return out, lens
+
+        def plain():
+            o = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+            n = torch.zeros(C + 1, dtype=torch.int32, device=dev)
+            kernels.chunk_encode_plain(ids, bounds, which, table, o, n)
+            return o, n
+
+        got = [t.clone() for t in run()]
+        want = plain()
+        err = max_err(torch, list(zip(got, want)))
+        k = int(want[1].sum())
+        S = int(short.sum())
+        nbytes = 4 * N + 8 * S + 4 * (C + 1) + 4 * k + 4 * S + 32 * distinct
+        info = kernels.CHUNK_ENCODE
+    rec = dict(case=name, n=N, chunks=C, n_out=k, distinct_pairs=distinct,
+               max_abs_err=err, ms=device_ms(torch, run, 20),
+               plain_ms=host_ms(torch, plain, 1), bytes=nbytes,
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    print(f"{info.name} {name}: {N} tokens, {C} chunks -> {k}, max_abs_err "
+          f"{err}, {rec['ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms, plain "
+          f"{rec['plain_ms']:.1f} ms")
+    return info, rec
+
+
+def phase_flat(torch, np, kernels, golden_mod, gpt4, plus):
+    """K11 and K12 against their plain version on the card, on the smoke
+    corpus's GPT-4 split (every chunk short: K11) with the GPT-4 table
+    (bytes shuffled) and with smoke_plus_4353, and on its first 65,536
+    bytes as one chunk (K12 alone) with both tables."""
+    from minbpe_tpu_torch import RegexTokenizer
+    from minbpe_tpu_torch.engine import device_table
+
+    corpus = golden_mod.smoke_corpus(ROOT)
+    plus_tok = RegexTokenizer(device="cuda")
+    plus_tok.merges = {(int(a), int(b)): int(z) for (a, b), z in zip(*plus)}
+    recs = {"chunk_encode": [], "encode_min_sweep": []}
+    for tname, tok in (("gpt4_100k", gpt4), ("smoke_plus_4353", plus_tok)):
+        table = device_table(tok).cuckoo
+        data, ends = tok._split_arrays(corpus)
+        head = np.asarray(data[:golden_mod.HEAD_BYTES])
+        for name, d, e, long_only in (
+                (f"smoke_{tname}", data, ends, False),
+                (f"head64k_{tname}", head, np.array([len(head)]), True)):
+            info, rec = flat_case(torch, np, kernels, name, d, e, table,
+                                  long_only)
+            recs[info.name].append(rec)
+    rows = []
+    # the cases of phase 3's paths: GPT-4's encode (K11) and the
+    # BasicTokenizer on the 4,353 table (K12)
+    mains = {"chunk_encode": "smoke_gpt4_100k",
+             "encode_min_sweep": "head64k_smoke_plus_4353"}
+    for info in (kernels.CHUNK_ENCODE, kernels.ENCODE_MIN_SWEEP):
+        main = next(r for r in recs[info.name]
+                    if r["case"] == mains[info.name])
+        rows.append(dict(k=info, err=main["max_abs_err"], ms=main["ms"],
+                         plain_ms=main["plain_ms"], bytes=main["bytes"],
+                         library_ms=None, shapes=recs[info.name]))
+    return rows
 
 
 def check_rows(rows):
@@ -671,7 +816,7 @@ TRAIN_KERNELS = ("pair_stats", "select_batch", "merge_apply", "batch_hist",
 ENCODE_KERNELS = ("encode_sweep",)
 
 
-def phase_main_path(torch, np, kernels, golden_mod, scratch):
+def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
     """Returns (timings, launches), launches = {path: {kernel: count}}."""
     from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer
     from minbpe_tpu_torch.ops import train as train_mod
@@ -867,9 +1012,101 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch):
           f"per rebuild, {timings['train_xl_slots']} slots, "
           f"{timings['train_xl_syncs']} syncs)")
 
+    encode_paths(np, golden_mod, corpus, path, timings, gpt4, plus)
     selection_paths(torch, np, golden_mod, corpus, path, timings, head, gb,
                     scratch)
     return timings, launches
+
+
+def encode_paths(np, golden_mod, corpus, path, timings, gpt4, plus):
+    """The two encode routes past the fused Pallas encoder's bounds, each
+    held to the encode golden minbpe_tpu wrote (ids' sha256 and count): the
+    GPT-4 tokenizer at 100,256 ranks (encode, decode, the 256 documents as
+    one batch, specials), smoke_plus_4096 (dense: K10 once), smoke_plus_4353
+    (sorted: K11 once; no chunk of the corpus's split passes 256 tokens, so
+    no K12) and its BasicTokenizer on the first 64 KB (one chunk: K12
+    once), and the XL corpus through the dense route (K10 once)."""
+    from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer
+
+    goldens = golden_mod.load_encode_golden()
+
+    def held(case, ids):
+        sha, n = goldens[case]
+        if len(ids) != n or golden_mod.ids_digest(ids) != sha:
+            raise AssertionError(f"{case}: {len(ids)} ids differ from the "
+                                 f"encode golden ({n})")
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        timings[f"{name}_s"] = time.perf_counter() - t0
+        return out
+
+    def only(kernel, count=1):
+        return dict(must_launch=(kernel,), exact={kernel: count})
+
+    docs = golden_mod.smoke_documents(corpus)
+    with path("encode_gpt4", **only("chunk_encode")):
+        ids = timed("encode_gpt4", lambda: gpt4.encode(corpus))
+    held("gpt4_100k", ids)
+    with path("decode_gpt4", ()):
+        back = timed("decode_gpt4", lambda: gpt4.decode(ids))
+    if back != corpus:
+        raise AssertionError("GPT-4 decode(encode(corpus)) != corpus")
+    with path("encode_batch_gpt4", **only("chunk_encode")):
+        batch = timed("encode_batch_gpt4", lambda: gpt4.encode_batch(docs))
+    held("gpt4_100k_batch", [t for d in batch for t in d])
+    text = golden_mod.special_text(docs, list(gpt4.special_tokens)[:2])
+    with path("specials_gpt4", **only("chunk_encode")):
+        got = timed("specials_gpt4", lambda: gpt4.encode(
+            text, allowed_special="all"))
+    held("gpt4_100k_specials", got)
+    nbytes = len(corpus.encode("utf-8"))
+    timings["encode_gpt4_MB_per_s"] = nbytes / timings["encode_gpt4_s"] / 1e6
+    print(f"gpt4_100k: encode {len(ids)} ids ({timings['encode_gpt4_s']:.3f}"
+          f" s), decode, encode_batch and specials equal to the goldens")
+
+    def table(cls, vocab):
+        pairs, new_ids = (plus if vocab == golden_mod.SORTED_VOCAB
+                          else golden_mod.smoke_plus_merges(vocab))
+        tok = cls(device="cuda")
+        tok.merges = {(int(a), int(b)): int(z)
+                      for (a, b), z in zip(pairs, new_ids)}
+        tok.vocab = tok._build_vocab()
+        return tok
+
+    head = corpus[:golden_mod.HEAD_BYTES]
+    for case, tok, text, kernel in (
+            ("smoke_plus_4096", table(RegexTokenizer, golden_mod.DENSE_VOCAB),
+             corpus, "encode_sweep"),
+            ("smoke_plus_4353", table(RegexTokenizer,
+                                      golden_mod.SORTED_VOCAB),
+             corpus, "chunk_encode"),
+            ("basic_plus_4353", table(BasicTokenizer,
+                                      golden_mod.SORTED_VOCAB),
+             head, "encode_min_sweep")):
+        with path(case, **only(kernel)):
+            ids = timed(case, lambda: tok.encode(text))
+        held(case, ids)
+        if tok.decode(ids) != text:
+            raise AssertionError(f"{case}: decode(encode(text)) != text")
+        print(f"{case}: {len(ids)} ids equal to the golden "
+              f"({timings[f'{case}_s']:.3f} s, {kernel})")
+
+    xl_text = golden_mod.xl_corpus(ROOT)
+    xl_tok = RegexTokenizer(device="cuda")
+    xl_tok.merges = {(int(a), int(b)): 256 + r for r, (a, b) in
+                     enumerate(golden_mod.load_golden()["merges"])}
+    xl_tok.vocab = xl_tok._build_vocab()
+    with path("encode_xl_dense", **only("encode_sweep")):
+        ids = timed("encode_xl_dense", lambda: xl_tok.encode(xl_text))
+    held("xl_dense_1024", ids)
+    if xl_tok.decode(ids) != xl_text:
+        raise AssertionError("XL decode(encode(corpus)) != corpus")
+    timings["encode_xl_dense_MB_per_s"] = (
+        len(xl_text.encode("utf-8")) / timings["encode_xl_dense_s"] / 1e6)
+    print(f"encode_xl_dense: {len(ids)} ids equal to the golden "
+          f"({timings['encode_xl_dense_s']:.3f} s)")
 
 
 def selection_paths(torch, np, golden_mod, corpus, path, timings, head, gb,
@@ -1000,7 +1237,9 @@ def _kernel_name(key: str) -> str:
 
 def phase_device_time(torch, golden_mod):
     """Device busy time against wall time of the training and encode runs on
-    the smoke corpus, and of the training run on the XL corpus. The wall
+    the smoke corpus (encode also with the GPT-4 tokenizer at 100,256
+    ranks, from the split's bytes to the ids on the host), and of the
+    training run on the XL corpus. The wall
     time is a plain run's; the busy time is the sum of device activity
     (kernels, memsets, copies) that torch.profiler records for the same
     call, which runs on one stream, so nothing overlaps. The idle share is
@@ -1008,6 +1247,7 @@ def phase_device_time(torch, golden_mod):
     from minbpe_tpu_torch import RegexTokenizer
     from minbpe_tpu_torch.engine import device_table
     from minbpe_tpu_torch.ops.encode import encode_stream
+    from minbpe_tpu_torch.ops.flat_encode import encode_offsets_arrays
     from minbpe_tpu_torch.ops.stream import build_stream
     from minbpe_tpu_torch.ops.train import train_merges
     from minbpe_tpu_torch.ops.train_inc import train_merges_stepped
@@ -1022,13 +1262,18 @@ def phase_device_time(torch, golden_mod):
     xl_ids, xl_seg = build_stream(*tok._split_arrays(
         golden_mod.xl_corpus(ROOT)), "cuda")
     M = golden_mod.VOCAB_SIZE - 256
-    # The encode run goes first: once a process has profiled a run of tens
+    gpt4, _, _ = sorted_tables(golden_mod)
+    g_data, g_ends = gpt4._split_arrays(corpus)
+    g_table = device_table(gpt4).cuckoo
+    # The encode runs go first: once a process has profiled a run of tens
     # of thousands of device activities (train_pallas), the profiler
     # records no device activity for a later run of a few, such as the
     # encode run's one launch and one copy.
     runs = {
         "encode": lambda: encode_stream(ids, seg, table.pairs,
                                         table.new_ids)[2].item(),
+        "encode_gpt4": lambda: encode_offsets_arrays(g_data, g_ends,
+                                                     g_table),
         "train": lambda: train_merges(ids, seg, M),
         "train_xl": lambda: train_merges(xl_ids, xl_seg, M),
         "train_pallas": lambda: train_merges_select(ids, seg, M, "pallas"),
@@ -1110,9 +1355,12 @@ def main() -> int:
                              STEPPED_AUTO_MAX_N,
                              text_streams(torch, np, kernels, golden_mod))
         rows.append(phase_sweep(torch, np, kernels, golden_mod))
+        gpt4, plus, gpt4_build_s = sorted_tables(golden_mod)
+        rows += phase_flat(torch, np, kernels, golden_mod, gpt4, plus)
         check_rows(rows)
         timings, launches = phase_main_path(torch, np, kernels, golden_mod,
-                                            scratch)
+                                            scratch, gpt4, plus)
+        timings["gpt4_table_build_s"] = gpt4_build_s
         device_time = phase_device_time_fresh(torch)
     except Exception as e:  # report the failing phase, exit non-zero
         import traceback

@@ -1,5 +1,6 @@
 // Hand-written Hopper (sm_90a) kernels of the BPE main path: training and
-// rank-sweep encode over a DENSE token stream.
+// encode over a DENSE token stream (the dense route's rank sweep, the sorted
+// route's per-chunk lowest-rank rule through a cuckoo pair table).
 //
 // The stream is two int32 arrays, ids[i] and seg[i] (chunk id), plus a live
 // length n that lives in device memory (int32[1]), so a whole training run is
@@ -40,6 +41,11 @@
 //   K9 pair_count     <- ops/pallas/pair_count.py::_kernel (:29-53), the
 //                        dense pair-count matrix of the selection paths;
 //                        K1's counting core without first positions
+//   K11 chunk_encode  <- no Pallas site: ops/flat_encode.py::_encode_flat
+//                        (:61-186), a jitted lax.while_loop, on chunks of at
+//                        most 256 tokens, one warp a chunk
+//   K12 encode_min_sweep <- the same, on longer chunks: K10's sweep, each
+//                        round applying the lowest rank present
 //
 // Training runs in rebuild SLOTS. The host enqueues slots without knowing
 // what a slot does: that lives in device memory.
@@ -1574,28 +1580,222 @@ __device__ void sweep_one_tile(const int* ids, const int* seg, int n,
   if (threadIdx.x == 0) *n_out = n;
 }
 
-// K10: merges r = 0 .. M-1 (pairs[2r], pairs[2r + 1]) -> new_ids[r] over
-// ids[0 .. n0), seg[0 .. n0), each applied everywhere, left first, and
-// compacted, from one ping-pong buffer into the other. The result lands in
-// buffer 0 (w_ids0, w_seg0) and its length in *n_out; the input is not
-// written. blk: int32[3 * gridDim.x] (block values; the live counts
-// alternate between two halves by rank, so a rank that skips its scatter,
-// and with it a barrier, never overwrites counts a slow block still reads).
+// ---------------------------------------------------------------------------
+// K11 chunk_encode and K12 encode_min_sweep: encode with a table above the
+// dense route's vocab (ops/flat_encode.py). They replace minbpe_tpu's flat
+// encoder, ops/flat_encode.py::_encode_flat (:61-186): a jitted
+// lax.while_loop over scan2d, with no Pallas site. Its rule is the
+// reference's per-chunk loop (minbpe/regex.py:96-108): in each chunk, merge
+// every occurrence of that chunk's lowest-rank pair, left first, until the
+// chunk has none. The wrapper routes chunks by length on the host: those of
+// at most CHUNK_MAX tokens to K11, the longer ones to K12.
+//
+// A pair's rank and new id come from a two-table cuckoo hash
+// (ops/ranktab.py): rows [a, b, rank, new_id] of 16 bytes, table 2 after
+// table 1, two probes of one 16-byte load each. Its two hashes differ (seeds
+// s1, s2 and s3, s4) and must equal ranktab.mix bit for bit: uint32
+// arithmetic that wraps. At 100,000 merges both tables take 8 MB, which
+// the 50 MB L2 holds, so a probe is an L2 hit once the table is warm.
+//
+// Bound: bytes, 4 B read per input token (the bytes as int32) and 4 B
+// written per output token; the lookups go to L2. What bounds K11 on text
+// is the latency of its rounds: a chunk of k tokens takes one round per
+// distinct rank it applies, each round two dependent L2 probes and a few
+// warp votes; a warp has only the chunk's k lanes of work (k ~ 4 on text).
+// K12 is K10's cooperative sweep with "the next row of the table" replaced
+// by "the lowest rank present": a round looks up every pair of the stream
+// and takes a grid min first, so a round costs one grid barrier more than
+// a K10 rank, and there are as many rounds as distinct ranks the long
+// chunks apply (by the well-foundedness of a merge table, the ranks one
+// chunk applies only rise, so the grid min is the minimum of every chunk
+// it occurs in, and applying it everywhere is each chunk's own next step).
+// ---------------------------------------------------------------------------
+constexpr int RANK_INF = 0x7fffffff;
+constexpr unsigned MIX_MUL = 0x2C1B3C6Du;
+constexpr int CHUNK_MAX = 256;         // tokens of a chunk K11 takes
+constexpr int CW = CHUNK_MAX / 32;     // a chunk's words: position 32 k + lane
+constexpr int K11_WARPS = 8;           // chunks a block works on at once
+
+struct Cuckoo {
+  const int4* rows;  // table 1: rows[0 .. H), table 2: rows[H .. 2H)
+  int H;             // a power of two
+  unsigned s1, s2, s3, s4;
+};
+
+__device__ __forceinline__ unsigned ck_hash(int a, int b, unsigned sa,
+                                            unsigned sb, int H) {
+  unsigned u = (unsigned)a * sa + (unsigned)b * sb;
+  u ^= u >> 15;
+  u *= MIX_MUL;
+  u ^= u >> 12;
+  return u & (unsigned)(H - 1);
+}
+
+// The rank of the pair (a, b), RANK_INF where it is absent or b < 0. Both
+// probes are issued before either is compared, so their latencies overlap.
+__device__ __forceinline__ int ck_rank(const Cuckoo& t, int a, int b) {
+  if (b < 0) return RANK_INF;
+  const int4 r1 = __ldg(t.rows + ck_hash(a, b, t.s1, t.s2, t.H));
+  const int4 r2 = __ldg(t.rows + t.H + ck_hash(a, b, t.s3, t.s4, t.H));
+  if (r1.x == a && r1.y == b) return r1.z;
+  if (r2.x == a && r2.y == b) return r2.z;
+  return RANK_INF;
+}
+
+// K11: one warp per chunk of at most CHUNK_MAX tokens, a grid-stride over
+// the chunks which[0 .. S). Chunk c is ids[bounds[c] .. bounds[c + 1]); its
+// tokens go to out[bounds[c] ..] and their count to lens[c] (-1 for a chunk
+// longer than CHUNK_MAX, which the wrapper never sends). Lane l holds the
+// chunk's positions 32 k + l in registers (8 words of 32 positions). A
+// round: each pair's rank from two probes (the token after a word's last
+// lane comes from lane 0 of the next word), the chunk's lowest rank by
+// __reduce_min_sync (RANK_INF: done), the matches of that rank as 8 ballots.
+// Matches next to each other are a run of one token (a, a); the kept ones
+// are the even offsets from each run's start (the reference's left-first
+// walk), found per word with an add that carries through the runs, the
+// parity carried from word to word. A kept match becomes the rank's new id,
+// the token after it dies, and the live tokens go back, compacted by their
+// popcount prefix, through the warp's slice of shared memory. Ranks are
+// looked up again every round (no rank cache).
+__global__ void __launch_bounds__(K11_WARPS * 32)
+    chunk_encode_kernel(const int* __restrict__ ids,
+                        const int* __restrict__ bounds,
+                        const int* __restrict__ which, int S, Cuckoo ck,
+                        const int* __restrict__ new_ids,
+                        int* __restrict__ out, int* __restrict__ lens) {
+  __shared__ int stage[K11_WARPS][CHUNK_MAX];
+  constexpr unsigned FULL = 0xffffffffu;
+  constexpr unsigned EVEN = 0x55555555u;
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1;
+  int* const sh = stage[threadIdx.x >> 5];
+  for (int w = blockIdx.x * K11_WARPS + (threadIdx.x >> 5); w < S;
+       w += gridDim.x * K11_WARPS) {
+    const int c = which[w];
+    const int lo = bounds[c];
+    int n = bounds[c + 1] - lo;
+    if (n > CHUNK_MAX) {
+      if (lane == 0) lens[c] = -1;
+      continue;
+    }
+    int tok[CW];
+#pragma unroll
+    for (int k = 0; k < CW; ++k) {
+      const int p = 32 * k + lane;
+      tok[k] = p < n ? ids[lo + p] : -1;
+    }
+    while (n >= 2) {
+      int rk[CW];
+      unsigned mn = RANK_INF;
+#pragma unroll
+      for (int k = 0; k < CW; ++k) {
+        rk[k] = RANK_INF;
+        if (32 * k < n - 1) {  // warp-uniform: the word holds a pair
+          const int dn = __shfl_down_sync(FULL, tok[k], 1);
+          const int up = __shfl_sync(FULL, k + 1 < CW ? tok[k + 1] : -1, 0);
+          if (32 * k + lane + 1 < n)
+            rk[k] = ck_rank(ck, tok[k], lane == 31 ? up : dn);
+          mn = min(mn, (unsigned)rk[k]);
+        }
+      }
+      mn = __reduce_min_sync(FULL, mn);
+      if (mn == (unsigned)RANK_INF) break;
+      const int z = __ldg(new_ids + mn);
+      // every lane derives the same kept and live bits from the ballots
+      unsigned kept[CW], live[CW];
+      unsigned pm = 0, pk = 0;  // the previous word's last match, last keep
+#pragma unroll
+      for (int k = 0; k < CW; ++k) {
+        const unsigned x = __ballot_sync(FULL, rk[k] == (int)mn);
+        // run starts; bit 0 continues a run when the last bit before it
+        // matched, and is kept then exactly when that bit was not
+        const unsigned s = x & ~((x << 1) | pm);
+        const unsigned se = (s & EVEN) | (pm & x & (pk ^ 1u));
+        // the runs started at even bits (or continued as kept at bit 0):
+        // the add carries through each of them
+        const unsigned re =
+            x & (unsigned)(((unsigned long long)x + se) ^ x);
+        const unsigned kp = (re & EVEN) | (x & ~re & ~EVEN);
+        const int v = n - 32 * k;
+        const unsigned valid = v >= 32 ? FULL : (v > 0 ? (1u << v) - 1 : 0u);
+        kept[k] = kp;
+        live[k] = valid & ~((kp << 1) | pk);
+        pm = x >> 31;
+        pk = kp >> 31;
+      }
+      int base = 0;
+#pragma unroll
+      for (int k = 0; k < CW; ++k) {
+        if ((live[k] >> lane) & 1u)
+          sh[base + __popc(live[k] & below)] =
+              ((kept[k] >> lane) & 1u) ? z : tok[k];
+        base += __popc(live[k]);
+      }
+      __syncwarp();
+      n = base;
+#pragma unroll
+      for (int k = 0; k < CW; ++k) {
+        const int p = 32 * k + lane;
+        tok[k] = p < n ? sh[p] : -1;
+      }
+      __syncwarp();  // every lane has read sh before the next round writes
+    }
+#pragma unroll
+    for (int k = 0; k < CW; ++k) {
+      const int p = 32 * k + lane;
+      if (p < n) out[lo + p] = tok[k];
+    }
+    if (lane == 0) lens[c] = n;
+  }
+}
+
+// A thread's best rank over the pairs at its IPT positions of a staged
+// tile, as RANK_INF - rank (0 where it has none), for a max-reduction.
+__device__ __forceinline__ int lane_best_rank(const Stage& sh, int t0, int n,
+                                              const Cuckoo& ck) {
+  const int l0 = threadIdx.x * IPT;
+  int id[IPT + 1], sg[IPT + 1];  // positions l0 .. l0 + IPT
+#pragma unroll
+  for (int v = 0; v < IPT / 4; ++v) {
+    unpack4(sh.ids[l0 / 4 + v], id + 4 * v);
+    unpack4(sh.seg[l0 / 4 + v], sg + 4 * v);
+  }
+  id[IPT] = staged_at(sh.ids, sh.halo_id, l0 + IPT);
+  sg[IPT] = staged_at(sh.seg, sh.halo_seg, l0 + IPT);
+  int best = 0;
+#pragma unroll
+  for (int k = 0; k < IPT; ++k)
+    if (t0 + l0 + k + 1 < n && sg[k] == sg[k + 1])
+      best = max(best, RANK_INF - ck_rank(ck, id[k], id[k + 1]));
+  return best;
+}
+
+// K10 (MIN false): merges r = 0 .. M-1 (pairs[2r], pairs[2r + 1]) ->
+// new_ids[r] over ids[0 .. n0), seg[0 .. n0), each applied everywhere, left
+// first, and compacted, from one ping-pong buffer into the other.
+// K12 (MIN true): the same passes, where each round's merge is the rank r
+// of the lowest-rank pair present (from the cuckoo table ck: each block
+// takes the best over its tiles, then, past one more grid barrier, every
+// block the grid's), until none is.
+// The result lands in buffer 0 (w_ids0, w_seg0) and its length in *n_out;
+// the input is not written. blk: int32[4 * gridDim.x] (block values: run
+// starts, then the live counts, which alternate between two halves by rank,
+// so a rank that skips its scatter, and with it a barrier, never
+// overwrites counts a slow block still reads; then K12's best ranks).
 // Launched cooperatively: every block is resident, so the grid barrier
 // holds.
-
-__global__ void __launch_bounds__(TPB)
-    encode_sweep_kernel(const int* ids, const int* seg, int n0,
-                        const int* __restrict__ pairs,
-                        const int* __restrict__ new_ids, int M, int* w_ids0,
-                        int* w_seg0, int* w_ids1, int* w_seg1, int* blk,
-                        int* n_out) {
+template <bool MIN>
+__device__ void sweep(const int* ids, const int* seg, int n0,
+                      const int* __restrict__ pairs,
+                      const int* __restrict__ new_ids, int M, Cuckoo ck,
+                      int* w_ids0, int* w_seg0, int* w_ids1, int* w_seg1,
+                      int* blk, int* n_out) {
   cg::grid_group grid = cg::this_grid();
   __shared__ Stage sh;
   __shared__ int o_ids[TILE];
   __shared__ int o_seg[TILE];
   const int G = gridDim.x, b = blockIdx.x;
-  if (G == 1 && n0 <= TILE) {
+  if (!MIN && G == 1 && n0 <= TILE) {
     sweep_one_tile(ids, seg, n0, pairs, new_ids, M, w_ids0, w_seg0, n_out,
                    sh);
     return;
@@ -1606,9 +1806,7 @@ __global__ void __launch_bounds__(TPB)
   const int* src_seg = seg;
   int src = -1;  // -1: the input, else the work buffer it lies in
   int n = n0;
-  for (int r = 0; r < M && n >= 2; ++r) {
-    const int pa = pairs[2 * r], pb = pairs[2 * r + 1], z = new_ids[r];
-    const bool homog = pa == pb;
+  for (int i = 0; (MIN || i < M) && n >= 2; ++i) {
     const int T = (n + TILE - 1) / TILE;
     const int lo = (int)((long long)b * T / G);
     const int hi = (int)((long long)(b + 1) * T / G);
@@ -1617,6 +1815,22 @@ __global__ void __launch_bounds__(TPB)
       if (staged != t) stage_tile<true>(src_ids, src_seg, t * TILE, n, sh);
       staged = t;
     };
+    int r = i;
+    if constexpr (MIN) {  // the lowest rank present
+      int best = 0;
+      for (int t = lo; t < hi; ++t) {
+        stage(t);
+        best = max(best, lane_best_rank(sh, t * TILE, n, ck));
+      }
+      int tile_best;
+      block_exclusive_scan<false, TPB>(best, &tile_best);
+      if (threadIdx.x == 0) blk[3 * G + b] = tile_best;
+      grid.sync();
+      r = RANK_INF - block_max(blk + 3 * G, G);
+      if (r == RANK_INF) break;
+    }
+    const int pa = pairs[2 * r], pb = pairs[2 * r + 1], z = new_ids[r];
+    const bool homog = pa == pb;
     int s[IPT];
 #pragma unroll
     for (int k = 0; k < IPT; ++k) s[k] = -1;
@@ -1660,7 +1874,7 @@ __global__ void __launch_bounds__(TPB)
       block_exclusive_scan<true, TPB>(__popc(lv1), &tile_total);
       cnt += tile_total;
     }
-    int* counts = blk + G * (1 + (r & 1));
+    int* counts = blk + G * (1 + (i & 1));
     if (threadIdx.x == 0) counts[b] = cnt;
     grid.sync();
     int total, off;
@@ -1685,9 +1899,9 @@ __global__ void __launch_bounds__(TPB)
           ++o;
         }
       __syncthreads();
-      for (int i = threadIdx.x; i < tile_total; i += TPB) {
-        w_ids[dst][off + i] = o_ids[i];
-        w_seg[dst][off + i] = o_seg[i];
+      for (int q = threadIdx.x; q < tile_total; q += TPB) {
+        w_ids[dst][off + q] = o_ids[q];
+        w_seg[dst][off + q] = o_seg[q];
       }
       off += tile_total;
       __syncthreads();  // o_ids / o_seg are reused by the next tile
@@ -1705,6 +1919,26 @@ __global__ void __launch_bounds__(TPB)
     }
   }
   if (b == 0 && threadIdx.x == 0) *n_out = n;
+}
+
+__global__ void __launch_bounds__(TPB)
+    encode_sweep_kernel(const int* ids, const int* seg, int n0,
+                        const int* __restrict__ pairs,
+                        const int* __restrict__ new_ids, int M, int* w_ids0,
+                        int* w_seg0, int* w_ids1, int* w_seg1, int* blk,
+                        int* n_out) {
+  sweep<false>(ids, seg, n0, pairs, new_ids, M, Cuckoo{}, w_ids0, w_seg0,
+               w_ids1, w_seg1, blk, n_out);
+}
+
+__global__ void __launch_bounds__(TPB)
+    encode_min_sweep_kernel(const int* ids, const int* seg, int n0,
+                            Cuckoo ck, const int* __restrict__ pairs,
+                            const int* __restrict__ new_ids, int* w_ids0,
+                            int* w_seg0, int* w_ids1, int* w_seg1, int* blk,
+                            int* n_out) {
+  sweep<true>(ids, seg, n0, pairs, new_ids, 0, ck, w_ids0, w_seg0, w_ids1,
+              w_seg1, blk, n_out);
 }
 
 inline int tiles_for(int cap) { return cap > 0 ? (cap + TILE - 1) / TILE : 1; }
@@ -1894,10 +2128,11 @@ int bpe_compact(const int* ids, const int* seg, const unsigned char* live,
   return cudaGetLastError();
 }
 
-// K10's grid for a stream of cap tokens on the current device: the blocks
-// that can be resident at once, capped at the stream's tiles; a negative
-// CUDA error when the device takes no cooperative launch.
-int bpe_encode_grid(int cap) {
+// K10's (min_sweep 0) or K12's (1) grid for a stream of cap tokens on the
+// current device: the blocks that can be resident at once, capped at the
+// stream's tiles; a negative CUDA error when the device takes no
+// cooperative launch.
+int bpe_encode_grid(int cap, int min_sweep) {
   int dev, coop, sms, per;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -1905,8 +2140,10 @@ int bpe_encode_grid(int cap) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per, encode_sweep_kernel, TPB, 0);
+    e = min_sweep ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per, encode_min_sweep_kernel, TPB, 0)
+                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                        &per, encode_sweep_kernel, TPB, 0);
   if (e != cudaSuccess) return -(int)e;
   if (!coop || per < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
   const int tiles = tiles_for(cap);
@@ -1924,6 +2161,50 @@ int bpe_encode_sweep(const int* ids, const int* seg, int n, const int* pairs,
                   &w_ids0, &w_seg0, &w_ids1, &w_seg1, &blk,     &n_out};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)encode_sweep_kernel, dim3(grid), dim3(TPB), args, 0,
+      (cudaStream_t)stream);
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// K11 over the chunks which[0 .. S) (S >= 1) of ids, chunk c being
+// ids[bounds[c] .. bounds[c + 1]) with at most CHUNK_MAX tokens. rows:
+// int32[2 H][4], 16-byte aligned, H a power of two; seeds s1 .. s4 as in
+// ops/ranktab.py; new_ids: int32[M] by rank. Writes each chunk's tokens to
+// out[bounds[c] ..] and their count to lens[c]. A grid-stride over the
+// chunks: at most the blocks that fit on the device at once.
+int bpe_chunk_encode(const int* ids, const int* bounds, const int* which,
+                     int S, const int* rows, int H, unsigned s1, unsigned s2,
+                     unsigned s3, unsigned s4, const int* new_ids, int* out,
+                     int* lens, void* stream) {
+  int dev, sms;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  const int want = (S + K11_WARPS - 1) / K11_WARPS;
+  const int most = sms * (2048 / (K11_WARPS * 32));
+  const Cuckoo ck{reinterpret_cast<const int4*>(rows), H, s1, s2, s3, s4};
+  chunk_encode_kernel<<<want < most ? want : most, K11_WARPS * 32, 0,
+                        (cudaStream_t)stream>>>(ids, bounds, which, S, ck,
+                                                new_ids, out, lens);
+  return cudaGetLastError();
+}
+
+// K12 over ids[0 .. n), seg[0 .. n); rows, H and the seeds as for K11;
+// pairs: int32[M][2] and new_ids: int32[M] by rank; w_*: int32[max(n, 1)]
+// each, 16-byte aligned; blk: int32[4 * grid]; n_out: int32[1]. The result
+// is in w_ids0, w_seg0. A refused cooperative launch returns its error.
+int bpe_encode_min_sweep(const int* ids, const int* seg, int n,
+                         const int* rows, int H, unsigned s1, unsigned s2,
+                         unsigned s3, unsigned s4, const int* pairs,
+                         const int* new_ids, int* w_ids0, int* w_seg0,
+                         int* w_ids1, int* w_seg1, int* blk, int grid,
+                         int* n_out, void* stream) {
+  Cuckoo ck{reinterpret_cast<const int4*>(rows), H, s1, s2, s3, s4};
+  void* args[] = {&ids,    &seg,    &n,      &ck,     &pairs, &new_ids,
+                  &w_ids0, &w_seg0, &w_ids1, &w_seg1, &blk,   &n_out};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      (const void*)encode_min_sweep_kernel, dim3(grid), dim3(TPB), args, 0,
       (cudaStream_t)stream);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();

@@ -5,10 +5,10 @@ The port's counterpart of minbpe_tpu/engine.py, for the slices it covers:
 ``run_train`` (engine.py:57-238) with its route choice, the whole-run,
 selection and stepped routes, checkpoints, progress and ``profile_dir``;
 ``train_offsets``/``train_bytes`` (468-484) and
-``encode_bytes``/``encode_offsets``/``encode_parts`` (322-423). A kernel that
-fails raises: there is no fallback route. Routes and sizes outside the
-slices raise NotImplementedError naming the ROADMAP.md item that brings
-them.
+``encode_bytes``/``encode_offsets``/``encode_parts`` (322-423) with their
+two routes, dense and sorted (``DeviceMergeTable``, 20-47). A kernel that
+fails raises: there is no fallback route. Routes outside the slices raise
+NotImplementedError naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -19,7 +19,9 @@ import numpy as np
 import torch
 
 from .ops import stream as stream_ops
-from .ops.encode import ENCODE_MAX_M, ENCODE_MAX_N, encode_stream
+from .ops import flat_encode
+from .ops.encode import check_memory, encode_stream
+from .ops.ranktab import CuckooPairTable
 from .ops.train import TRAIN_MAX_N, TRAIN_MAX_V, train_merges
 from .ops.train_inc import train_merges_incremental, train_merges_stepped
 from .ops.train_select import DENSE_SELECT_MAX, train_merges_select
@@ -37,18 +39,27 @@ _ROUTES = {
 }
 _SORTLOOP_MODES = ("sortloop", "sortloop_inc", "sparse", "sparse_inc")
 _A11 = "ROADMAP.md A11 (the sort-loop and sparse routes)"
+# the largest table vocab of the dense route (minbpe_tpu/engine.py:22)
+DENSE_VOCAB_MAX = 4096
 
 
 class DeviceMergeTable:
     """Frozen merge table on the tokenizer's device: pairs (int32 (M, 2))
-    and new_ids (int32 (M,)), which the encoder's one launch reads rank by
-    rank."""
+    and new_ids (int32 (M,)) in rank order. ``vocab_size`` covers every id
+    an encode can make; up to DENSE_VOCAB_MAX the table is "dense" (K10
+    reads it rank by rank), above it "sorted": a cuckoo pair table for the
+    flat encoder (minbpe_tpu/engine.py:20-47)."""
 
     def __init__(self, pairs: np.ndarray, new_ids: np.ndarray, device):
+        self.vocab_size = (256 if len(new_ids) == 0
+                           else max(256, int(np.max(new_ids)) + 1))
+        self.kind = "dense" if self.vocab_size <= DENSE_VOCAB_MAX else "sorted"
         self.pairs = torch.as_tensor(
             np.ascontiguousarray(pairs, dtype=np.int32)).to(device)
         self.new_ids = torch.as_tensor(
             np.ascontiguousarray(new_ids, dtype=np.int32)).to(device)
+        self.cuckoo = (CuckooPairTable(pairs, new_ids, device)
+                       if self.kind == "sorted" else None)
 
 
 def device_table(tokenizer) -> DeviceMergeTable:
@@ -189,15 +200,11 @@ def _encode_arrays(tokenizer, data, ends):
     """(ids, seg) numpy int32 arrays of the encoded stream: the output
     tokens in order, each with the chunk id it came from."""
     dev = device_table(tokenizer)
-    M = dev.pairs.shape[0]
-    if M > ENCODE_MAX_M:
-        raise NotImplementedError(
-            f"encode with {M} merges > {ENCODE_MAX_M} is not ported yet: "
-            "ROADMAP.md A12 (large-table encode)")
-    if data.shape[0] > ENCODE_MAX_N:
-        raise NotImplementedError(
-            f"encode of {data.shape[0]} bytes > {ENCODE_MAX_N} in one call is "
-            "not ported yet: ROADMAP.md A12 (large-table encode)")
+    if dev.kind == "sorted":
+        toks, _, seg = flat_encode.encode_offsets_arrays(data, ends,
+                                                         dev.cuckoo)
+        return toks, seg
+    check_memory(tokenizer.device, int(data.shape[0]))
     ids, seg = stream_ops.build_stream(data, ends, tokenizer.device)
     ids, seg, n = encode_stream(ids, seg, dev.pairs, dev.new_ids)
     k = int(n.item())

@@ -1,6 +1,6 @@
 """The CUDA kernels of the main path, their build, bindings and plain twins.
 
-Eight kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
+Ten kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
 token stream (ids, seg) whose live length n is an int32[1] tensor on the
 same device, so a whole run launches without a host sync per merge:
 
@@ -17,7 +17,13 @@ same device, so a whole run launches without a host sync per merge:
 - ``pair_count``     K9: the dense V x V pair-count matrix of the selection
   paths and the stepped trainer's first count;
 - ``encode_sweep``   K10: the encoder's whole rank sweep, every merge of a
-  table applied and compacted in turn, in one cooperative launch.
+  table applied and compacted in turn, in one cooperative launch;
+- ``chunk_encode``   K11: encode with a table above the dense route's vocab
+  (a cuckoo pair table, ops/ranktab.py), one warp per chunk of at most
+  CHUNK_MAX tokens;
+- ``encode_min_sweep`` K12: the same for a stream of longer chunks: K10's
+  sweep, each round applying the lowest rank present, in one cooperative
+  launch.
 
 K1 and K9 share one counting core: each block of a persistent grid counts
 one contiguous range of the stream into a hash table of pairs in shared
@@ -64,6 +70,8 @@ import threading
 
 import torch
 
+from .ops.ranktab import RANK_INF
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_PKG, "csrc", "bpe_kernels.cu")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -72,6 +80,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # positions per tile of K3, K4 and K10 (bpe_tile_size() on the card)
 TILE = 2048
+INT32_MAX = 2**31 - 1
+# the longest chunk K11 takes (CHUNK_MAX on the card)
+CHUNK_WARP_MAX = 256
 # the batch (fused_train.py:398 K_CAP) and its creation histograms
 K_CAP = 16
 HIST_BUCKETS = 128
@@ -136,8 +147,18 @@ PAIR_COUNT = KernelInfo(
 ENCODE_SWEEP = KernelInfo(
     "encode_sweep",
     "minbpe_tpu/ops/pallas/fused_encode.py:45 (_kernel, pallas_call :137)")
+CHUNK_ENCODE = KernelInfo(
+    "chunk_encode",
+    "minbpe_tpu/ops/flat_encode.py:61 (_encode_flat, a jitted "
+    "lax.while_loop over scan2d; no Pallas site): its chunks of at most "
+    "256 tokens")
+ENCODE_MIN_SWEEP = KernelInfo(
+    "encode_min_sweep",
+    "minbpe_tpu/ops/flat_encode.py:61 (_encode_flat, a jitted "
+    "lax.while_loop over scan2d; no Pallas site): its chunks of more than "
+    "256 tokens")
 KERNELS = (PAIR_STATS, SELECT_BATCH, MERGE_APPLY, BATCH_HIST, BATCH_APPLY,
-           COMPACT, PAIR_COUNT, ENCODE_SWEEP)
+           COMPACT, PAIR_COUNT, ENCODE_SWEEP, CHUNK_ENCODE, ENCODE_MIN_SWEEP)
 
 
 def reset_launches():
@@ -150,8 +171,9 @@ def reset_launches():
 # ---------------------------------------------------------------------------
 
 # the C entry points of csrc/bpe_kernels.cu and their argument types, as
-# ctypes passes them (a pointer or a stream as c_void_p, an int as c_int)
-_P, _I = ctypes.c_void_p, ctypes.c_int
+# ctypes passes them (a pointer or a stream as c_void_p, an int as c_int, a
+# hash seed as c_uint)
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 SIGNATURES = {
     "bpe_tile_size": [],
     "bpe_select_blocks": [_I],
@@ -161,9 +183,13 @@ SIGNATURES = {
     "bpe_batch_hist": [_P, _P, _P, _P, _I, _P, _P, _P],
     "bpe_batch_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "bpe_compact": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
-    "bpe_encode_grid": [_I],
+    "bpe_encode_grid": [_I, _I],
     "bpe_encode_sweep": [_P, _P, _I, _P, _P, _I, _P,
                          _P, _P, _P, _P, _I, _P, _P],
+    "bpe_chunk_encode": [_P, _P, _P, _I, _P, _I, _U, _U, _U, _U, _P, _P, _P,
+                         _P],
+    "bpe_encode_min_sweep": [_P, _P, _I, _P, _I, _U, _U, _U, _U, _P, _P,
+                             _P, _P, _P, _P, _P, _I, _P, _P],
     "bpe_pair_count": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bpe_pair_hist_grid": [_I, _I, _I],
 }
@@ -811,14 +837,64 @@ def pair_count(ids, seg, n, V: int):
 def encode_sweep_plain(ids, seg, pairs, new_ids):
     """(ids, seg, n): the merges of ``pairs`` (int32 (M, 2)) applied in rank
     order over the whole of ids, seg, merge r creating new_ids[r], each
-    left first and followed by a compaction (K3's and K4's plain versions,
-    rank by rank); n is an int32[1] tensor."""
+    left first and followed by a compaction (K3's and K4's plain versions);
+    n is an int32[1] tensor. A rank whose pair occurs nowhere changes
+    nothing, so the loop goes from each applied rank straight to the next
+    one whose pair is present (found by a search over the table's sorted
+    pair keys)."""
     n = torch.full((1,), ids.numel(), dtype=torch.int32, device=ids.device)
-    for r in range(pairs.shape[0]):
+    M = pairs.shape[0]
+    if M == 0 or ids.numel() < 2:
+        return ids, seg, n
+    V = int(max(pairs.max(), ids.max(), new_ids.max())) + 1
+    keys, order = torch.sort(pairs[:, 0].long() * V + pairs[:, 1].long(),
+                             stable=True)
+    r = 0
+    while ids.numel() >= 2:
+        k = ids[:-1].long() * V + ids[1:].long()
+        at = torch.searchsorted(keys, k).clamp_(max=M - 1)
+        rank = torch.where((keys[at] == k) & (seg[:-1] == seg[1:]),
+                           order[at], M)
+        rank = torch.where(rank >= r, rank, M)
+        r = int(rank.min())
+        if r >= M:
+            break
         merged, live = merge_apply_plain(ids, seg, n, pairs[r],
                                          int(new_ids[r]))
         ids, seg, n = compact_plain(merged, seg, live, n)
+        ids, seg = ids[:int(n)], seg[:int(n)]
+        r += 1
     return ids, seg, n
+
+
+def _sweep_buffers(dev, cap: int, grid: int, words: int):
+    """Four 16-byte aligned rows (ids and seg, twice: the ping-pong), the
+    ``words`` per block and n_out of a cooperative sweep."""
+    row = max(-(-cap // 4) * 4, 4)
+    return (torch.empty((4, row), dtype=torch.int32, device=dev),
+            torch.empty(words * grid, dtype=torch.int32, device=dev),
+            torch.empty(1, dtype=torch.int32, device=dev))
+
+
+def _sweep_grid(lib, dev, cap: int, min_sweep: bool, name: str) -> int:
+    if cap > INT32_MAX - TILE:
+        raise ValueError(f"{name}: {cap} tokens; the kernel takes fewer "
+                         f"than 2^31 - {TILE}")
+    with torch.cuda.device(dev):
+        grid = lib.bpe_encode_grid(cap, int(min_sweep))
+    if grid < 1:
+        raise RuntimeError(f"{name}: no cooperative launch on {dev} "
+                           f"(CUDA error {-grid})")
+    return grid
+
+
+def _check_rank_table(pairs, new_ids, dev):
+    M = pairs.shape[0]
+    _check("pairs", pairs, torch.int32, dev, 0)
+    _check("new_ids", new_ids, torch.int32, dev, 0)
+    if pairs.shape != (M, 2) or new_ids.shape != (M,):
+        raise ValueError(f"pairs {tuple(pairs.shape)} and new_ids "
+                         f"{tuple(new_ids.shape)}: expected (M, 2) and (M,)")
 
 
 def encode_sweep(ids, seg, pairs, new_ids):
@@ -832,25 +908,143 @@ def encode_sweep(ids, seg, pairs, new_ids):
     cap = ids.numel()
     _check("ids", ids, torch.int32, dev, 0)
     _check("seg", seg, torch.int32, dev, cap)
-    M = pairs.shape[0]
-    _check("pairs", pairs, torch.int32, dev, 0)
-    _check("new_ids", new_ids, torch.int32, dev, 0)
-    if pairs.shape != (M, 2) or new_ids.shape != (M,):
-        raise ValueError(f"pairs {tuple(pairs.shape)} and new_ids "
-                         f"{tuple(new_ids.shape)}: expected (M, 2) and (M,)")
+    _check_rank_table(pairs, new_ids, dev)
     lib = _load()
-    with torch.cuda.device(dev):
-        grid = lib.bpe_encode_grid(cap)
-    if grid < 1:
-        raise RuntimeError(f"encode_sweep: no cooperative launch on {dev} "
-                           f"(CUDA error {-grid})")
-    # four 16-byte aligned buffers: ids and seg, twice (ping-pong)
-    row = max(-(-cap // 4) * 4, 4)
-    w = torch.empty((4, row), dtype=torch.int32, device=dev)
-    blk = torch.empty(3 * grid, dtype=torch.int32, device=dev)
-    n_out = torch.empty(1, dtype=torch.int32, device=dev)
+    grid = _sweep_grid(lib, dev, cap, False, "encode_sweep")
+    w, blk, n_out = _sweep_buffers(dev, cap, grid, 3)
     _run(dev, lib.bpe_encode_sweep, _ptr(ids), _ptr(seg), cap, _ptr(pairs),
-         _ptr(new_ids), M, _ptr(w[0]), _ptr(w[1]), _ptr(w[2]), _ptr(w[3]),
-         _ptr(blk), grid, _ptr(n_out))
+         _ptr(new_ids), pairs.shape[0], _ptr(w[0]), _ptr(w[1]), _ptr(w[2]),
+         _ptr(w[3]), _ptr(blk), grid, _ptr(n_out))
     ENCODE_SWEEP.launches += 1
+    return w[0, :cap], w[1, :cap], n_out
+
+
+# ---------------------------------------------------------------------------
+# K11 chunk_encode, K12 encode_min_sweep: tables above the dense route's
+# vocab, through the cuckoo pair table ``table`` (ops/ranktab.py
+# CuckooPairTable: rows, H, seeds, and the rank-order pairs and new_ids)
+# ---------------------------------------------------------------------------
+
+def encode_min_sweep_plain(ids, seg, table):
+    """(ids, seg, n): every chunk (a run of equal seg) of the stream merges
+    all occurrences of its own lowest-rank pair, left first, until it has
+    none (minbpe/regex.py:96-108 per chunk; minbpe_tpu's _encode_flat,
+    ops/flat_encode.py:61-186); n is an int32[1] tensor. The plain version
+    of K11 and K12: chunks are independent and the ranks a chunk applies
+    only rise, so K12's rule (the grid's lowest rank, applied everywhere)
+    gives the same stream."""
+    ids, seg = ids.clone(), seg.clone()
+    while ids.numel() >= 2:
+        same = seg[:-1] == seg[1:]
+        rank, nid = table.lookup(ids[:-1], torch.where(
+            same, ids[1:], torch.full_like(ids[1:], -1)))
+        if not bool((rank != RANK_INF).any()):
+            break
+        s = seg[:-1].long()
+        low = torch.full((int(seg.max()) + 1,), RANK_INF, dtype=rank.dtype,
+                         device=ids.device)
+        low.scatter_reduce_(0, s, rank, "amin")
+        m = (rank == low[s]) & (rank != RANK_INF)
+        # consecutive matches are a run of one token (a, a): keep the even
+        # offsets from the run's start
+        pos = torch.arange(m.numel(), device=ids.device)
+        prev = torch.zeros_like(m)
+        prev[1:] = m[:-1]
+        start = torch.where(m & ~prev, pos, torch.full_like(pos, -1))
+        keep = m & ((pos - torch.cummax(start, 0).values) % 2 == 0)
+        merged = ids.clone()
+        merged[:-1] = torch.where(keep, nid, ids[:-1])
+        live = torch.ones_like(seg, dtype=torch.bool)
+        live[1:] = ~keep
+        ids, seg = merged[live], seg[live]
+    return ids, seg, torch.full((1,), ids.numel(), dtype=torch.int32,
+                                device=ids.device)
+
+
+def place_chunks(ids, seg, n, bounds, out, lens):
+    """Write a stream of whole chunks in order (ids[:n], seg[:n], seg the
+    chunk index, n an int32[1] tensor) back at its chunks' input offsets:
+    the k-th token of chunk c to out[bounds[c] + k], its count to lens[c].
+    ``out`` and ``lens`` each have one more entry than they hold, where
+    positions past n go. No host sync."""
+    cap = ids.numel()
+    if cap == 0:
+        return
+    q = torch.arange(cap, device=ids.device)
+    valid = q < n.long()
+    c = torch.where(valid, seg.long(), torch.zeros_like(q))
+    first = valid.clone()
+    first[1:] &= seg[1:] != seg[:-1]
+    run = torch.cummax(torch.where(first, q, torch.zeros_like(q)), 0).values
+    dest = torch.where(valid, bounds.long()[c] + q - run,
+                       torch.full_like(q, out.numel() - 1))
+    out.scatter_(0, dest, ids)
+    lens.scatter_add_(0, torch.where(valid, c, torch.full_like(
+        q, lens.numel() - 1)), valid.to(lens.dtype))
+
+
+def chunk_encode_plain(ids, bounds, which, table, out, lens):
+    """K11's function: each chunk c of ``which`` (chunk c is ids[bounds[c]
+    .. bounds[c + 1])) encoded by encode_min_sweep_plain, its tokens
+    written to out[bounds[c] ..] and their count to lens[c] (out and lens
+    with one entry more than they hold, as place_chunks takes them)."""
+    b = bounds.long()
+    w = which.long()
+    lo, L = b[w], b[w + 1] - b[w]
+    k = torch.repeat_interleave(torch.arange(w.numel(), device=ids.device),
+                                L)
+    p = lo[k] + torch.arange(k.numel(), device=ids.device) - (
+        torch.cumsum(L, 0) - L)[k]
+    sub_ids, sub_seg, sub_n = encode_min_sweep_plain(
+        ids[p], which[k].to(torch.int32), table)
+    lens[w] = 0
+    place_chunks(sub_ids, sub_seg, sub_n, bounds, out, lens)
+
+
+def _cuckoo_args(table, dev):
+    _check("rows", table.rows, torch.int32, dev, 8)
+    _check_rank_table(table.pairs, table.new_ids, dev)
+    if table.rows.shape != (2, table.H, 4) or table.H & (table.H - 1):
+        raise ValueError(f"rows {tuple(table.rows.shape)}: expected (2, H, 4),"
+                         " H a power of two")
+    return (_ptr(table.rows), table.H, *table.seeds)
+
+
+def chunk_encode(ids, bounds, which, table, out, lens):
+    """One launch for the chunks of ``which`` (chunk_encode_plain), each of
+    at most CHUNK_WARP_MAX tokens: ids, bounds (int32, C + 1 entries), which
+    (int32), out and lens (int32) on one device."""
+    if not ids.is_cuda:
+        return chunk_encode_plain(ids, bounds, which, table, out, lens)
+    dev = ids.device
+    _check("ids", ids, torch.int32, dev, 0)
+    _check("bounds", bounds, torch.int32, dev, 1)
+    _check("which", which, torch.int32, dev, 1)
+    _check("out", out, torch.int32, dev, ids.numel())
+    _check("lens", lens, torch.int32, dev, bounds.numel() - 1)
+    args = _cuckoo_args(table, dev)
+    lib = _load()
+    _run(dev, lib.bpe_chunk_encode, _ptr(ids), _ptr(bounds), _ptr(which),
+         which.numel(), *args, _ptr(table.new_ids), _ptr(out), _ptr(lens))
+    CHUNK_ENCODE.launches += 1
+
+
+def encode_min_sweep(ids, seg, table):
+    """One cooperative launch for the whole stream (encode_min_sweep_plain).
+    The result's ids and seg are views of one new allocation; the inputs
+    are not written. Raises where the cooperative launch is refused."""
+    if not ids.is_cuda:
+        return encode_min_sweep_plain(ids, seg, table)
+    dev = ids.device
+    cap = ids.numel()
+    _check("ids", ids, torch.int32, dev, 0)
+    _check("seg", seg, torch.int32, dev, cap)
+    args = _cuckoo_args(table, dev)
+    lib = _load()
+    grid = _sweep_grid(lib, dev, cap, True, "encode_min_sweep")
+    w, blk, n_out = _sweep_buffers(dev, cap, grid, 4)
+    _run(dev, lib.bpe_encode_min_sweep, _ptr(ids), _ptr(seg), cap, *args,
+         _ptr(table.pairs), _ptr(table.new_ids), _ptr(w[0]), _ptr(w[1]),
+         _ptr(w[2]), _ptr(w[3]), _ptr(blk), grid, _ptr(n_out))
+    ENCODE_MIN_SWEEP.launches += 1
     return w[0, :cap], w[1, :cap], n_out

@@ -13,15 +13,30 @@ rank loop of K3's and K4's plain versions. Each rank reads its pair from
 the device table row itself, so no rank table is padded (the Pallas table
 pads with -2, not -1, so that padding never matches its -1 "no pair" marks;
 here there is no padding to match).
+
+This is the dense route (table vocab <= engine.DENSE_VOCAB_MAX, any number
+of tokens that fits in device memory); tables above it go to
+ops/flat_encode.py. K10's loop has no bound of its own, so the Pallas
+encoder's limits (4·2^20 tokens, 2048 ranks: VMEM) do not carry over.
 """
 
 from __future__ import annotations
 
 from .. import kernels
+from .train import check_device_memory
 
-# the slice's limits: those of the fused Pallas encoder (fused_encode.py:41-42)
-ENCODE_MAX_N = 1 << 22
-ENCODE_MAX_M = 2048
+# device bytes per token of an encode: the stream's ids and seg (8) and
+# K10's four work rows (16)
+BYTES_PER_TOKEN = 24
+
+
+def check_memory(device, n_tokens: int):
+    """Raise MemoryError, before any work, where an encode of n_tokens does
+    not fit in the card's free memory (nothing to check on the CPU)."""
+    if device.type == "cuda":
+        check_device_memory(device, BYTES_PER_TOKEN * n_tokens,
+                            f"encoding {n_tokens} tokens ({BYTES_PER_TOKEN} "
+                            "B/token)")
 
 
 def encode_stream(ids, seg, pairs, new_ids):

@@ -67,7 +67,8 @@ class RegexTokenizer(Tokenizer):
         ``pattern`` but never ``compiled_pattern`` (minbpe/base.py:140-165),
         so save() writes the loaded pattern back while encode keeps the
         constructor's split. The scanners equal findall with the GPT
-        patterns."""
+        patterns. The chunk ends are found on the raw bytes; the bytes
+        then pass through ``_transform_bytes_array``."""
         data = text.encode("utf-8")
         mode = self._split_mode
         if mode is not None:
@@ -78,7 +79,14 @@ class RegexTokenizer(Tokenizer):
             lengths = [len(c.encode("utf-8"))
                        for c in self.compiled_pattern.findall(text)]
             ends = np.cumsum(np.asarray(lengths, dtype=np.int64))
-        return np.frombuffer(data, dtype=np.uint8), ends
+        return self._transform_bytes_array(
+            np.frombuffer(data, dtype=np.uint8)), ends
+
+    def _transform_bytes_array(self, arr):
+        """Byte-level preprocessing before BPE, on the uint8 array of a
+        text's bytes (minbpe_tpu/regex.py:69-72): the identity here;
+        GPT4Tokenizer's byte shuffle."""
+        return arr
 
     # -- training -----------------------------------------------------------
     def train(self, text: str, vocab_size: int, verbose: bool = False,

@@ -10,6 +10,7 @@ shorter than one tile or not a multiple of it, runs of one id that cross
 tiles and chunk ends, an empty stream, and whole training and encode runs
 on the card against the CPU."""
 
+import os
 import random
 
 import numpy as np
@@ -19,6 +20,7 @@ import torch
 from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer, kernels
 
 pytestmark = pytest.mark.cuda
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 @pytest.fixture
@@ -561,7 +563,7 @@ def test_encode_sweep_one_block(dev):
     text = _words(8, 300).encode()[:1500]
     ids = np.frombuffer(text, np.uint8).astype(np.int32)
     seg = np.cumsum(ids == 32).astype(np.int32)
-    assert kernels._load().bpe_encode_grid(ids.size) == 1
+    assert kernels._load().bpe_encode_grid(ids.size, 0) == 1
     tok = BasicTokenizer(device="cpu")
     tok.train(_words(9, 2000), 320)
     pairs, new_ids = tok._merge_arrays()
@@ -847,3 +849,166 @@ def test_batch_apply_fifty_calls_one_scratch(dev):
         assert _apply_both(dev, ids, cand, n, slot, acc,
                            scratch=scratch) == stop
         assert int(scratch.abs().sum()) == 0
+
+
+# ---------------------------------------------------------------------------
+# K11 chunk_encode and K12 encode_min_sweep (the sorted route) against their
+# plain version, and K10 on the dense route's new sizes
+# ---------------------------------------------------------------------------
+
+EDGE = kernels.CHUNK_WARP_MAX
+# (97, 97) -> 256, its doublings, (z, 97) tails: homogeneous runs across
+# lanes, words and chunks
+RUN_TABLE = [(97, 97), (256, 256), (257, 257), (256, 97), (258, 97),
+             (98, 97), (97, 98)]
+
+
+def _flat_both(dev, chunks, pairs, new_ids):
+    """The sorted route on the card against the plain one on the CPU, then
+    K11 and K12 each against the plain version on the card's tensors.
+    Returns the tokens."""
+    from minbpe_tpu_torch.ops import flat_encode
+    from minbpe_tpu_torch.ops.ranktab import CuckooPairTable
+
+    data = np.frombuffer(b"".join(chunks), np.uint8)
+    ends = np.cumsum([len(c) for c in chunks]).astype(np.int64)
+    tg = CuckooPairTable(pairs, new_ids, dev)
+    tc = CuckooPairTable(pairs, new_ids, "cpu")
+    kernels.reset_launches()
+    got = flat_encode.encode_offsets_arrays(data, ends, tg)
+    L = np.diff(ends, prepend=0)
+    short = L <= EDGE
+    assert kernels.CHUNK_ENCODE.launches == int(short.any())
+    assert kernels.ENCODE_MIN_SWEEP.launches == int((~short).any())
+    assert kernels.ENCODE_SWEEP.launches == 0
+    want = flat_encode.encode_offsets_arrays(data, ends, tc)
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
+    N, C = len(data), len(ends)
+    ids = torch.from_numpy(data.astype(np.int32)).to(dev)
+    bounds = torch.from_numpy(np.r_[0, ends].astype(np.int32)).to(dev)
+    if short.any():
+        which = torch.from_numpy(np.flatnonzero(short).astype(np.int32)).to(
+            dev)
+        outs = []
+        for fn in (kernels.chunk_encode, kernels.chunk_encode_plain):
+            out = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+            lens = torch.zeros(C + 1, dtype=torch.int32, device=dev)
+            fn(ids, bounds, which, tg, out, lens)
+            outs.append((out, lens))
+        assert torch.equal(outs[0][0], outs[1][0])
+        assert torch.equal(outs[0][1], outs[1][1])
+    if (~short).any():
+        at = torch.from_numpy(np.flatnonzero(np.repeat(~short, L))).to(dev)
+        seg = torch.from_numpy(np.repeat(np.arange(C, dtype=np.int32),
+                                         L)).to(dev)
+        gi, gs, gn = kernels.encode_min_sweep(ids[at], seg[at], tg)
+        wi, ws, wn = kernels.encode_min_sweep_plain(ids[at], seg[at], tg)
+        k = int(wn)
+        assert int(gn) == k
+        assert torch.equal(gi[:k], wi[:k]) and torch.equal(gs[:k], ws[:k])
+    return got[0]
+
+
+@pytest.mark.parametrize("sizes", [
+    [EDGE - 1, EDGE, EDGE + 1],
+    [1, EDGE, 1, EDGE + 1, 2, EDGE - 1],
+    [EDGE + 1] * 3,
+    [EDGE] * 3 + [3, 1],
+    [1] * 3000 + [EDGE] * 40 + [33] * 500,
+    [TILE - 1, TILE, TILE + 1, 5 * TILE + 3],
+    [1 << 20],
+])
+@pytest.mark.parametrize("fill", ["run", "mixed"])
+def test_sorted_route_kernels_match_plain(dev, sizes, fill):
+    rng = np.random.default_rng(len(sizes))
+    pairs = np.array(RUN_TABLE, np.int32)
+    new_ids = 256 + np.arange(len(pairs), dtype=np.int32)
+    chunks = [b"a" * n if fill == "run" else
+              bytes(rng.choice([97, 98], n, p=[0.8, 0.2]).tolist())
+              for n in sizes]
+    _flat_both(dev, chunks, pairs, new_ids)
+
+
+def test_sorted_route_ids_above_2_16(dev):
+    pairs = np.array([(97, 98), (70_000, 99), (70_001, 97)], np.int32)
+    new_ids = np.array([70_000, 70_001, 100_260], np.int32)
+    got = _flat_both(dev, [b"abca", b"ab", b"abcabcab" * 40, b"abca" * 100],
+                     pairs, new_ids)
+    assert 100_260 in got.tolist()
+
+
+@pytest.fixture(scope="module")
+def gpt4_100k():
+    from minbpe_tpu_torch import GPT4Tokenizer
+    from minbpe_tpu_torch.utils.synthranks import synthetic_ranks
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    ranks, _, specials = synthetic_ranks(100_256, seed=7)
+    return (GPT4Tokenizer.from_mergeable_ranks(ranks, specials,
+                                               device="cuda"),
+            GPT4Tokenizer.from_mergeable_ranks(ranks, specials,
+                                               device="cpu"))
+
+
+def test_gpt4_100k_on_card_matches_cpu(dev, gpt4_100k):
+    """GPT-4 width: the 100,000-merge cuckoo table (2^18 rows a table), the
+    smoke corpus split and shuffled, and its first 64 KB as one chunk."""
+    from minbpe_tpu_torch.engine import device_table
+    from minbpe_tpu_torch.utils import golden
+
+    g, c = gpt4_100k
+    assert device_table(g).cuckoo.H <= 1 << 18
+    text = golden.smoke_corpus(ROOT)
+    ids = g.encode(text)
+    assert ids == c.encode(text) and g.decode(ids) == text
+    data, ends = g._split_arrays(text)
+    chunks = [bytes(data[s:e]) for s, e in zip(np.r_[0, ends[:-1]], ends)]
+    tab = device_table(c).cuckoo
+    pairs, new_ids = tab.pairs.numpy(), tab.new_ids.numpy()
+    _flat_both(dev, chunks[:5000], pairs, new_ids)
+    _flat_both(dev, [bytes(data[:65536])], pairs, new_ids)
+
+
+def test_sorted_route_launches(dev, gpt4_100k):
+    """encode, encode_batch and specials: one K11 launch per device stream,
+    K12 only for a chunk of more than 256 tokens, K10 never."""
+    g, c = gpt4_100k
+    text = _words(13, 3000)
+    name = next(iter(g.special_tokens))
+    for fn, k11, k12 in ((lambda t: t.encode(text), 1, 0),
+                         (lambda t: t.encode_batch([text[:50], text]), 1, 0),
+                         (lambda t: t.encode(text + name + "x" * 600,
+                                             allowed_special="all"), 1, 1)):
+        kernels.reset_launches()
+        got = fn(g)
+        assert (kernels.CHUNK_ENCODE.launches,
+                kernels.ENCODE_MIN_SWEEP.launches,
+                kernels.ENCODE_SWEEP.launches) == (k11, k12, 0)
+        assert got == fn(c)
+
+
+def test_encode_sweep_dense_table_limits(dev):
+    """K10 past the fused Pallas encoder's bounds: 3,840 ranks (vocab
+    4,096) on the smoke corpus, and the 12,588,338-byte XL corpus with the
+    golden's 768 merges."""
+    from minbpe_tpu_torch.utils import golden
+
+    tok = RegexTokenizer(device="cpu")
+    pairs, new_ids = golden.smoke_plus_merges(golden.DENSE_VOCAB)
+    assert len(pairs) == 3840
+    for text, p, z in ((golden.smoke_corpus(ROOT), pairs, new_ids),
+                       (golden.xl_corpus(ROOT), golden.load_golden()["merges"],
+                        256 + np.arange(768))):
+        data, ends = tok._split_arrays(text)
+        ids = torch.from_numpy(data.astype(np.int32)).to(dev)
+        seg = torch.from_numpy(np.repeat(np.arange(len(ends), dtype=np.int32),
+                                         np.diff(ends, prepend=0))).to(dev)
+        pt = torch.from_numpy(np.asarray(p, np.int32)).to(dev)
+        zt = torch.from_numpy(np.asarray(z, np.int32)).to(dev)
+        wi, ws, wn = kernels.encode_sweep_plain(ids, seg, pt, zt)
+        gi, gs, gn = kernels.encode_sweep(ids, seg, pt, zt)
+        k = int(wn)
+        assert int(gn) == k < len(data) // 2
+        assert torch.equal(gi[:k], wi[:k]) and torch.equal(gs[:k], ws[:k])

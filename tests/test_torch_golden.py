@@ -13,6 +13,13 @@ a CPU) with ``--write-xl``. Both XL tests are marked slow: each trains the
 whole XL corpus on the CPU. ``--write-2048`` writes
 minbpe_tpu_torch/data/smoke2048_golden.npz: the smoke corpus at vocab 2048,
 the default route of both packages there (the stepped trainer).
+
+``--write-encode`` writes minbpe_tpu_torch/data/encode_golden.npz: the sha256
+and count of the ids minbpe_tpu's encode produces per table and text
+(golden.ENCODE_CASES), and prints each case's time. The card's runs
+(chip_smoke.py) are held to it; here minbpe_tpu must still reproduce it
+(the XL case, minutes on a CPU, is marked slow) and so must the port's
+plain path, for the cases that take it seconds.
 """
 
 import contextlib
@@ -20,6 +27,7 @@ import io
 import os
 import re
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -80,6 +88,97 @@ def _reference_xl_result():
     items = sorted(tok.merges.items(), key=lambda kv: kv[1])
     merges = np.array([list(p) for p, _ in items], dtype=np.int32)
     return merges, np.array(counts, dtype=np.int32), len(merges), text
+
+
+def _encode_ids(case, pkg, cache):
+    """The ids of one encode golden case with the tokenizers of ``pkg``
+    (minbpe_tpu, or minbpe_tpu_torch on the CPU). ``cache`` keeps what the
+    cases share: the GPT-4 tokenizer and the corpora."""
+    kw = {} if pkg.__name__ == "minbpe_tpu" else {"device": "cpu"}
+    if "text" not in cache:
+        cache["text"] = golden.smoke_corpus(ROOT)
+    text = cache["text"]
+    if case.startswith("gpt4"):
+        if "gpt4" not in cache:
+            from minbpe_tpu_torch.utils.synthranks import synthetic_ranks
+
+            ranks, _, specials = synthetic_ranks(golden.GPT4_RANKS,
+                                                 seed=golden.GPT4_SEED)
+            cache["gpt4"] = pkg.GPT4Tokenizer.from_mergeable_ranks(
+                ranks, specials, **kw)
+        tok = cache["gpt4"]
+        docs = golden.smoke_documents(text)
+        if case == "gpt4_100k_batch":
+            return [t for ids in tok.encode_batch(docs) for t in ids]
+        if case == "gpt4_100k_specials":
+            return tok.encode(golden.special_text(
+                docs, list(tok.special_tokens)[:2]), allowed_special="all")
+        return tok.encode(text)
+    cls = pkg.RegexTokenizer
+    if case == "xl_dense_1024":
+        pairs = golden.load_golden()["merges"]
+        new_ids = 256 + np.arange(len(pairs))
+        text = golden.xl_corpus(ROOT)
+    else:
+        pairs, new_ids = golden.smoke_plus_merges(
+            golden.DENSE_VOCAB if case == "smoke_plus_4096"
+            else golden.SORTED_VOCAB)
+        if case == "basic_plus_4353":
+            cls, text = pkg.BasicTokenizer, text[:golden.HEAD_BYTES]
+    tok = cls(**kw)
+    tok.merges = {(int(a), int(b)): int(z)
+                  for (a, b), z in zip(pairs, new_ids)}
+    tok.vocab = tok._build_vocab()
+    return tok.encode(text)
+
+
+def _check_encode_golden(case, pkg, cache):
+    sha, n = golden.load_encode_golden()[case]
+    ids = _encode_ids(case, pkg, cache)
+    assert len(ids) == n
+    assert golden.ids_digest(ids) == sha
+
+
+@pytest.fixture(scope="module")
+def reference_cache():
+    return {}
+
+
+@pytest.mark.parametrize("case", [
+    pytest.param(c, marks=pytest.mark.slow) if c == "xl_dense_1024" else c
+    for c in golden.ENCODE_CASES])
+def test_minbpe_tpu_reproduces_encode_golden(case, reference_cache):
+    pytest.importorskip("jax")
+    import minbpe_tpu
+
+    _check_encode_golden(case, minbpe_tpu, reference_cache)
+
+
+@pytest.mark.parametrize("case", ["gpt4_100k", "gpt4_100k_batch",
+                                  "gpt4_100k_specials", "smoke_plus_4353",
+                                  "basic_plus_4353"])
+def test_port_plain_path_matches_encode_golden(case, reference_cache):
+    """The port's sorted route on the CPU: K11's and K12's plain
+    versions."""
+    import minbpe_tpu_torch
+
+    cache = reference_cache.setdefault("port", {})
+    _check_encode_golden(case, minbpe_tpu_torch, cache)
+
+
+def test_encode_golden_tables():
+    """The 4,096 table is a prefix of the 4,353 one, and both begin with the
+    2048 golden's merges; the dense table's ids stay within the dense
+    route, the sorted one's pass it."""
+    small, s_ids = golden.smoke_plus_merges(golden.DENSE_VOCAB)
+    big, b_ids = golden.smoke_plus_merges(golden.SORTED_VOCAB)
+    assert np.array_equal(big[:len(small)], small)
+    assert np.array_equal(small[:1792], golden.load_golden_2048()["merges"])
+    assert s_ids[-1] == golden.DENSE_VOCAB - 1
+    assert b_ids[-1] == golden.SORTED_VOCAB - 1
+    assert (big < b_ids[:, None]).all()
+    assert len({tuple(p) for p in big.tolist()}) == len(big)
+    assert set(golden.load_encode_golden()) == set(golden.ENCODE_CASES)
 
 
 def test_corpus_is_frozen():
@@ -180,10 +279,22 @@ if __name__ == "__main__":
         merges, counts, fail_round = _reference_2048_result()
         golden.save_golden_2048(merges, counts, fail_round)
         print(f"wrote {golden.GOLDEN_2048}: {len(merges)} merges")
+    elif sys.argv[1:] == ["--write-encode"]:
+        import minbpe_tpu
+
+        cache, ids_by_case = {}, {}
+        for case in golden.ENCODE_CASES:
+            t0 = time.perf_counter()
+            ids_by_case[case] = _encode_ids(case, minbpe_tpu, cache)
+            print(f"{case}: {len(ids_by_case[case])} ids "
+                  f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        golden.save_encode_golden(ids_by_case)
+        print(f"wrote {golden.ENCODE_GOLDEN}")
     elif sys.argv[1:] == ["--write-xl"]:
         merges, counts, fail_round, text = _reference_xl_result()
         golden.save_xl_golden(merges, counts, fail_round, text)
         print(f"wrote {golden.XL_GOLDEN}: {len(merges)} merges, "
               f"{len(text.encode('utf-8'))} corpus bytes")
     else:
-        sys.exit(f"usage: {sys.argv[0]} --write | --write-2048 | --write-xl")
+        sys.exit(f"usage: {sys.argv[0]} --write | --write-2048 | --write-xl"
+                 " | --write-encode")

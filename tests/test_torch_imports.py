@@ -65,16 +65,21 @@ def test_import_leaves_jax_minbpe_tpu_and_regex_out():
     code = (
         "import sys\n"
         "import minbpe_tpu_torch\n"
-        "from minbpe_tpu_torch import convert, engine, kernels\n"
-        "from minbpe_tpu_torch.ops import (encode, merge, select, stream,\n"
-        "    train, train_inc, train_select)\n"
+        "from minbpe_tpu_torch import convert, engine, gpt4, kernels\n"
+        "from minbpe_tpu_torch.ops import (encode, flat_encode, merge,\n"
+        "    ranktab, select, stream, train, train_inc, train_select)\n"
         "from minbpe_tpu_torch.utils import (checkpoint, golden, native,\n"
-        "    presplit)\n"
+        "    presplit, synthranks)\n"
         "t = minbpe_tpu_torch.RegexTokenizer(device='cpu')\n"
         "t.train('hello world, hello there', 260)\n"
         "for mode in ('sort', 'dense', 'pallas', 'stepped'):\n"
         "    t.train('hello world, hello there', 260, select_mode=mode)\n"
         "assert t.decode(t.encode('hello')) == 'hello'\n"
+        "ranks, _, sp = synthranks.synthetic_ranks(4353, seed=1)\n"
+        "g = minbpe_tpu_torch.GPT4Tokenizer.from_mergeable_ranks(\n"
+        "    ranks, sp, device='cpu')\n"
+        "assert engine.device_table(g).kind == 'sorted'\n"
+        "assert g.decode(g.encode('hello  world')) == 'hello  world'\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'minbpe_tpu', 'regex')]\n"
         "assert not bad, bad\n"
@@ -99,3 +104,18 @@ def test_default_device_needs_cuda(cls, monkeypatch):
     assert getattr(port, cls)(device="cpu").device.type == "cpu"
     with pytest.raises(ValueError):
         getattr(port, cls)(device="meta")
+
+
+def test_gpt4_default_device_needs_cuda(monkeypatch):
+    from minbpe_tpu_torch import GPT4Tokenizer
+    from minbpe_tpu_torch.utils.synthranks import synthetic_ranks
+
+    ranks, _, _ = synthetic_ranks(300, seed=2)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (GPT4Tokenizer, lambda: GPT4Tokenizer.from_mergeable_ranks(
+            ranks)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    tok = GPT4Tokenizer.from_mergeable_ranks(ranks, device="cpu")
+    assert tok.device.type == "cpu"
+    assert tok.decode(tok.encode("abc")) == "abc"

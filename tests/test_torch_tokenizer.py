@@ -143,14 +143,55 @@ def test_options_outside_the_slice_raise():
         tok.train(TEXT, 260, bogus=1)
     with pytest.raises(NotImplementedError, match="A11"):
         tok.train(TEXT, 2049)
-    # a table deeper than the encoder's 2048 ranks: (97, 97) -> 256, then
-    # (z, 97) -> z + 1 for every later rank
-    M = 2049
+    # a table deeper than the fused Pallas encoder's 2048 ranks encodes as
+    # minbpe_tpu does: (97, 97) -> 256, then (z, 97) -> z + 1 for every
+    # later rank
+    big, ref = _chain(2049)
+    assert big.encode("aaaa") == ref.encode("aaaa") == [256, 256]
+
+
+def _chain(M):
+    """BasicTokenizers of both packages on the table (97, 97) -> 256, then
+    (z, 97) -> z + 1 for every later rank z - 255."""
     pairs = np.array([[97, 97]] + [[255 + r, 97] for r in range(1, M)])
-    big = tokenizer_from_arrays(port.BasicTokenizer, pairs,
-                                256 + np.arange(M), device="cpu")
-    with pytest.raises(NotImplementedError, match="A12"):
-        big.encode("aaaa")
+    p = tokenizer_from_arrays(port.BasicTokenizer, pairs, 256 + np.arange(M),
+                              device="cpu")
+    j = minbpe_tpu.BasicTokenizer()
+    j.merges = dict(p.merges)
+    j.vocab = j._build_vocab()
+    return p, j
+
+
+@pytest.mark.parametrize("M", [2049, 5000])
+@pytest.mark.parametrize("text", ["aaa", "a" * 777 + "b" + "a" * 3,
+                                  "ab" * 200 + TEXT[:700]],
+                         ids=["aaa", "run", "mixed"])
+def test_chain_tables_encode_like_minbpe_tpu(M, text):
+    """2,049 merges take the dense route, 5,000 the sorted one (new ids past
+    4,096), where a BasicTokenizer's one chunk of more than 256 tokens is
+    K12's."""
+    p, j = _chain(M)
+    kind = "dense" if M <= 4096 - 256 else "sorted"
+    assert port.engine.device_table(p).kind == kind
+    ids = p.encode(text)
+    assert ids == j.encode(text)
+    assert p.decode(ids) == j.decode(ids) == text
+    assert p.encode_batch([text, "", text[:5]]) == [
+        j.encode(t) for t in (text, "", text[:5])]
+
+
+def test_dense_encode_above_4mib():
+    """One encode of more than 4 * 2^20 bytes (the fused Pallas encoder's
+    bound) through the dense route, with a small table."""
+    j = minbpe_tpu.RegexTokenizer()
+    j.train(TEXT, 280)
+    p = tokenizer_from_arrays(port.RegexTokenizer, *j._merge_arrays(),
+                              device="cpu")
+    text = (TEXT * (1 + (4 << 20) // len(TEXT)))[:(4 << 20) + 4097]
+    assert len(text.encode("utf-8")) > 4 << 20
+    ids = p.encode(text)
+    assert ids == j.encode(text)
+    assert p.decode(ids) == text
 
 
 def test_custom_pattern():
