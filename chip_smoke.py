@@ -23,7 +23,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    corpus's stream; K11 and K12 (the sorted route) over the smoke corpus's
    GPT-4 split with the GPT-4 table at 100,256 ranks and with
    smoke_plus_4353, and over its first 65,536 bytes as one chunk with
-   both; the outputs are integers and must be exactly equal;
+   both; K13 and K14 (the sort-round trainer's count and selection)
+   against pair_table_plain's table and select_max_pair's pair over the
+   400K stream, the smoke stream after the vocab-8192 golden's first 4,000
+   merges, 2^20 copies of "a", 2^20 distinct ids, the XL corpus's stream
+   and that stream four times over (50,353,352 tokens), each with its
+   bytes bound and torch.unique's time; the outputs are integers and must
+   be exactly equal;
 3. drive the main path through the user's entry points, one path at a
    time, with every launch count set to 0 just before each path and read
    just after it: RegexTokenizer (GPT-4 pattern) training at vocab 1024 on
@@ -46,11 +52,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    decode, the 256 documents as one batch, special tokens), RegexTokenizer
    on smoke_plus_4096 (dense) and smoke_plus_4353 (sorted), the
    BasicTokenizer on the latter (one chunk), and the XL corpus through the
-   dense route;
+   dense route. Then the routes past vocab 2048 and 48·2^20 tokens:
+   smoke-8192 (vocab 8,192 on the smoke corpus) by the default route (the
+   sort-round trainer), "sortloop_inc", "sparse" and "sparse_inc", each
+   equal to the vocab-8192 golden; the XL corpus at vocab 1024 with a
+   checkpoint every 256 rounds, cut after round 512 and resumed, equal to
+   the XL golden; and the XL corpus's split tiled four times (50,353,352
+   tokens), equal to the XL golden's merges with four times its counts;
 4. in a process of its own, the device's busy time (torch.profiler) in
    the encode runs (the 768-merge table and GPT-4's), the training runs
-   on both corpora and the "pallas" and stepped runs on the smoke corpus
-   against their wall time: the idle share;
+   on both corpora, the "pallas" and stepped runs on the smoke corpus and
+   smoke-8192's default route against their wall time: the idle share;
 5. print the kernels line (launches of each path in phase 3, errors and
    times of phase 2), the main path's timings, the busy times, the card's
    name and power limit, and last the result line.
@@ -791,6 +803,152 @@ def phase_flat(torch, np, kernels, golden_mod, gpt4, plus):
     return rows
 
 
+def split_ms(torch, fns, reps: int):
+    """Device time per call of each of fns, called in turn reps times behind
+    a sleeping kernel, with an event between every two launches."""
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
+          for _ in range(reps)]
+    torch.cuda._sleep(reps * 400_000)
+    for r in range(reps):
+        ev[r][0].record()
+        for j, fn in enumerate(fns):
+            fn()
+            ev[r][j + 1].record()
+    torch.cuda.synchronize()
+    return [sum(ev[r][j].elapsed_time(ev[r][j + 1]) for r in range(reps))
+            / reps for j in range(len(fns))]
+
+
+def table_case(torch, kernels, name, ids, seg):
+    """K13 pair_table and K14 table_select over a whole stream, against
+    their plain versions on the card: K13's table (key, count, first of
+    every claimed slot, sorted by key) against pair_table_plain's (a
+    torch.unique of the keys), K14's record (pa, pb, count, ok) against
+    ops/select.select_max_pair (the stable-sort selection), and the table
+    empty after K14. Bounds: K13 reads 8 B a token and writes 16 B a
+    distinct pair D; K14 reads the 16 D B. Library: torch.unique over the
+    countable pairs' 64-bit keys with their counts (no first positions)."""
+    from minbpe_tpu_torch.ops.select import select_max_pair
+
+    dev = ids.device
+    N = ids.numel()
+    n = torch.full((1,), N, dtype=torch.int32, device=dev)
+    fail = torch.ones(1, dtype=torch.int32, device=dev)
+    sel = torch.zeros(4, dtype=torch.int32, device=dev)
+    pairs = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    counts = torch.zeros(1, dtype=torch.int32, device=dev)
+    table = kernels.PairTable(N, dev)
+
+    def k13():
+        kernels.pair_table(ids, seg, n, table, fail, 0)
+
+    def k14():
+        kernels.table_select(table, sel, pairs, counts, fail, 0)
+
+    k13()
+    got = kernels.table_contents(table)
+    plain = kernels.PairTable(N, dev)
+    kernels.pair_table_plain(ids, seg, n, plain)
+    want = kernels.table_contents(plain)
+    D = want[0].numel()
+    kernels.table_select_plain(plain, sel.clone(), pairs.clone(),
+                               counts.clone(), fail.clone(), 0)
+    k14()
+    pa, pb, c, ok = select_max_pair(ids, seg, n)
+    ref = torch.tensor([int(pa), int(pb), int(c), 1] if bool(ok)
+                       else [-1, -1, 0, 0], dtype=torch.int32)
+    err = max_err(torch, list(zip(got, want)) + [(sel.cpu(), ref)])
+    empty = (int(table.used) == 0 and bool((table.key == -1).all())
+             and not bool(table.cnt.any()))
+    if not empty:
+        raise AssertionError(f"table_select left the table of {name} full")
+
+    def plain_pair():
+        kernels.pair_table_plain(ids, seg, n, plain)
+        kernels.table_select_plain(plain, sel, pairs, counts, fail, 0)
+
+    big = N > (1 << 22)
+    reps = 10 if big else 50
+    k13_ms, k14_ms = split_ms(torch, [k13, k14], reps)
+    a, b = ids[:-1].long(), ids[1:].long()
+    keys = ((a << 32) | b)[seg[:-1] == seg[1:]]
+    del a, b
+    lib = profiled_ms(torch, lambda: torch.unique(
+        keys, sorted=True, return_counts=True), 5 if big else 20)
+    del keys
+    plain_ms = host_ms(torch, plain_pair, 1 if big else 5)
+    del plain
+    rec = dict(case=name, n=N, distinct=D, max_abs_err=err,
+               grid=kernels._load().bpe_pair_hist_grid(2, N, 0),
+               ms=k13_ms, k14_ms=k14_ms, plain_ms=plain_ms,
+               sort_ms=host_ms(torch, lambda: select_max_pair(ids, seg, n),
+                               1 if big else 5),
+               bytes=8 * N + 16 * D, k14_bytes=16 * D, library_ms=lib,
+               selected=sel.tolist())
+    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    rec["k14_bound_ms"] = rec["k14_bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"pair_table {name}: n {N}, D {D}, grid {rec['grid']}, "
+          f"max_abs_err {err}, K13 {k13_ms:.5f} ms (bound "
+          f"{rec['bound_ms']:.5f}), K14 {k14_ms:.5f} ms (bound "
+          f"{rec['k14_bound_ms']:.5f}), unique {lib:.5f} ms, sort selection "
+          f"{rec['sort_ms']:.3f} ms, pair {rec['selected']}")
+    return rec
+
+
+def phase_table(torch, np, kernels, golden_mod, texts):
+    """K13 and K14 against their plain versions at the shapes the sort-round
+    route gives them: the 400K seeded Zipf stream, the smoke corpus's
+    stream after the vocab-8192 golden's first 4,000 merges (ids above
+    4,096; applied by K10), 2^20 copies of "a" (one hot pair), 2^20
+    distinct ids (every pair distinct: the table's load), the XL corpus's
+    stream and that stream four times over (50,353,352 tokens, each copy's
+    chunks its own). Returns K13's and K14's rows; K13's main shape is the
+    Zipf stream."""
+    dev = torch.device("cuda")
+    zids, zseg = smoke_stream(np, 400_000, 1024)
+    named = {name: (i, s) for name, i, s, _ in texts}
+    s_ids, s_seg = named["smoke_w256"]
+    x_ids, x_seg = named["xl_w256"]
+    g8k = golden_mod.load_golden_8192()
+    M = 4000
+    pt = torch.from_numpy(np.ascontiguousarray(g8k["merges"][:M])).to(dev)
+    zt = torch.arange(256, 256 + M, dtype=torch.int32, device=dev)
+    m_ids, m_seg, m_n = kernels.encode_sweep(s_ids, s_seg, pt, zt)
+    k = int(m_n)
+    run = torch.full((1 << 20,), 97, dtype=torch.int32, device=dev)
+    dist = torch.arange(1 << 20, dtype=torch.int32, device=dev)
+    cases = [
+        ("zipf_400k", torch.from_numpy(zids).to(dev),
+         torch.from_numpy(zseg).to(dev)),
+        ("smoke_8192_m4000", m_ids[:k].contiguous(), m_seg[:k].contiguous()),
+        ("run_a", run, torch.zeros_like(run)),
+        ("all_distinct", dist, torch.zeros_like(dist)),
+        ("xl", x_ids, x_seg),
+        ("xl4", *xl_stream(torch, x_ids, x_seg, 4 * x_ids.numel())),
+    ]
+    recs = []
+    for name, c_ids, c_seg in cases:
+        recs.append(table_case(torch, kernels, name, c_ids, c_seg))
+        torch.cuda.empty_cache()
+    if int(m_ids[:k].max()) < 4096:
+        raise AssertionError("the smoke stream after 4,000 merges holds no "
+                             "id above 4,096")
+    main = recs[0]
+    k13 = dict(k=kernels.PAIR_TABLE, err=max(r["max_abs_err"] for r in recs),
+               ms=main["ms"], plain_ms=main["plain_ms"], bytes=main["bytes"],
+               library_ms=main["library_ms"], shapes=recs)
+    k14 = dict(k=kernels.TABLE_SELECT, err=k13["err"], ms=main["k14_ms"],
+               plain_ms=main["plain_ms"], bytes=main["k14_bytes"],
+               library_ms=None,
+               shapes=[dict(case=r["case"], ms=r["k14_ms"],
+                            bound_ms=r["k14_bound_ms"], distinct=r["distinct"],
+                            max_abs_err=r["max_abs_err"]) for r in recs])
+    return [k13, k14]
+
+
 def check_rows(rows):
     for r in rows:
         print(f"kernel {r['k'].name}: max_abs_err {r['err']}, "
@@ -1015,6 +1173,7 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
     encode_paths(np, golden_mod, corpus, path, timings, gpt4, plus)
     selection_paths(torch, np, golden_mod, corpus, path, timings, head, gb,
                     scratch)
+    large_vocab_paths(torch, np, golden_mod, corpus, path, timings, scratch)
     return timings, launches
 
 
@@ -1213,6 +1372,134 @@ def selection_paths(torch, np, golden_mod, corpus, path, timings, head, gb,
           f"({os.path.getsize(os.path.join(trace_dir, traces[0]))} bytes)")
 
 
+ROUND_KERNELS = ("pair_table", "table_select", "merge_apply", "compact")
+
+
+def large_vocab_paths(torch, np, golden_mod, corpus, path, timings,
+                      scratch):
+    """The routes past vocab 2048 and 48·2^20 tokens, each held exactly:
+    smoke-8192 (RegexTokenizer, GPT-4 pattern, vocab 8,192 on the smoke
+    corpus) by the default route (the sort-round trainer), "sortloop_inc",
+    "sparse" and "sparse_inc", each equal to smoke8192_golden.npz; the XL
+    corpus at vocab 1024 with a checkpoint every 256 rounds, cut after
+    round 512 and resumed (the default route takes the sort-round trainer
+    above 4·2^20 tokens with a checkpoint), equal to xl_golden.npz; and the
+    XL corpus's bytes and chunk ends tiled four times (50,353,352 tokens,
+    above 48·2^20), whose merges are the XL golden's and whose counts are
+    four times its counts, as pairs never cross chunk ends and every first
+    occurrence lies in the first copy. A sort-round path launches K13, K14,
+    K3 and K4 once per round enqueued; the sparse routes launch no
+    kernel."""
+    from minbpe_tpu_torch import RegexTokenizer, engine
+    from minbpe_tpu_torch.utils import checkpoint as ckpt
+
+    g8k = golden_mod.load_golden_8192()
+    V8k = golden_mod.VOCAB_SIZE_8192
+    M8k = V8k - 256
+
+    def verbose_train(name, text, vocab, must, exact, **opts):
+        tok = RegexTokenizer(device="cuda")
+        out = io.StringIO()
+        torch.cuda.synchronize()
+        with path(name, must, exact):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                tok.train(text, vocab, verbose=True, **opts)
+            torch.cuda.synchronize()
+            timings[f"{name}_s"] = time.perf_counter() - t0
+        counts = np.array([int(c) for c in re.findall(
+            r"had (\d+) occurrences", out.getvalue())])
+        return tok, merges_in_rank_order(np, tok.merges), counts
+
+    def held(name, merges, counts, want, scale=1):
+        if not (np.array_equal(merges, want["merges"])
+                and np.array_equal(counts, scale * want["counts"])
+                and len(merges) == want["fail_round"]):
+            raise AssertionError(f"{name}: merges or counts differ from the "
+                                 "golden")
+        print(f"{name}: {len(merges)} merges equal to the golden "
+              f"({timings[f'{name}_s']:.3f} s)")
+
+    rounds = {k: M8k for k in ROUND_KERNELS}
+    for name, mode, exact in (
+            ("train_8192", "auto", rounds),
+            ("train_8192_sortloop_inc", "sortloop_inc", rounds),
+            ("train_8192_sparse", "sparse", {}),
+            ("train_8192_sparse_inc", "sparse_inc", {})):
+        _, merges, counts = verbose_train(
+            name, corpus, V8k, ROUND_KERNELS if exact else (), exact,
+            select_mode=mode)
+        held(name, merges, counts, g8k)
+    if engine.train_route("auto", len(corpus.encode("utf-8")), M8k) \
+            != "sortloop":
+        raise AssertionError("smoke-8192's default route is not sortloop")
+
+    # xl-ckpt-1024: the first run goes three steps of 256 rounds, writing
+    # checkpoints after 256 and 512 and stopping in the third step's
+    # progress call; the second replays 512 merges (K3, K4) and runs 256
+    xl_golden = golden_mod.load_xl_golden()
+    xl_text = golden_mod.xl_corpus(ROOT)
+    V = golden_mod.VOCAB_SIZE
+    M = V - 256
+    ck = os.path.join(scratch, "xl.ckpt.npz")
+    every = M // 3  # 256
+    stop_at = 2 * every
+
+    def stop(done, total):
+        if done > stop_at:
+            raise KeyboardInterrupt
+
+    cut = RegexTokenizer(device="cuda")
+    resumed = RegexTokenizer(device="cuda")
+    out = io.StringIO()
+    with path("xl_ckpt_1024", ROUND_KERNELS, {
+            "pair_table": M + (M - stop_at),
+            "table_select": M + (M - stop_at),
+            "merge_apply": M + stop_at + (M - stop_at),
+            "compact": M + stop_at + (M - stop_at)}):
+        t0 = time.perf_counter()
+        try:
+            cut.train(xl_text, V, checkpoint_path=ck, checkpoint_every=every,
+                      progress=stop)
+            raise AssertionError("the progress callback did not interrupt")
+        except KeyboardInterrupt:
+            pass
+        if ckpt.load(ck)["round_idx"] != stop_at:
+            raise AssertionError(f"the checkpoint is not at round {stop_at}")
+        with contextlib.redirect_stdout(out):
+            resumed.train(xl_text, V, verbose=True, resume_from=ck)
+        torch.cuda.synchronize()
+        timings["xl_ckpt_1024_s"] = time.perf_counter() - t0
+    held("xl_ckpt_1024", merges_in_rank_order(np, resumed.merges),
+         np.array([int(c) for c in re.findall(r"had (\d+) occurrences",
+                                              out.getvalue())]), xl_golden)
+
+    # xl4-1024: the host arrays tiled, so the pre-split has no seam
+    data, ends = cut._split_arrays(xl_text)
+    data = np.asarray(data)
+    ends = np.asarray(ends, np.int64)
+    d4 = np.tile(data, 4)
+    e4 = np.concatenate([ends + k * len(data) for k in range(4)])
+    N4 = len(d4)
+    if not N4 > engine.TRAIN_MAX_N or \
+            engine.train_route("auto", N4, M) != "sortloop":
+        raise AssertionError(f"xl4-1024: {N4} tokens do not take sortloop")
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    with path("xl4_1024", ROUND_KERNELS, {k: M for k in ROUND_KERNELS}):
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            merges4, _ = engine.train_offsets(d4, e4, M, verbose=True,
+                                              device=cut.device)
+        torch.cuda.synchronize()
+        timings["xl4_1024_s"] = time.perf_counter() - t0
+    timings["xl4_1024_tokens"] = N4
+    held("xl4_1024", merges_in_rank_order(np, merges4),
+         np.array([int(c) for c in re.findall(r"had (\d+) occurrences",
+                                              out.getvalue())]), xl_golden,
+         scale=4)
+
+
 def note_batching(train_mod, timings, name: str, merges: int):
     """Rebuilds, slots and syncs of the run just made; batching must have
     taken fewer rebuilds than merges."""
@@ -1252,6 +1539,8 @@ def phase_device_time(torch, golden_mod):
     from minbpe_tpu_torch.ops.train import train_merges
     from minbpe_tpu_torch.ops.train_inc import train_merges_stepped
     from minbpe_tpu_torch.ops.train_select import train_merges_select
+    from minbpe_tpu_torch.ops.train_sortloop import (
+        train_merges_sortloop_stepped)
 
     corpus = golden_mod.smoke_corpus(ROOT)
     tok = RegexTokenizer(device="cuda")
@@ -1278,6 +1567,9 @@ def phase_device_time(torch, golden_mod):
         "train_xl": lambda: train_merges(xl_ids, xl_seg, M),
         "train_pallas": lambda: train_merges_select(ids, seg, M, "pallas"),
         "train_stepped": lambda: train_merges_stepped(ids, seg, M),
+        # smoke-8192's default route, last: its ~32,000 launches
+        "train_8192": lambda: train_merges_sortloop_stepped(
+            ids, seg, golden_mod.VOCAB_SIZE_8192 - 256),
     }
     out = {}
     for name, fn in runs.items():
@@ -1351,10 +1643,13 @@ def main() -> int:
     os.makedirs(scratch)
     try:
         phase_build(kernels, native)
+        texts = text_streams(torch, np, kernels, golden_mod)
         rows = phase_kernels(torch, np, kernels, XL_MAX_N,
-                             STEPPED_AUTO_MAX_N,
-                             text_streams(torch, np, kernels, golden_mod))
+                             STEPPED_AUTO_MAX_N, texts)
         rows.append(phase_sweep(torch, np, kernels, golden_mod))
+        rows += phase_table(torch, np, kernels, golden_mod, texts)
+        del texts
+        torch.cuda.empty_cache()
         gpt4, plus, gpt4_build_s = sorted_tables(golden_mod)
         rows += phase_flat(torch, np, kernels, golden_mod, gpt4, plus)
         check_rows(rows)

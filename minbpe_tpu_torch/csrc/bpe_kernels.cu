@@ -18,7 +18,7 @@
 //   K1 pair_stats     <- tiled_adjacency + count_width/count_blocked/
 //                        count_full (fused_train.py:251-290, :816-891);
 //                        _adjcount_kernel (fused_train_xl.py:74-157);
-//                        one counting core with K9 (count_pairs)
+//                        one counting core with K9 and K13 (count_pairs)
 //   K5 select_batch   <- the selection walk sel_body + select_candidate +
 //                        no_pair (fused_train.py:915-1000, :1042-1084,
 //                        :1118-1123); _adjcount_kernel's _select
@@ -46,6 +46,14 @@
 //                        most 256 tokens, one warp a chunk
 //   K12 encode_min_sweep <- the same, on longer chunks: K10's sweep, each
 //                        round applying the lowest rank present
+//   K13 pair_table    <- no Pallas site: ops/train_sortloop.py::_round
+//                        (:49-83), the sort-round trainer's stable sort
+//                        and run scans: every pair's count and first
+//                        position into a device hash table, K1's counting
+//                        core
+//   K14 table_select  <- the same round's selection (:70-78): the largest
+//                        count, then the earliest first occurrence, from
+//                        the table's claimed slots, which it empties
 //
 // Training runs in rebuild SLOTS. The host enqueues slots without knowing
 // what a slot does: that lives in device memory.
@@ -242,11 +250,45 @@ __device__ __forceinline__ int width_of(const int* ctl, int V) {
   return ctl == nullptr ? V : min(V, 256 + ctl[CTL_I]);
 }
 
-// A block's table in dynamic shared memory, 1 << log2 slots: keys, counts
-// and (FIRST) first positions, each array 16-byte aligned.
+// The global side of the counting core: where a block's table flushes, and
+// where a pair goes when the table has no room for it. K1 and K9 add into
+// the V x V matrices at the 32-bit key a * V + b (K1 also a min of first
+// positions); K13 inserts into a device hash table at the 64-bit key
+// a << 32 | b (HashSink, below).
 template <bool FIRST>
+struct MatrixSink {
+  using Key = unsigned;
+  static constexpr bool kFirst = FIRST;
+  unsigned* cnt;
+  unsigned* first;
+  int W, V;
+
+  __device__ __forceinline__ bool takes(int a, int b) const {
+    return (unsigned)a < (unsigned)W && (unsigned)b < (unsigned)W;
+  }
+  __device__ __forceinline__ Key key(int a, int b) const {
+    return (unsigned)(a * V + b);
+  }
+  __device__ __forceinline__ void add(Key k, unsigned c, unsigned p) const {
+    atomicAdd(cnt + k, c);
+    if (FIRST) atomicMin(first + k, p);
+  }
+};
+
+template <class Key>
+__device__ __forceinline__ unsigned slot_hash(Key k, int log2) {
+  if constexpr (sizeof(Key) == 4)
+    return (k * 0x9E3779B1u) >> (32 - log2);
+  else
+    return (unsigned)((k * 0x9E3779B97F4A7C15ull) >> (64 - log2));
+}
+
+// A block's table in dynamic shared memory, 1 << log2 slots: keys (Key, all
+// ones when empty), counts and (FIRST) first positions, each array 16-byte
+// aligned.
+template <class Key, bool FIRST>
 struct PairTable {
-  unsigned* key;
+  Key* key;
   unsigned* cnt;
   unsigned* first;
   int log2;
@@ -254,8 +296,11 @@ struct PairTable {
   // every slot empty; block-wide, the caller synchronises
   __device__ void clear() {
     const uint4 none = make_uint4(EMPTY_KEY, EMPTY_KEY, EMPTY_KEY, EMPTY_KEY);
+    constexpr int KW = sizeof(Key) / 4;  // a key's 32-bit words
     for (int q = threadIdx.x; q < (1 << log2) / 4; q += blockDim.x) {
-      reinterpret_cast<uint4*>(key)[q] = none;
+#pragma unroll
+      for (int w = 0; w < KW; ++w)
+        reinterpret_cast<uint4*>(key)[KW * q + w] = none;
       reinterpret_cast<uint4*>(cnt)[q] = make_uint4(0, 0, 0, 0);
       if (FIRST) reinterpret_cast<uint4*>(first)[q] = none;
     }
@@ -264,15 +309,16 @@ struct PairTable {
   // c occurrences of key k, the first at p; false when neither k nor an
   // empty slot lies within HIST_PROBES slots of its hash. ++*fresh when it
   // claims a slot.
-  __device__ bool add(unsigned k, unsigned c, unsigned p, int* fresh) {
+  __device__ bool add(Key k, unsigned c, unsigned p, int* fresh) {
     const unsigned mask = (1u << log2) - 1;
-    unsigned s = (k * 0x9E3779B1u) >> (32 - log2);
+    const Key empty = ~Key(0);
+    unsigned s = slot_hash(k, log2);
     for (int probe = 0; probe < HIST_PROBES; ++probe, s = (s + 1) & mask) {
       // a slot's key changes once per clear, from empty to its owner
-      unsigned held = reinterpret_cast<volatile unsigned*>(key)[s];
-      if (held == EMPTY_KEY) {
-        held = atomicCAS(key + s, EMPTY_KEY, k);
-        if (held == EMPTY_KEY) {
+      Key held = reinterpret_cast<volatile Key*>(key)[s];
+      if (held == empty) {
+        held = atomicCAS(key + s, empty, k);
+        if (held == empty) {
           held = k;
           ++*fresh;
         }
@@ -286,22 +332,31 @@ struct PairTable {
     return false;
   }
 
-  // each occupied slot into the matrices, and emptied when reset; block-wide,
+  // each occupied slot into the sink, and emptied when reset; block-wide,
   // after a barrier
-  __device__ void flush(unsigned* g_cnt, unsigned* g_first, bool reset) {
+  template <class Sink>
+  __device__ void flush(const Sink& sink, bool reset) {
+    const Key empty = ~Key(0);
     for (int q = threadIdx.x; q < (1 << log2) / 4; q += blockDim.x) {
-      const uint4 k4 = reinterpret_cast<const uint4*>(key)[q];
+      Key ks[4];
+      if constexpr (sizeof(Key) == 4) {
+        const uint4 k4 = reinterpret_cast<const uint4*>(key)[q];
+        ks[0] = k4.x, ks[1] = k4.y, ks[2] = k4.z, ks[3] = k4.w;
+      } else {
+        const ulonglong2 k0 = reinterpret_cast<const ulonglong2*>(key)[2 * q];
+        const ulonglong2 k1 =
+            reinterpret_cast<const ulonglong2*>(key)[2 * q + 1];
+        ks[0] = k0.x, ks[1] = k0.y, ks[2] = k1.x, ks[3] = k1.y;
+      }
       const uint4 c4 = reinterpret_cast<const uint4*>(cnt)[q];
       uint4 f4 = make_uint4(0, 0, 0, 0);
       if (FIRST) f4 = reinterpret_cast<const uint4*>(first)[q];
-      const unsigned ks[4] = {k4.x, k4.y, k4.z, k4.w};
       const unsigned cs[4] = {c4.x, c4.y, c4.z, c4.w};
       const unsigned fs[4] = {f4.x, f4.y, f4.z, f4.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (ks[j] == EMPTY_KEY) continue;
-        atomicAdd(g_cnt + ks[j], cs[j]);
-        if (FIRST) atomicMin(g_first + ks[j], fs[j]);
+        if (ks[j] == empty) continue;
+        sink.add(ks[j], cs[j], fs[j]);
       }
     }
     if (reset) clear();
@@ -336,23 +391,27 @@ __device__ __forceinline__ void load_pairs(const int* ids, const int* seg,
   }
 }
 
-// The counting core of K1 (FIRST) and K9: the countable pairs of
-// ids[0 .. n), seg[0 .. n) with both ids below W, added into g_cnt (and
-// their smallest positions min-ed into g_first) through the block's table.
-// Chunk c holds the pairs at positions c * TILE .. c * TILE + TILE - 1.
-template <bool FIRST>
+// The counting core of K1, K9 and K13: the countable pairs of ids[0 .. n),
+// seg[0 .. n) that the sink takes (K1, K9: both ids below W; K13: every
+// pair), added into the sink through the block's table (with their
+// smallest positions where the sink keeps them). Chunk c holds the pairs
+// at positions c * TILE .. c * TILE + TILE - 1.
+template <class Sink>
 __device__ void count_pairs(const int* __restrict__ ids,
-                            const int* __restrict__ seg, int n, int W, int V,
-                            unsigned* g_cnt, unsigned* g_first, int log2) {
+                            const int* __restrict__ seg, int n,
+                            const Sink& sink, int log2) {
+  using Key = typename Sink::Key;
+  constexpr bool FIRST = Sink::kFirst;
   extern __shared__ uint4 hist_smem[];
   __shared__ int used;  // slots claimed since the last flush
   const int chunks = n >= 2 ? (n - 2) / TILE + 1 : 0;
   const int lo = (int)((long long)blockIdx.x * chunks / gridDim.x);
   const int hi = (int)((long long)(blockIdx.x + 1) * chunks / gridDim.x);
   if (lo >= hi) return;
-  unsigned* const smem = reinterpret_cast<unsigned*>(hist_smem);
   const int T = 1 << log2;
-  PairTable<FIRST> tab{smem, smem + T, FIRST ? smem + 2 * T : nullptr, log2};
+  Key* const kmem = reinterpret_cast<Key*>(hist_smem);
+  unsigned* const smem = reinterpret_cast<unsigned*>(kmem + T);
+  PairTable<Key, FIRST> tab{kmem, smem, FIRST ? smem + T : nullptr, log2};
   tab.clear();
   if (threadIdx.x == 0) used = 0;
   __syncthreads();
@@ -368,27 +427,23 @@ __device__ void count_pairs(const int* __restrict__ ids,
 #pragma unroll
     for (int k = 0; k < IPT; ++k) {
       const int a = id[k], b = id[k + 1];
-      const bool ok = p0 + k + 1 < n && sg[k] == sg[k + 1] &&
-                      (unsigned)a < (unsigned)W && (unsigned)b < (unsigned)W;
-      const unsigned key = ok ? (unsigned)(a * V + b) : EMPTY_KEY;
+      const bool ok = p0 + k + 1 < n && sg[k] == sg[k + 1] && sink.takes(a, b);
+      const Key key = ok ? sink.key(a, b) : ~Key(0);
       const unsigned group = __match_any_sync(0xffffffffu, key);
       if (ok && lane == __ffs(group) - 1) {
         const unsigned m = __popc(group);
         const unsigned p = (unsigned)(p0 + k);
-        if (!tab.add(key, m, p, &fresh)) {
-          atomicAdd(g_cnt + key, m);
-          if (FIRST) atomicMin(g_first + key, p);
-        }
+        if (!tab.add(key, m, p, &fresh)) sink.add(key, m, p);
       }
     }
     fresh = __reduce_add_sync(0xffffffffu, fresh);
     if (lane == 0 && fresh) atomicAdd(&used, fresh);
     // thread 0 may read used before later warps add theirs: the flush then
-    // comes a chunk later, and a full table only sends more global atomics
+    // comes a chunk later, and a full table only sends more global work
     const bool full = __syncthreads_or(
         threadIdx.x == 0 && *reinterpret_cast<volatile int*>(&used) > T / 2);
     if (full || c + 1 == hi) {
-      tab.flush(g_cnt, g_first, c + 1 < hi);
+      tab.flush(sink, c + 1 < hi);
       if (threadIdx.x == 0) used = 0;
       __syncthreads();
     }
@@ -426,7 +481,8 @@ __global__ void __launch_bounds__(TPB)
                       const int* __restrict__ n_ptr, const int* ctl,
                       unsigned* cnt, unsigned* first, int V, int log2) {
   if (idle(ctl)) return;
-  count_pairs<true>(ids, seg, *n_ptr, width_of(ctl, V), V, cnt, first, log2);
+  count_pairs(ids, seg, *n_ptr,
+              MatrixSink<true>{cnt, first, width_of(ctl, V), V}, log2);
 }
 
 __global__ void __launch_bounds__(TPB)
@@ -434,7 +490,8 @@ __global__ void __launch_bounds__(TPB)
                       const int* __restrict__ seg,
                       const int* __restrict__ n_ptr, unsigned* cnt, int V,
                       int log2) {
-  count_pairs<false>(ids, seg, *n_ptr, V, V, cnt, nullptr, log2);
+  count_pairs(ids, seg, *n_ptr, MatrixSink<false>{cnt, nullptr, V, V},
+              log2);
 }
 
 // ---------------------------------------------------------------------------
@@ -688,6 +745,178 @@ __global__ void __launch_bounds__(TPB)
     ctl[CTL_I] = i + 1;
   }
   *done = 0u;
+}
+
+// ---------------------------------------------------------------------------
+// K13 pair_table and K14 table_select: the sort-round trainer's count and
+// selection (minbpe_tpu/ops/train_sortloop.py::_round, :49-83: one stable
+// lax.sort of (a, b, position) per round, run lengths as counts, run heads
+// as first occurrences; no Pallas site), as a device hash table.
+//
+// K13 counts every countable pair of ids[0 .. n) (p + 1 < n, seg[p] ==
+// seg[p + 1], the rule of K1) into an open-addressing table in device
+// memory of 1 << log2 slots: a 64-bit key a << 32 | b (all ones when empty:
+// ids are >= 0, so no pair has that key), a count and a first position
+// (0xFFFFFFFF when empty). Ids are not packed into fewer bits: a vocab of
+// any size fits. It is K1's counting core with HashSink in place of the
+// matrices: each block counts its range into a shared-memory table of
+// 64-bit keys and flushes it with one global insert per distinct pair, so a
+// hot pair costs one global atomic per block (2^20 copies of "a" are one
+// pair). A global insert probes linearly from the key's hash; a slot is
+// claimed by a 64-bit atomicCAS from empty, and a thread that loses the
+// race re-reads the key it lost to, and goes on probing if that key is not
+// its own. The claimer appends the slot to a dense list (an atomicAdd on
+// used), so that K14 and the reset cost the distinct pairs and not the
+// capacity. The capacity is a power of two >= 2 N for the run's first N
+// tokens: distinct pairs never exceed n - 1 < N, so the table is at most
+// half full and never fills (the wrapper checks it).
+//
+// K14 reads the listed slots, keeps the largest key count << 32 |
+// (0xFFFFFFFF - first) (K5's key: the largest count, then the earliest
+// first occurrence; first positions are unique per pair, so the order is
+// total and the result does not depend on the order of the atomics), and
+// resets each slot it reads, so the table is empty for the next round
+// without a host fill. Each block's best goes to scratch; the last block
+// to finish (a done counter that it leaves zero again) folds them and
+// writes the round's record: sel = (pa, pb, count, ok), ok when a pair was
+// found and the gate fail >= i holds, else (-1, -1, 0, 0), which K3
+// merges nowhere; log row i (pairs[i], counts[i]; zeros when not ok); and
+// fail = i when no pair was found. It also zeroes used. The host reads none
+// of it per round. K13 returns at once when fail < i.
+//
+// Bound: bytes. K13 reads 8 B per token (ids, seg) and writes 16 B per
+// distinct pair D (key, count, first); K14 reads those 16 D B. On text the
+// shared table absorbs repeats, and the global inserts are probes into a
+// table that L2 holds when it is small.
+// ---------------------------------------------------------------------------
+constexpr unsigned long long EMPTY_PAIR = ~0ull;
+constexpr int TABLE_SELECT_GRID = 256;
+
+struct HashSink {
+  using Key = unsigned long long;
+  static constexpr bool kFirst = true;
+  unsigned long long* keys;
+  unsigned* cnt;
+  unsigned* first;
+  int* list;
+  int* used;
+  int log2;
+
+  __device__ __forceinline__ bool takes(int a, int b) const {
+    return a >= 0 && b >= 0;
+  }
+  __device__ __forceinline__ Key key(int a, int b) const {
+    return (unsigned long long)(unsigned)a << 32 | (unsigned)b;
+  }
+  __device__ void add(Key k, unsigned c, unsigned p) const {
+    const size_t mask = ((size_t)1 << log2) - 1;
+    size_t s = (size_t)((k * 0x9E3779B97F4A7C15ull) >> (64 - log2));
+    for (size_t probe = 0; probe <= mask; ++probe, s = (s + 1) & mask) {
+      unsigned long long held =
+          reinterpret_cast<volatile unsigned long long*>(keys)[s];
+      if (held == EMPTY_PAIR) {
+        held = atomicCAS(keys + s, EMPTY_PAIR, k);
+        if (held == EMPTY_PAIR) {
+          held = k;
+          list[atomicAdd(used, 1)] = (int)s;
+        }
+      }
+      if (held == k) {
+        atomicAdd(cnt + s, c);
+        atomicMin(first + s, p);
+        return;
+      }
+    }
+  }
+};
+
+__global__ void __launch_bounds__(TPB)
+    pair_table_kernel(const int* __restrict__ ids,
+                      const int* __restrict__ seg,
+                      const int* __restrict__ n_ptr, const int* fail, int i,
+                      HashSink sink, int log2) {
+  if (fail != nullptr && *fail < i) return;
+  count_pairs(ids, seg, *n_ptr, sink, log2);
+}
+
+// Block-wide: the largest (k, v) by k of every thread's pair into thread
+// 0's return value (other threads' are meaningless); ends synchronised.
+__device__ void block_max_pair(unsigned long long& k, unsigned long long& v) {
+  __shared__ unsigned long long sk[TPB / 32], sv[TPB / 32];
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) {
+    const unsigned long long ok = __shfl_down_sync(FULL, k, d);
+    const unsigned long long ov = __shfl_down_sync(FULL, v, d);
+    if (ok > k) k = ok, v = ov;
+  }
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  if (lane == 0) sk[wid] = k, sv[wid] = v;
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int w = 1; w < TPB / 32; ++w)
+      if (sk[w] > k) {
+        k = sk[w];
+        v = sv[w];
+      }
+  __syncthreads();
+}
+
+// scratch: uint64 [done counter][gridDim.x (best key, its pair)]
+__global__ void __launch_bounds__(TPB)
+    table_select_kernel(HashSink t, int* sel, int* pairs, int* counts,
+                        int* fail, int i, unsigned long long* scratch) {
+  __shared__ bool last;
+  const int used = *t.used;
+  unsigned long long best = 0, pair = 0;
+  for (int e = blockIdx.x * TPB + threadIdx.x; e < used;
+       e += gridDim.x * TPB) {
+    const int s = t.list[e];
+    const unsigned long long k = sel_key(t.cnt[s], t.first[s]);
+    if (k > best) {
+      best = k;
+      pair = t.keys[s];
+    }
+    t.keys[s] = EMPTY_PAIR;
+    t.cnt[s] = 0u;
+    t.first[s] = 0xFFFFFFFFu;
+  }
+  block_max_pair(best, pair);
+  if (threadIdx.x == 0) {
+    scratch[1 + 2 * blockIdx.x] = best;
+    scratch[2 + 2 * blockIdx.x] = pair;
+    __threadfence();
+    last = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u) ==
+           gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  best = pair = 0;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += TPB) {
+    const unsigned long long k = __ldcg(scratch + 1 + 2 * b);
+    if (k > best) {
+      best = k;
+      pair = __ldcg(scratch + 2 + 2 * b);
+    }
+  }
+  block_max_pair(best, pair);
+  if (threadIdx.x != 0) return;
+  const int f = *fail;
+  const bool ok = best != 0 && f >= i;
+  const int pa = ok ? (int)(pair >> 32) : -1;
+  const int pb = ok ? (int)(unsigned)pair : -1;
+  const int c = ok ? (int)(best >> 32) : 0;
+  sel[0] = pa;
+  sel[1] = pb;
+  sel[2] = c;
+  sel[3] = ok;
+  pairs[2 * i] = ok ? pa : 0;
+  pairs[2 * i + 1] = ok ? pb : 0;
+  counts[i] = c;
+  if (!ok && i < f) *fail = i;
+  *t.used = 0;
+  *reinterpret_cast<unsigned*>(scratch) = 0u;
 }
 
 // ---------------------------------------------------------------------------
@@ -1966,48 +2195,63 @@ cudaError_t batch_hist_grid(int cap, int* grid) {
   return cudaSuccess;
 }
 
-inline size_t hist_smem_bytes(bool first, int log2) {
-  return (size_t)(first ? 3 : 2) * sizeof(unsigned) << log2;
+// the counting core's kernels: K9, K1, K13
+enum HistKind { HIST_COUNT = 0, HIST_STATS = 1, HIST_TABLE = 2 };
+
+// K13's shared table: 16 B a slot (a 64-bit key), 4,096 slots by default
+// (64 KB: 3 blocks an SM), at most 8,192 (128 KB)
+constexpr int TABLE_LOG2 = 12;
+constexpr int TABLE_LOG2_MAX = 13;
+
+inline size_t hist_smem_bytes(int kind, int log2) {
+  const size_t per = kind == HIST_TABLE ? 16 : kind == HIST_STATS ? 12 : 8;
+  return per << log2;
 }
 
-// K1's (first) or K9's launch geometry over cap positions on the current
-// device: *log2 = the table's slots (0 asks for HIST_LOG2), *grid = the
-// blocks (0 asks for as many as fit on the device at once, capped at the
-// stream's chunks). Once per device and kernel it allows the largest
-// table's shared memory and records the SM count.
-cudaError_t hist_geometry(bool first, int cap, int* log2, int* grid) {
-  static std::atomic<int> sms[64][2];
-  static std::atomic<int> per_sm[64][2][HIST_LOG2_MAX + 1];
-  const void* fn = first ? (const void*)pair_stats_kernel
-                         : (const void*)pair_count_kernel;
-  if (*log2 == 0) *log2 = HIST_LOG2;
-  if (*log2 < HIST_LOG2_MIN || *log2 > HIST_LOG2_MAX || *grid < 0)
+inline int hist_log2_max(int kind) {
+  return kind == HIST_TABLE ? TABLE_LOG2_MAX : HIST_LOG2_MAX;
+}
+
+// K1's (kind 1), K9's (0) or K13's (2) table slots (*log2; 0 chooses the
+// default) and grid (*grid; 0 chooses the blocks that fit at once, capped
+// at cap's chunks) on the current device; the kernel's shared-memory
+// allowance is set once per device.
+cudaError_t hist_geometry(int kind, int cap, int* log2, int* grid) {
+  static std::atomic<int> sms[64][3];
+  static std::atomic<int> per_sm[64][3][HIST_LOG2_MAX + 1];
+  const void* fn = kind == HIST_TABLE   ? (const void*)pair_table_kernel
+                   : kind == HIST_STATS ? (const void*)pair_stats_kernel
+                                        : (const void*)pair_count_kernel;
+  if (kind < 0 || kind > 2) return cudaErrorInvalidValue;
+  if (*log2 == 0) *log2 = kind == HIST_TABLE ? TABLE_LOG2 : HIST_LOG2;
+  if (*log2 < HIST_LOG2_MIN || *log2 > hist_log2_max(kind) || *grid < 0)
     return cudaErrorInvalidValue;
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev >= 64) return cudaErrorInvalidDevice;
-  if (sms[dev][first] == 0) {
+  if (sms[dev][kind] == 0) {
     int s;
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)hist_smem_bytes(first, HIST_LOG2_MAX));
+    e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)hist_smem_bytes(kind, hist_log2_max(kind)));
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
-    sms[dev][first] = s;
+    sms[dev][kind] = s;
   }
   if (*grid == 0) {
-    std::atomic<int>& per = per_sm[dev][first][*log2];
+    std::atomic<int>& per = per_sm[dev][kind][*log2];
     if (per == 0) {
       int p;
       e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &p, fn, TPB, hist_smem_bytes(first, *log2));
+          &p, fn, TPB, hist_smem_bytes(kind, *log2));
       if (e != cudaSuccess) return e;
       if (p < 1) return cudaErrorInvalidConfiguration;
       per = p;
     }
     const int chunks = cap >= 2 ? (cap - 2) / TILE + 1 : 1;
-    *grid = per * sms[dev][first];
+    *grid = per * sms[dev][kind];
     if (*grid > chunks) *grid = chunks;
   }
   return cudaSuccess;
@@ -2030,11 +2274,11 @@ int bpe_pair_stats(const int* ids, const int* seg, const int* n,
                    const int* ctl, unsigned* cnt, unsigned* first, int V,
                    int cap, int log2, int grid, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  const cudaError_t e = hist_geometry(true, cap, &log2, &grid);
+  const cudaError_t e = hist_geometry(HIST_STATS, cap, &log2, &grid);
   if (e != cudaSuccess) return e;
   clear_stats_kernel<<<(V + TPB / 32 - 1) / (TPB / 32), TPB, 0, s>>>(
       ctl, cnt, first, V);
-  pair_stats_kernel<<<grid, TPB, hist_smem_bytes(true, log2), s>>>(
+  pair_stats_kernel<<<grid, TPB, hist_smem_bytes(HIST_STATS, log2), s>>>(
       ids, seg, n, ctl, cnt, first, V, log2);
   return cudaGetLastError();
 }
@@ -2044,22 +2288,58 @@ int bpe_pair_count(const int* ids, const int* seg, const int* n,
                    unsigned* cnt, int V, int cap, int log2, int grid,
                    void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = hist_geometry(false, cap, &log2, &grid);
+  cudaError_t e = hist_geometry(HIST_COUNT, cap, &log2, &grid);
   if (e == cudaSuccess)
     e = cudaMemsetAsync(cnt, 0, (size_t)V * V * sizeof(unsigned), s);
   if (e != cudaSuccess) return e;
-  pair_count_kernel<<<grid, TPB, hist_smem_bytes(false, log2), s>>>(
+  pair_count_kernel<<<grid, TPB, hist_smem_bytes(HIST_COUNT, log2), s>>>(
       ids, seg, n, cnt, V, log2);
   return cudaGetLastError();
 }
 
-// The grid K1 (first = 1) or K9 would launch over cap positions with
-// 1 << log2 table slots (0: the default) on the current device; a negative
-// CUDA error where it has none.
-int bpe_pair_hist_grid(int first, int cap, int log2) {
+// The grid K1 (kind = 1), K9 (0) or K13 (2) would launch over cap
+// positions with 1 << log2 table slots (0: the default) on the current
+// device; a negative CUDA error where it has none.
+int bpe_pair_hist_grid(int kind, int cap, int log2) {
   int grid = 0;
-  const cudaError_t e = hist_geometry(first != 0, cap, &log2, &grid);
+  const cudaError_t e = hist_geometry(kind, cap, &log2, &grid);
   return e == cudaSuccess ? grid : -(int)e;
+}
+
+// K13: the countable pairs of ids[0 .. *n) into the table of 1 << tlog2
+// slots (key: uint64, all ones when empty; cnt: uint32, zero; first:
+// uint32, 0xFFFFFFFF; list: int32; used: int32[1]; all as K14 leaves them),
+// unless fail (may be null) holds a round below i. log2 and grid as for
+// bpe_pair_stats.
+int bpe_pair_table(const int* ids, const int* seg, const int* n,
+                   const int* fail, int i, unsigned long long* key,
+                   unsigned* cnt, unsigned* first, int* list, int* used,
+                   int tlog2, int cap, int log2, int grid, void* stream) {
+  if (tlog2 < 1 || tlog2 > 30) return cudaErrorInvalidValue;
+  const cudaError_t e = hist_geometry(HIST_TABLE, cap, &log2, &grid);
+  if (e != cudaSuccess) return e;
+  const HashSink sink{key, cnt, first, list, used, tlog2};
+  pair_table_kernel<<<grid, TPB, hist_smem_bytes(HIST_TABLE, log2),
+                      (cudaStream_t)stream>>>(ids, seg, n, fail, i, sink,
+                                              log2);
+  return cudaGetLastError();
+}
+
+// K14's grid; its scratch is uint64[1 + 2 * grid], zero before the first
+// call (the last block leaves it zero again)
+int bpe_table_select_grid() { return TABLE_SELECT_GRID; }
+
+// K14: the best of the table's listed slots into sel (int32[4]), log row i
+// (pairs: int32[M][2], counts: int32[M]) and fail (int32[1]); the slots
+// and used are left empty.
+int bpe_table_select(unsigned long long* key, unsigned* cnt, unsigned* first,
+                     int* list, int* used, int tlog2, int* sel, int* pairs,
+                     int* counts, int* fail, int i,
+                     unsigned long long* scratch, void* stream) {
+  const HashSink t{key, cnt, first, list, used, tlog2};
+  table_select_kernel<<<TABLE_SELECT_GRID, TPB, 0, (cudaStream_t)stream>>>(
+      t, sel, pairs, counts, fail, i, scratch);
+  return cudaGetLastError();
 }
 
 // scratch: uint64[1 + 2 * bpe_select_blocks(V) * 16], zero before the

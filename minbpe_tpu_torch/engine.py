@@ -3,12 +3,12 @@ and the encoder, and turns results back into the dict-of-merges API.
 
 The port's counterpart of minbpe_tpu/engine.py, for the slices it covers:
 ``run_train`` (engine.py:57-238) with its route choice, the whole-run,
-selection and stepped routes, checkpoints, progress and ``profile_dir``;
+selection, stepped, sort-round and sparse routes, checkpoints, progress
+and ``profile_dir``;
 ``train_offsets``/``train_bytes`` (468-484) and
 ``encode_bytes``/``encode_offsets``/``encode_parts`` (322-423) with their
 two routes, dense and sorted (``DeviceMergeTable``, 20-47). A kernel that
-fails raises: there is no fallback route. Routes outside the slices raise
-NotImplementedError naming the ROADMAP.md item that brings them.
+fails raises: there is no fallback route.
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ from .ops.ranktab import CuckooPairTable
 from .ops.train import TRAIN_MAX_N, TRAIN_MAX_V, train_merges
 from .ops.train_inc import train_merges_incremental, train_merges_stepped
 from .ops.train_select import DENSE_SELECT_MAX, train_merges_select
+from .ops.train_sortloop import (train_merges_sortloop,
+                                 train_merges_sortloop_stepped)
+from .ops.train_sparse import (train_merges_sparse,
+                               train_merges_sparse_stepped)
 from .utils import checkpoint as ckpt
 
 # the token bound of the stepped route under "auto": minbpe_tpu's
@@ -36,9 +40,9 @@ _ROUTES = {
     "sort": "sort", "dense": "dense",
     "pallas": "pallas", "pallas_interpret": "pallas",
     "stepped": "stepped", "incremental": "incremental",
+    "sortloop": "sortloop", "sortloop_inc": "sortloop_inc",
+    "sparse": "sparse", "sparse_inc": "sparse_inc",
 }
-_SORTLOOP_MODES = ("sortloop", "sortloop_inc", "sparse", "sparse_inc")
-_A11 = "ROADMAP.md A11 (the sort-loop and sparse routes)"
 # the largest table vocab of the dense route (minbpe_tpu/engine.py:22)
 DENSE_VOCAB_MAX = 4096
 
@@ -73,13 +77,16 @@ def train_route(select_mode: str, n_tokens: int, num_merges: int,
                 plain: bool = True) -> str:
     """The route of a training run: "whole" (ops/train.py), "sort",
     "dense" or "pallas" (ops/train_select.py), "stepped" or "incremental"
-    (ops/train_inc.py). ``plain``: no checkpoint, resume or progress
+    (ops/train_inc.py), "sortloop" or "sortloop_inc"
+    (ops/train_sortloop.py), "sparse" or "sparse_inc"
+    (ops/train_sparse.py). ``plain``: no checkpoint, resume or progress
     option. "auto" mirrors minbpe_tpu/engine.py:87-120 with its TPU test
-    read as true, since the whole-run trainer serves both devices here; its
-    "pallas_interpret" is "pallas", as the port has no interpret mode.
-    Raises NotImplementedError for the sort-loop and sparse routes and
-    ValueError for an unknown mode or a whole-run request beyond its
-    bounds."""
+    read as true, since the whole-run trainer serves both devices here:
+    the whole-run trainer for a plain run up to vocab 1024 and 48·2^20
+    tokens, else the stepped trainer up to vocab 2048 and 4·2^20 tokens,
+    else the sort-round trainer; its "pallas_interpret" is "pallas", as the
+    port has no interpret mode. Raises ValueError for an unknown mode or a
+    whole-run request beyond its bounds."""
     V = 256 + num_merges
     whole_fits = V <= TRAIN_MAX_V and n_tokens <= TRAIN_MAX_N
     if select_mode == "auto":
@@ -87,12 +94,7 @@ def train_route(select_mode: str, n_tokens: int, num_merges: int,
             return "whole"
         if V <= DENSE_SELECT_MAX and n_tokens <= STEPPED_AUTO_MAX_N:
             return "stepped"
-        raise NotImplementedError(
-            f"vocab_size {V} on {n_tokens} training tokens takes the "
-            f"sort-loop route, which is not ported yet: {_A11}")
-    if select_mode in _SORTLOOP_MODES:
-        raise NotImplementedError(
-            f"select_mode={select_mode!r} is not ported yet: {_A11}")
+        return "sortloop"
     route = _ROUTES.get(select_mode)
     if route is None:
         raise ValueError(f"unknown select_mode {select_mode!r}")
@@ -128,23 +130,29 @@ def run_train(ids, seg, num_merges: int, verbose: bool = False,
     vocab dict, as minbpe_tpu's run_train does (minbpe/basic.py:29-45 for
     the bookkeeping: new ids are 256 + round, and verbose prints one line per
     round in the reference's format). The checkpoint and progress options
-    act on the stepped route, which "auto" takes when any is set;
+    act on the stepped, sort-round and sparse routes ("auto" takes one of
+    the first two when any is set);
     ``fingerprint`` is the corpus's, for checkpoints (train_offsets makes
     it)."""
     plain = (checkpoint_path is None and resume_from is None
              and progress is None)
     route = train_route(select_mode, ids.numel(), num_merges, plain)
+    # the routes that take the checkpoint and progress options, and those
+    # that run the whole run with none (train_merges_select takes the rest)
+    stepped = {"stepped": train_merges_stepped,
+               "sortloop": train_merges_sortloop_stepped,
+               "sparse": train_merges_sparse_stepped}.get(route)
+    whole = {"whole": train_merges, "incremental": train_merges_incremental,
+             "sortloop_inc": train_merges_sortloop,
+             "sparse_inc": train_merges_sparse}.get(route)
     with _trace(profile_dir, ids.device):
-        if route == "whole":
-            pairs, counts, fail_round = train_merges(ids, seg, num_merges)
-        elif route == "stepped":
-            pairs, counts, fail_round = train_merges_stepped(
+        if stepped is not None:
+            pairs, counts, fail_round = stepped(
                 ids, seg, num_merges, checkpoint_path=checkpoint_path,
                 checkpoint_every=checkpoint_every, resume_from=resume_from,
                 progress=progress, fingerprint=fingerprint)
-        elif route == "incremental":
-            pairs, counts, fail_round = train_merges_incremental(
-                ids, seg, num_merges)
+        elif whole is not None:
+            pairs, counts, fail_round = whole(ids, seg, num_merges)
         else:
             pairs, counts, fail_round = train_merges_select(
                 ids, seg, num_merges, route)

@@ -44,12 +44,15 @@ def pair_validity(ids, seg, n):
     return (_arange(ids) + 1 < n) & (seg == nxt_seg), nxt_ids
 
 
-def select_max_pair(ids, seg, n):
-    """(pa, pb, count, ok) by one sort (the sort path): a stable sort of the
-    64-bit keys ids[i] << 32 | ids[i + 1] groups equal pairs with their
+INF_KEY = INT32_MAX << 32 | INT32_MAX
+
+
+def pair_runs(ids, seg, n):
+    """One stable sort of the 64-bit keys ids[i] << 32 | ids[i + 1]:
+    (skey, spos, is_head, cnt, nxt_ids). Equal pairs form runs with their
     positions ascending, so each run's head holds the pair's first
-    occurrence; run lengths are the counts. Invalid slots sort last as
-    (INT32_MAX, INT32_MAX)."""
+    occurrence; cnt is each run's length at its head (0 elsewhere).
+    Invalid slots sort last as INF_KEY."""
     N = ids.shape[0]
     valid, nxt_ids = pair_validity(ids, seg, n)
     ka = torch.where(valid, ids, INT32_MAX).long()
@@ -67,8 +70,16 @@ def select_max_pair(ids, seg, n):
     run = torch.cumsum(head, 0) - 1
     end = torch.empty(2 * N, dtype=torch.int64, device=ids.device).scatter_(
         0, torch.where(last, run, N + idx), idx)
-    is_head = head & (skey != (INT32_MAX << 32 | INT32_MAX))
+    is_head = head & (skey != INF_KEY)
     cnt = torch.where(is_head, end.gather(0, run) - idx + 1, 0)
+    return skey, spos, is_head, cnt, nxt_ids
+
+
+def select_max_pair(ids, seg, n):
+    """(pa, pb, count, ok) by one sort (the sort path, pair_runs): the
+    largest run, and among equal ones the earliest head position."""
+    N = ids.shape[0]
+    _, spos, is_head, cnt, nxt_ids = pair_runs(ids, seg, n)
     maxc = cnt.max().reshape(1)
     tied = is_head & (cnt == maxc)
     best_pos = torch.where(tied, spos, N).min().clamp(max=N - 1)

@@ -52,24 +52,22 @@ def device_bytes(n_tokens: int, V: int) -> int:
     return BYTES_PER_TOKEN * n_tokens + BYTES_PER_ENTRY * V * V
 
 
-class _State:
-    """The chain, the count matrix and the run's log, on the stream's
-    device. nxt[p] = N past the last live token; prv[p] = -1 before the
-    first."""
+class Chain:
+    """A tombstone chain over the stream and a run's log, on the stream's
+    device: ids, live, nxt[p] (N past the last live token), prv[p] (-1
+    before the first); pairs, cnts and the fail round of M merges. The
+    stepped trainer's and the sparse trainer's (ops/train_sparse.py)
+    state."""
 
-    def __init__(self, ids, seg, n, V: int, M: int):
+    def __init__(self, ids, seg, n, M: int):
         N = ids.numel()
         dev = ids.device
-        self.N, self.V, self.M = N, V, M
+        self.N, self.M = N, M
         self.idx = torch.arange(N, dtype=torch.int32, device=dev)
         self.ids, self.seg = ids, seg
         self.live = self.idx < n
         self.nxt = torch.where(self.idx + 1 < n, self.idx + 1, N)
         self.prv = self.idx - 1
-        self.counts = kernels.pair_count(ids, seg, n, V).view(-1)
-        # a masked position's scatter-add adds 0 at an entry of its own, so
-        # no one address takes them all
-        self.spread = self.idx.long() % (V * V)
         self.pairs = torch.zeros((M, 2), dtype=torch.int32, device=dev)
         self.cnts = torch.zeros((M,), dtype=torch.int32, device=dev)
         self.fail = torch.full((1,), M, dtype=torch.int32, device=dev)
@@ -87,11 +85,6 @@ class _State:
             self.seg, nxt, -2))
         return b, valid
 
-    def add_counts(self, mask, a, b, sign: int):
-        V = self.V
-        key = torch.where(mask, a.long() * V + b.long(), self.spread)
-        self.counts.index_add_(0, key, mask.to(torch.int32) * sign)
-
     def result(self):
         M = self.M
         out = torch.cat([self.pairs.view(-1), self.cnts,
@@ -100,29 +93,31 @@ class _State:
                 min(int(out[-1]), M))
 
 
-def _round(st: _State, i: int):
-    """Merge round i (minbpe_tpu/ops/train_inc.py:46-131)."""
-    if st.N < 2:  # no pair at all: the round fails
-        st.fail = st.fail.clamp(max=i)
-        return
-    V = st.V
+class _State(Chain):
+    """The chain and the V x V count matrix."""
+
+    def __init__(self, ids, seg, n, V: int, M: int):
+        super().__init__(ids, seg, n, M)
+        self.V = V
+        self.counts = kernels.pair_count(ids, seg, n, V).view(-1)
+        # a masked position's scatter-add adds 0 at an entry of its own, so
+        # no one address takes them all
+        self.spread = self.idx.long() % (V * V)
+
+    def add_counts(self, mask, a, b, sign: int):
+        V = self.V
+        key = torch.where(mask, a.long() * V + b.long(), self.spread)
+        self.counts.index_add_(0, key, mask.to(torch.int32) * sign)
+
+
+def chain_merge(st, valid, b_all, pa, pb, new_id: int):
+    """The merge of (pa, pb) into new_id on the chain st (ids, live, nxt,
+    prv), whose pairs are (b_all, valid) (minbpe_tpu/ops/train_inc.py:
+    91-127; ops/train_sparse.py's round is the same). Returns rem (the
+    positions whose pair the merge destroys), keep (the kept sites), the
+    new chain (ids, live, nxt, prv), and its pairs (b_post, valid_post)
+    with add, the positions whose pair the merge creates."""
     ids, live, nxt, prv = st.ids, st.live, st.nxt, st.prv
-    maxc = st.counts.max().reshape(1)
-    tied = st.counts == maxc
-    b_all, valid = st.pair_keys(ids, live, nxt)
-
-    # the unique argmax and the first tied position, both computed
-    flat = torch.argmax(st.counts).reshape(1)
-    hit = valid & tied[ids.clamp(0, V - 1).long() * V
-                       + b_all.clamp(0, V - 1).long()]
-    first = torch.argmax(hit.to(torch.int32)).reshape(1)
-    unique = tied.sum() == 1
-    pa = torch.where(unique, flat // V, ids.gather(0, first))
-    pb = torch.where(unique, flat % V, b_all.gather(0, first))
-    ok = (maxc > 0) & (st.fail >= i)
-    pa = torch.where(ok, pa, -1).to(torch.int32)
-    pb = torch.where(ok, pb, -1).to(torch.int32)
-
     # match and left-first parity on the chain
     has_prv = prv >= 0
     pc = prv.clamp(min=0).long()
@@ -140,29 +135,57 @@ def _round(st: _State, i: int):
                            device=ids.device).scatter_(0, slot, chainpos)
     keep = m & (((chainpos - cp_start.gather(0, run.long())) & 1) == 0)
 
-    # remove the pair slots the merge relabels or consumes
+    # the pair slots the merge relabels or consumes
     keep_at_prv = has_prv & keep[pc]
     changed = keep | keep_at_prv
     rem = valid & (changed | st.next_of(changed, nxt, False))
-    st.add_counts(rem, ids, b_all, -1)
 
     # relink. A live token's prv and nxt are its chain neighbours, so the
     # tokens a kept site consumes are exactly the live tokens whose prv is
     # kept, and the token after a consumed one now follows the kept site:
     # elementwise forms of minbpe_tpu's two scatters on the live tokens (a
     # dead token's prv is never read for a live pair)
-    new_ids = torch.where(keep, 256 + i, ids)
+    new_ids = torch.where(keep, new_id, ids)
     new_live = live & ~keep_at_prv
     new_nxt = torch.where(keep, st.next_of(nxt, nxt, st.N), nxt)
     consumed = live & keep_at_prv
     new_prv = torch.where(has_prv & consumed[pc], prv[pc], prv)
 
-    # add the pair slots the merge creates
+    # the pair slots the merge creates
     b_post, valid_post = st.pair_keys(new_ids, new_live, new_nxt)
     add = valid_post & (keep | st.next_of(keep, new_nxt, False))
-    st.add_counts(add, new_ids, b_post, 1)
+    return (rem, keep, (new_ids, new_live, new_nxt, new_prv),
+            (b_post, valid_post, add))
 
-    st.ids, st.live, st.nxt, st.prv = new_ids, new_live, new_nxt, new_prv
+
+def _round(st: _State, i: int):
+    """Merge round i (minbpe_tpu/ops/train_inc.py:46-131)."""
+    if st.N < 2:  # no pair at all: the round fails
+        st.fail = st.fail.clamp(max=i)
+        return
+    V = st.V
+    ids, live, nxt = st.ids, st.live, st.nxt
+    maxc = st.counts.max().reshape(1)
+    tied = st.counts == maxc
+    b_all, valid = st.pair_keys(ids, live, nxt)
+
+    # the unique argmax and the first tied position, both computed
+    flat = torch.argmax(st.counts).reshape(1)
+    hit = valid & tied[ids.clamp(0, V - 1).long() * V
+                       + b_all.clamp(0, V - 1).long()]
+    first = torch.argmax(hit.to(torch.int32)).reshape(1)
+    unique = tied.sum() == 1
+    pa = torch.where(unique, flat // V, ids.gather(0, first))
+    pb = torch.where(unique, flat % V, b_all.gather(0, first))
+    ok = (maxc > 0) & (st.fail >= i)
+    pa = torch.where(ok, pa, -1).to(torch.int32)
+    pb = torch.where(ok, pb, -1).to(torch.int32)
+
+    rem, _, chain, (b_post, _, add) = chain_merge(st, valid, b_all, pa, pb,
+                                                  256 + i)
+    st.add_counts(rem, ids, b_all, -1)
+    st.add_counts(add, chain[0], b_post, 1)
+    st.ids, st.live, st.nxt, st.prv = chain
     st.pairs[i] = torch.where(ok, torch.cat([pa, pb]), st.pairs[i])
     st.cnts[i:i + 1] = torch.where(ok, maxc, st.cnts[i:i + 1])
     st.fail = torch.where(maxc > 0, st.fail, st.fail.clamp(max=i))

@@ -17,6 +17,11 @@ counts, the fail round and the corpus's sha256 (``--write-xl``).
 ``data/smoke2048_golden.npz`` holds minbpe_tpu's RegexTokenizer on the
 smoke corpus at vocab 2048 (its default route there, the stepped trainer):
 the merges, their counts and the fail round (``--write-2048``).
+``data/smoke8192_golden.npz`` holds the same at vocab 8,192 (7,936
+merges), written through minbpe_tpu's ``select_mode="sparse"`` route (its
+slot-table trainer: minutes on a CPU, where its sort-round route, which
+"auto" takes there, would take most of an hour), with the route's name
+(``--write-8192``).
 
 ``data/encode_golden.npz`` holds the sha256 and the count of the ids that
 minbpe_tpu's encode produced, per table and text (``--write-encode``; the
@@ -45,6 +50,9 @@ XL_GOLDEN = os.path.join(DATA, "xl_golden.npz")
 GOLDEN_2048 = os.path.join(DATA, "smoke2048_golden.npz")
 VOCAB_SIZE = 1024
 VOCAB_SIZE_2048 = 2048
+GOLDEN_8192 = os.path.join(DATA, "smoke8192_golden.npz")
+VOCAB_SIZE_8192 = 8192
+GOLDEN_8192_ROUTE = "sparse"
 ENCODE_GOLDEN = os.path.join(DATA, "encode_golden.npz")
 ENCODE_CASES = ("gpt4_100k", "gpt4_100k_batch", "gpt4_100k_specials",
                 "smoke_plus_4096", "smoke_plus_4353", "basic_plus_4353",
@@ -194,3 +202,15 @@ def save_golden_2048(merges, counts, fail_round: int):
     np.savez(GOLDEN_2048, merges=np.asarray(merges, np.int32),
              counts=np.asarray(counts, np.int32),
              fail_round=np.int32(fail_round))
+
+
+def load_golden_8192() -> dict:
+    z = np.load(GOLDEN_8192)
+    return {"merges": z["merges"], "counts": z["counts"],
+            "fail_round": int(z["fail_round"]), "route": str(z["route"])}
+
+
+def save_golden_8192(merges, counts, fail_round: int, route: str):
+    np.savez(GOLDEN_8192, merges=np.asarray(merges, np.int32),
+             counts=np.asarray(counts, np.int32),
+             fail_round=np.int32(fail_round), route=np.str_(route))

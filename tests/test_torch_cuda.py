@@ -1012,3 +1012,135 @@ def test_encode_sweep_dense_table_limits(dev):
         k = int(wn)
         assert int(gn) == k < len(data) // 2
         assert torch.equal(gi[:k], wi[:k]) and torch.equal(gs[:k], ws[:k])
+
+
+# ---------------------------------------------------------------------------
+# K13 pair_table, K14 table_select
+# ---------------------------------------------------------------------------
+
+def _table_round(t, ids, seg, n, fail, i, M=8):
+    sel = torch.zeros(4, dtype=torch.int32, device=ids.device)
+    pairs = torch.zeros((M, 2), dtype=torch.int32, device=ids.device)
+    counts = torch.zeros(M, dtype=torch.int32, device=ids.device)
+    kernels.pair_table(ids, seg, n, t, fail, i)
+    contents = [x.cpu() for x in kernels.table_contents(t)]
+    kernels.table_select(t, sel, pairs, counts, fail, i)
+    return contents, sel.cpu(), pairs[i].cpu(), counts[i].cpu()
+
+
+def _table_empty(t):
+    return (int(t.used) == 0 and bool((t.key == -1).all())
+            and not bool(t.cnt.any())
+            and bool((t.first == kernels.EMPTY_FIRST).all()))
+
+
+TABLE_CASES = {
+    "hot_pair": lambda rng: (np.full(1 << 20, 97), np.zeros(1 << 20)),
+    "all_distinct": lambda rng: (np.arange(1 << 20), np.zeros(1 << 20)),
+    "ids_above_2_16": lambda rng: (rng.integers(60_000, 100_260, 300_000),
+                                   np.cumsum(rng.random(300_000) < 0.2)),
+    # more than 2048 of the counting core's 2048-position chunks, shared by
+    # the persistent grid's blocks
+    "many_chunks": lambda rng: (np.minimum(rng.zipf(1.3, (1 << 22) + 999),
+                                           5000),
+                                np.cumsum(rng.random((1 << 22) + 999)
+                                          < 0.3)),
+    "short": lambda rng: (np.array([4, 4, 4]), np.zeros(3)),
+    "no_pair": lambda rng: (np.array([4, 5]), np.array([0, 1])),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TABLE_CASES))
+def test_pair_table_matches_plain(dev, case):
+    from minbpe_tpu_torch.ops.select import select_max_pair
+
+    a, s = TABLE_CASES[case](np.random.default_rng(11))
+    ids = torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+    seg = torch.from_numpy(np.asarray(s, np.int32)).to(dev)
+    n = torch.full((1,), ids.numel(), dtype=torch.int32, device=dev)
+    fail = torch.full((1,), 8, dtype=torch.int32, device=dev)
+    t = kernels.PairTable(ids.numel(), dev)
+    plain = kernels.PairTable(ids.numel(), "cpu")
+    pc = [x.cpu() for x in (ids, seg, n)]
+    kernels.pair_table(*pc, plain)
+    want = kernels.table_contents(plain)
+    pa, pb, c, ok = select_max_pair(ids, seg, n)
+    ref = ([int(pa), int(pb), int(c), 1] if bool(ok) else [-1, -1, 0, 0])
+    for i in range(2):  # the second round reuses the table K14 emptied
+        got, sel, row, cnt = _table_round(t, ids, seg, n, fail, i)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert sel.tolist() == ref
+        assert row.tolist() == (ref[:2] if bool(ok) else [0, 0])
+        assert int(cnt) == ref[2]
+        assert _table_empty(t)
+    assert int(fail) == (8 if bool(ok) else 0)
+
+
+def test_table_second_round_sees_only_its_stream(dev):
+    """Two rounds on different streams through one table: the second's
+    table holds none of the first's keys."""
+    rng = np.random.default_rng(2)
+    t = kernels.PairTable(50_000, dev)
+    fail = torch.full((1,), 8, dtype=torch.int32, device=dev)
+    for i, hi in enumerate((300, 90_000)):
+        a = rng.integers(0, hi, 50_000).astype(np.int32)
+        if i == 1:
+            a += 10_000  # no pair of round 0 can recur
+        ids = torch.from_numpy(a).to(dev)
+        seg = torch.zeros_like(ids)
+        n = torch.full((1,), ids.numel(), dtype=torch.int32, device=dev)
+        plain = kernels.PairTable(ids.numel(), "cpu")
+        kernels.pair_table(ids.cpu(), seg.cpu(), n.cpu(), plain)
+        got, _, _, _ = _table_round(t, ids, seg, n, fail, i)
+        want = kernels.table_contents(plain)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert _table_empty(t)
+
+
+def test_table_gated_after_fail(dev):
+    ids = torch.tensor([1, 2, 1, 2], dtype=torch.int32, device=dev)
+    n = torch.full((1,), 4, dtype=torch.int32, device=dev)
+    t = kernels.PairTable(4, dev)
+    fail = torch.full((1,), 2, dtype=torch.int32, device=dev)
+    got, sel, _, _ = _table_round(t, ids, torch.zeros_like(ids), n, fail, 3)
+    assert got[0].numel() == 0 and sel.tolist() == [-1, -1, 0, 0]
+    assert int(fail) == 2 and _table_empty(t)
+
+
+def test_table_refuses_a_small_table(dev):
+    ids = torch.zeros(1000, dtype=torch.int32, device=dev)
+    n = torch.full((1,), 1000, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="slots"):
+        kernels.pair_table(ids, ids, n, kernels.PairTable(100, dev))
+
+
+@pytest.fixture(scope="module")
+def basic_3000_cpu():
+    """3,000 merges on the smoke corpus's first 64 KB, BasicTokenizer on the
+    CPU (the sort-round route's plain versions)."""
+    from minbpe_tpu_torch.utils import golden
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    text = golden.smoke_corpus(ROOT)[:65536]
+    tok = BasicTokenizer(device="cpu")
+    tok.train(text, 256 + 3000, select_mode="sortloop_inc")
+    return text, tok.merges
+
+
+@pytest.mark.parametrize("mode", ["sortloop", "sortloop_inc", "sparse",
+                                  "sparse_inc"])
+def test_large_vocab_modes_match_cpu(dev, mode, basic_3000_cpu):
+    """Each large-vocab mode on the card equals the CPU; the sort-round
+    modes launch K13, K14, K3 and K4 once a round."""
+    text, want = basic_3000_cpu
+    tok = BasicTokenizer(device="cuda")
+    kernels.reset_launches()
+    tok.train(text, 256 + 3000, select_mode=mode)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    if mode.startswith("sortloop"):
+        assert launches["pair_table"] == launches["table_select"] >= 3000
+        assert launches["merge_apply"] == launches["compact"] >= 3000
+    else:
+        assert not any(launches.values())
+    assert tok.merges == want

@@ -14,6 +14,11 @@ whole XL corpus on the CPU. ``--write-2048`` writes
 minbpe_tpu_torch/data/smoke2048_golden.npz: the smoke corpus at vocab 2048,
 the default route of both packages there (the stepped trainer).
 
+``--write-8192`` writes minbpe_tpu_torch/data/smoke8192_golden.npz: the
+smoke corpus at vocab 8,192 through minbpe_tpu's ``select_mode="sparse"``
+(~2 minutes on a CPU; its default there, the sort-round route, would take
+most of an hour); the card's sort-round and sparse routes are held to it.
+
 ``--write-encode`` writes minbpe_tpu_torch/data/encode_golden.npz: the sha256
 and count of the ids minbpe_tpu's encode produces per table and text
 (golden.ENCODE_CASES), and prints each case's time. The card's runs
@@ -44,12 +49,12 @@ if ROOT not in sys.path:
 from minbpe_tpu_torch.utils import golden  # noqa: E402
 
 
-def _train_verbose(tok, text, vocab_size=golden.VOCAB_SIZE):
+def _train_verbose(tok, text, vocab_size=golden.VOCAB_SIZE, **opts):
     """Train through the public API; the per-merge counts come from the
     verbose lines, whose format both packages share."""
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        tok.train(text, vocab_size, verbose=True)
+        tok.train(text, vocab_size, verbose=True, **opts)
     counts = [int(c) for c in re.findall(r"had (\d+) occurrences",
                                          out.getvalue())]
     items = sorted(tok.merges.items(), key=lambda kv: kv[1])
@@ -71,6 +76,15 @@ def _reference_2048_result():
 
     merges, counts = _train_verbose(RegexTokenizer(), golden.smoke_corpus(
         ROOT), golden.VOCAB_SIZE_2048)
+    return merges, counts, len(merges)
+
+
+def _reference_8192_result():
+    from minbpe_tpu import RegexTokenizer
+
+    merges, counts = _train_verbose(
+        RegexTokenizer(), golden.smoke_corpus(ROOT), golden.VOCAB_SIZE_8192,
+        select_mode=golden.GOLDEN_8192_ROUTE)
     return merges, counts, len(merges)
 
 
@@ -245,6 +259,46 @@ def test_2048_golden_extends_the_1024_golden():
     assert np.array_equal(big["counts"][:768], small["counts"])
 
 
+def test_8192_golden_extends_the_2048_golden():
+    """The vocab-8192 golden: 7,936 merges by minbpe_tpu's sparse route,
+    whose first 1,792 are the 2048 golden's; its ids pass 2^12."""
+    small, big = golden.load_golden_2048(), golden.load_golden_8192()
+    M = golden.VOCAB_SIZE_8192 - 256
+    assert big["fail_round"] == M and big["route"] == "sparse"
+    assert big["merges"].shape == (M, 2) and big["counts"].shape == (M,)
+    assert np.array_equal(big["merges"][:1792], small["merges"])
+    assert np.array_equal(big["counts"][:1792], small["counts"])
+    assert big["merges"].max() > 4096 and (big["counts"] > 0).all()
+    assert (np.diff(big["counts"].astype(np.int64)) <= 0).sum() > 0
+
+
+@pytest.mark.slow
+def test_minbpe_tpu_reproduces_8192_golden():
+    """minbpe_tpu's sparse route on the smoke corpus at vocab 8192, ~2
+    minutes on a CPU."""
+    pytest.importorskip("jax")
+    want = golden.load_golden_8192()
+    merges, counts, fail_round = _reference_8192_result()
+    assert np.array_equal(merges, want["merges"])
+    assert np.array_equal(counts, want["counts"])
+    assert fail_round == want["fail_round"]
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("mode", ["auto", "sparse"])
+def test_port_plain_path_matches_8192_golden(mode):
+    """The port's default route at vocab 8192 (the sort-round trainer) and
+    its sparse route, on the CPU: minutes each."""
+    from minbpe_tpu_torch import RegexTokenizer
+
+    want = golden.load_golden_8192()
+    merges, counts = _train_verbose(
+        RegexTokenizer(device="cpu"), golden.smoke_corpus(ROOT),
+        golden.VOCAB_SIZE_8192, select_mode=mode)
+    assert np.array_equal(merges, want["merges"])
+    assert np.array_equal(counts, want["counts"])
+
+
 @pytest.mark.slow
 def test_minbpe_tpu_reproduces_xl_golden():
     pytest.importorskip("jax")
@@ -279,6 +333,13 @@ if __name__ == "__main__":
         merges, counts, fail_round = _reference_2048_result()
         golden.save_golden_2048(merges, counts, fail_round)
         print(f"wrote {golden.GOLDEN_2048}: {len(merges)} merges")
+    elif sys.argv[1:] == ["--write-8192"]:
+        t0 = time.perf_counter()
+        merges, counts, fail_round = _reference_8192_result()
+        golden.save_golden_8192(merges, counts, fail_round,
+                                golden.GOLDEN_8192_ROUTE)
+        print(f"wrote {golden.GOLDEN_8192}: {len(merges)} merges "
+              f"({time.perf_counter() - t0:.1f} s)")
     elif sys.argv[1:] == ["--write-encode"]:
         import minbpe_tpu
 
@@ -296,5 +357,5 @@ if __name__ == "__main__":
         print(f"wrote {golden.XL_GOLDEN}: {len(merges)} merges, "
               f"{len(text.encode('utf-8'))} corpus bytes")
     else:
-        sys.exit(f"usage: {sys.argv[0]} --write | --write-2048 | --write-xl"
-                 " | --write-encode")
+        sys.exit(f"usage: {sys.argv[0]} --write | --write-2048 | --write-8192"
+                 " | --write-xl | --write-encode")

@@ -67,12 +67,14 @@ def test_import_leaves_jax_minbpe_tpu_and_regex_out():
         "import minbpe_tpu_torch\n"
         "from minbpe_tpu_torch import convert, engine, gpt4, kernels\n"
         "from minbpe_tpu_torch.ops import (encode, flat_encode, merge,\n"
-        "    ranktab, select, stream, train, train_inc, train_select)\n"
+        "    ranktab, select, stream, train, train_inc, train_select,\n"
+        "    train_sortloop, train_sparse)\n"
         "from minbpe_tpu_torch.utils import (checkpoint, golden, native,\n"
         "    presplit, synthranks)\n"
         "t = minbpe_tpu_torch.RegexTokenizer(device='cpu')\n"
         "t.train('hello world, hello there', 260)\n"
-        "for mode in ('sort', 'dense', 'pallas', 'stepped'):\n"
+        "for mode in ('sort', 'dense', 'pallas', 'stepped', 'sortloop',\n"
+        "             'sortloop_inc', 'sparse', 'sparse_inc'):\n"
         "    t.train('hello world, hello there', 260, select_mode=mode)\n"
         "assert t.decode(t.encode('hello')) == 'hello'\n"
         "ranks, _, sp = synthranks.synthetic_ranks(4353, seed=1)\n"

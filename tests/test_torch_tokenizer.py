@@ -133,16 +133,23 @@ def test_from_arrays_encodes_like_minbpe_tpu(pair):
 
 
 def test_options_outside_the_slice_raise():
+    """What once lay outside the port's slices trains as minbpe_tpu does:
+    the sort-round and sparse modes, and vocab 2,049 under "auto" (the
+    sort-round route); an unknown mode or option still raises."""
     tok = port.BasicTokenizer(device="cpu")
     for mode in ("sortloop", "sortloop_inc", "sparse", "sparse_inc"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md A11"):
-            tok.train(TEXT, 260, select_mode=mode)
+        want = minbpe_tpu.BasicTokenizer()
+        want.train(TEXT, 260, select_mode=mode)
+        tok.train(TEXT, 260, select_mode=mode)
+        assert tok.merges == want.merges
     with pytest.raises(ValueError, match="unknown select_mode"):
         tok.train(TEXT, 260, select_mode="bogus")
     with pytest.raises(TypeError):
         tok.train(TEXT, 260, bogus=1)
-    with pytest.raises(NotImplementedError, match="A11"):
-        tok.train(TEXT, 2049)
+    want = minbpe_tpu.BasicTokenizer()
+    want.train(TEXT, 2049)
+    tok.train(TEXT, 2049)
+    assert tok.merges == want.merges and tok.vocab == want.vocab
     # a table deeper than the fused Pallas encoder's 2048 ranks encodes as
     # minbpe_tpu does: (97, 97) -> 256, then (z, 97) -> z + 1 for every
     # later rank

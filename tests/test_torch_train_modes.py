@@ -129,9 +129,14 @@ def test_route_choice():
         assert route(mode, 1000, 1800) == want
     assert route("fused", 1000, 768) == "whole"
     assert route("fused_xl", 48 << 20, 768) == "whole"
+    # vocab above 2048, above 4·2^20 tokens past vocab 1024, above 48·2^20
+    # tokens, and above 4·2^20 tokens with a checkpoint or progress option
     for n, m in ((1000, 1793), ((4 << 20) + 1, 769), ((48 << 20) + 1, 10)):
-        with pytest.raises(NotImplementedError, match="A11"):
-            route("auto", n, m)
+        assert route("auto", n, m) == "sortloop"
+    assert route("auto", (4 << 20) + 1, 768, plain=False) == "sortloop"
+    assert route("auto", 4 << 20, 1792, plain=False) == "stepped"
+    for mode in ("sortloop", "sortloop_inc", "sparse", "sparse_inc"):
+        assert route(mode, 1000, 8000) == mode
     with pytest.raises(ValueError, match="'fused'"):
         route("fused", 1000, 769)
 
@@ -143,7 +148,9 @@ class _Spy:
     def __init__(self, monkeypatch):
         self.calls = []
         for name in ("train_merges", "train_merges_select",
-                     "train_merges_stepped", "train_merges_incremental"):
+                     "train_merges_stepped", "train_merges_incremental",
+                     "train_merges_sortloop", "train_merges_sortloop_stepped",
+                     "train_merges_sparse", "train_merges_sparse_stepped"):
             monkeypatch.setattr(engine, name, self._fake(name))
 
     def _fake(self, name):
@@ -177,8 +184,14 @@ def test_route_spied(monkeypatch, vocab, opts, want):
 @pytest.mark.parametrize("mode", ["sortloop", "sortloop_inc", "sparse",
                                   "sparse_inc"])
 def test_sortloop_modes_raise_a11(mode):
-    with pytest.raises(NotImplementedError, match="A11"):
-        port.BasicTokenizer(device="cpu").train(TEXT, 260, select_mode=mode)
+    """The sort-round and sparse modes (which raised NotImplementedError
+    before they were ported) train as minbpe_tpu's same mode does."""
+    for cls in ("BasicTokenizer", "RegexTokenizer"):
+        want = getattr(minbpe_tpu, cls)()
+        want.train(TEXT, 260, select_mode=mode)
+        got = getattr(port, cls)(device="cpu")
+        got.train(TEXT, 260, select_mode=mode)
+        assert got.merges == want.merges
 
 
 def test_unknown_mode_raises():

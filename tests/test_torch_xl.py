@@ -10,8 +10,8 @@ seeded text blob stands in for the reference corpus, and every multi-segment
 corpus spans three segments, so the Pallas trainer compiles twice, for one
 segment and for three): merges, counts, the
 fail round and the rebuild count must be equal. Then the bounds: above
-XL_MAX_N training raises NotImplementedError naming ROADMAP A11 before a
-stream is built, and between 4M and XL_MAX_N it trains."""
+XL_MAX_N "auto" takes the sort-round route, and between 4M and XL_MAX_N the
+whole-run trainer trains."""
 
 import random
 
@@ -163,18 +163,39 @@ def test_bound_is_the_xl_trainers():
 
 
 def test_above_xl_max_raises_a11_before_building_a_stream(monkeypatch):
-    def no_stream(*args, **kwargs):
-        raise AssertionError("a stream was built")
+    """Above XL_MAX_N (where training once raised NotImplementedError before
+    a stream was built) "auto" takes the sort-round route: the stepped
+    sort-round trainer runs, and no whole-run trainer is called."""
+    N = port_train.XL_MAX_N + 1
+    calls = []
 
-    monkeypatch.setattr(port_stream, "build_stream", no_stream)
-    # a read-only view of one byte: the size of a corpus, none of its memory
-    data = np.broadcast_to(np.uint8(97), (port_train.XL_MAX_N + 1,))
-    ends = np.array([data.shape[0]], np.int64)
-    with pytest.raises(NotImplementedError, match="A11"):
-        engine.train_offsets(data, ends, 10, device="cpu")
-    ids = torch.zeros(1, dtype=torch.int32).expand(port_train.XL_MAX_N + 1)
-    with pytest.raises(NotImplementedError, match="A11"):
-        engine.run_train(ids, ids, 10)
+    def whole(*args, **kwargs):
+        raise AssertionError("a whole-run trainer was called")
+
+    def sortloop(ids, seg, num_merges, **kwargs):
+        calls.append(ids.numel())
+        pairs = np.stack([np.arange(num_merges)] * 2, axis=1).astype(np.int32)
+        return pairs, np.ones(num_merges, np.int32), num_merges
+
+    def stream(data, ends, device):
+        # a read-only view of one id: the size of a stream, none of its
+        # memory
+        ids = torch.zeros(1, dtype=torch.int32).expand(data.shape[0])
+        return ids, ids
+
+    for name in ("train_merges", "train_merges_sortloop", "train_merges_sparse",
+                 "train_merges_incremental"):
+        monkeypatch.setattr(engine, name, whole)
+    monkeypatch.setattr(engine, "train_merges_sortloop_stepped", sortloop)
+    monkeypatch.setattr(port_stream, "build_stream", stream)
+    data = np.broadcast_to(np.uint8(97), (N,))
+    ends = np.array([N], np.int64)
+    merges, _ = engine.train_offsets(data, ends, 10, device="cpu")
+    assert len(merges) == 10 and calls == [N]
+    assert engine.train_route("auto", N, 10) == "sortloop"
+    ids = torch.zeros(1, dtype=torch.int32).expand(N)
+    engine.run_train(ids, ids, 10)
+    assert calls == [N, N]
 
 
 def test_between_4m_and_xl_max_trains():
