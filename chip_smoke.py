@@ -23,13 +23,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    corpus's stream; K11 and K12 (the sorted route) over the smoke corpus's
    GPT-4 split with the GPT-4 table at 100,256 ranks and with
    smoke_plus_4353, and over its first 65,536 bytes as one chunk with
-   both; K13 and K14 (the sort-round trainer's count and selection)
-   against pair_table_plain's table and select_max_pair's pair over the
-   400K stream, the smoke stream after the vocab-8192 golden's first 4,000
-   merges, 2^20 copies of "a", 2^20 distinct ids, the XL corpus's stream
-   and that stream four times over (50,353,352 tokens), each with its
-   bytes bound and torch.unique's time; the outputs are integers and must
-   be exactly equal;
+   both; K13 pair_select (the sort-round trainer's count and selection,
+   one launch a round) against pair_select_plain's record and
+   select_max_pair's pair, with the table empty after every launch, over
+   the 400K stream, the smoke stream after the vocab-8192 golden's first
+   4,000 merges, 2^20 copies of "a", 2^20 distinct ids, the XL corpus's
+   stream and that stream four times over (50,353,352 tokens), each with
+   its bytes bound and torch.unique's time; the outputs are integers and
+   must be exactly equal;
 3. drive the main path through the user's entry points, one path at a
    time, with every launch count set to 0 just before each path and read
    just after it: RegexTokenizer (GPT-4 pattern) training at vocab 1024 on
@@ -823,90 +824,99 @@ def split_ms(torch, fns, reps: int):
 
 
 def table_case(torch, kernels, name, ids, seg):
-    """K13 pair_table and K14 table_select over a whole stream, against
-    their plain versions on the card: K13's table (key, count, first of
-    every claimed slot, sorted by key) against pair_table_plain's (a
-    torch.unique of the keys), K14's record (pa, pb, count, ok) against
-    ops/select.select_max_pair (the stable-sort selection), and the table
-    empty after K14. Bounds: K13 reads 8 B a token and writes 16 B a
-    distinct pair D; K14 reads the 16 D B. Library: torch.unique over the
-    countable pairs' 64-bit keys with their counts (no first positions)."""
+    """K13 pair_select, one round over a whole stream, against its plain
+    version on the card (pair_table_plain, a torch.unique of the keys, then
+    table_select_plain) and against ops/select.select_max_pair (the
+    stable-sort selection): the round's record (sel, log row, count, fail)
+    exactly, and the table empty after the first launch and after the
+    timed ones. Bound: the function's bytes, 8 N + 40: ids and seg read
+    once (8 B a token), n and fail read (8 B) and the record written (sel
+    16 B, log row 8, count 4, fail 4). The hash table is scratch, empty
+    before and after the launch, so its traffic is the design's and not
+    in the bound. Library: torch.unique over the countable pairs' 64-bit
+    keys with their counts (no first positions, no selection)."""
     from minbpe_tpu_torch.ops.select import select_max_pair
 
     dev = ids.device
     N = ids.numel()
     n = torch.full((1,), N, dtype=torch.int32, device=dev)
-    fail = torch.ones(1, dtype=torch.int32, device=dev)
-    sel = torch.zeros(4, dtype=torch.int32, device=dev)
-    pairs = torch.zeros((1, 2), dtype=torch.int32, device=dev)
-    counts = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def record():
+        return (torch.zeros(4, dtype=torch.int32, device=dev),
+                torch.zeros((1, 2), dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.ones(1, dtype=torch.int32, device=dev))
+
     table = kernels.PairTable(N, dev)
+    got = record()
 
     def k13():
-        kernels.pair_table(ids, seg, n, table, fail, 0)
+        kernels.pair_select(ids, seg, n, table, *got, 0)
 
-    def k14():
-        kernels.table_select(table, sel, pairs, counts, fail, 0)
+    def empty(t):
+        return (int(t.used) == 0 and bool((t.key == -1).all())
+                and not bool(t.cnt.any())
+                and bool((t.first == kernels.EMPTY_FIRST).all()))
 
     k13()
-    got = kernels.table_contents(table)
+    if not empty(table):
+        raise AssertionError(f"pair_select left the table of {name} full")
     plain = kernels.PairTable(N, dev)
-    kernels.pair_table_plain(ids, seg, n, plain)
-    want = kernels.table_contents(plain)
-    D = want[0].numel()
-    kernels.table_select_plain(plain, sel.clone(), pairs.clone(),
-                               counts.clone(), fail.clone(), 0)
-    k14()
+    want = record()
+    kernels.pair_select_plain(ids, seg, n, plain, *want, 0)
+    a, b = ids[:-1].long(), ids[1:].long()
+    countable = seg[:-1] == seg[1:]
+    keys = ((a << 32) | b)[countable]
+    del a, b
+    D = torch.unique(keys).numel()
+    # distinct pairs of each 2048-position chunk, summed: the device-table
+    # inserts when each block counts one chunk (fewer where it has more)
+    chunk = torch.nonzero(countable).view(-1) // kernels.TILE
+    chunk_distinct = torch.unique(torch.stack([chunk, keys]), dim=1).shape[1]
+    del chunk, countable
     pa, pb, c, ok = select_max_pair(ids, seg, n)
     ref = torch.tensor([int(pa), int(pb), int(c), 1] if bool(ok)
                        else [-1, -1, 0, 0], dtype=torch.int32)
-    err = max_err(torch, list(zip(got, want)) + [(sel.cpu(), ref)])
-    empty = (int(table.used) == 0 and bool((table.key == -1).all())
-             and not bool(table.cnt.any()))
-    if not empty:
-        raise AssertionError(f"table_select left the table of {name} full")
+    err = max_err(torch, list(zip(got, want)) + [(got[0].cpu(), ref)])
 
-    def plain_pair():
-        kernels.pair_table_plain(ids, seg, n, plain)
-        kernels.table_select_plain(plain, sel, pairs, counts, fail, 0)
+    def plain_round():
+        kernels.pair_select_plain(ids, seg, n, plain, *want, 0)
 
     big = N > (1 << 22)
     reps = 10 if big else 50
-    k13_ms, k14_ms = split_ms(torch, [k13, k14], reps)
-    a, b = ids[:-1].long(), ids[1:].long()
-    keys = ((a << 32) | b)[seg[:-1] == seg[1:]]
-    del a, b
+    k13_ms = split_ms(torch, [k13], reps)[0]
+    if not empty(table):
+        raise AssertionError(f"pair_select left the table of {name} full "
+                             f"after {reps + 2} rounds")
+    err = max(err, max_err(torch, list(zip(got, want))))
     lib = profiled_ms(torch, lambda: torch.unique(
         keys, sorted=True, return_counts=True), 5 if big else 20)
     del keys
-    plain_ms = host_ms(torch, plain_pair, 1 if big else 5)
+    plain_ms = host_ms(torch, plain_round, 1 if big else 5)
     del plain
-    rec = dict(case=name, n=N, distinct=D, max_abs_err=err,
-               grid=kernels._load().bpe_pair_hist_grid(2, N, 0),
-               ms=k13_ms, k14_ms=k14_ms, plain_ms=plain_ms,
+    rec = dict(case=name, n=N, distinct=D, chunk_distinct=chunk_distinct,
+               max_abs_err=err, grid=table.grid,
+               ms=k13_ms, plain_ms=plain_ms,
                sort_ms=host_ms(torch, lambda: select_max_pair(ids, seg, n),
                                1 if big else 5),
-               bytes=8 * N + 16 * D, k14_bytes=16 * D, library_ms=lib,
-               selected=sel.tolist())
+               bytes=8 * N + 40, library_ms=lib,
+               selected=got[0].tolist())
     rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
-    rec["k14_bound_ms"] = rec["k14_bytes"] / HBM_BYTES_PER_S * 1e3
-    print(f"pair_table {name}: n {N}, D {D}, grid {rec['grid']}, "
-          f"max_abs_err {err}, K13 {k13_ms:.5f} ms (bound "
-          f"{rec['bound_ms']:.5f}), K14 {k14_ms:.5f} ms (bound "
-          f"{rec['k14_bound_ms']:.5f}), unique {lib:.5f} ms, sort selection "
+    print(f"pair_select {name}: n {N}, D {D}, grid {rec['grid']}, "
+          f"max_abs_err {err}, {k13_ms:.5f} ms (bound "
+          f"{rec['bound_ms']:.5f}), unique {lib:.5f} ms, sort selection "
           f"{rec['sort_ms']:.3f} ms, pair {rec['selected']}")
     return rec
 
 
-def phase_table(torch, np, kernels, golden_mod, texts):
-    """K13 and K14 against their plain versions at the shapes the sort-round
-    route gives them: the 400K seeded Zipf stream, the smoke corpus's
-    stream after the vocab-8192 golden's first 4,000 merges (ids above
-    4,096; applied by K10), 2^20 copies of "a" (one hot pair), 2^20
+def table_cases(torch, np, kernels, golden_mod, texts):
+    """[(name, ids, seg)] on the card, the shapes the sort-round route gives
+    its count and selection: the 400K seeded Zipf stream, the smoke
+    corpus's stream after the vocab-8192 golden's first 4,000 merges (ids
+    above 4,096; applied by K10), 2^20 copies of "a" (one hot pair), 2^20
     distinct ids (every pair distinct: the table's load), the XL corpus's
     stream and that stream four times over (50,353,352 tokens, each copy's
-    chunks its own). Returns K13's and K14's rows; K13's main shape is the
-    Zipf stream."""
+    chunks its own)."""
     dev = torch.device("cuda")
     zids, zseg = smoke_stream(np, 400_000, 1024)
     named = {name: (i, s) for name, i, s, _ in texts}
@@ -918,9 +928,12 @@ def phase_table(torch, np, kernels, golden_mod, texts):
     zt = torch.arange(256, 256 + M, dtype=torch.int32, device=dev)
     m_ids, m_seg, m_n = kernels.encode_sweep(s_ids, s_seg, pt, zt)
     k = int(m_n)
+    if int(m_ids[:k].max()) < 4096:
+        raise AssertionError("the smoke stream after 4,000 merges holds no "
+                             "id above 4,096")
     run = torch.full((1 << 20,), 97, dtype=torch.int32, device=dev)
     dist = torch.arange(1 << 20, dtype=torch.int32, device=dev)
-    cases = [
+    return [
         ("zipf_400k", torch.from_numpy(zids).to(dev),
          torch.from_numpy(zseg).to(dev)),
         ("smoke_8192_m4000", m_ids[:k].contiguous(), m_seg[:k].contiguous()),
@@ -929,24 +942,21 @@ def phase_table(torch, np, kernels, golden_mod, texts):
         ("xl", x_ids, x_seg),
         ("xl4", *xl_stream(torch, x_ids, x_seg, 4 * x_ids.numel())),
     ]
+
+
+def phase_table(torch, np, kernels, golden_mod, texts):
+    """K13 against its plain version at table_cases' shapes. Returns its
+    row; the main shape is the Zipf stream."""
+    cases = table_cases(torch, np, kernels, golden_mod, texts)
     recs = []
     for name, c_ids, c_seg in cases:
         recs.append(table_case(torch, kernels, name, c_ids, c_seg))
         torch.cuda.empty_cache()
-    if int(m_ids[:k].max()) < 4096:
-        raise AssertionError("the smoke stream after 4,000 merges holds no "
-                             "id above 4,096")
     main = recs[0]
-    k13 = dict(k=kernels.PAIR_TABLE, err=max(r["max_abs_err"] for r in recs),
-               ms=main["ms"], plain_ms=main["plain_ms"], bytes=main["bytes"],
-               library_ms=main["library_ms"], shapes=recs)
-    k14 = dict(k=kernels.TABLE_SELECT, err=k13["err"], ms=main["k14_ms"],
-               plain_ms=main["plain_ms"], bytes=main["k14_bytes"],
-               library_ms=None,
-               shapes=[dict(case=r["case"], ms=r["k14_ms"],
-                            bound_ms=r["k14_bound_ms"], distinct=r["distinct"],
-                            max_abs_err=r["max_abs_err"]) for r in recs])
-    return [k13, k14]
+    return dict(k=kernels.PAIR_SELECT,
+                err=max(r["max_abs_err"] for r in recs), ms=main["ms"],
+                plain_ms=main["plain_ms"], bytes=main["bytes"],
+                library_ms=main["library_ms"], shapes=recs)
 
 
 def check_rows(rows):
@@ -1372,7 +1382,7 @@ def selection_paths(torch, np, golden_mod, corpus, path, timings, head, gb,
           f"({os.path.getsize(os.path.join(trace_dir, traces[0]))} bytes)")
 
 
-ROUND_KERNELS = ("pair_table", "table_select", "merge_apply", "compact")
+ROUND_KERNELS = ("pair_select", "merge_apply", "compact")
 
 
 def large_vocab_paths(torch, np, golden_mod, corpus, path, timings,
@@ -1387,8 +1397,8 @@ def large_vocab_paths(torch, np, golden_mod, corpus, path, timings,
     XL corpus's bytes and chunk ends tiled four times (50,353,352 tokens,
     above 48·2^20), whose merges are the XL golden's and whose counts are
     four times its counts, as pairs never cross chunk ends and every first
-    occurrence lies in the first copy. A sort-round path launches K13, K14,
-    K3 and K4 once per round enqueued; the sparse routes launch no
+    occurrence lies in the first copy. A sort-round path launches K13, K3
+    and K4 once per round enqueued; the sparse routes launch no
     kernel."""
     from minbpe_tpu_torch import RegexTokenizer, engine
     from minbpe_tpu_torch.utils import checkpoint as ckpt
@@ -1453,8 +1463,7 @@ def large_vocab_paths(torch, np, golden_mod, corpus, path, timings,
     resumed = RegexTokenizer(device="cuda")
     out = io.StringIO()
     with path("xl_ckpt_1024", ROUND_KERNELS, {
-            "pair_table": M + (M - stop_at),
-            "table_select": M + (M - stop_at),
+            "pair_select": M + (M - stop_at),
             "merge_apply": M + stop_at + (M - stop_at),
             "compact": M + stop_at + (M - stop_at)}):
         t0 = time.perf_counter()
@@ -1591,6 +1600,12 @@ def phase_device_time(torch, golden_mod):
             "pair_hist": [[_kernel_name(k), ms, c] for ms, c, k in parts
                           if _kernel_name(k) in PAIR_HIST_KERNELS],
         }
+    # smoke-8192's rounds are K13 pair_select, K3 and K4, one launch each
+    rounds = {k: c for k, _, c in out["train_8192"]["by_kernel"]}
+    if not rounds.get("pair_select_kernel") or \
+            rounds.get("merge_apply_kernel") != rounds["pair_select_kernel"]:
+        raise RuntimeError("train_8192: pair_select_kernel did not run once a "
+                           f"round: {out['train_8192']['by_kernel']}")
     return out
 
 
@@ -1647,7 +1662,7 @@ def main() -> int:
         rows = phase_kernels(torch, np, kernels, XL_MAX_N,
                              STEPPED_AUTO_MAX_N, texts)
         rows.append(phase_sweep(torch, np, kernels, golden_mod))
-        rows += phase_table(torch, np, kernels, golden_mod, texts)
+        rows.append(phase_table(torch, np, kernels, golden_mod, texts))
         del texts
         torch.cuda.empty_cache()
         gpt4, plus, gpt4_build_s = sorted_tables(golden_mod)

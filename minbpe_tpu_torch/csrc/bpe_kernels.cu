@@ -18,7 +18,7 @@
 //   K1 pair_stats     <- tiled_adjacency + count_width/count_blocked/
 //                        count_full (fused_train.py:251-290, :816-891);
 //                        _adjcount_kernel (fused_train_xl.py:74-157);
-//                        one counting core with K9 and K13 (count_pairs)
+//                        one counting core with K9 (count_pairs)
 //   K5 select_batch   <- the selection walk sel_body + select_candidate +
 //                        no_pair (fused_train.py:915-1000, :1042-1084,
 //                        :1118-1123); _adjcount_kernel's _select
@@ -46,14 +46,12 @@
 //                        most 256 tokens, one warp a chunk
 //   K12 encode_min_sweep <- the same, on longer chunks: K10's sweep, each
 //                        round applying the lowest rank present
-//   K13 pair_table    <- no Pallas site: ops/train_sortloop.py::_round
-//                        (:49-83), the sort-round trainer's stable sort
-//                        and run scans: every pair's count and first
-//                        position into a device hash table, K1's counting
-//                        core
-//   K14 table_select  <- the same round's selection (:70-78): the largest
-//                        count, then the earliest first occurrence, from
-//                        the table's claimed slots, which it empties
+//   K13 pair_select   <- no Pallas site: ops/train_sortloop.py::_round
+//                        (:49-83), the sort-round trainer's stable sort,
+//                        run scans and selection: every pair's count and
+//                        first position into a device hash table, then the
+//                        largest count, earliest first occurrence, in one
+//                        cooperative launch that leaves the table empty
 //
 // Training runs in rebuild SLOTS. The host enqueues slots without knowing
 // what a slot does: that lives in device memory.
@@ -70,7 +68,8 @@
 //
 // Each extern "C" entry point launches one kernel on the caller's stream
 // (K1 two, K9 a memset and one), allocates nothing, and returns
-// cudaGetLastError() (0 on success). K1 and K9 also return the error of
+// cudaGetLastError() (0 on success), or the error of a refused
+// cooperative launch (K10, K12, K13). K1 and K9 also return the error of
 // allowing their shared-memory table (once per device).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -252,12 +251,10 @@ __device__ __forceinline__ int width_of(const int* ctl, int V) {
 
 // The global side of the counting core: where a block's table flushes, and
 // where a pair goes when the table has no room for it. K1 and K9 add into
-// the V x V matrices at the 32-bit key a * V + b (K1 also a min of first
-// positions); K13 inserts into a device hash table at the 64-bit key
-// a << 32 | b (HashSink, below).
+// the V x V matrices at the key a * V + b (K1 also a min of first
+// positions).
 template <bool FIRST>
 struct MatrixSink {
-  using Key = unsigned;
   static constexpr bool kFirst = FIRST;
   unsigned* cnt;
   unsigned* first;
@@ -266,10 +263,11 @@ struct MatrixSink {
   __device__ __forceinline__ bool takes(int a, int b) const {
     return (unsigned)a < (unsigned)W && (unsigned)b < (unsigned)W;
   }
-  __device__ __forceinline__ Key key(int a, int b) const {
+  __device__ __forceinline__ unsigned key(int a, int b) const {
     return (unsigned)(a * V + b);
   }
-  __device__ __forceinline__ void add(Key k, unsigned c, unsigned p) const {
+  __device__ __forceinline__ void add(unsigned k, unsigned c,
+                                      unsigned p) const {
     atomicAdd(cnt + k, c);
     if (FIRST) atomicMin(first + k, p);
   }
@@ -283,12 +281,12 @@ __device__ __forceinline__ unsigned slot_hash(Key k, int log2) {
     return (unsigned)((k * 0x9E3779B97F4A7C15ull) >> (64 - log2));
 }
 
-// A block's table in dynamic shared memory, 1 << log2 slots: keys (Key, all
+// A block's table in dynamic shared memory, 1 << log2 slots: keys (all
 // ones when empty), counts and (FIRST) first positions, each array 16-byte
 // aligned.
-template <class Key, bool FIRST>
+template <bool FIRST>
 struct PairTable {
-  Key* key;
+  unsigned* key;
   unsigned* cnt;
   unsigned* first;
   int log2;
@@ -296,11 +294,8 @@ struct PairTable {
   // every slot empty; block-wide, the caller synchronises
   __device__ void clear() {
     const uint4 none = make_uint4(EMPTY_KEY, EMPTY_KEY, EMPTY_KEY, EMPTY_KEY);
-    constexpr int KW = sizeof(Key) / 4;  // a key's 32-bit words
     for (int q = threadIdx.x; q < (1 << log2) / 4; q += blockDim.x) {
-#pragma unroll
-      for (int w = 0; w < KW; ++w)
-        reinterpret_cast<uint4*>(key)[KW * q + w] = none;
+      reinterpret_cast<uint4*>(key)[q] = none;
       reinterpret_cast<uint4*>(cnt)[q] = make_uint4(0, 0, 0, 0);
       if (FIRST) reinterpret_cast<uint4*>(first)[q] = none;
     }
@@ -309,16 +304,15 @@ struct PairTable {
   // c occurrences of key k, the first at p; false when neither k nor an
   // empty slot lies within HIST_PROBES slots of its hash. ++*fresh when it
   // claims a slot.
-  __device__ bool add(Key k, unsigned c, unsigned p, int* fresh) {
+  __device__ bool add(unsigned k, unsigned c, unsigned p, int* fresh) {
     const unsigned mask = (1u << log2) - 1;
-    const Key empty = ~Key(0);
     unsigned s = slot_hash(k, log2);
     for (int probe = 0; probe < HIST_PROBES; ++probe, s = (s + 1) & mask) {
       // a slot's key changes once per clear, from empty to its owner
-      Key held = reinterpret_cast<volatile Key*>(key)[s];
-      if (held == empty) {
-        held = atomicCAS(key + s, empty, k);
-        if (held == empty) {
+      unsigned held = reinterpret_cast<volatile unsigned*>(key)[s];
+      if (held == EMPTY_KEY) {
+        held = atomicCAS(key + s, EMPTY_KEY, k);
+        if (held == EMPTY_KEY) {
           held = k;
           ++*fresh;
         }
@@ -336,18 +330,9 @@ struct PairTable {
   // after a barrier
   template <class Sink>
   __device__ void flush(const Sink& sink, bool reset) {
-    const Key empty = ~Key(0);
     for (int q = threadIdx.x; q < (1 << log2) / 4; q += blockDim.x) {
-      Key ks[4];
-      if constexpr (sizeof(Key) == 4) {
-        const uint4 k4 = reinterpret_cast<const uint4*>(key)[q];
-        ks[0] = k4.x, ks[1] = k4.y, ks[2] = k4.z, ks[3] = k4.w;
-      } else {
-        const ulonglong2 k0 = reinterpret_cast<const ulonglong2*>(key)[2 * q];
-        const ulonglong2 k1 =
-            reinterpret_cast<const ulonglong2*>(key)[2 * q + 1];
-        ks[0] = k0.x, ks[1] = k0.y, ks[2] = k1.x, ks[3] = k1.y;
-      }
+      const uint4 k4 = reinterpret_cast<const uint4*>(key)[q];
+      const unsigned ks[4] = {k4.x, k4.y, k4.z, k4.w};
       const uint4 c4 = reinterpret_cast<const uint4*>(cnt)[q];
       uint4 f4 = make_uint4(0, 0, 0, 0);
       if (FIRST) f4 = reinterpret_cast<const uint4*>(first)[q];
@@ -355,7 +340,7 @@ struct PairTable {
       const unsigned fs[4] = {f4.x, f4.y, f4.z, f4.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        if (ks[j] == empty) continue;
+        if (ks[j] == EMPTY_KEY) continue;
         sink.add(ks[j], cs[j], fs[j]);
       }
     }
@@ -391,16 +376,15 @@ __device__ __forceinline__ void load_pairs(const int* ids, const int* seg,
   }
 }
 
-// The counting core of K1, K9 and K13: the countable pairs of ids[0 .. n),
-// seg[0 .. n) that the sink takes (K1, K9: both ids below W; K13: every
-// pair), added into the sink through the block's table (with their
-// smallest positions where the sink keeps them). Chunk c holds the pairs
-// at positions c * TILE .. c * TILE + TILE - 1.
+// The counting core of K1 and K9: the countable pairs of ids[0 .. n),
+// seg[0 .. n) that the sink takes (both ids below W), added into the sink
+// through the block's table (with their smallest positions where the sink
+// keeps them). Chunk c holds the pairs at positions c * TILE .. c * TILE +
+// TILE - 1.
 template <class Sink>
 __device__ void count_pairs(const int* __restrict__ ids,
                             const int* __restrict__ seg, int n,
                             const Sink& sink, int log2) {
-  using Key = typename Sink::Key;
   constexpr bool FIRST = Sink::kFirst;
   extern __shared__ uint4 hist_smem[];
   __shared__ int used;  // slots claimed since the last flush
@@ -409,9 +393,8 @@ __device__ void count_pairs(const int* __restrict__ ids,
   const int hi = (int)((long long)(blockIdx.x + 1) * chunks / gridDim.x);
   if (lo >= hi) return;
   const int T = 1 << log2;
-  Key* const kmem = reinterpret_cast<Key*>(hist_smem);
-  unsigned* const smem = reinterpret_cast<unsigned*>(kmem + T);
-  PairTable<Key, FIRST> tab{kmem, smem, FIRST ? smem + T : nullptr, log2};
+  unsigned* const smem = reinterpret_cast<unsigned*>(hist_smem);
+  PairTable<FIRST> tab{smem, smem + T, FIRST ? smem + 2 * T : nullptr, log2};
   tab.clear();
   if (threadIdx.x == 0) used = 0;
   __syncthreads();
@@ -428,7 +411,7 @@ __device__ void count_pairs(const int* __restrict__ ids,
     for (int k = 0; k < IPT; ++k) {
       const int a = id[k], b = id[k + 1];
       const bool ok = p0 + k + 1 < n && sg[k] == sg[k + 1] && sink.takes(a, b);
-      const Key key = ok ? sink.key(a, b) : ~Key(0);
+      const unsigned key = ok ? sink.key(a, b) : EMPTY_KEY;
       const unsigned group = __match_any_sync(0xffffffffu, key);
       if (ok && lane == __ffs(group) - 1) {
         const unsigned m = __popc(group);
@@ -748,99 +731,224 @@ __global__ void __launch_bounds__(TPB)
 }
 
 // ---------------------------------------------------------------------------
-// K13 pair_table and K14 table_select: the sort-round trainer's count and
-// selection (minbpe_tpu/ops/train_sortloop.py::_round, :49-83: one stable
-// lax.sort of (a, b, position) per round, run lengths as counts, run heads
-// as first occurrences; no Pallas site), as a device hash table.
+// K13 pair_select: the sort-round trainer's round, count and selection in
+// one cooperative launch (minbpe_tpu/ops/train_sortloop.py::_round, :49-83:
+// one stable lax.sort of (a, b, position) per round, run lengths as counts,
+// run heads as first occurrences, then the largest count and the earliest
+// first occurrence; no Pallas site).
 //
-// K13 counts every countable pair of ids[0 .. n) (p + 1 < n, seg[p] ==
-// seg[p + 1], the rule of K1) into an open-addressing table in device
-// memory of 1 << log2 slots: a 64-bit key a << 32 | b (all ones when empty:
-// ids are >= 0, so no pair has that key), a count and a first position
-// (0xFFFFFFFF when empty). Ids are not packed into fewer bits: a vocab of
-// any size fits. It is K1's counting core with HashSink in place of the
-// matrices: each block counts its range into a shared-memory table of
-// 64-bit keys and flushes it with one global insert per distinct pair, so a
-// hot pair costs one global atomic per block (2^20 copies of "a" are one
-// pair). A global insert probes linearly from the key's hash; a slot is
-// claimed by a 64-bit atomicCAS from empty, and a thread that loses the
-// race re-reads the key it lost to, and goes on probing if that key is not
-// its own. The claimer appends the slot to a dense list (an atomicAdd on
-// used), so that K14 and the reset cost the distinct pairs and not the
-// capacity. The capacity is a power of two >= 2 N for the run's first N
-// tokens: distinct pairs never exceed n - 1 < N, so the table is at most
-// half full and never fills (the wrapper checks it).
+// The count goes into an open-addressing table in device memory (the
+// trainer's kernels.PairTable, >= 2 N slots for the run's first N tokens)
+// of 16-byte slots: a 64-bit key a << 32 | b (all ones when empty: ids are
+// >= 0, so no pair has that key), a count and a first position (0xFFFFFFFF
+// when empty); and a dense list of the claimed slots with its length
+// `used`. Ids are not packed into fewer bits: a vocab of any size fits. A
+// round's keys hash into the first 1 << hl slots, hl the least power of
+// two >= 2 n (n the live length, read on the device; at least 128 slots),
+// so a stream that has shrunk probes a table that shrank with it; distinct
+// pairs never exceed n - 1, so that part is at most half full and a probe
+// ends.
 //
-// K14 reads the listed slots, keeps the largest key count << 32 |
-// (0xFFFFFFFF - first) (K5's key: the largest count, then the earliest
-// first occurrence; first positions are unique per pair, so the order is
-// total and the result does not depend on the order of the atomics), and
-// resets each slot it reads, so the table is empty for the next round
-// without a host fill. Each block's best goes to scratch; the last block
-// to finish (a done counter that it leaves zero again) folds them and
-// writes the round's record: sel = (pa, pb, count, ok), ok when a pair was
-// found and the gate fail >= i holds, else (-1, -1, 0, 0), which K3
-// merges nowhere; log row i (pairs[i], counts[i]; zeros when not ok); and
-// fail = i when no pair was found. It also zeroes used. The host reads none
-// of it per round. K13 returns at once when fail < i.
+// Three phases, separated by grid.sync(), over a grid of the blocks that
+// fit at once (fixed per device, so the trainer makes the scratch once):
+//   1. count. Each block counts one contiguous range of TILE-position chunks
+//      into a table of PS_SLOTS slots in shared memory, with 32-bit keys a <<
+//      16 | b for ids below NARROW (a pair with a larger id goes to the device
+//      table at once); __match_any groups equal pairs of a warp first, and the
+//      group's leader adds its size and its smallest position. The block lists
+//      the slots it claimed, so that a flush and the clear after it cost the
+//      claimed slots, not the table. A flush inserts each claimed slot into
+//      the device table: a lane reads the slot's key, one 128-bit CAS from
+//      empty claims an empty slot with its count and first position, a lane
+//      that meets its own key adds them with reductions (an atomicAdd and an
+//      atomicMin that return nothing), and one that meets another key probes
+//      on without an atomic. The lanes of a warp that claimed device slots
+//      take their list entries with one atomicAdd on `used` (a ballot, then
+//      each lane's rank). A block whose first chunk claimed shared slots for
+//      most of its pairs (no repeats to absorb) sends the rest of its range
+//      straight to the device table; a pair that finds no room within
+//      HIST_PROBES shared slots goes there too. Counts add and first is a min,
+//      so the result is exact either way.
+//   2. Every block reads its share of the listed slots (or of the hashed
+//      slots in order, where that is cheaper: scan_in_order), keeps the
+//      largest key count << 32 | (0xFFFFFFFF - first) (K5's key: the
+//      largest count, then the earliest first occurrence; first positions
+//      are unique per pair, so the result does not depend on the order of
+//      the atomics), empties each slot it read, and writes its best to
+//      scratch.
+//   3. Block 0 folds the bests and writes the round's record: sel = (pa,
+//      pb, count, ok), ok when a pair was found and the gate fail >= i
+//      holds, else (-1, -1, 0, 0), which K3 merges nowhere; log row i
+//      (pairs[i], counts[i]; zeros when not ok); fail = i when no pair was
+//      found; and used = 0. The table is empty again.
+// The gate fail < i is read by every block before the first grid.sync and
+// written only after the last, so the return it causes is uniform; block
+// 0 still writes the gated round's record (a round that skipped it would
+// leave K3 the previous round's pair).
 //
-// Bound: bytes. K13 reads 8 B per token (ids, seg) and writes 16 B per
-// distinct pair D (key, count, first); K14 reads those 16 D B. On text the
-// shared table absorbs repeats, and the global inserts are probes into a
-// table that L2 holds when it is small.
+// Bound: bytes, 8 N + 40 for N tokens: ids and seg read once (8 B a
+// token), n and fail read, and the record written. The device table is
+// scratch, empty before and after the launch, so its traffic (about 56 B
+// a distinct pair: slot and list entry written, read, and the slot
+// emptied) is the design's, not the function's; on text the shared table
+// absorbs repeats, and the device table is small enough for L2.
 // ---------------------------------------------------------------------------
 constexpr unsigned long long EMPTY_PAIR = ~0ull;
-constexpr int TABLE_SELECT_GRID = 256;
+constexpr int PS_LOG2 = 12;  // a block's shared table: 4,096 slots
+constexpr int PS_SLOTS = 1 << PS_LOG2;
+// shared bytes: a key (4), count (4), first (4) and list entry (2) a slot
+constexpr size_t PS_SMEM = (size_t)14 << PS_LOG2;
+// the block's table takes pairs of ids below NARROW as 32-bit keys; a pair
+// with a larger id goes straight to the device table
+constexpr unsigned NARROW = 0xFFFFu;
+constexpr int PS_HASH_LOG2_MIN = 7;
 
-struct HashSink {
-  using Key = unsigned long long;
-  static constexpr bool kFirst = true;
-  unsigned long long* keys;
-  unsigned* cnt;
-  unsigned* first;
+// A slot of the device table: the key, then the count and the first
+// position, in one 16-byte word (the count's and first's half is EMPTY_HI
+// when empty), so one 128-bit CAS claims a slot with its first count and
+// position, and a slot is one 32-byte sector.
+struct alignas(16) Slot {
+  unsigned long long key;
+  unsigned cnt, first;
+};
+constexpr unsigned long long EMPTY_HI = 0xFFFFFFFF00000000ull;
+
+struct DeviceTable {
+  Slot* slots;
   int* list;
   int* used;
-  int log2;
+  int log2;  // capacity: 1 << log2 slots
+};
 
-  __device__ __forceinline__ bool takes(int a, int b) const {
-    return a >= 0 && b >= 0;
+// The 16 bytes at a, (lo, hi) = the key and (first << 32 | count), set to
+// (vlo, vhi) when they equal (clo, chi); returns what they held.
+__device__ __forceinline__ ulonglong2 cas128(Slot* a, unsigned long long clo,
+                                             unsigned long long chi,
+                                             unsigned long long vlo,
+                                             unsigned long long vhi) {
+  ulonglong2 old;
+  asm volatile(
+      "{\n\t.reg .b128 c, v, d;\n\t"
+      "mov.b128 c, {%2, %3};\n\t"
+      "mov.b128 v, {%4, %5};\n\t"
+      "atom.global.cas.b128 d, [%6], c, v;\n\t"
+      "mov.b128 {%0, %1}, d;\n\t}"
+      : "=l"(old.x), "=l"(old.y)
+      : "l"(clo), "l"(chi), "l"(vlo), "l"(vhi), "l"(a)
+      : "memory");
+  return old;
+}
+
+// The pair of each lane that has one (c occurrences of key k, the first at
+// p) into the device table, hashed over 1 << hl slots; a lane that claims a
+// slot appends it to the list, and the warp's claims take one atomicAdd on
+// used. Every lane of the warp calls it.
+__device__ __forceinline__ void table_insert(const DeviceTable& t, int hl,
+                                             bool has, unsigned long long k,
+                                             unsigned c, unsigned p) {
+  int claimed = -1;
+  if (has) {
+    const unsigned mask = (1u << hl) - 1;
+    const unsigned long long mine = (unsigned long long)p << 32 | c;
+    unsigned s = slot_hash(k, hl);
+    for (unsigned probe = 0; probe <= mask; ++probe, s = (s + 1) & mask) {
+      // a slot's key changes once a round, from empty to its owner: a read
+      // answers for a held slot (half the hashed slots may be), and one
+      // atomic claims an empty one with this count and position
+      ulonglong2 held = make_ulonglong2(
+          reinterpret_cast<volatile unsigned long long*>(&t.slots[s].key)[0],
+          0ull);
+      if (held.x == EMPTY_PAIR)
+        held = cas128(t.slots + s, EMPTY_PAIR, EMPTY_HI, k, mine);
+      if (held.x == EMPTY_PAIR && held.y == EMPTY_HI) {
+        claimed = (int)s;
+        break;
+      }
+      if (held.x == k) {
+        atomicAdd(&t.slots[s].cnt, c);
+        atomicMin(&t.slots[s].first, p);
+        break;
+      }
+    }
   }
-  __device__ __forceinline__ Key key(int a, int b) const {
-    return (unsigned long long)(unsigned)a << 32 | (unsigned)b;
-  }
-  __device__ void add(Key k, unsigned c, unsigned p) const {
-    const size_t mask = ((size_t)1 << log2) - 1;
-    size_t s = (size_t)((k * 0x9E3779B97F4A7C15ull) >> (64 - log2));
-    for (size_t probe = 0; probe <= mask; ++probe, s = (s + 1) & mask) {
-      unsigned long long held =
-          reinterpret_cast<volatile unsigned long long*>(keys)[s];
-      if (held == EMPTY_PAIR) {
-        held = atomicCAS(keys + s, EMPTY_PAIR, k);
-        if (held == EMPTY_PAIR) {
+  const unsigned won = __ballot_sync(FULL, claimed >= 0);
+  if (won == 0) return;
+  const int lane = threadIdx.x & 31;
+  const int head = __ffs(won) - 1;
+  int base = 0;
+  if (lane == head) base = atomicAdd(t.used, __popc(won));
+  base = __shfl_sync(FULL, base, head);
+  if (claimed >= 0) t.list[base + __popc(won & ((1u << lane) - 1))] = claimed;
+}
+
+// A block's table in dynamic shared memory: PS_SLOTS 32-bit keys a << 16 |
+// b (both ids below NARROW; all ones when empty), counts, first positions,
+// and the list of the slots claimed since the last flush.
+struct BlockPairs {
+  unsigned* key;
+  unsigned* cnt;
+  unsigned* first;
+  unsigned short* list;
+
+  // c occurrences of k, the first at p: the slot it claimed, -1 when k held
+  // one already, -2 when neither k nor an empty slot lies within
+  // HIST_PROBES slots of its hash
+  __device__ __forceinline__ int add(unsigned k, unsigned c, unsigned p) {
+    unsigned s = slot_hash(k, PS_LOG2);
+    for (int probe = 0; probe < HIST_PROBES;
+         ++probe, s = (s + 1) & (PS_SLOTS - 1)) {
+      // a slot's key changes once between flushes, from empty to its owner
+      unsigned held = reinterpret_cast<volatile unsigned*>(key)[s];
+      int got = -1;
+      if (held == EMPTY_KEY) {
+        held = atomicCAS(key + s, EMPTY_KEY, k);
+        if (held == EMPTY_KEY) {
           held = k;
-          list[atomicAdd(used, 1)] = (int)s;
+          got = (int)s;
         }
       }
       if (held == k) {
         atomicAdd(cnt + s, c);
         atomicMin(first + s, p);
-        return;
+        return got;
       }
+    }
+    return -2;
+  }
+
+  // the u listed slots into the device table, each emptied; block-wide
+  __device__ void flush(const DeviceTable& t, int hl, int u) {
+    for (int e0 = 0; e0 < u; e0 += TPB) {
+      const int e = e0 + threadIdx.x;
+      unsigned k = EMPTY_KEY, c = 0, f = 0;
+      if (e < u) {
+        const int s = list[e];
+        k = key[s];
+        c = cnt[s];
+        f = first[s];
+        key[s] = EMPTY_KEY;
+        cnt[s] = 0u;
+        first[s] = EMPTY_KEY;
+      }
+      table_insert(t, hl, e < u,
+                   (unsigned long long)(k >> 16) << 32 | (k & 0xFFFFu), c, f);
     }
   }
 };
 
-__global__ void __launch_bounds__(TPB)
-    pair_table_kernel(const int* __restrict__ ids,
-                      const int* __restrict__ seg,
-                      const int* __restrict__ n_ptr, const int* fail, int i,
-                      HashSink sink, int log2) {
-  if (fail != nullptr && *fail < i) return;
-  count_pairs(ids, seg, *n_ptr, sink, log2);
+// Phase 2 walks the 1 << hl hashed slots in order (two a thread, 32 B)
+// rather than the `used` listed ones at random when more than a 64th of
+// them are claimed and they fit L2 (hl <= 21: 32 MB), or when more than an
+// eighth are: measured on the H100 (scripts/time_pair_select.py), a listed
+// slot costs a dependent pair of L2 round trips, so the list loses from a
+// few thousand slots on where the walk stays in L2.
+__device__ __forceinline__ bool scan_in_order(int used, int hl) {
+  const long long slots = 1ll << hl;
+  return 64ll * used > slots && (hl <= 21 || 8ll * used > slots);
 }
 
 // Block-wide: the largest (k, v) by k of every thread's pair into thread
-// 0's return value (other threads' are meaningless); ends synchronised.
+// 0's (other threads' are meaningless); ends synchronised.
 __device__ void block_max_pair(unsigned long long& k, unsigned long long& v) {
   __shared__ unsigned long long sk[TPB / 32], sv[TPB / 32];
 #pragma unroll
@@ -862,48 +970,163 @@ __device__ void block_max_pair(unsigned long long& k, unsigned long long& v) {
   __syncthreads();
 }
 
-// scratch: uint64 [done counter][gridDim.x (best key, its pair)]
+// Phase 1 for one block: the countable pairs of its range of chunks.
+__device__ void count_into_table(const int* __restrict__ ids,
+                                 const int* __restrict__ seg, int n,
+                                 const DeviceTable& t, int hl) {
+  extern __shared__ uint4 ps_smem[];
+  __shared__ int claimed;  // shared slots claimed since the last flush
+  const int chunks = n >= 2 ? (n - 2) / TILE + 1 : 0;
+  const int lo = (int)((long long)blockIdx.x * chunks / gridDim.x);
+  const int hi = (int)((long long)(blockIdx.x + 1) * chunks / gridDim.x);
+  if (lo >= hi) return;  // block-uniform; the caller syncs the grid after
+  unsigned* const smem = reinterpret_cast<unsigned*>(ps_smem);
+  BlockPairs tab{smem, smem + PS_SLOTS, smem + 2 * PS_SLOTS,
+                 reinterpret_cast<unsigned short*>(smem + 3 * PS_SLOTS)};
+  {
+    const uint4 none = make_uint4(EMPTY_KEY, EMPTY_KEY, EMPTY_KEY, EMPTY_KEY);
+    for (int q = threadIdx.x; q < PS_SLOTS / 4; q += TPB) {
+      reinterpret_cast<uint4*>(tab.key)[q] = none;
+      reinterpret_cast<uint4*>(tab.cnt)[q] = make_uint4(0, 0, 0, 0);
+      reinterpret_cast<uint4*>(tab.first)[q] = none;
+    }
+  }
+  if (threadIdx.x == 0) claimed = 0;
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const bool vec = aligned16(ids, seg);
+  bool direct = false;  // block-uniform
+  // the loop bound depends on the block only, so whole warps iterate
+  // together and every warp-wide call sees every lane
+  for (int c = lo; c < hi; ++c) {
+    const int p0 = c * TILE + threadIdx.x * IPT;
+    int id[IPT + 1], sg[IPT + 1];
+    load_pairs(ids, seg, p0, n, vec, id, sg);
+#pragma unroll
+    for (int k = 0; k < IPT; ++k) {
+      const int a = id[k], b = id[k + 1];
+      const bool ok = p0 + k + 1 < n && sg[k] == sg[k + 1] && a >= 0 &&
+                      b >= 0;
+      const bool narrow = (unsigned)a < NARROW && (unsigned)b < NARROW;
+      const unsigned long long key =
+          ok ? (unsigned long long)(unsigned)a << 32 | (unsigned)b
+             : EMPTY_PAIR;
+      const unsigned key32 = ok ? (unsigned)a << 16 | (unsigned)b : EMPTY_KEY;
+      // equal pairs of the warp: on the 32-bit keys unless a lane has a
+      // wide pair
+      const unsigned group = __any_sync(FULL, ok && !narrow)
+                                 ? __match_any_sync(FULL, key)
+                                 : __match_any_sync(FULL, key32);
+      const bool lead = ok && lane == __ffs(group) - 1;
+      const unsigned m = __popc(group);
+      const unsigned p = (unsigned)(p0 + k);
+      if (direct) {
+        table_insert(t, hl, lead, key, m, p);
+        continue;
+      }
+      const int got = lead && narrow ? tab.add(key32, m, p) : -1;
+      const unsigned won = __ballot_sync(FULL, got >= 0);
+      if (won) {
+        const int head = __ffs(won) - 1;
+        int base = 0;
+        if (lane == head) base = atomicAdd(&claimed, __popc(won));
+        base = __shfl_sync(FULL, base, head);
+        if (got >= 0)
+          tab.list[base + __popc(won & ((1u << lane) - 1))] =
+              (unsigned short)got;
+      }
+      const bool spill = got == -2 || (lead && !narrow);
+      if (__any_sync(FULL, spill)) table_insert(t, hl, spill, key, m, p);
+    }
+    if (direct) continue;
+    __syncthreads();
+    const int u = claimed;
+    // the pairs this chunk holds (positions p with p + 1 < n)
+    const int held = min(TILE, n - 1 - c * TILE);
+    direct = c == lo && c + 1 < hi && 4 * u > 3 * held;
+    const bool flush = direct || c + 1 == hi || u > PS_SLOTS / 2;
+    __syncthreads();  // every thread has read claimed
+    if (flush) {
+      if (threadIdx.x == 0) claimed = 0;
+      tab.flush(t, hl, u);
+      __syncthreads();  // the slots are empty before the next chunk's adds
+    }
+  }
+}
+
+// scratch: uint64[2 * gridDim.x], each block's best key and its pair
 __global__ void __launch_bounds__(TPB)
-    table_select_kernel(HashSink t, int* sel, int* pairs, int* counts,
-                        int* fail, int i, unsigned long long* scratch) {
-  __shared__ bool last;
-  const int used = *t.used;
+    pair_select_kernel(const int* __restrict__ ids,
+                       const int* __restrict__ seg,
+                       const int* __restrict__ n_ptr, int* fail, int i,
+                       DeviceTable t, int* sel, int* pairs, int* counts,
+                       unsigned long long* scratch) {
+  cg::grid_group grid = cg::this_grid();
+  const int f = *fail;
+  if (f < i) {  // gated: every block returns here, block 0 writes (-1, -1)
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      sel[0] = sel[1] = -1;
+      sel[2] = sel[3] = 0;
+      pairs[2 * i] = pairs[2 * i + 1] = 0;
+      counts[i] = 0;
+    }
+    return;
+  }
+  const int n = *n_ptr;
+  const int hl =
+      min(t.log2, max(PS_HASH_LOG2_MIN,
+                      n > 1 ? 32 - __clz(2 * n - 1) : PS_HASH_LOG2_MIN));
+  count_into_table(ids, seg, n, t, hl);
+  grid.sync();
+
+  const int used = __ldcg(t.used);
   unsigned long long best = 0, pair = 0;
-  for (int e = blockIdx.x * TPB + threadIdx.x; e < used;
-       e += gridDim.x * TPB) {
-    const int s = t.list[e];
-    const unsigned long long k = sel_key(t.cnt[s], t.first[s]);
+  const int step = gridDim.x * TPB;
+  // slot s (v: its key, then first << 32 | count) into the block's best;
+  // the slot is emptied
+  ulonglong2* const slot2 = reinterpret_cast<ulonglong2*>(t.slots);
+  auto take = [&](int s, ulonglong2 v) {
+    const unsigned long long k = sel_key((unsigned)v.y,
+                                         (unsigned)(v.y >> 32));
     if (k > best) {
       best = k;
-      pair = t.keys[s];
+      pair = v.x;
     }
-    t.keys[s] = EMPTY_PAIR;
-    t.cnt[s] = 0u;
-    t.first[s] = 0xFFFFFFFFu;
+    slot2[s] = make_ulonglong2(EMPTY_PAIR, EMPTY_HI);
+  };
+  if (scan_in_order(used, hl)) {
+    for (int s = 2 * (blockIdx.x * TPB + threadIdx.x); s < (1 << hl);
+         s += 2 * step) {
+      const ulonglong2 v0 = __ldcg(slot2 + s);
+      const ulonglong2 v1 = __ldcg(slot2 + s + 1);
+      if (v0.x != EMPTY_PAIR) take(s, v0);
+      if (v1.x != EMPTY_PAIR) take(s + 1, v1);
+    }
+  } else {
+    for (int e = blockIdx.x * TPB + threadIdx.x; e < used; e += step) {
+      const int s = __ldcg(t.list + e);
+      take(s, __ldcg(slot2 + s));
+    }
   }
   block_max_pair(best, pair);
   if (threadIdx.x == 0) {
-    scratch[1 + 2 * blockIdx.x] = best;
-    scratch[2 + 2 * blockIdx.x] = pair;
-    __threadfence();
-    last = atomicAdd(reinterpret_cast<unsigned*>(scratch), 1u) ==
-           gridDim.x - 1;
+    scratch[2 * blockIdx.x] = best;
+    scratch[2 * blockIdx.x + 1] = pair;
   }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  grid.sync();
+
+  if (blockIdx.x != 0) return;
   best = pair = 0;
   for (int b = threadIdx.x; b < (int)gridDim.x; b += TPB) {
-    const unsigned long long k = __ldcg(scratch + 1 + 2 * b);
+    const unsigned long long k = __ldcg(scratch + 2 * b);
     if (k > best) {
       best = k;
-      pair = __ldcg(scratch + 2 + 2 * b);
+      pair = __ldcg(scratch + 2 * b + 1);
     }
   }
   block_max_pair(best, pair);
   if (threadIdx.x != 0) return;
-  const int f = *fail;
-  const bool ok = best != 0 && f >= i;
+  const bool ok = best != 0;
   const int pa = ok ? (int)(pair >> 32) : -1;
   const int pb = ok ? (int)(unsigned)pair : -1;
   const int c = ok ? (int)(best >> 32) : 0;
@@ -916,7 +1139,6 @@ __global__ void __launch_bounds__(TPB)
   counts[i] = c;
   if (!ok && i < f) *fail = i;
   *t.used = 0;
-  *reinterpret_cast<unsigned*>(scratch) = 0u;
 }
 
 // ---------------------------------------------------------------------------
@@ -2195,36 +2417,25 @@ cudaError_t batch_hist_grid(int cap, int* grid) {
   return cudaSuccess;
 }
 
-// the counting core's kernels: K9, K1, K13
-enum HistKind { HIST_COUNT = 0, HIST_STATS = 1, HIST_TABLE = 2 };
-
-// K13's shared table: 16 B a slot (a 64-bit key), 4,096 slots by default
-// (64 KB: 3 blocks an SM), at most 8,192 (128 KB)
-constexpr int TABLE_LOG2 = 12;
-constexpr int TABLE_LOG2_MAX = 13;
+// the counting core's kernels: K9, K1
+enum HistKind { HIST_COUNT = 0, HIST_STATS = 1 };
 
 inline size_t hist_smem_bytes(int kind, int log2) {
-  const size_t per = kind == HIST_TABLE ? 16 : kind == HIST_STATS ? 12 : 8;
-  return per << log2;
+  return (size_t)(kind == HIST_STATS ? 12 : 8) << log2;
 }
 
-inline int hist_log2_max(int kind) {
-  return kind == HIST_TABLE ? TABLE_LOG2_MAX : HIST_LOG2_MAX;
-}
-
-// K1's (kind 1), K9's (0) or K13's (2) table slots (*log2; 0 chooses the
-// default) and grid (*grid; 0 chooses the blocks that fit at once, capped
-// at cap's chunks) on the current device; the kernel's shared-memory
-// allowance is set once per device.
+// K1's (kind 1) or K9's (0) table slots (*log2; 0 chooses the default) and
+// grid (*grid; 0 chooses the blocks that fit at once, capped at cap's
+// chunks) on the current device; the kernel's shared-memory allowance is
+// set once per device.
 cudaError_t hist_geometry(int kind, int cap, int* log2, int* grid) {
-  static std::atomic<int> sms[64][3];
-  static std::atomic<int> per_sm[64][3][HIST_LOG2_MAX + 1];
-  const void* fn = kind == HIST_TABLE   ? (const void*)pair_table_kernel
-                   : kind == HIST_STATS ? (const void*)pair_stats_kernel
-                                        : (const void*)pair_count_kernel;
-  if (kind < 0 || kind > 2) return cudaErrorInvalidValue;
-  if (*log2 == 0) *log2 = kind == HIST_TABLE ? TABLE_LOG2 : HIST_LOG2;
-  if (*log2 < HIST_LOG2_MIN || *log2 > hist_log2_max(kind) || *grid < 0)
+  static std::atomic<int> sms[64][2];
+  static std::atomic<int> per_sm[64][2][HIST_LOG2_MAX + 1];
+  if (kind < 0 || kind > 1) return cudaErrorInvalidValue;
+  const void* fn = kind == HIST_STATS ? (const void*)pair_stats_kernel
+                                      : (const void*)pair_count_kernel;
+  if (*log2 == 0) *log2 = HIST_LOG2;
+  if (*log2 < HIST_LOG2_MIN || *log2 > HIST_LOG2_MAX || *grid < 0)
     return cudaErrorInvalidValue;
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
@@ -2232,9 +2443,8 @@ cudaError_t hist_geometry(int kind, int cap, int* log2, int* grid) {
   if (dev >= 64) return cudaErrorInvalidDevice;
   if (sms[dev][kind] == 0) {
     int s;
-    e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)hist_smem_bytes(kind, hist_log2_max(kind)));
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)hist_smem_bytes(kind, HIST_LOG2_MAX));
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return e;
@@ -2254,6 +2464,35 @@ cudaError_t hist_geometry(int kind, int cap, int* log2, int* grid) {
     *grid = per * sms[dev][kind];
     if (*grid > chunks) *grid = chunks;
   }
+  return cudaSuccess;
+}
+
+// K13's cooperative grid on the current device: the blocks that fit at
+// once with its shared table (queried once per device; the allowance is
+// set then too)
+cudaError_t pair_select_grid(int* grid) {
+  static std::atomic<int> resident[64];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (resident[dev] == 0) {
+    int coop, sms, per;
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute((const void*)pair_select_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)PS_SMEM);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per, pair_select_kernel, TPB, PS_SMEM);
+    if (e != cudaSuccess) return e;
+    if (!coop || per < 1) return cudaErrorCooperativeLaunchTooLarge;
+    resident[dev] = per * sms;
+  }
+  *grid = resident[dev];
   return cudaSuccess;
 }
 
@@ -2297,48 +2536,51 @@ int bpe_pair_count(const int* ids, const int* seg, const int* n,
   return cudaGetLastError();
 }
 
-// The grid K1 (kind = 1), K9 (0) or K13 (2) would launch over cap
-// positions with 1 << log2 table slots (0: the default) on the current
-// device; a negative CUDA error where it has none.
+// The grid K1 (kind = 1) or K9 (0) would launch over cap positions with
+// 1 << log2 table slots (0: the default) on the current device; a
+// negative CUDA error where it has none.
 int bpe_pair_hist_grid(int kind, int cap, int log2) {
   int grid = 0;
   const cudaError_t e = hist_geometry(kind, cap, &log2, &grid);
   return e == cudaSuccess ? grid : -(int)e;
 }
 
-// K13: the countable pairs of ids[0 .. *n) into the table of 1 << tlog2
-// slots (key: uint64, all ones when empty; cnt: uint32, zero; first:
-// uint32, 0xFFFFFFFF; list: int32; used: int32[1]; all as K14 leaves them),
-// unless fail (may be null) holds a round below i. log2 and grid as for
-// bpe_pair_stats.
-int bpe_pair_table(const int* ids, const int* seg, const int* n,
-                   const int* fail, int i, unsigned long long* key,
-                   unsigned* cnt, unsigned* first, int* list, int* used,
-                   int tlog2, int cap, int log2, int grid, void* stream) {
-  if (tlog2 < 1 || tlog2 > 30) return cudaErrorInvalidValue;
-  const cudaError_t e = hist_geometry(HIST_TABLE, cap, &log2, &grid);
-  if (e != cudaSuccess) return e;
-  const HashSink sink{key, cnt, first, list, used, tlog2};
-  pair_table_kernel<<<grid, TPB, hist_smem_bytes(HIST_TABLE, log2),
-                      (cudaStream_t)stream>>>(ids, seg, n, fail, i, sink,
-                                              log2);
-  return cudaGetLastError();
+// K13's cooperative grid on the current device (the same for every
+// stream); a negative CUDA error where the device has none. Its scratch is
+// uint64[2 * grid].
+int bpe_pair_select_grid() {
+  int grid = 0;
+  const cudaError_t e = pair_select_grid(&grid);
+  return e == cudaSuccess ? grid : -(int)e;
 }
 
-// K14's grid; its scratch is uint64[1 + 2 * grid], zero before the first
-// call (the last block leaves it zero again)
-int bpe_table_select_grid() { return TABLE_SELECT_GRID; }
-
-// K14: the best of the table's listed slots into sel (int32[4]), log row i
-// (pairs: int32[M][2], counts: int32[M]) and fail (int32[1]); the slots
-// and used are left empty.
-int bpe_table_select(unsigned long long* key, unsigned* cnt, unsigned* first,
-                     int* list, int* used, int tlog2, int* sel, int* pairs,
-                     int* counts, int* fail, int i,
-                     unsigned long long* scratch, void* stream) {
-  const HashSink t{key, cnt, first, list, used, tlog2};
-  table_select_kernel<<<TABLE_SELECT_GRID, TPB, 0, (cudaStream_t)stream>>>(
-      t, sel, pairs, counts, fail, i, scratch);
+// K13: one sort-round round. The countable pairs of ids[0 .. *n) into the
+// table of 1 << tlog2 slots (slots: 16 bytes each, 16-byte aligned, a
+// uint64 key, all ones when empty, a uint32 count, zero, and a uint32 first
+// position, 0xFFFFFFFF; list: int32; used: int32[1]; as the previous call
+// leaves them), then the best into sel (int32[4]), log row i
+// (pairs: int32[M][2], counts: int32[M]) and fail (int32[1]); the table is
+// left empty. A round with *fail < i counts nothing and writes (-1, -1, 0,
+// 0). grid: bpe_pair_select_grid()'s; a refused cooperative launch returns
+// its error.
+int bpe_pair_select(const int* ids, const int* seg, const int* n, int* fail,
+                    int i, void* slots, int* list, int* used, int tlog2,
+                    int* sel, int* pairs, int* counts,
+                    unsigned long long* scratch, int grid, void* stream) {
+  if (tlog2 < PS_HASH_LOG2_MIN || tlog2 > 30) return cudaErrorInvalidValue;
+  int resident;  // also sets the shared-memory allowance on this device
+  const cudaError_t e = pair_select_grid(&resident);
+  if (e != cudaSuccess) return e;
+  DeviceTable t{reinterpret_cast<Slot*>(slots), list, used, tlog2};
+  void* args[] = {&ids, &seg, &n, &fail, &i, &t, &sel, &pairs, &counts,
+                  &scratch};
+  const cudaError_t l = cudaLaunchCooperativeKernel(
+      (const void*)pair_select_kernel, dim3(grid), dim3(TPB), args, PS_SMEM,
+      (cudaStream_t)stream);
+  if (l != cudaSuccess) {
+    cudaGetLastError();  // the refusal is returned, not left for the next
+    return l;
+  }
   return cudaGetLastError();
 }
 
@@ -2442,7 +2684,10 @@ int bpe_encode_sweep(const int* ids, const int* seg, int n, const int* pairs,
   const cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)encode_sweep_kernel, dim3(grid), dim3(TPB), args, 0,
       (cudaStream_t)stream);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // the refusal is returned, not left for the next
+    return e;
+  }
   return cudaGetLastError();
 }
 
@@ -2486,7 +2731,10 @@ int bpe_encode_min_sweep(const int* ids, const int* seg, int n,
   const cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)encode_min_sweep_kernel, dim3(grid), dim3(TPB), args, 0,
       (cudaStream_t)stream);
-  if (e != cudaSuccess) return e;
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // the refusal is returned, not left for the next
+    return e;
+  }
   return cudaGetLastError();
 }
 

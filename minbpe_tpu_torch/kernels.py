@@ -1,6 +1,6 @@
 """The CUDA kernels of the main path, their build, bindings and plain twins.
 
-Twelve kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
+Eleven kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
 token stream (ids, seg) whose live length n is an int32[1] tensor on the
 same device, so a whole run launches without a host sync per merge:
 
@@ -24,26 +24,26 @@ same device, so a whole run launches without a host sync per merge:
 - ``encode_min_sweep`` K12: the same for a stream of longer chunks: K10's
   sweep, each round applying the lowest rank present, in one cooperative
   launch.
-- ``pair_table``     K13: the sort-round trainer's count: every pair's
-  count and first position into a device hash table (``PairTable``);
-- ``table_select``   K14: that round's selection from the table's claimed
-  slots, which it leaves empty, and the round's record.
+- ``pair_select``    K13: one round of the sort-round trainer: every pair's
+  count and first position into a device hash table (``PairTable``), then
+  the round's pair and record, leaving the table empty, in one cooperative
+  launch.
 
-K1, K9 and K13 share one counting core: each block of a persistent grid
-counts one contiguous range of the stream into a hash table of pairs in
-shared memory and adds it into the matrices with one global atomic per
-distinct pair (K1 also a min of first positions), or (K13) into a hash
-table in device memory with one insert per distinct pair.
+K1 and K9 share one counting core: each block of a persistent grid counts
+one contiguous range of the stream into a hash table of pairs in shared
+memory and adds it into the matrices with one global atomic per distinct
+pair (K1 also a min of first positions). K13 counts the same way into a
+hash table in device memory, one insert per distinct pair of a block.
 
 K6 walks the live tiles of the stream with a persistent grid and keeps
 each block's histograms in shared memory; the trainer makes its ``cand``
 once per run.
 
-K5, K8 and K14 each hand their blocks' partial results to the last block
-to finish through a done counter in a scratch tensor that the trainer
-makes once per run (``select_scratch``, ``batch_scratch``, the
-``PairTable``'s); that block leaves it zero again, so no launch clears it
-first.
+K5 and K8 each hand their blocks' partial results to the last block to
+finish through a done counter in a scratch tensor that the trainer makes
+once per run (``select_scratch``, ``batch_scratch``); that block leaves it
+zero again, so no launch clears it first. K13's blocks hand theirs to
+block 0 across a grid barrier, through the ``PairTable``'s scratch.
 
 K3 and K4 chain their tiles with a decoupled look-back over status words
 that persist per stream (``_lookback_state``); each call tags them with a
@@ -163,18 +163,15 @@ ENCODE_MIN_SWEEP = KernelInfo(
     "minbpe_tpu/ops/flat_encode.py:61 (_encode_flat, a jitted "
     "lax.while_loop over scan2d; no Pallas site): its chunks of more than "
     "256 tokens")
-PAIR_TABLE = KernelInfo(
-    "pair_table",
+PAIR_SELECT = KernelInfo(
+    "pair_select",
     "minbpe_tpu/ops/train_sortloop.py:49 (_round, a jitted lax.fori_loop "
     "body; no Pallas site): its stable lax.sort of (a, b, position) and run "
-    "scans, :62-76")
-TABLE_SELECT = KernelInfo(
-    "table_select",
-    "minbpe_tpu/ops/train_sortloop.py:49 (_round; no Pallas site): its "
-    "selection, :70-78 (largest count, then earliest first occurrence)")
+    "scans, :62-76, and its selection, :70-78 (largest count, then earliest "
+    "first occurrence)")
 KERNELS = (PAIR_STATS, SELECT_BATCH, MERGE_APPLY, BATCH_HIST, BATCH_APPLY,
            COMPACT, PAIR_COUNT, ENCODE_SWEEP, CHUNK_ENCODE, ENCODE_MIN_SWEEP,
-           PAIR_TABLE, TABLE_SELECT)
+           PAIR_SELECT)
 
 
 def reset_launches():
@@ -208,11 +205,9 @@ SIGNATURES = {
                              _P, _P, _P, _P, _P, _I, _P, _P],
     "bpe_pair_count": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bpe_pair_hist_grid": [_I, _I, _I],
-    "bpe_pair_table": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I,
-                       _I, _P],
-    "bpe_table_select_grid": [],
-    "bpe_table_select": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P,
-                         _P],
+    "bpe_pair_select_grid": [],
+    "bpe_pair_select": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                        _I, _P],
 }
 
 _lib = None
@@ -1072,8 +1067,8 @@ def encode_min_sweep(ids, seg, table):
 
 
 # ---------------------------------------------------------------------------
-# K13 pair_table, K14 table_select: the sort-round trainer's count and
-# selection through a device hash table
+# K13 pair_select: the sort-round trainer's count and selection through a
+# device hash table, one launch a round
 # ---------------------------------------------------------------------------
 
 EMPTY_FIRST = -1  # 0xFFFFFFFF as int32: no position yet
@@ -1081,12 +1076,14 @@ EMPTY_FIRST = -1  # 0xFFFFFFFF as int32: no position yet
 
 class PairTable:
     """K13's hash table for streams of up to ``n_tokens`` tokens on
-    ``device``: ``capacity`` = 2^log2 >= 2 n_tokens slots, each a 64-bit
-    key a << 32 | b (-1, all ones, when empty), a count and a first
-    position (-1 when empty); ``list`` holds the claimed slots' indices in
-    its first ``used[0]`` entries. Distinct pairs never exceed n - 1, so
-    the table is at most half full. Made empty, and left empty by every
-    table_select. On the card it also holds K14's scratch.
+    ``device``: ``capacity`` = 2^log2 >= 2 n_tokens slots of 16 bytes
+    (``slots``, int32 (capacity, 4)), each a 64-bit key a << 32 | b (-1,
+    all ones, when empty), a count and a first position (-1 when empty),
+    also seen as the views ``key`` (int64), ``cnt`` and ``first``; ``list``
+    holds the claimed slots' indices in its first ``used[0]`` entries.
+    Distinct pairs never exceed n - 1, so the table is at most half full.
+    Made empty, and left empty by every round. On the card it also holds
+    K13's cooperative ``grid`` and the scratch of its blocks' bests.
 
     Plain versions: pair_table_plain writes the distinct pairs in key
     order into slots 0 .. D - 1 (any slots would do: selection goes by
@@ -1107,24 +1104,27 @@ class PairTable:
                              "than 2^29")
         self.capacity = 1 << self.log2
         cap = self.capacity
-        self.key = torch.full((cap,), -1, dtype=torch.int64, device=device)
-        self.cnt = torch.zeros(cap, dtype=torch.int32, device=device)
-        self.first = torch.full((cap,), EMPTY_FIRST, dtype=torch.int32,
+        self.slots = torch.full((cap, 4), -1, dtype=torch.int32,
                                 device=device)
+        self.slots[:, 2] = 0
+        self.key = self.slots.view(torch.int64)[:, 0]
+        self.cnt = self.slots[:, 2]
+        self.first = self.slots[:, 3]
         self.list = torch.zeros(cap, dtype=torch.int32, device=device)
         self.used = torch.zeros(1, dtype=torch.int32, device=device)
-        self.scratch = None
+        self.grid = self.scratch = None
         if device.type == "cuda":
-            grid = _load().bpe_table_select_grid()
-            self.scratch = torch.zeros(1 + 2 * grid, dtype=torch.int64,
+            with torch.cuda.device(device):
+                self.grid = _load().bpe_pair_select_grid()
+            if self.grid < 1:
+                raise RuntimeError(f"pair_select: no cooperative launch on "
+                                   f"{device} (CUDA error {-self.grid})")
+            self.scratch = torch.zeros(2 * self.grid, dtype=torch.int64,
                                        device=device)
 
     @staticmethod
     def device_bytes(n_tokens: int) -> int:
         return PairTable.BYTES_PER_SLOT << PairTable.slots_log2(n_tokens)
-
-    def _tensors(self):
-        return (self.key, self.cnt, self.first, self.list, self.used)
 
 
 def table_contents(table: PairTable):
@@ -1140,14 +1140,14 @@ def _gated(fail, i: int) -> bool:
 
 
 def pair_table_plain(ids, seg, n, table: PairTable, fail=None, i: int = 0):
-    """K13's function on an empty table: every countable pair of ids[:n]
+    """The count of K13 on an empty table: every countable pair of ids[:n]
     (p + 1 < n, seg[p] == seg[p + 1], both ids >= 0) with its count and
     its smallest position, claimed in key order. Nothing when fail (an
     int32[1] tensor) holds a round below i."""
     if _gated(fail, i):
         return
     if int(table.used):
-        raise ValueError("pair_table: the table is not empty")
+        raise ValueError("pair_table_plain: the table is not empty")
     nn = int(n.item())
     if nn < 2:
         return
@@ -1166,37 +1166,11 @@ def pair_table_plain(ids, seg, n, table: PairTable, fail=None, i: int = 0):
     table.used[0] = D
 
 
-def pair_table(ids, seg, n, table: PairTable, fail=None, i: int = 0):
-    """Count every pair of the stream into ``table`` (pair_table_plain);
-    ``fail`` (int32[1], may be None) and ``i`` gate it off after a failed
-    round."""
-    if not ids.is_cuda:
-        return pair_table_plain(ids, seg, n, table, fail, i)
-    dev = ids.device
-    _check_stream(ids, seg, n)
-    if fail is not None:
-        _check("fail", fail, torch.int32, dev)
-    for name, t, dt in zip(("key", "cnt", "first", "list", "used"),
-                           table._tensors(), (torch.int64, torch.int32,
-                                              torch.int32, torch.int32,
-                                              torch.int32)):
-        _check(name, t, dt, dev)
-    if table.capacity < 2 * ids.numel():
-        raise ValueError(f"pair_table: {ids.numel()} tokens need at least "
-                         f"{2 * ids.numel()} slots, the table has "
-                         f"{table.capacity}")
-    lib = _load()
-    _run(dev, lib.bpe_pair_table, _ptr(ids), _ptr(seg), _ptr(n), _ptr(fail),
-         i, *(_ptr(t) for t in table._tensors()), table.log2, ids.numel(),
-         0, 0)
-    PAIR_TABLE.launches += 1
-
-
 def table_select_plain(table: PairTable, sel, pairs, counts, fail, i: int):
-    """K14's function: the claimed slot with the largest count, then the
-    earliest first position; sel = (pa, pb, count, 1) when there is one and
-    fail >= i, else (-1, -1, 0, 0) and fail = min(fail, i). Writes log row
-    i (pairs[i], counts[i]; zeros when not ok) and empties the table."""
+    """The selection of K13: the claimed slot with the largest count, then
+    the earliest first position; sel = (pa, pb, count, 1) when there is one
+    and fail >= i, else (-1, -1, 0, 0) and fail = min(fail, i). Writes log
+    row i (pairs[i], counts[i]; zeros when not ok) and empties the table."""
     D = int(table.used)
     s = table.list[:D].long()
     c = table.cnt[s].long()
@@ -1219,23 +1193,43 @@ def table_select_plain(table: PairTable, sel, pairs, counts, fail, i: int):
     counts[i] = rec[2]
 
 
-def table_select(table: PairTable, sel, pairs, counts, fail, i: int):
-    """One launch (table_select_plain): sel int32[4], pairs int32 (M, 2),
-    counts int32 (M,), fail int32[1], all on the table's device."""
-    dev = table.key.device
-    if dev.type != "cuda":
-        return table_select_plain(table, sel, pairs, counts, fail, i)
+def pair_select_plain(ids, seg, n, table: PairTable, sel, pairs, counts,
+                      fail, i: int):
+    """K13's function: pair_table_plain, then table_select_plain."""
+    pair_table_plain(ids, seg, n, table, fail, i)
+    table_select_plain(table, sel, pairs, counts, fail, i)
+
+
+def pair_select(ids, seg, n, table: PairTable, sel, pairs, counts, fail,
+                i: int):
+    """Round i of the sort-round trainer (pair_select_plain) in one
+    cooperative launch: the stream (ids, seg, n) as K1 takes it, the empty
+    ``table``, and sel int32[4], pairs int32 (M, 2), counts int32 (M,),
+    fail int32[1], all on one device. Raises where the launch is
+    refused."""
+    if not ids.is_cuda:
+        return pair_select_plain(ids, seg, n, table, sel, pairs, counts,
+                                 fail, i)
+    dev = ids.device
     M = counts.numel()
+    _check_stream(ids, seg, n)
+    _check("slots", table.slots, torch.int32, dev, 4 * table.capacity)
+    _check("list", table.list, torch.int32, dev, table.capacity)
+    _check("used", table.used, torch.int32, dev)
     _check("sel", sel, torch.int32, dev, 4)
     _check("pairs", pairs, torch.int32, dev, 2 * M)
     _check("counts", counts, torch.int32, dev, M)
     _check("fail", fail, torch.int32, dev)
     if not 0 <= i < M:
-        raise ValueError(f"table_select: round {i} outside 0 .. {M - 1}")
+        raise ValueError(f"pair_select: round {i} outside 0 .. {M - 1}")
+    if table.capacity < 2 * ids.numel():
+        raise ValueError(f"pair_select: {ids.numel()} tokens need at least "
+                         f"{2 * ids.numel()} slots, the table has "
+                         f"{table.capacity}")
+    _check("scratch", table.scratch, torch.int64, dev, 2 * table.grid)
     lib = _load()
-    _check("scratch", table.scratch, torch.int64, dev,
-           1 + 2 * lib.bpe_table_select_grid())
-    _run(dev, lib.bpe_table_select, *(_ptr(t) for t in table._tensors()),
-         table.log2, _ptr(sel), _ptr(pairs), _ptr(counts), _ptr(fail), i,
-         _ptr(table.scratch))
-    TABLE_SELECT.launches += 1
+    _run(dev, lib.bpe_pair_select, _ptr(ids), _ptr(seg), _ptr(n), _ptr(fail),
+         i, _ptr(table.slots), _ptr(table.list), _ptr(table.used), table.log2,
+         _ptr(sel), _ptr(pairs), _ptr(counts), _ptr(table.scratch),
+         table.grid)
+    PAIR_SELECT.launches += 1

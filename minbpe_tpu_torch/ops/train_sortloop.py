@@ -7,15 +7,14 @@ minbpe_tpu groups equal pairs with one stable ``lax.sort`` of (a, b,
 position) a round: run lengths are the counts, run heads the first
 occurrences, and the reference's pair is the largest count, then the
 earliest first occurrence (minbpe/basic.py:35, base.py:20-21). Here a round
-is four launches on the card, and nothing is read back to the host:
-- K13 ``pair_table`` counts every pair, with its first position, into a
-  device hash table (kernels.PairTable, sized once per run);
-- K14 ``table_select`` takes the pair, writes the round's log row and the
-  fail round under the gate fail >= i, and leaves the table empty; a round
-  that finds no pair gives (-1, -1), which merges nowhere
-  (ops/train_select.py does the same);
+is three launches on the card, and nothing is read back to the host:
+- K13 ``pair_select`` counts every pair, with its first position, into a
+  device hash table (kernels.PairTable, sized once per run), takes the
+  pair, writes the round's log row and the fail round under the gate
+  fail >= i, and leaves the table empty; a round that finds no pair gives
+  (-1, -1), which merges nowhere (ops/train_select.py does the same);
 - K3 ``merge_apply`` applies it, left first, and K4 ``compact`` compacts.
-On the CPU the four are their plain versions.
+On the CPU the three are their plain versions.
 
 minbpe_tpu keeps the stream uncompacted, with tombstones, and finds each
 token's next live neighbour and the left-first parity with blocked
@@ -79,8 +78,8 @@ class _State:
 
 def _round(st: _State, i: int):
     """Merge round i (minbpe_tpu/ops/train_sortloop.py:49-103)."""
-    kernels.pair_table(st.ids, st.seg, st.n, st.table, st.fail, i)
-    kernels.table_select(st.table, st.sel, st.pairs, st.cnts, st.fail, i)
+    kernels.pair_select(st.ids, st.seg, st.n, st.table, st.sel, st.pairs,
+                        st.cnts, st.fail, i)
     merged, live = kernels.merge_apply(st.ids, st.seg, st.n, st.sel,
                                        256 + i)
     st.ids, st.seg, st.n = kernels.compact(merged, st.seg, live, st.n)

@@ -1015,23 +1015,47 @@ def test_encode_sweep_dense_table_limits(dev):
 
 
 # ---------------------------------------------------------------------------
-# K13 pair_table, K14 table_select
+# K13 pair_select
 # ---------------------------------------------------------------------------
 
-def _table_round(t, ids, seg, n, fail, i, M=8):
-    sel = torch.zeros(4, dtype=torch.int32, device=ids.device)
-    pairs = torch.zeros((M, 2), dtype=torch.int32, device=ids.device)
-    counts = torch.zeros(M, dtype=torch.int32, device=ids.device)
-    kernels.pair_table(ids, seg, n, t, fail, i)
-    contents = [x.cpu() for x in kernels.table_contents(t)]
-    kernels.table_select(t, sel, pairs, counts, fail, i)
-    return contents, sel.cpu(), pairs[i].cpu(), counts[i].cpu()
+def _record(dev, M=8):
+    return (torch.zeros(4, dtype=torch.int32, device=dev),
+            torch.zeros((M, 2), dtype=torch.int32, device=dev),
+            torch.zeros(M, dtype=torch.int32, device=dev))
+
+
+def _select_round(t, ids, seg, n, fail, i, M=8):
+    """One pair_select launch: (sel, log row i, count i) on the host."""
+    sel, pairs, counts = _record(ids.device, M)
+    kernels.pair_select(ids, seg, n, t, sel, pairs, counts, fail, i)
+    return sel.cpu(), pairs[i].cpu(), counts[i].cpu()
+
+
+def _plain_round(ids, seg, n, fail, i, M=8):
+    """The same round by pair_select_plain on the CPU; fail is updated."""
+    t = kernels.PairTable(ids.numel(), "cpu")
+    sel, pairs, counts = _record("cpu", M)
+    f = fail.cpu()
+    kernels.pair_select_plain(ids.cpu(), seg.cpu(), n.cpu(), t, sel, pairs,
+                              counts, f, i)
+    return sel, pairs[i], counts[i], f
 
 
 def _table_empty(t):
     return (int(t.used) == 0 and bool((t.key == -1).all())
             and not bool(t.cnt.any())
             and bool((t.first == kernels.EMPTY_FIRST).all()))
+
+
+def _direct_stream(rng):
+    """2^22 distinct ids, so each block's first chunk claims a shared slot
+    for every pair and the block sends the rest of its range straight to
+    the device table, with one hot pair (5, 6) at every 97th position from
+    the second chunk on, so the winning count is the sum of those sends."""
+    ids = np.arange(1 << 22) + 7
+    at = np.arange(2048, 1 << 22, 97)
+    ids[at], ids[at + 1] = 5, 6
+    return ids, np.zeros(1 << 22)
 
 
 TABLE_CASES = {
@@ -1045,13 +1069,16 @@ TABLE_CASES = {
                                            5000),
                                 np.cumsum(rng.random((1 << 22) + 999)
                                           < 0.3)),
+    "direct": _direct_stream,
     "short": lambda rng: (np.array([4, 4, 4]), np.zeros(3)),
     "no_pair": lambda rng: (np.array([4, 5]), np.array([0, 1])),
 }
 
 
 @pytest.mark.parametrize("case", sorted(TABLE_CASES))
-def test_pair_table_matches_plain(dev, case):
+def test_pair_select_matches_plain(dev, case):
+    """Two rounds on one table: each record equals pair_select_plain's and
+    select_max_pair's, and the table is empty after each."""
     from minbpe_tpu_torch.ops.select import select_max_pair
 
     a, s = TABLE_CASES[case](np.random.default_rng(11))
@@ -1060,25 +1087,23 @@ def test_pair_table_matches_plain(dev, case):
     n = torch.full((1,), ids.numel(), dtype=torch.int32, device=dev)
     fail = torch.full((1,), 8, dtype=torch.int32, device=dev)
     t = kernels.PairTable(ids.numel(), dev)
-    plain = kernels.PairTable(ids.numel(), "cpu")
-    pc = [x.cpu() for x in (ids, seg, n)]
-    kernels.pair_table(*pc, plain)
-    want = kernels.table_contents(plain)
     pa, pb, c, ok = select_max_pair(ids, seg, n)
     ref = ([int(pa), int(pb), int(c), 1] if bool(ok) else [-1, -1, 0, 0])
-    for i in range(2):  # the second round reuses the table K14 emptied
-        got, sel, row, cnt = _table_round(t, ids, seg, n, fail, i)
+    for i in range(2):  # the second round reuses the table the first emptied
+        want = _plain_round(ids, seg, n, fail, i)
+        got = _select_round(t, ids, seg, n, fail, i)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
-        assert sel.tolist() == ref
-        assert row.tolist() == (ref[:2] if bool(ok) else [0, 0])
-        assert int(cnt) == ref[2]
+        assert got[0].tolist() == ref
         assert _table_empty(t)
+        assert torch.equal(fail.cpu(), want[3])
     assert int(fail) == (8 if bool(ok) else 0)
+    if case == "direct":
+        assert ref[:2] == [5, 6] and ref[2] > 40_000
 
 
-def test_table_second_round_sees_only_its_stream(dev):
+def test_pair_select_second_round_sees_only_its_stream(dev):
     """Two rounds on different streams through one table: the second's
-    table holds none of the first's keys."""
+    record is its own stream's."""
     rng = np.random.default_rng(2)
     t = kernels.PairTable(50_000, dev)
     fail = torch.full((1,), 8, dtype=torch.int32, device=dev)
@@ -1089,29 +1114,91 @@ def test_table_second_round_sees_only_its_stream(dev):
         ids = torch.from_numpy(a).to(dev)
         seg = torch.zeros_like(ids)
         n = torch.full((1,), ids.numel(), dtype=torch.int32, device=dev)
-        plain = kernels.PairTable(ids.numel(), "cpu")
-        kernels.pair_table(ids.cpu(), seg.cpu(), n.cpu(), plain)
-        got, _, _, _ = _table_round(t, ids, seg, n, fail, i)
-        want = kernels.table_contents(plain)
+        want = _plain_round(ids, seg, n, fail, i)
+        got = _select_round(t, ids, seg, n, fail, i)
         assert all(torch.equal(x, y) for x, y in zip(got, want))
         assert _table_empty(t)
 
 
-def test_table_gated_after_fail(dev):
+def test_pair_select_shrinking_stream(dev):
+    """A table sized for 300,000 tokens, then rounds on live prefixes of
+    the same buffers down to 1,000 tokens (a smaller hashed part of the
+    table each round): each record equals the plain version's."""
+    rng = np.random.default_rng(4)
+    a = np.minimum(rng.zipf(1.2, 300_000) - 1, 100_000).astype(np.int32)
+    s = np.cumsum(rng.random(300_000) < 0.2).astype(np.int32)
+    ids = torch.from_numpy(a).to(dev)
+    seg = torch.from_numpy(s).to(dev)
+    t = kernels.PairTable(ids.numel(), dev)
+    fail = torch.full((1,), 8, dtype=torch.int32, device=dev)
+    for i, k in enumerate((300_000, 40_000, 5_000, 1_000, 300_000)):
+        n = torch.full((1,), k, dtype=torch.int32, device=dev)
+        want = _plain_round(ids, seg, n, fail, i)
+        got = _select_round(t, ids, seg, n, fail, i)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert _table_empty(t)
+
+
+def test_pair_select_fifty_rounds_one_table(dev):
+    """50 rounds of the sort-round trainer (pair_select, merge_apply,
+    compact) on one table and one scratch: the log, the counts and the
+    fail round equal the CPU's, and the table is empty after the run."""
+    from minbpe_tpu_torch.ops import train_sortloop as psl
+
+    rng = np.random.default_rng(50)
+    a = np.minimum(rng.zipf(1.3, 200_000) - 1, 3000).astype(np.int32)
+    s = np.cumsum(rng.random(200_000) < 0.25).astype(np.int32)
+    (ci, cs), (gi, gs) = _both(dev, a, s)
+    states = []
+    for ids, seg in ((ci, cs), (gi, gs)):
+        st = psl._State(ids, seg, torch.full((1,), ids.numel(),
+                                             dtype=torch.int32,
+                                             device=ids.device), 50)
+        for i in range(50):
+            psl._round(st, i)
+        states.append(st)
+    cpu, card = states
+    assert torch.equal(card.pairs.cpu(), cpu.pairs)
+    assert torch.equal(card.cnts.cpu(), cpu.cnts)
+    assert int(card.fail) == int(cpu.fail) == 50
+    assert _table_empty(card.table)
+
+
+def test_pair_select_gated_after_fail(dev):
     ids = torch.tensor([1, 2, 1, 2], dtype=torch.int32, device=dev)
     n = torch.full((1,), 4, dtype=torch.int32, device=dev)
     t = kernels.PairTable(4, dev)
     fail = torch.full((1,), 2, dtype=torch.int32, device=dev)
-    got, sel, _, _ = _table_round(t, ids, torch.zeros_like(ids), n, fail, 3)
-    assert got[0].numel() == 0 and sel.tolist() == [-1, -1, 0, 0]
+    sel, row, cnt = _select_round(t, ids, torch.zeros_like(ids), n, fail, 3)
+    assert sel.tolist() == [-1, -1, 0, 0]
+    assert row.tolist() == [0, 0] and int(cnt) == 0
     assert int(fail) == 2 and _table_empty(t)
 
 
-def test_table_refuses_a_small_table(dev):
+def test_pair_select_refuses_a_small_table(dev):
     ids = torch.zeros(1000, dtype=torch.int32, device=dev)
     n = torch.full((1,), 1000, dtype=torch.int32, device=dev)
+    fail = torch.full((1,), 8, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="slots"):
-        kernels.pair_table(ids, ids, n, kernels.PairTable(100, dev))
+        kernels.pair_select(ids, ids, n, kernels.PairTable(100, dev),
+                            *_record(dev), fail, 0)
+
+
+def test_pair_select_refused_launch_raises(dev):
+    """A grid larger than the blocks that fit at once: the cooperative
+    launch is refused, and the wrapper raises instead of running
+    anything else."""
+    ids = torch.arange(1000, dtype=torch.int32, device=dev)
+    n = torch.full((1,), 1000, dtype=torch.int32, device=dev)
+    fail = torch.full((1,), 8, dtype=torch.int32, device=dev)
+    t = kernels.PairTable(1000, dev)
+    t.grid *= 4
+    t.scratch = torch.zeros(2 * t.grid, dtype=torch.int64, device=dev)
+    kernels.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernels.pair_select(ids, torch.zeros_like(ids), n, t, *_record(dev),
+                            fail, 0)
+    assert kernels.PAIR_SELECT.launches == 0 and _table_empty(t)
 
 
 @pytest.fixture(scope="module")
@@ -1132,15 +1219,16 @@ def basic_3000_cpu():
                                   "sparse_inc"])
 def test_large_vocab_modes_match_cpu(dev, mode, basic_3000_cpu):
     """Each large-vocab mode on the card equals the CPU; the sort-round
-    modes launch K13, K14, K3 and K4 once a round."""
+    modes launch K13, K3 and K4 once a round."""
     text, want = basic_3000_cpu
     tok = BasicTokenizer(device="cuda")
     kernels.reset_launches()
     tok.train(text, 256 + 3000, select_mode=mode)
     launches = {k.name: k.launches for k in kernels.KERNELS}
     if mode.startswith("sortloop"):
-        assert launches["pair_table"] == launches["table_select"] >= 3000
-        assert launches["merge_apply"] == launches["compact"] >= 3000
+        assert launches["pair_select"] >= 3000
+        assert (launches["merge_apply"] == launches["compact"]
+                == launches["pair_select"])
     else:
         assert not any(launches.values())
     assert tok.merges == want

@@ -3,7 +3,8 @@ minbpe_tpu's (ops/train_sortloop.py), on the same input: pairs, counts and
 fail round, exactly, for the whole-run and the stepped loop; the oracle
 cases of tests/test_sortloop.py, overlapping runs, ties, fail rounds before
 M, a vocab above 2048, the progress calls, checkpoints across the two
-packages, and K13/K14's plain versions against select_max_pair."""
+packages, and K13's plain versions (its count, pair_table_plain, and its
+selection, table_select_plain) against select_max_pair."""
 
 import random
 
@@ -226,15 +227,15 @@ def _streams():
 
 @pytest.mark.parametrize("name", sorted(_streams()))
 def test_table_plain_equals_select_max_pair(name):
-    """K13 and K14's plain versions: the table holds every pair once with
-    its count and first position (against numpy), the selection is
+    """K13's plain count and selection: the table holds every pair once
+    with its count and first position (against numpy), the selection is
     select_max_pair's, the log row and the fail round are written, and the
     table is left empty."""
     a, s = _streams()[name]
     ids, seg, n = _stream(a, s)
     table = kernels.PairTable(ids.numel(), "cpu")
     fail = torch.tensor([9], dtype=torch.int32)
-    kernels.pair_table(ids, seg, n, table, fail, 3)
+    kernels.pair_table_plain(ids, seg, n, table, fail, 3)
     keys, cnt, first = kernels.table_contents(table)
     a64 = np.asarray(a, np.int64)
     ok = np.asarray(s)[:-1] == np.asarray(s)[1:]
@@ -248,7 +249,7 @@ def test_table_plain_equals_select_max_pair(name):
     sel = torch.zeros(4, dtype=torch.int32)
     pairs = torch.full((9, 2), 7, dtype=torch.int32)
     counts = torch.full((9,), 7, dtype=torch.int32)
-    kernels.table_select(table, sel, pairs, counts, fail, 3)
+    kernels.table_select_plain(table, sel, pairs, counts, fail, 3)
     pa, pb, c, found = select_max_pair(ids, seg, n)
     if bool(found):
         assert sel.tolist() == [int(pa), int(pb), int(c), 1]
@@ -265,17 +266,23 @@ def test_table_plain_equals_select_max_pair(name):
 
 def test_table_gates_after_a_failed_round():
     """After the fail round neither count nor selection acts: the table
-    stays empty and the record says no pair."""
+    stays empty and the record says no pair, in the plain count and
+    selection and in pair_select."""
     ids, seg, n = _stream([1, 2, 1, 2], [0, 0, 0, 0])
     table = kernels.PairTable(4, "cpu")
     fail = torch.tensor([2], dtype=torch.int32)
-    kernels.pair_table(ids, seg, n, table, fail, 3)
+    kernels.pair_table_plain(ids, seg, n, table, fail, 3)
     assert int(table.used) == 0
     sel = torch.zeros(4, dtype=torch.int32)
-    pairs = torch.zeros((4, 2), dtype=torch.int32)
-    counts = torch.zeros(4, dtype=torch.int32)
-    kernels.table_select(table, sel, pairs, counts, fail, 3)
+    pairs = torch.full((4, 2), 7, dtype=torch.int32)
+    counts = torch.full((4,), 7, dtype=torch.int32)
+    kernels.table_select_plain(table, sel, pairs, counts, fail, 3)
     assert sel.tolist() == [-1, -1, 0, 0] and int(fail) == 2
+    sel.fill_(5)
+    kernels.pair_select(ids, seg, n, table, sel, pairs, counts, fail, 3)
+    assert sel.tolist() == [-1, -1, 0, 0] and int(fail) == 2
+    assert pairs[3].tolist() == [0, 0] and int(counts[3]) == 0
+    assert int(table.used) == 0
 
 
 def test_two_rounds_share_one_table():
@@ -288,10 +295,10 @@ def test_two_rounds_share_one_table():
     for i, (a, want) in enumerate((([5, 6, 5, 6, 5], [5, 6, 2]),
                                    ([7, 8, 7, 8], [7, 8, 2]))):
         ids, seg, n = _stream(a, [0] * len(a))
-        kernels.pair_table(ids, seg, n, table, fail, i)
+        kernels.pair_table_plain(ids, seg, n, table, fail, i)
         assert kernels.table_contents(table)[0].numel() == len(set(
             zip(a, a[1:])))
-        kernels.table_select(table, sel, pairs, counts, fail, i)
+        kernels.table_select_plain(table, sel, pairs, counts, fail, i)
         assert sel.tolist()[:3] == want
 
 
