@@ -22,9 +22,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    smoke stream with the 3,840 merges of smoke_plus_4096 and over the XL
    corpus's stream; K11 and K12 (the sorted route) over the smoke corpus's
    GPT-4 split with the GPT-4 table at 100,256 ranks and with
-   smoke_plus_4353, and over its first 65,536 bytes as one chunk with
-   both; K13 pair_select (the sort-round trainer's count and selection,
-   one launch a round) against pair_select_plain's record and
+   smoke_plus_4353, over its first 65,536 bytes as one chunk with both,
+   over the whole corpus as one chunk with the vocab-8192 golden's merges
+   and over the corpus cut into chunks of 257-4,096 bytes with
+   smoke_plus_4353, K12 also with each chunk's rounds against its own
+   sweep's (the longest chunk's, their sum, and the distinct ranks of all
+   chunks, the rounds of a sweep whose rounds are global); K13
+   pair_select (the sort-round trainer's count and selection, one launch a
+   round) against pair_select_plain's record and
    select_max_pair's pair, with the table empty after every launch, over
    the 400K stream, the smoke stream after the vocab-8192 golden's first
    4,000 merges, 2^20 copies of "a", 2^20 distinct ids, the XL corpus's
@@ -660,7 +665,7 @@ def phase_sweep(torch, np, kernels, golden_mod):
         out.append(dict(
             case=name, n=c_ids.numel(), ranks=len(pairs), n_out=k,
             max_abs_err=err,
-            grid=kernels._load().bpe_encode_grid(c_ids.numel(), 0),
+            grid=kernels._load().bpe_encode_grid(c_ids.numel()),
             ms=device_ms(torch, lambda: kernels.encode_sweep(
                 c_ids, c_seg, pt, zt), 20),
             plain_ms=host_ms(torch, lambda: kernels.encode_sweep_plain(
@@ -699,97 +704,147 @@ def sorted_tables(golden_mod):
         build_s
 
 
+def cut_ends(np, n: int, lo: int, hi: int, seed: int = 0):
+    """Chunk ends that cut n bytes into chunks of lo..hi bytes, each length
+    drawn from numpy.random.default_rng(seed) (shortened where the rest
+    would fall below lo)."""
+    rng = np.random.default_rng(seed)
+    ends, pos = [], 0
+    while n - pos > hi:
+        pos += min(int(rng.integers(lo, hi + 1)), n - pos - lo)
+        ends.append(pos)
+    ends.append(n)
+    return np.asarray(ends, np.int64)
+
+
+def flat_shapes(np, golden_mod, gpt4, plus):
+    """Phase 2's sorted-route shapes, [(name, data uint8, chunk ends, the
+    tokenizer whose cuckoo table encodes it, long_only)]: the smoke corpus's
+    GPT-4 split (every chunk short: K11) with the GPT-4 table (bytes
+    shuffled) and with smoke_plus_4353 (``plus``: pairs, new_ids), the
+    first 65,536 bytes of each as one chunk, the whole corpus as one chunk
+    with the vocab-8192 golden's 7,936 merges (a BasicTokenizer's encode),
+    and the corpus cut into chunks of 257-4,096 bytes (cut_ends) with
+    smoke_plus_4353 (long chunks only: K12)."""
+    from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer
+
+    corpus = golden_mod.smoke_corpus(ROOT)
+    raw = np.frombuffer(corpus.encode("utf-8"), np.uint8)
+
+    def tok(cls, pairs, new_ids):
+        t = cls(device="cuda")
+        t.merges = {(int(a), int(b)): int(z)
+                    for (a, b), z in zip(pairs, new_ids)}
+        return t
+
+    plus_tok = tok(RegexTokenizer, *plus)
+    m8192 = golden_mod.load_golden_8192()["merges"]
+    t8192 = tok(BasicTokenizer, m8192, 256 + np.arange(len(m8192)))
+    out = []
+    for tname, t in (("gpt4_100k", gpt4), ("smoke_plus_4353", plus_tok)):
+        data, ends = t._split_arrays(corpus)
+        head = np.asarray(data[:golden_mod.HEAD_BYTES])
+        out += [(f"smoke_{tname}", data, ends, t, False),
+                (f"head64k_{tname}", head, np.array([len(head)]), t, True)]
+    out += [("whole_smoke_8192", raw, np.array([len(raw)]), t8192, True),
+            ("cut_smoke_plus_4353", raw, cut_ends(np, len(raw), 257, 4096),
+             plus_tok, True)]
+    return out
+
+
 def flat_case(torch, np, kernels, name, data, ends, table, long_only):
     """K11 over the chunks of (data, ends) of at most CHUNK_WARP_MAX tokens,
-    or (long_only) K12 over the whole as one stream of its chunks, against
-    the plain version on the card's tensors. The bound: the bytes the
-    function must move: each input token (4 B) and each chunk's bounds (and
-    for K11 its index, 4 B) read once, each output token and length written
-    once (4 B), and two 16-byte table rows for each distinct pair of the
-    input (the rows its first round must probe; later rounds' pairs are
-    not counted)."""
+    or (long_only: every chunk longer) K12 over all of them, against the
+    plain version on the card's tensors; K12 also with each chunk's rounds
+    against its own sweep's (kernels.sweep_rounds), with its launch plan.
+    The bound: the bytes the function must move: each input token (4 B) and
+    each chunk's bounds and index read once, each output token and length
+    written once (4 B), and two 16-byte table rows for each distinct pair
+    of the input (the rows its first round must probe; later rounds' pairs
+    are not counted)."""
+    from minbpe_tpu_torch.ops.flat_encode import k11_order
+
     dev = table.rows.device
     N, C = len(data), len(ends)
     L = np.diff(ends, prepend=0)
     ids = torch.from_numpy(data.astype(np.int32)).to(dev)
-    seg_h = np.repeat(np.arange(C, dtype=np.int32), L)
-    seg = torch.from_numpy(seg_h).to(dev)
+    seg = torch.from_numpy(np.repeat(np.arange(C, dtype=np.int32), L)).to(
+        dev)
     same = seg[:-1] == seg[1:]
     pair_keys = (ids[:-1].long() << 32 | ids[1:].long())[same]
     distinct = int(torch.unique(pair_keys).numel())
+    pick = L > kernels.CHUNK_WARP_MAX if long_only else (
+        L <= kernels.CHUNK_WARP_MAX)
+    if long_only and not pick.all():
+        raise AssertionError(f"{name}: a chunk is short")
+    at = np.flatnonzero(pick)
     if long_only:
-        if (L <= kernels.CHUNK_WARP_MAX).any():
-            raise AssertionError(f"{name}: a chunk is short")
+        info, kw = kernels.ENCODE_MIN_SWEEP, {"lengths": L[at].tolist()}
+        kernel = kernels.encode_min_sweep
+    else:  # the short chunks first, as ops/flat_encode routes them
+        at, lanes = k11_order(L, pick)
+        info, kw = kernels.CHUNK_ENCODE, {"lanes": lanes}
+        kernel = kernels.chunk_encode
+    which = torch.from_numpy(at.astype(np.int32)).to(dev)
+    bounds = torch.from_numpy(np.r_[0, ends].astype(np.int32)).to(dev)
+    out = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+    lens = torch.zeros(C + 1, dtype=torch.int32, device=dev)
 
-        def run():
-            return kernels.encode_min_sweep(ids, seg, table)
+    def run():
+        kernel(ids, bounds, which, table, out, lens, **kw)
 
-        def plain():
-            return kernels.encode_min_sweep_plain(ids, seg, table)
+    def plain():
+        o = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+        n = torch.zeros(C + 1, dtype=torch.int32, device=dev)
+        kernels.chunk_encode_plain(ids, bounds, which, table, o, n)
+        return o, n
 
-        got, want = run(), plain()
-        k = int(want[2])
-        err = max_err(torch, [(got[2], want[2]), (got[0][:k], want[0][:k]),
-                              (got[1][:k], want[1][:k])])
-        nbytes = 8 * N + 8 * k + 4 + 32 * distinct
-        info = kernels.ENCODE_MIN_SWEEP
-    else:
-        short = L <= kernels.CHUNK_WARP_MAX
-        which = torch.from_numpy(np.flatnonzero(short).astype(np.int32)).to(
-            dev)
-        bounds = torch.from_numpy(np.r_[0, ends].astype(np.int32)).to(dev)
-        out = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
-        lens = torch.zeros(C + 1, dtype=torch.int32, device=dev)
-
-        def run():
-            kernels.chunk_encode(ids, bounds, which, table, out, lens)
-            return out, lens
-
-        def plain():
-            o = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
-            n = torch.zeros(C + 1, dtype=torch.int32, device=dev)
-            kernels.chunk_encode_plain(ids, bounds, which, table, o, n)
-            return o, n
-
-        got = [t.clone() for t in run()]
-        want = plain()
-        err = max_err(torch, list(zip(got, want)))
-        k = int(want[1].sum())
-        S = int(short.sum())
-        nbytes = 4 * N + 8 * S + 4 * (C + 1) + 4 * k + 4 * S + 32 * distinct
-        info = kernels.CHUNK_ENCODE
+    run()
+    got = (out.clone(), lens.clone())
+    want = plain()
+    err = max_err(torch, list(zip(got, want)))
+    k = int(want[1].sum())
+    S = int(pick.sum())
+    nbytes = 4 * N + 12 * S + 4 * k + 4 * S + 32 * distinct
     rec = dict(case=name, n=N, chunks=C, n_out=k, distinct_pairs=distinct,
                max_abs_err=err, ms=device_ms(torch, run, 20),
                plain_ms=host_ms(torch, plain, 1), bytes=nbytes,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+    if long_only:
+        rounds = torch.full((C,), -1, dtype=torch.int32, device=dev)
+        kernel(ids, bounds, which, table, out, lens, rounds=rounds, **kw)
+        own, union = kernels.sweep_rounds(ids, seg, table)
+        if rounds.tolist() != own.tolist():
+            raise AssertionError(f"{name}: K12's rounds are not each "
+                                 "chunk's own")
+        _, cluster, _, _, modes = kernels.k12_plan(L.tolist())
+        rec.update(rounds_max=int(own.max()), rounds_sum=int(own.sum()),
+                   rounds_union=union, cluster=cluster,
+                   tiers={t: modes.count(i) for i, t in enumerate(
+                       ("block", "cluster", "device")) if i in modes})
     print(f"{info.name} {name}: {N} tokens, {C} chunks -> {k}, max_abs_err "
           f"{err}, {rec['ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms, plain "
-          f"{rec['plain_ms']:.1f} ms")
+          f"{rec['plain_ms']:.1f} ms"
+          + (f", rounds {rec['rounds_max']} (sum {rec['rounds_sum']}, "
+             f"union {rec['rounds_union']}), cluster {rec['cluster']}, "
+             f"{rec['tiers']}" if long_only else ""))
     return info, rec
 
 
 def phase_flat(torch, np, kernels, golden_mod, gpt4, plus):
-    """K11 and K12 against their plain version on the card, on the smoke
-    corpus's GPT-4 split (every chunk short: K11) with the GPT-4 table
-    (bytes shuffled) and with smoke_plus_4353, and on its first 65,536
-    bytes as one chunk (K12 alone) with both tables."""
-    from minbpe_tpu_torch import RegexTokenizer
+    """K11 and K12 against their plain version on the card at flat_shapes:
+    the smoke corpus's GPT-4 split (K11) with the GPT-4 table and with
+    smoke_plus_4353, its first 65,536 bytes as one chunk with both, the
+    whole corpus as one chunk with the vocab-8192 golden's merges and the
+    corpus cut into chunks of 257-4,096 bytes with smoke_plus_4353 (K12)."""
     from minbpe_tpu_torch.engine import device_table
 
-    corpus = golden_mod.smoke_corpus(ROOT)
-    plus_tok = RegexTokenizer(device="cuda")
-    plus_tok.merges = {(int(a), int(b)): int(z) for (a, b), z in zip(*plus)}
     recs = {"chunk_encode": [], "encode_min_sweep": []}
-    for tname, tok in (("gpt4_100k", gpt4), ("smoke_plus_4353", plus_tok)):
-        table = device_table(tok).cuckoo
-        data, ends = tok._split_arrays(corpus)
-        head = np.asarray(data[:golden_mod.HEAD_BYTES])
-        for name, d, e, long_only in (
-                (f"smoke_{tname}", data, ends, False),
-                (f"head64k_{tname}", head, np.array([len(head)]), True)):
-            info, rec = flat_case(torch, np, kernels, name, d, e, table,
-                                  long_only)
-            recs[info.name].append(rec)
+    for name, data, ends, tok, long_only in flat_shapes(np, golden_mod, gpt4,
+                                                        plus):
+        info, rec = flat_case(torch, np, kernels, name, data, ends,
+                              device_table(tok).cuckoo, long_only)
+        recs[info.name].append(rec)
     rows = []
     # the cases of phase 3's paths: GPT-4's encode (K11) and the
     # BasicTokenizer on the 4,353 table (K12)

@@ -43,9 +43,10 @@
 //                        K1's counting core without first positions
 //   K11 chunk_encode  <- no Pallas site: ops/flat_encode.py::_encode_flat
 //                        (:61-186), a jitted lax.while_loop, on chunks of at
-//                        most 256 tokens, one warp a chunk
-//   K12 encode_min_sweep <- the same, on longer chunks: K10's sweep, each
-//                        round applying the lowest rank present
+//                        most 256 tokens: one lane a chunk of up to 8, one
+//                        warp a longer one
+//   K12 encode_min_sweep <- the same, on longer chunks: each chunk's own
+//                        lowest-rank loop in one block or one cluster
 //   K13 pair_select   <- no Pallas site: ops/train_sortloop.py::_round
 //                        (:49-83), the sort-round trainer's stable sort,
 //                        run scans and selection: every pair's count and
@@ -69,8 +70,8 @@
 // Each extern "C" entry point launches one kernel on the caller's stream
 // (K1 two, K9 a memset and one), allocates nothing, and returns
 // cudaGetLastError() (0 on success), or the error of a refused
-// cooperative launch (K10, K12, K13). K1 and K9 also return the error of
-// allowing their shared-memory table (once per device).
+// cooperative or cluster launch (K10, K12, K13). K1, K9 and K12 also
+// return the error of allowing their shared memory (once per device).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libbpe_kernels.so bpe_kernels.cu
@@ -2031,222 +2032,27 @@ __device__ void sweep_one_tile(const int* ids, const int* seg, int n,
   if (threadIdx.x == 0) *n_out = n;
 }
 
-// ---------------------------------------------------------------------------
-// K11 chunk_encode and K12 encode_min_sweep: encode with a table above the
-// dense route's vocab (ops/flat_encode.py). They replace minbpe_tpu's flat
-// encoder, ops/flat_encode.py::_encode_flat (:61-186): a jitted
-// lax.while_loop over scan2d, with no Pallas site. Its rule is the
-// reference's per-chunk loop (minbpe/regex.py:96-108): in each chunk, merge
-// every occurrence of that chunk's lowest-rank pair, left first, until the
-// chunk has none. The wrapper routes chunks by length on the host: those of
-// at most CHUNK_MAX tokens to K11, the longer ones to K12.
-//
-// A pair's rank and new id come from a two-table cuckoo hash
-// (ops/ranktab.py): rows [a, b, rank, new_id] of 16 bytes, table 2 after
-// table 1, two probes of one 16-byte load each. Its two hashes differ (seeds
-// s1, s2 and s3, s4) and must equal ranktab.mix bit for bit: uint32
-// arithmetic that wraps. At 100,000 merges both tables take 8 MB, which
-// the 50 MB L2 holds, so a probe is an L2 hit once the table is warm.
-//
-// Bound: bytes, 4 B read per input token (the bytes as int32) and 4 B
-// written per output token; the lookups go to L2. What bounds K11 on text
-// is the latency of its rounds: a chunk of k tokens takes one round per
-// distinct rank it applies, each round two dependent L2 probes and a few
-// warp votes; a warp has only the chunk's k lanes of work (k ~ 4 on text).
-// K12 is K10's cooperative sweep with "the next row of the table" replaced
-// by "the lowest rank present": a round looks up every pair of the stream
-// and takes a grid min first, so a round costs one grid barrier more than
-// a K10 rank, and there are as many rounds as distinct ranks the long
-// chunks apply (by the well-foundedness of a merge table, the ranks one
-// chunk applies only rise, so the grid min is the minimum of every chunk
-// it occurs in, and applying it everywhere is each chunk's own next step).
-// ---------------------------------------------------------------------------
-constexpr int RANK_INF = 0x7fffffff;
-constexpr unsigned MIX_MUL = 0x2C1B3C6Du;
-constexpr int CHUNK_MAX = 256;         // tokens of a chunk K11 takes
-constexpr int CW = CHUNK_MAX / 32;     // a chunk's words: position 32 k + lane
-constexpr int K11_WARPS = 8;           // chunks a block works on at once
-
-struct Cuckoo {
-  const int4* rows;  // table 1: rows[0 .. H), table 2: rows[H .. 2H)
-  int H;             // a power of two
-  unsigned s1, s2, s3, s4;
-};
-
-__device__ __forceinline__ unsigned ck_hash(int a, int b, unsigned sa,
-                                            unsigned sb, int H) {
-  unsigned u = (unsigned)a * sa + (unsigned)b * sb;
-  u ^= u >> 15;
-  u *= MIX_MUL;
-  u ^= u >> 12;
-  return u & (unsigned)(H - 1);
-}
-
-// The rank of the pair (a, b), RANK_INF where it is absent or b < 0. Both
-// probes are issued before either is compared, so their latencies overlap.
-__device__ __forceinline__ int ck_rank(const Cuckoo& t, int a, int b) {
-  if (b < 0) return RANK_INF;
-  const int4 r1 = __ldg(t.rows + ck_hash(a, b, t.s1, t.s2, t.H));
-  const int4 r2 = __ldg(t.rows + t.H + ck_hash(a, b, t.s3, t.s4, t.H));
-  if (r1.x == a && r1.y == b) return r1.z;
-  if (r2.x == a && r2.y == b) return r2.z;
-  return RANK_INF;
-}
-
-// K11: one warp per chunk of at most CHUNK_MAX tokens, a grid-stride over
-// the chunks which[0 .. S). Chunk c is ids[bounds[c] .. bounds[c + 1]); its
-// tokens go to out[bounds[c] ..] and their count to lens[c] (-1 for a chunk
-// longer than CHUNK_MAX, which the wrapper never sends). Lane l holds the
-// chunk's positions 32 k + l in registers (8 words of 32 positions). A
-// round: each pair's rank from two probes (the token after a word's last
-// lane comes from lane 0 of the next word), the chunk's lowest rank by
-// __reduce_min_sync (RANK_INF: done), the matches of that rank as 8 ballots.
-// Matches next to each other are a run of one token (a, a); the kept ones
-// are the even offsets from each run's start (the reference's left-first
-// walk), found per word with an add that carries through the runs, the
-// parity carried from word to word. A kept match becomes the rank's new id,
-// the token after it dies, and the live tokens go back, compacted by their
-// popcount prefix, through the warp's slice of shared memory. Ranks are
-// looked up again every round (no rank cache).
-__global__ void __launch_bounds__(K11_WARPS * 32)
-    chunk_encode_kernel(const int* __restrict__ ids,
-                        const int* __restrict__ bounds,
-                        const int* __restrict__ which, int S, Cuckoo ck,
-                        const int* __restrict__ new_ids,
-                        int* __restrict__ out, int* __restrict__ lens) {
-  __shared__ int stage[K11_WARPS][CHUNK_MAX];
-  constexpr unsigned FULL = 0xffffffffu;
-  constexpr unsigned EVEN = 0x55555555u;
-  const int lane = threadIdx.x & 31;
-  const unsigned below = (1u << lane) - 1;
-  int* const sh = stage[threadIdx.x >> 5];
-  for (int w = blockIdx.x * K11_WARPS + (threadIdx.x >> 5); w < S;
-       w += gridDim.x * K11_WARPS) {
-    const int c = which[w];
-    const int lo = bounds[c];
-    int n = bounds[c + 1] - lo;
-    if (n > CHUNK_MAX) {
-      if (lane == 0) lens[c] = -1;
-      continue;
-    }
-    int tok[CW];
-#pragma unroll
-    for (int k = 0; k < CW; ++k) {
-      const int p = 32 * k + lane;
-      tok[k] = p < n ? ids[lo + p] : -1;
-    }
-    while (n >= 2) {
-      int rk[CW];
-      unsigned mn = RANK_INF;
-#pragma unroll
-      for (int k = 0; k < CW; ++k) {
-        rk[k] = RANK_INF;
-        if (32 * k < n - 1) {  // warp-uniform: the word holds a pair
-          const int dn = __shfl_down_sync(FULL, tok[k], 1);
-          const int up = __shfl_sync(FULL, k + 1 < CW ? tok[k + 1] : -1, 0);
-          if (32 * k + lane + 1 < n)
-            rk[k] = ck_rank(ck, tok[k], lane == 31 ? up : dn);
-          mn = min(mn, (unsigned)rk[k]);
-        }
-      }
-      mn = __reduce_min_sync(FULL, mn);
-      if (mn == (unsigned)RANK_INF) break;
-      const int z = __ldg(new_ids + mn);
-      // every lane derives the same kept and live bits from the ballots
-      unsigned kept[CW], live[CW];
-      unsigned pm = 0, pk = 0;  // the previous word's last match, last keep
-#pragma unroll
-      for (int k = 0; k < CW; ++k) {
-        const unsigned x = __ballot_sync(FULL, rk[k] == (int)mn);
-        // run starts; bit 0 continues a run when the last bit before it
-        // matched, and is kept then exactly when that bit was not
-        const unsigned s = x & ~((x << 1) | pm);
-        const unsigned se = (s & EVEN) | (pm & x & (pk ^ 1u));
-        // the runs started at even bits (or continued as kept at bit 0):
-        // the add carries through each of them
-        const unsigned re =
-            x & (unsigned)(((unsigned long long)x + se) ^ x);
-        const unsigned kp = (re & EVEN) | (x & ~re & ~EVEN);
-        const int v = n - 32 * k;
-        const unsigned valid = v >= 32 ? FULL : (v > 0 ? (1u << v) - 1 : 0u);
-        kept[k] = kp;
-        live[k] = valid & ~((kp << 1) | pk);
-        pm = x >> 31;
-        pk = kp >> 31;
-      }
-      int base = 0;
-#pragma unroll
-      for (int k = 0; k < CW; ++k) {
-        if ((live[k] >> lane) & 1u)
-          sh[base + __popc(live[k] & below)] =
-              ((kept[k] >> lane) & 1u) ? z : tok[k];
-        base += __popc(live[k]);
-      }
-      __syncwarp();
-      n = base;
-#pragma unroll
-      for (int k = 0; k < CW; ++k) {
-        const int p = 32 * k + lane;
-        tok[k] = p < n ? sh[p] : -1;
-      }
-      __syncwarp();  // every lane has read sh before the next round writes
-    }
-#pragma unroll
-    for (int k = 0; k < CW; ++k) {
-      const int p = 32 * k + lane;
-      if (p < n) out[lo + p] = tok[k];
-    }
-    if (lane == 0) lens[c] = n;
-  }
-}
-
-// A thread's best rank over the pairs at its IPT positions of a staged
-// tile, as RANK_INF - rank (0 where it has none), for a max-reduction.
-__device__ __forceinline__ int lane_best_rank(const Stage& sh, int t0, int n,
-                                              const Cuckoo& ck) {
-  const int l0 = threadIdx.x * IPT;
-  int id[IPT + 1], sg[IPT + 1];  // positions l0 .. l0 + IPT
-#pragma unroll
-  for (int v = 0; v < IPT / 4; ++v) {
-    unpack4(sh.ids[l0 / 4 + v], id + 4 * v);
-    unpack4(sh.seg[l0 / 4 + v], sg + 4 * v);
-  }
-  id[IPT] = staged_at(sh.ids, sh.halo_id, l0 + IPT);
-  sg[IPT] = staged_at(sh.seg, sh.halo_seg, l0 + IPT);
-  int best = 0;
-#pragma unroll
-  for (int k = 0; k < IPT; ++k)
-    if (t0 + l0 + k + 1 < n && sg[k] == sg[k + 1])
-      best = max(best, RANK_INF - ck_rank(ck, id[k], id[k + 1]));
-  return best;
-}
-
-// K10 (MIN false): merges r = 0 .. M-1 (pairs[2r], pairs[2r + 1]) ->
-// new_ids[r] over ids[0 .. n0), seg[0 .. n0), each applied everywhere, left
-// first, and compacted, from one ping-pong buffer into the other.
-// K12 (MIN true): the same passes, where each round's merge is the rank r
-// of the lowest-rank pair present (from the cuckoo table ck: each block
-// takes the best over its tiles, then, past one more grid barrier, every
-// block the grid's), until none is.
+// K10: merges r = 0 .. M-1 (pairs[2r], pairs[2r + 1]) -> new_ids[r] over
+// ids[0 .. n0), seg[0 .. n0), each applied everywhere, left first, and
+// compacted, from one ping-pong buffer into the other.
 // The result lands in buffer 0 (w_ids0, w_seg0) and its length in *n_out;
-// the input is not written. blk: int32[4 * gridDim.x] (block values: run
+// the input is not written. blk: int32[3 * gridDim.x] (block values: run
 // starts, then the live counts, which alternate between two halves by rank,
 // so a rank that skips its scatter, and with it a barrier, never
-// overwrites counts a slow block still reads; then K12's best ranks).
+// overwrites counts a slow block still reads).
 // Launched cooperatively: every block is resident, so the grid barrier
 // holds.
-template <bool MIN>
 __device__ void sweep(const int* ids, const int* seg, int n0,
                       const int* __restrict__ pairs,
-                      const int* __restrict__ new_ids, int M, Cuckoo ck,
-                      int* w_ids0, int* w_seg0, int* w_ids1, int* w_seg1,
-                      int* blk, int* n_out) {
+                      const int* __restrict__ new_ids, int M, int* w_ids0,
+                      int* w_seg0, int* w_ids1, int* w_seg1, int* blk,
+                      int* n_out) {
   cg::grid_group grid = cg::this_grid();
   __shared__ Stage sh;
   __shared__ int o_ids[TILE];
   __shared__ int o_seg[TILE];
   const int G = gridDim.x, b = blockIdx.x;
-  if (!MIN && G == 1 && n0 <= TILE) {
+  if (G == 1 && n0 <= TILE) {
     sweep_one_tile(ids, seg, n0, pairs, new_ids, M, w_ids0, w_seg0, n_out,
                    sh);
     return;
@@ -2257,7 +2063,7 @@ __device__ void sweep(const int* ids, const int* seg, int n0,
   const int* src_seg = seg;
   int src = -1;  // -1: the input, else the work buffer it lies in
   int n = n0;
-  for (int i = 0; (MIN || i < M) && n >= 2; ++i) {
+  for (int i = 0; i < M && n >= 2; ++i) {
     const int T = (n + TILE - 1) / TILE;
     const int lo = (int)((long long)b * T / G);
     const int hi = (int)((long long)(b + 1) * T / G);
@@ -2266,21 +2072,7 @@ __device__ void sweep(const int* ids, const int* seg, int n0,
       if (staged != t) stage_tile<true>(src_ids, src_seg, t * TILE, n, sh);
       staged = t;
     };
-    int r = i;
-    if constexpr (MIN) {  // the lowest rank present
-      int best = 0;
-      for (int t = lo; t < hi; ++t) {
-        stage(t);
-        best = max(best, lane_best_rank(sh, t * TILE, n, ck));
-      }
-      int tile_best;
-      block_exclusive_scan<false, TPB>(best, &tile_best);
-      if (threadIdx.x == 0) blk[3 * G + b] = tile_best;
-      grid.sync();
-      r = RANK_INF - block_max(blk + 3 * G, G);
-      if (r == RANK_INF) break;
-    }
-    const int pa = pairs[2 * r], pb = pairs[2 * r + 1], z = new_ids[r];
+    const int pa = pairs[2 * i], pb = pairs[2 * i + 1], z = new_ids[i];
     const bool homog = pa == pb;
     int s[IPT];
 #pragma unroll
@@ -2378,18 +2170,1089 @@ __global__ void __launch_bounds__(TPB)
                         const int* __restrict__ new_ids, int M, int* w_ids0,
                         int* w_seg0, int* w_ids1, int* w_seg1, int* blk,
                         int* n_out) {
-  sweep<false>(ids, seg, n0, pairs, new_ids, M, Cuckoo{}, w_ids0, w_seg0,
-               w_ids1, w_seg1, blk, n_out);
+  sweep(ids, seg, n0, pairs, new_ids, M, w_ids0, w_seg0, w_ids1, w_seg1, blk,
+        n_out);
 }
 
-__global__ void __launch_bounds__(TPB)
-    encode_min_sweep_kernel(const int* ids, const int* seg, int n0,
-                            Cuckoo ck, const int* __restrict__ pairs,
-                            const int* __restrict__ new_ids, int* w_ids0,
-                            int* w_seg0, int* w_ids1, int* w_seg1, int* blk,
-                            int* n_out) {
-  sweep<true>(ids, seg, n0, pairs, new_ids, 0, ck, w_ids0, w_seg0, w_ids1,
-              w_seg1, blk, n_out);
+// ---------------------------------------------------------------------------
+// K11 chunk_encode and K12 encode_min_sweep: encode with a table above the
+// dense route's vocab (ops/flat_encode.py). They replace minbpe_tpu's flat
+// encoder, ops/flat_encode.py::_encode_flat (:61-186): a jitted
+// lax.while_loop over scan2d, with no Pallas site. Its rule is the
+// reference's per-chunk loop (minbpe/regex.py:96-108): in each chunk, merge
+// every occurrence of that chunk's lowest-rank pair, left first, until the
+// chunk has none. The wrapper routes chunks by length on the host: those of
+// at most CHUNK_MAX tokens to K11, the longer ones to K12.
+//
+// A pair's rank and new id come from a two-table cuckoo hash
+// (ops/ranktab.py): rows [a, b, rank, new_id] of 16 bytes, table 2 after
+// table 1, two probes of one 16-byte load each. Its two hashes differ (seeds
+// s1, s2 and s3, s4) and must equal ranktab.mix bit for bit: uint32
+// arithmetic that wraps. At 100,000 merges both tables take 8 MB, which
+// the 50 MB L2 holds, so a probe is an L2 hit once the table is warm.
+//
+// Bound: bytes, 4 B read per input token (the bytes as int32) and 4 B
+// written per output token; the lookups go to L2. What bounds both kernels
+// is the latency of a chunk's rounds: a chunk takes one round per distinct
+// rank it applies, and each round waits on a reduction over the chunk and
+// on the probes of the pairs it changed.
+//
+// Both keep a chunk's tokens where its threads work on them and look pairs
+// up only where a merge changed them. Each token holds the rank of the pair
+// that ENDS at it (its key: the pair of the live token before it and
+// itself), so a thread's keys are its own to rewrite. A round: the chunk's
+// least key m (RANK_INF: done); then each live token whose key is m is
+// merged unless the token before it was (left first, so a run of one token
+// (a, a) keeps the even offsets from its start), takes m's new id, and the
+// token before it dies; then the keys of the merged tokens and of the live
+// token after each are looked up again.
+//
+// K11 gives a chunk of at most LANE_MAX tokens (a word, a number: 94% of
+// the smoke corpus's GPT-4 split) to one lane, which runs the whole loop in
+// registers; 32 such chunks share a warp with no synchronisation. A longer
+// chunk (up to CHUNK_MAX) has a warp of its own, as K12's thread group at
+// warp scope; the host puts the short chunks first. (One warp a chunk, with
+// every pair probed again every round, spent a warp on ~4 tokens.)
+//
+// K12 gives each chunk its own group of threads (in place of a cooperative
+// sweep over all long chunks, each round the grid's lowest rank with three
+// or four grid barriers and a full rewrite of the stream, the rounds the
+// union of every chunk's): one block up to K12_TPB * K12_P tokens, a thread-
+// block cluster of up to K12_CLUSTER_MAX blocks above that. Its rounds
+// synchronise within the group alone: one __syncthreads, and in a cluster
+// one cluster barrier (0.54-1.12 us against 1.29-7.54 for a grid barrier,
+// H100 80GB HBM3 at 700 W, scripts/time_barriers.py), so chunks proceed
+// independently and the launch takes its longest chunk's rounds. Each thread
+// owns consecutive positions of the chunk; dead ones stay in place, marked,
+// and nothing is compacted until the end. A round's critical path is the
+// slowest thread's own work (its walks over its slots, each a chain, and its
+// lookups), so the slots live in registers (8, 16 or K12_P a thread, the
+// fewest that hold the chunk in a block, 16 in a cluster where 16 blocks
+// hold it; every walk unrolled) up to K12_CLUSTER_MAX * K12_TPB * K12_P
+// tokens; past that, in device memory (L2), in sub-ranges of 8-slot groups
+// with their summaries in shared memory, a tier chosen on the host from the
+// chunk's length. A pair belongs to the thread of its left token (a thread's
+// first token's pair is the thread before's boundary pair), so a thread can
+// find every pair it looks up after the merges without asking its neighbours
+// again, and a round takes one exchange: the group's scans combine, per
+// warp, block and cluster, the least key, the carry of "the pair before was
+// merged" as a function of the carry in (three ballots compose a warp's: a
+// run's parity crosses threads, warps and blocks), and what a thread must
+// know of the next live thread to find its new right-hand token (its first
+// token, the key of its second, its boundary key).
+// ---------------------------------------------------------------------------
+constexpr int RANK_INF = 0x7fffffff;
+constexpr int KEY_NEED = -2;       // a token whose pair is to be looked up
+constexpr unsigned MIX_MUL = 0x2C1B3C6Du;
+constexpr int CHUNK_MAX = 256;     // tokens of a chunk K11 takes
+constexpr int LANE_MAX = 8;        // tokens of a chunk one K11 lane takes
+constexpr int K11_WARPS = 8;       // warps a K11 block
+constexpr int K12_TPB = 256;       // threads a K12 block
+constexpr int K12_WARPS = K12_TPB / 32;
+constexpr int K12_P = 32;          // slots a thread in registers
+constexpr int K12_NS_MAX = 24;     // sub-ranges a thread in device memory
+// shared memory of a block's sub-range summaries, a sub-range a thread
+constexpr int K12_SUM_BYTES = 7 * 4 * K12_TPB;
+constexpr int K12_CLUSTER_MAX = 16;
+// a device-tier chunk's scratch offset counts units of this many ints (two
+// ints a slot, 8-slot groups, so every chunk's scratch is a whole number of
+// units), so that an int32 job names any offset
+constexpr int K12_BASE_UNIT = 2 * K12_TPB * 8;
+
+enum Level { LV_WARP = 0, LV_BLOCK = 1, LV_CLUSTER = 2 };
+
+struct Cuckoo {
+  const int4* rows;  // table 1: rows[0 .. H), table 2: rows[H .. 2H)
+  int H;             // a power of two
+  unsigned s1, s2, s3, s4;
+};
+
+__device__ __forceinline__ unsigned ck_hash(int a, int b, unsigned sa,
+                                            unsigned sb, int H) {
+  unsigned u = (unsigned)a * sa + (unsigned)b * sb;
+  u ^= u >> 15;
+  u *= MIX_MUL;
+  u ^= u >> 12;
+  return u & (unsigned)(H - 1);
+}
+
+// Brings the two rows the pair (a, b) may occupy into L1, so a lookup a
+// barrier later waits on L1 and not on L2.
+__device__ __forceinline__ void ck_prefetch(const Cuckoo& t, int a, int b) {
+  if (a < 0 || b < 0) return;
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(
+      t.rows + ck_hash(a, b, t.s1, t.s2, t.H)));
+  asm volatile("prefetch.global.L1 [%0];" ::"l"(
+      t.rows + t.H + ck_hash(a, b, t.s3, t.s4, t.H)));
+}
+
+// (rank, new id) of the pair (a, b), (RANK_INF, -1) where it is absent or
+// a or b is negative. Both probes are issued before either is compared, so
+// their latencies overlap.
+__device__ __forceinline__ int2 ck_find(const Cuckoo& t, int a, int b) {
+  if (a < 0 || b < 0) return make_int2(RANK_INF, -1);
+  const int4 r1 = __ldg(t.rows + ck_hash(a, b, t.s1, t.s2, t.H));
+  const int4 r2 = __ldg(t.rows + t.H + ck_hash(a, b, t.s3, t.s4, t.H));
+  if (r1.x == a && r1.y == b) return make_int2(r1.z, r1.w);
+  if (r2.x == a && r2.y == b) return make_int2(r2.z, r2.w);
+  return make_int2(RANK_INF, -1);
+}
+
+// The carry of a run of tokens as a function of the carry into it (does
+// the pair ending at the token before the run merge?), two bits: f(0) and
+// f(1). FN_C0: a live token with no merge (the carry after it is 0);
+// FN_ID: no live token; FN_NOT; FN_C1.
+constexpr unsigned FN_C0 = 0u;
+constexpr unsigned FN_NOT = 1u;
+constexpr unsigned FN_ID = 2u;
+constexpr unsigned FN_C1 = 3u;
+
+__device__ __forceinline__ unsigned fn_at(unsigned f, unsigned x) {
+  return (f >> x) & 1u;
+}
+
+// a record's function for the round's rank m: its own where its least key
+// is m, else a run breaker where it holds a live token
+__device__ __forceinline__ unsigned fn_for(int mn, unsigned f, bool live,
+                                           int m) {
+  return mn == m ? f : (live ? FN_C0 : FN_ID);
+}
+
+// A warp's functions as three ballots: constant, FN_C1, FN_NOT.
+struct FnVotes {
+  unsigned cm, one, nm;
+};
+
+__device__ __forceinline__ FnVotes fn_votes(unsigned f) {
+  return {__ballot_sync(FULL, f == FN_C0 || f == FN_C1),
+          __ballot_sync(FULL, f == FN_C1), __ballot_sync(FULL, f == FN_NOT)};
+}
+
+// The composition, in lane order, of the functions of the lanes in sel:
+// the last constant one among them, flipped by each FN_NOT after it; with
+// none, the carry in flipped by each FN_NOT.
+__device__ __forceinline__ unsigned fn_compose(const FnVotes& v,
+                                               unsigned sel) {
+  const unsigned k = v.cm & sel;
+  if (k) {
+    const int j = 31 - __clz(k);
+    const unsigned after = sel & ~(0xffffffffu >> (31 - j));
+    return ((v.one >> j & 1u) ^ (__popc(v.nm & after) & 1u)) ? FN_C1
+                                                            : FN_C0;
+  }
+  return __popc(v.nm & sel) & 1u ? FN_NOT : FN_ID;
+}
+
+// the warp's inclusive sum
+__device__ __forceinline__ int sum_scan(int x) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int o = __shfl_up_sync(FULL, x, d);
+    if (lane >= d) x += o;
+  }
+  return x;
+}
+
+// the lowest set bit of x above bit i (-1: none)
+__device__ __forceinline__ int bit_after(unsigned x, int i) {
+  x = i >= 31 ? 0u : x & (0xfffffffeu << i);
+  return x ? __ffs(x) - 1 : -1;
+}
+
+// The records a block's warps, and a cluster's blocks, exchange once a
+// round: the least key, the carry function | live << 2, and the first live
+// thread's token, second key (-1: it holds one token) and boundary key. A
+// block stores its record into every block of its cluster (indexed by its
+// rank) before the cluster barrier, so each block reads them from its own
+// shared memory after it.
+// Each buffer has two halves, by round parity: a round's records are read
+// while the next round's are written.
+struct SweepShared {
+  int4 wa[2][K12_WARPS];
+  int wb[2][K12_WARPS];
+  int4 ba[2][K12_CLUSTER_MAX];
+  int bb[2][K12_CLUSTER_MAX];
+  int ws[K12_WARPS];   // a warp's live tokens at the end
+  int bs[K12_CLUSTER_MAX];
+};
+
+// What a thread knows of the next live thread of its chunk, as that
+// thread stood before the round's merges: its first token, the key of its
+// second (-1: it holds one token) and its boundary key (has: such a thread
+// exists).
+struct Next {
+  int ftok, fk2, bkey;
+  bool has;
+};
+
+// The merged token's neighbour to the right after the round (rank m, new
+// id z): where this thread's boundary pair merged, or the next thread's
+// first pair did (its second key, or its boundary key where it holds one
+// token), it is z; else the next thread's first token.
+__device__ __forceinline__ int next_first(const Next& nb, bool kb, int m,
+                                          int z) {
+  if (!nb.has) return -1;
+  if (kb || (nb.fk2 < 0 ? nb.bkey : nb.fk2) == m) return z;
+  return nb.ftok;
+}
+
+// One thread's slots of a chunk in memory (K12's device-memory tier): P = S
+// * NS consecutive positions, slot k at tok[k * stride] (-1: dead) and
+// key[k * stride]; S is a multiple of 8, and a walk reads 8 slots at a
+// time, all 16 loads in flight at once. Each sub-range of S slots keeps a
+// summary in shared memory (sm[(7 s + i) * stride]): its least key, its
+// first and last live slots, their tokens, and the keys of its first and
+// second live slots, so a round reads device memory only in the sub-ranges
+// that hold its rank or changed. The thread's first live slot keeps the
+// key RANK_INF: its pair is the thread before's boundary pair.
+struct MemRun {
+  int* tok;
+  int* key;
+  int* sm;
+  int stride, S, NS;
+  unsigned long long live = 0;   // the sub-ranges holding a live token
+  unsigned long long mins = 0;   // the live sub-ranges whose least key is lmin
+  unsigned long long dirty = 0;  // the sub-ranges the merges wrote
+  bool moved = false;  // the last live token or rtok changed
+  int lmin = RANK_INF;           // the least key, the boundary key's too
+  int rtok = -1;   // the next live thread's first token (-1: none)
+  int bkey = RANK_INF;  // the key of (the last live token, rtok)
+  int ftok = -1, fk2 = -1;  // the first live token, the second's key
+
+  __device__ int& T(int k) const { return tok[k * stride]; }
+  __device__ int& K(int k) const { return key[k * stride]; }
+  __device__ int& M(int s) const { return sm[7 * s * stride]; }
+  __device__ int& F(int s) const { return sm[(7 * s + 1) * stride]; }
+  __device__ int& L(int s) const { return sm[(7 * s + 2) * stride]; }
+  __device__ int& FT(int s) const { return sm[(7 * s + 3) * stride]; }
+  __device__ int& LT(int s) const { return sm[(7 * s + 4) * stride]; }
+  __device__ int& FK(int s) const { return sm[(7 * s + 5) * stride]; }
+  __device__ int& SK(int s) const { return sm[(7 * s + 6) * stride]; }
+
+  __device__ void load8(int k0, int (&t)[8], int (&kv)[8]) const {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      t[j] = T(k0 + j);
+      kv[j] = K(k0 + j);
+    }
+  }
+
+  // Sub-range s's summary from its slots, and its live bit. With `look`,
+  // keys marked KEY_NEED are looked up first (the pair with the live token
+  // before, lt); without, they count as RANK_INF.
+  __device__ void summarise(int s, bool look, int lt, const Cuckoo& ck) {
+    int f = -1, l = -1, ft = -1, last = -1, fk = RANK_INF, sk = -1;
+    int mn = RANK_INF, n = 0;
+    for (int k0 = s * S; k0 < (s + 1) * S; k0 += 8) {
+      int t[8], kv[8];
+      load8(k0, t, kv);
+      if (look) {  // each pair's left token first, then the lookups at once
+        int a[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          a[j] = lt;
+          if (t[j] >= 0) lt = t[j];
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (t[j] >= 0 && kv[j] == KEY_NEED) {
+            kv[j] = ck_find(ck, a[j], t[j]).x;
+            K(k0 + j) = kv[j];
+          }
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (t[j] >= 0) {
+          if (n == 0) {
+            f = k0 + j;
+            ft = t[j];
+            fk = kv[j];
+          } else if (n == 1) {
+            sk = kv[j];
+          }
+          ++n;
+          l = k0 + j;
+          last = lt = t[j];
+          if (kv[j] >= 0) mn = min(mn, kv[j]);
+        }
+    }
+    M(s) = mn;
+    F(s) = f;
+    L(s) = l;
+    FT(s) = ft;
+    LT(s) = last;
+    FK(s) = fk;
+    SK(s) = sk;
+    if (n)
+      live |= 1ull << s;
+    else
+      live &= ~(1ull << s);
+  }
+
+  // lmin, the sub-ranges that hold it, and what the thread before reads
+  __device__ void minima() {
+    lmin = bkey;
+    mins = 0;
+#pragma unroll 4
+    for (int s = 0; s < NS; ++s) {
+      const int v = live >> s & 1 ? M(s) : RANK_INF;
+      if (v < lmin) {
+        lmin = v;
+        mins = 0;
+      }
+      if (v == lmin && v != RANK_INF) mins |= 1ull << s;
+    }
+    ftok = -1;
+    fk2 = -1;
+    if (live) {
+      const int s0 = __ffsll(live) - 1;
+      const unsigned long long rest = live & (live - 1);
+      ftok = FT(s0);
+      fk2 = L(s0) != F(s0) ? SK(s0) : (rest ? FK(__ffsll(rest) - 1) : -1);
+    }
+  }
+
+  // whether this thread holds exactly one live token
+  __device__ bool single() const {
+    const int s0 = __ffsll(live) - 1;
+    return live == (1ull << s0) && F(s0) == L(s0);
+  }
+
+  // positions p0 .. p0 + P of the chunk ids[lo .. lo + n)
+  __device__ void init(const int* __restrict__ ids, int lo, int n, int p0,
+                       int P, const Cuckoo& ck) {
+    int lt = -1;
+    for (int s = 0; s < NS; ++s) {
+      for (int k0 = s * S; k0 < (s + 1) * S; k0 += 8) {
+        int t[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int p = p0 + k0 + j;
+          t[j] = p < n ? __ldg(ids + lo + p) : -1;
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          T(k0 + j) = t[j];
+          K(k0 + j) = ck_find(ck, j ? t[j - 1] : lt, t[j]).x;
+        }
+        lt = t[7];
+      }
+      summarise(s, false, -1, ck);
+    }
+    rtok = live && p0 + P < n ? __ldg(ids + lo + p0 + P) : -1;
+    bkey = live ? ck_find(ck, LT(63 - __clzll(live)), rtok).x : RANK_INF;
+    minima();
+  }
+
+  // The carry function of this thread's pairs, its boundary pair last, for
+  // rank m (lmin == m). The first live token's own pair is the thread
+  // before's: the carry passes it.
+  __device__ unsigned fn(int m) const {
+    unsigned c0 = 0u, c1 = 1u;  // from carry in 0 and 1
+    bool first = true;
+    for (unsigned long long r = live; r; r &= r - 1) {
+      const int s = __ffsll(r) - 1;
+      if (!(mins >> s & 1)) {
+        if (!(first && F(s) == L(s))) c0 = c1 = 0u;
+        first = false;
+        continue;
+      }
+      for (int k0 = s * S; k0 < (s + 1) * S; k0 += 8) {
+        int t[8], kv[8];
+        load8(k0, t, kv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (t[j] < 0) continue;
+          if (first) {
+            first = false;
+            continue;
+          }
+          const bool hit = kv[j] == m;
+          c0 = hit && !c0;
+          c1 = hit && !c1;
+        }
+      }
+    }
+    const bool hit = bkey == m;
+    c0 = hit && !c0;
+    c1 = hit && !c1;
+    return c0 | c1 << 1;
+  }
+
+  // the first live slot of sub-range s after slot k (-1: none)
+  __device__ int first_after(int s, int k) const {
+    for (int k0 = k + 1 - (k + 1 - s * S) % 8; k0 < (s + 1) * S; k0 += 8) {
+      int t[8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) t[j] = T(k0 + j);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (k0 + j > k && t[j] >= 0) return k0 + j;
+    }
+    return -1;
+  }
+
+  // Merges this round's pairs (rank m, new id z): c, the pair ending at
+  // this thread's first live token merged (it takes z); nb, the next live
+  // thread. Marks KEY_NEED on each merged token and the live one after it
+  // (the pairs known here prefetched into L1), finds the next thread's new
+  // first token, and summarises the sub-ranges it wrote.
+  __device__ void apply(int m, int z, bool c, const Next& nb,
+                        const Cuckoo& ck) {
+    dirty = 0;
+    if (!live) {
+      rtok = -1;
+      moved = false;
+      return;
+    }
+    const int s0 = __ffsll(live) - 1;
+    const int top = 63 - __clzll(live);
+    if (c) {  // the first live token takes z
+      T(F(s0)) = z;
+      dirty |= 1ull << s0;
+    }
+    bool pend = c;  // the next live token's left half merged
+    int prev = -1, prev_s = -1;  // the live token before: a slot, or the
+                                 // last live of a sub-range not walked
+    bool first = true;
+    int t1 = -1, t2 = -1;  // the tokens, after the merges, of the live slot
+                           // before and of the one before it (-1: unknown)
+    for (unsigned long long r = lmin == m ? live : 0ull; r; r &= r - 1) {
+      const int s = __ffsll(r) - 1;
+      if (!(mins >> s & 1)) {
+        const bool just_first = first && F(s) == L(s);
+        if (pend && !just_first) {
+          const int k = first ? first_after(s, F(s)) : F(s);
+          K(k) = KEY_NEED;
+          dirty |= 1ull << s;
+          pend = false;
+        }
+        if (!just_first) c = false;
+        first = false;
+        prev = -1;
+        prev_s = s;
+        t1 = t2 = -1;
+        continue;
+      }
+      dirty |= 1ull << s;
+      for (int k0 = s * S; k0 < (s + 1) * S; k0 += 8) {
+        int t[8], kv[8];
+        load8(k0, t, kv);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          if (t[j] < 0) continue;
+          const int k = k0 + j;
+          if (first) {  // its pair is the thread before's
+            first = false;
+            prev = k;
+            prev_s = -1;
+            t1 = t[j];
+            continue;
+          }
+          const bool kept = kv[j] == m && !c;
+          if (pend || kept) K(k) = KEY_NEED;
+          if (pend) ck_prefetch(ck, t1, t[j]);
+          pend = kept;
+          if (kept) {
+            ck_prefetch(ck, t2, z);
+            t1 = z;
+            T(k) = z;
+            const int d = prev >= 0 ? prev : L(prev_s);
+            T(d) = -1;
+            K(d) = RANK_INF;
+            dirty |= 1ull << (d / S);
+          } else {
+            t2 = t1;
+            t1 = t[j];
+          }
+          c = kept;
+          prev = k;
+          prev_s = -1;
+        }
+      }
+    }
+    if (lmin != m) {  // only the first token's merge, and the boundary
+      const bool one = single();
+      if (pend && !one) {
+        const int k = L(s0) != F(s0) ? first_after(s0, F(s0))
+                                     : F(__ffsll(live & (live - 1)) - 1);
+        K(k) = KEY_NEED;
+        dirty |= 1ull << (k / S);
+      }
+      if (!one) c = false;
+      prev = -1;
+      prev_s = top;
+    }
+    const bool kb = bkey == m && !c;
+    if (kb) {  // the boundary pair merged: the last live token dies
+      const int d = prev >= 0 ? prev : L(prev_s);
+      T(d) = -1;
+      K(d) = RANK_INF;
+      dirty |= 1ull << (d / S);
+    }
+    const int nr = next_first(nb, kb, m, z);
+    moved = nr != rtok || kb || (dirty >> top & 1);
+    rtok = nr;
+    for (unsigned long long r = dirty; r; r &= r - 1)
+      summarise(__ffsll(r) - 1, false, -1, ck);
+  }
+
+  // The keys marked KEY_NEED looked up, the first live token's set to
+  // RANK_INF, the boundary key again where it moved; the least keys.
+  __device__ void relook(const Cuckoo& ck) {
+    if (live) {  // the first live token's pair is the thread before's
+      const int s0 = __ffsll(live) - 1;
+      if (FK(s0) != RANK_INF) {
+        K(F(s0)) = RANK_INF;
+        dirty |= 1ull << s0;
+      }
+    }
+    if (!dirty && !moved) return;
+    for (unsigned long long r = dirty & live; r; r &= r - 1) {
+      const int s = __ffsll(r) - 1;
+      const unsigned long long before = live & ((1ull << s) - 1);
+      summarise(s, true, before ? LT(63 - __clzll(before)) : -1, ck);
+    }
+    if (moved)
+      bkey = live ? ck_find(ck, LT(63 - __clzll(live)), rtok).x : RANK_INF;
+    dirty = 0;
+    moved = false;
+    minima();
+  }
+
+  __device__ int count() const {
+    int n = 0;
+    for (unsigned long long q = live; q; q &= q - 1) {
+      const int s = __ffsll(q) - 1;
+      for (int k0 = s * S; k0 < (s + 1) * S; k0 += 8)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) n += T(k0 + j) >= 0;
+    }
+    return n;
+  }
+  __device__ void write(int* o) const {
+    for (unsigned long long q = live; q; q &= q - 1) {
+      const int s = __ffsll(q) - 1;
+      for (int k0 = s * S; k0 < (s + 1) * S; k0 += 8) {
+        int t[8];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) t[j] = T(k0 + j);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          if (t[j] >= 0) *o++ = t[j];
+      }
+    }
+  }
+};
+
+// One thread's P consecutive positions of a chunk in registers (P <= 32):
+// slot k's token tok[k] and key key[k], live while bit k of `live` is set;
+// the first live slot's key is not used (its pair is the thread before's
+// boundary pair). Every walk is unrolled over the registers, so a round's
+// work is register operations and one wait on its lookups, which go out
+// together.
+template <int P>
+struct RegRun {
+  int tok[P];
+  int key[P];
+  unsigned live = 0;
+  unsigned need = 0;   // the slots whose key is to be looked up
+  bool dirty = false;  // the merges changed this thread's slots
+  bool moved = false;  // the last live token or rtok changed
+  int lmin = RANK_INF;
+  int rtok = -1;
+  int bkey = RANK_INF;
+  int ftok = -1, fk2 = -1;
+
+  // lmin and what the thread before reads (the first token, the second
+  // live token's key, -1 where there is none)
+  __device__ void finish() {
+    ftok = -1;
+    fk2 = -1;
+    const unsigned inner = live & (live - 1);  // every live slot but the first
+    const unsigned second = inner & (0u - inner);
+    int v[P];  // the least key by a tree, not a chain
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      v[k] = inner >> k & 1u ? key[k] : RANK_INF;
+      if (second >> k & 1u) fk2 = key[k];
+      if ((live & (0u - live)) >> k & 1u) ftok = tok[k];
+    }
+#pragma unroll
+    for (int w = P / 2; w > 0; w /= 2)
+#pragma unroll
+      for (int k = 0; k < w; ++k) v[k] = min(v[k], v[k + w]);
+    lmin = min(v[0], bkey);
+  }
+
+  __device__ int last_tok() const {
+    int t = -1;
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (live >> k & 1u) t = tok[k];
+    return t;
+  }
+
+  // positions p0 .. p0 + P of the chunk ids[lo .. lo + n)
+  __device__ void init(const int* __restrict__ ids, int lo, int n, int p0,
+                       int, const Cuckoo& ck) {
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const int p = p0 + k;
+      tok[k] = p < n ? __ldg(ids + lo + p) : -1;
+      if (tok[k] >= 0) live |= 1u << k;
+    }
+    key[0] = RANK_INF;
+#pragma unroll
+    for (int k = 1; k < P; ++k) key[k] = ck_find(ck, tok[k - 1], tok[k]).x;
+    rtok = live && p0 + P < n ? __ldg(ids + lo + p0 + P) : -1;
+    bkey = ck_find(ck, last_tok(), rtok).x;
+    finish();
+  }
+
+  // the carry function of this thread's pairs, its boundary pair last, for
+  // rank m (lmin == m); the carry passes the first live token
+  __device__ unsigned fn(int m) const {
+    unsigned c0 = 0u, c1 = 1u;  // from carry in 0 and 1
+    const unsigned inner = live & (live - 1);
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (inner >> k & 1u) {
+        const bool hit = key[k] == m;
+        c0 = hit && !c0;
+        c1 = hit && !c1;
+      }
+    const bool hit = bkey == m;
+    c0 = hit && !c0;
+    c1 = hit && !c1;
+    return c0 | c1 << 1;
+  }
+
+  // As MemRun::apply; the slots to look up go to `need`.
+  __device__ void apply(int m, int z, bool c, const Next& nb, const Cuckoo&) {
+    unsigned kill = 0, pbit = 0;  // pbit: the last live slot seen
+    need = 0;
+    const unsigned low = live & (0u - live);
+    unsigned zed = c ? low : 0u;  // the slots that took z
+    bool after = c;  // the pair ending at the next live token changed
+    if (lmin == m || c) {
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        if (live >> k & 1u) {
+          if (low >> k & 1u) {  // the first: the thread before's pair
+            if (c) tok[k] = z;
+          } else {
+            const bool kept = key[k] == m && !c;
+            if (kept) {
+              tok[k] = z;
+              kill |= pbit;
+              zed |= 1u << k;
+            }
+            if (kept || after) need |= 1u << k;
+            after = c = kept;
+          }
+          pbit = 1u << k;
+        }
+    } else {
+      pbit = live ? 1u << (31 - __clz(live)) : 0u;
+    }
+    const bool kb = live && bkey == m && !c;
+    if (kb) kill |= pbit;
+    const int nr = next_first(nb, kb, m, z);
+    moved = nr != rtok || kb || (pbit & zed);
+    rtok = nr;
+    live &= ~kill;
+    need &= live;
+    dirty = (kill | need | zed) != 0;
+  }
+
+  // The keys in `need` looked up (up to two gathered by selects and issued
+  // together, more through one unrolled walk), the boundary key again where
+  // it moved; the least keys.
+  __device__ void relook(const Cuckoo& ck) {
+    if (!dirty && !moved) return;
+    const unsigned low = live & (0u - live);
+    need &= ~low;
+    if (__popc(need) <= 2) {
+      const int k0 = need ? __ffs(need) - 1 : -1;
+      const int k1 = need & (need - 1) ? __ffs(need & (need - 1)) - 1 : -1;
+      int a0 = -1, b0 = -1, a1 = -1, b1 = -1, last = -1;
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        if (live >> k & 1u) {
+          if (k < k0) a0 = tok[k];
+          if (k < k1) a1 = tok[k];
+          if (k == k0) b0 = tok[k];
+          if (k == k1) b1 = tok[k];
+          last = tok[k];
+        }
+      const int v0 = ck_find(ck, a0, b0).x, v1 = ck_find(ck, a1, b1).x;
+      if (moved) bkey = ck_find(ck, last, rtok).x;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        if (k == k0) key[k] = v0;
+        if (k == k1) key[k] = v1;
+      }
+    } else {
+      int lt = -1;
+#pragma unroll
+      for (int k = 0; k < P; ++k)
+        if (live >> k & 1u) {
+          if (need >> k & 1u) key[k] = ck_find(ck, lt, tok[k]).x;
+          lt = tok[k];
+        }
+      if (moved) bkey = ck_find(ck, lt, rtok).x;
+    }
+    dirty = moved = false;
+    finish();
+  }
+
+  __device__ int count() const { return __popc(live); }
+  __device__ void write(int* o) const {
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (live >> k & 1u) *o++ = tok[k];
+  }
+};
+
+// The round's rank m over the group's threads (RANK_INF: the chunk is
+// done), with this thread's carry in (c: the pair ending at its first live
+// token merged) and what it knows of the next live thread (nb), and m's
+// new id in z where this thread holds m. A warp's lanes
+// reduce and scan by shuffles for the warp's own least key; a block's warps
+// through sh (the half of the round's parity) after a __syncthreads; a
+// cluster's blocks through sh.ba after a cluster barrier.
+template <int LEVEL, class R>
+__device__ int round_min(const R& r, const int* __restrict__ new_ids,
+                         SweepShared* sh, int round, int rank, int cs,
+                         bool& c, Next& nb, int& z) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cw = __reduce_min_sync(FULL, r.lmin);
+  const bool mine = r.lmin == cw && cw != RANK_INF;
+  if (mine) z = __ldg(new_ids + cw);  // in flight across the barriers
+  const FnVotes fv = fn_votes(mine ? r.fn(cw) : (r.live ? FN_C0 : FN_ID));
+  const unsigned fx = fn_compose(fv, (1u << lane) - 1u);  // lanes before
+  const unsigned lv = __ballot_sync(FULL, r.live != 0);
+  const int la = bit_after(lv, lane);
+  const int ls = la < 0 ? lane : la;
+  const Next nl{__shfl_sync(FULL, r.ftok, ls), __shfl_sync(FULL, r.fk2, ls),
+                __shfl_sync(FULL, r.bkey, ls), la >= 0};
+  const unsigned lane_in = lv & ((1u << lane) - 1u) ? FN_C0 : FN_ID;
+  if constexpr (LEVEL == LV_WARP) {
+    c = fn_at(fx, 0u);
+    nb = nl;
+    return cw;
+  }
+  const int h = round & 1;
+  const int f0 = lv ? __ffs(lv) - 1 : 0;
+  if (lane == 0) {
+    sh->wa[h][warp] = make_int4(cw, fn_compose(fv, FULL) | (lv != 0) << 2,
+                                r.ftok, r.fk2);
+    sh->wb[h][warp] = r.bkey;
+  }
+  // lane 0's record holds lane f0's fields: the first live lane's
+  if (f0 != 0) {
+    const int ft = __shfl_sync(FULL, r.ftok, f0);
+    const int fk = __shfl_sync(FULL, r.fk2, f0);
+    const int bk = __shfl_sync(FULL, r.bkey, f0);
+    if (lane == 0) {
+      sh->wa[h][warp].z = ft;
+      sh->wa[h][warp].w = fk;
+      sh->wb[h][warp] = bk;
+    }
+  }
+  __syncthreads();
+  const int4 w = lane < K12_WARPS ? sh->wa[h][lane]
+                                  : make_int4(RANK_INF, FN_ID, -1, -1);
+  const int wb = lane < K12_WARPS ? sh->wb[h][lane] : RANK_INF;
+  const int bmin = __reduce_min_sync(FULL, w.x);
+  // the block's warps for the block's least key; what the cluster's makes
+  // of them is settled after its barrier
+  const FnVotes fvb = fn_votes(fn_for(w.x, w.y & 3, w.y >> 2 & 1, bmin));
+  const unsigned wl = __ballot_sync(FULL, lane < K12_WARPS && (w.y & 4));
+  const int wa = bit_after(wl, warp);
+  const int ws = wa < 0 ? 0 : wa;
+  const Next nw{__shfl_sync(FULL, w.z, ws), __shfl_sync(FULL, w.w, ws),
+                __shfl_sync(FULL, wb, ws), wa >= 0};
+  const unsigned pw = fn_compose(fvb, (1u << warp) - 1u);  // warps before
+  int m = bmin;
+  unsigned cb = 0u;  // the carry into this block
+  Next nbk{-1, -1, RANK_INF, false};  // the next live block's first thread
+  if constexpr (LEVEL == LV_CLUSTER) {
+    cg::cluster_group cluster = cg::this_cluster();
+    const int w0 = wl ? __ffs(wl) - 1 : 0;
+    const int4 rec = make_int4(bmin, fn_compose(fvb, FULL) | (wl != 0) << 2,
+                               __shfl_sync(FULL, w.z, w0),
+                               __shfl_sync(FULL, w.w, w0));
+    const int rb = __shfl_sync(FULL, wb, w0);
+    if (warp == 0 && lane < cs) {
+      *cluster.map_shared_rank(&sh->ba[h][rank], lane) = rec;
+      *cluster.map_shared_rank(&sh->bb[h][rank], lane) = rb;
+    }
+    cluster.sync();
+    const int4 q = lane < cs ? sh->ba[h][lane]
+                             : make_int4(RANK_INF, FN_ID, -1, -1);
+    const int qb = lane < cs ? sh->bb[h][lane] : RANK_INF;
+    m = __reduce_min_sync(FULL, q.x);
+    cb = fn_at(fn_compose(fn_votes(fn_for(q.x, q.y & 3, q.y >> 2 & 1, m)),
+                          (1u << rank) - 1u),
+               0u);
+    const int qa =
+        bit_after(__ballot_sync(FULL, lane < cs && (q.y & 4)), rank);
+    const int qs = qa < 0 ? 0 : qa;
+    nbk = Next{__shfl_sync(FULL, q.z, qs), __shfl_sync(FULL, q.w, qs),
+               __shfl_sync(FULL, qb, qs), qa >= 0};
+  }
+  if (m == RANK_INF) return m;
+  // below the block's least key every warp is a run breaker or empty
+  const unsigned cwarp =
+      fn_at(m == bmin ? pw : (wl & ((1u << warp) - 1u) ? FN_C0 : FN_ID), cb);
+  c = fn_at(cw == m ? fx : lane_in, cwarp);
+  nb = la >= 0 ? nl : (wa >= 0 ? nw : nbk);
+  return m;
+}
+
+// Writes the chunk's live tokens to out[lo ..] in order and their count to
+// *len (and the rounds to *rounds where given).
+template <int LEVEL, class R>
+__device__ void write_chunk(const R& r, int* out, int lo, int* len,
+                            int* rounds, int nr, SweepShared* sh, int rank,
+                            int cs) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cnt = r.count();
+  const int x = sum_scan(cnt);
+  int off = x - cnt, total = __shfl_sync(FULL, x, 31);
+  bool lead = lane == 0;
+  if constexpr (LEVEL != LV_WARP) {
+    if (lane == 31) sh->ws[warp] = x;
+    __syncthreads();
+    const int wv = lane < K12_WARPS ? sh->ws[lane] : 0;
+    const int wi = sum_scan(wv);
+    off += __shfl_sync(FULL, wi - wv, warp);
+    total = __shfl_sync(FULL, wi, 31);
+    lead = threadIdx.x == 0;
+    if constexpr (LEVEL == LV_CLUSTER) {
+      cg::cluster_group cluster = cg::this_cluster();
+      if (warp == 0 && lane < cs)
+        *cluster.map_shared_rank(&sh->bs[rank], lane) = total;
+      cluster.sync();  // after it no block touches another's shared memory
+      const int qv = lane < cs ? sh->bs[lane] : 0;
+      const int qi = sum_scan(qv);
+      off += __shfl_sync(FULL, qi - qv, rank);
+      total = __shfl_sync(FULL, qi, 31);
+      lead = lead && rank == 0;
+    }
+  }
+  r.write(out + lo + off);
+  if (lead) {
+    *len = total;
+    if (rounds != nullptr) *rounds = nr;
+  }
+}
+
+// The whole lowest-rank loop over chunk c, ids[lo .. lo + L), by the group
+// (a warp, a block or a cluster); this thread's P slots hold positions p0 ..
+template <int LEVEL, class R>
+__device__ void sweep_chunk(R& r, const int* __restrict__ ids, int lo,
+                            int L, int p0, int P, const Cuckoo& ck,
+                            const int* __restrict__ new_ids, int* out,
+                            int* len, int* rounds, SweepShared* sh, int rank,
+                            int cs) {
+  r.init(ids, lo, L, p0, P, ck);
+  int nr = 0;
+  for (;;) {
+    bool c = false;
+    Next nb{-1, -1, RANK_INF, false};
+    int z = 0;
+    const int m = round_min<LEVEL>(r, new_ids, sh, nr, rank, cs, c, nb, z);
+    if (m == RANK_INF) break;
+    ++nr;
+    // a thread that holds m has its new id; another may need it too (its
+    // first token, its right-hand token), and waits only where it does
+    if (r.lmin != m) z = __ldg(new_ids + m);
+    r.apply(m, z, c, nb, ck);
+    r.relook(ck);
+  }
+  write_chunk<LEVEL>(r, out, lo, len, rounds, nr, sh, rank, cs);
+}
+
+// One lane's chunk of n <= LANE_MAX tokens, ids[0 .. n), in registers: each
+// token's key and new id, the loop, then the tokens to out and the count
+// to *len.
+__device__ void encode_lane(const int* __restrict__ ids, int n,
+                            const Cuckoo& ck, int* out, int* len) {
+  int tok[LANE_MAX], key[LANE_MAX], nid[LANE_MAX];
+#pragma unroll
+  for (int k = 0; k < LANE_MAX; ++k) tok[k] = k < n ? __ldg(ids + k) : -1;
+  key[0] = RANK_INF;
+  nid[0] = -1;
+#pragma unroll
+  for (int k = 1; k < LANE_MAX; ++k) {
+    const int2 f = ck_find(ck, tok[k - 1], tok[k]);
+    key[k] = f.x;
+    nid[k] = f.y;
+  }
+  for (;;) {
+    int m = RANK_INF, z = -1;
+#pragma unroll
+    for (int k = 1; k < LANE_MAX; ++k)
+      if (key[k] < m) {
+        m = key[k];
+        z = nid[k];
+      }
+    if (m == RANK_INF) break;
+    bool c = false;
+    unsigned kill = 0, moved = 0, pbit = 0;
+#pragma unroll
+    for (int k = 0; k < LANE_MAX; ++k) {
+      if (tok[k] < 0) continue;
+      const bool kept = key[k] == m && !c;
+      if (kept) {
+        tok[k] = z;
+        kill |= pbit;
+        moved |= 1u << k;
+      }
+      c = kept;
+      pbit = 1u << k;
+    }
+#pragma unroll
+    for (int k = 0; k < LANE_MAX; ++k)
+      if (kill >> k & 1u) {
+        tok[k] = -1;
+        key[k] = RANK_INF;
+      }
+    int lt = -1;
+    bool after = false;
+#pragma unroll
+    for (int k = 0; k < LANE_MAX; ++k) {
+      if (tok[k] < 0) continue;
+      const bool mk = moved >> k & 1u;
+      if (mk || after) {
+        const int2 f = ck_find(ck, lt, tok[k]);
+        key[k] = f.x;
+        nid[k] = f.y;
+      }
+      after = mk;
+      lt = tok[k];
+    }
+  }
+  int o = 0;
+#pragma unroll
+  for (int k = 0; k < LANE_MAX; ++k)
+    if (tok[k] >= 0) out[o++] = tok[k];
+  *len = o;
+}
+
+// K11: the chunks which[0 .. S), chunk c being ids[bounds[c] ..
+// bounds[c + 1]) with at most CHUNK_MAX tokens, its tokens written to
+// out[bounds[c] ..] and their count to lens[c] (-1 for a longer chunk,
+// which the wrapper never sends). The first `lanes` chunks go 32 to a warp:
+// each lane its own chunk of at most LANE_MAX tokens, then the whole warp
+// each longer one among them in turn; every later chunk has a warp of its
+// own, 8 positions a lane in registers. A grid-stride over those units of
+// work.
+__global__ void __launch_bounds__(K11_WARPS * 32)
+    chunk_encode_kernel(const int* __restrict__ ids,
+                        const int* __restrict__ bounds,
+                        const int* __restrict__ which, int S, int lanes,
+                        Cuckoo ck, const int* __restrict__ new_ids,
+                        int* __restrict__ out, int* __restrict__ lens) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int groups = (lanes + 31) / 32;
+  for (int u = blockIdx.x * K11_WARPS + warp; u < groups + S - lanes;
+       u += gridDim.x * K11_WARPS) {
+    const int w = u < groups ? 32 * u + lane : lanes + u - groups;
+    int c = -1, lo = 0, n = 0;
+    if (w < (u < groups ? lanes : S)) {
+      c = which[w];
+      lo = bounds[c];
+      n = bounds[c + 1] - lo;
+    }
+    if (u < groups && c >= 0 && n <= LANE_MAX)
+      encode_lane(ids + lo, n, ck, out + lo, lens + c);
+    for (unsigned big = __ballot_sync(
+             FULL, c >= 0 && (u >= groups ? lane == 0 : n > LANE_MAX));
+         big; big &= big - 1) {
+      const int src = __ffs(big) - 1;
+      const int cc = __shfl_sync(FULL, c, src);
+      const int clo = __shfl_sync(FULL, lo, src);
+      const int cn = __shfl_sync(FULL, n, src);
+      if (cn > CHUNK_MAX) {
+        if (lane == 0) lens[cc] = -1;
+        continue;
+      }
+      RegRun<CHUNK_MAX / 32> r;
+      sweep_chunk<LV_WARP>(r, ids, clo, cn, lane * (CHUNK_MAX / 32),
+                           CHUNK_MAX / 32, ck, new_ids, out, lens + cc,
+                           nullptr, nullptr, 0, 1);
+    }
+  }
+}
+
+// K12: block b's job is jobs[b] = (w, mode | S << 4, P, base): chunk
+// which[w] (w < 0: an idle block); mode 0 the block alone, P (8, 16 or
+// K12_P) slots a thread in registers, and 1 the whole cluster, P (16 or
+// K12_P) slots a thread in registers; 2 the whole cluster, P = S *
+// NS slots a thread in device memory at scratch + base * K12_BASE_UNIT
+// (two ints a slot), its sub-ranges' summaries in shared memory (ns a
+// thread, seven ints each). rounds (may be null): each chunk's rounds.
+__global__ void __launch_bounds__(K12_TPB)
+    encode_min_sweep_kernel(const int* __restrict__ ids,
+                            const int* __restrict__ bounds,
+                            const int* __restrict__ which,
+                            const int4* __restrict__ jobs, Cuckoo ck,
+                            const int* __restrict__ new_ids,
+                            int* __restrict__ out, int* __restrict__ lens,
+                            int* __restrict__ rounds, int* scratch, int ns) {
+  extern __shared__ int sums[];
+  __shared__ SweepShared sh;
+  const int4 job = jobs[blockIdx.x];
+  if (job.x < 0) return;
+  const int c = which[job.x];
+  const int lo = bounds[c], L = bounds[c + 1] - lo;
+  const int mode = job.y & 15;
+  int* const rd = rounds == nullptr ? nullptr : rounds + c;
+  const int P = job.z;
+  if (mode == 0) {  // the fewest slots a thread that hold the chunk
+    if (P == 8) {
+      RegRun<8> r;
+      sweep_chunk<LV_BLOCK>(r, ids, lo, L, (int)threadIdx.x * 8, 8, ck,
+                            new_ids, out, lens + c, rd, &sh, 0, 1);
+    } else if (P == 16) {
+      RegRun<16> r;
+      sweep_chunk<LV_BLOCK>(r, ids, lo, L, (int)threadIdx.x * 16, 16, ck,
+                            new_ids, out, lens + c, rd, &sh, 0, 1);
+    } else {
+      RegRun<K12_P> r;
+      sweep_chunk<LV_BLOCK>(r, ids, lo, L, (int)threadIdx.x * K12_P, K12_P,
+                            ck, new_ids, out, lens + c, rd, &sh, 0, 1);
+    }
+    return;
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int cs = (int)cluster.num_blocks();
+  const int g = rank * K12_TPB + (int)threadIdx.x;
+  if (mode == 1) {  // 16 slots a thread, or K12_P where 16 do not hold it
+    if (P == 16) {
+      RegRun<16> r;
+      sweep_chunk<LV_CLUSTER>(r, ids, lo, L, g * 16, 16, ck, new_ids, out,
+                              lens + c, rd, &sh, rank, cs);
+    } else {
+      RegRun<K12_P> r;
+      sweep_chunk<LV_CLUSTER>(r, ids, lo, L, g * K12_P, K12_P, ck, new_ids,
+                              out, lens + c, rd, &sh, rank, cs);
+    }
+    return;
+  }
+  const int S = job.y >> 4;
+  int* const tp = scratch + (size_t)job.w * K12_BASE_UNIT +
+                  (size_t)rank * 2 * K12_TPB * P;
+  MemRun r{tp + threadIdx.x, tp + (size_t)K12_TPB * P + threadIdx.x,
+           sums + threadIdx.x, K12_TPB, S, P / S};
+  sweep_chunk<LV_CLUSTER>(r, ids, lo, L, g * P, P, ck, new_ids, out,
+                          lens + c, rd, &sh, rank, cs);
 }
 
 inline int tiles_for(int cap) { return cap > 0 ? (cap + TILE - 1) / TILE : 1; }
@@ -2650,11 +3513,10 @@ int bpe_compact(const int* ids, const int* seg, const unsigned char* live,
   return cudaGetLastError();
 }
 
-// K10's (min_sweep 0) or K12's (1) grid for a stream of cap tokens on the
-// current device: the blocks that can be resident at once, capped at the
-// stream's tiles; a negative CUDA error when the device takes no
-// cooperative launch.
-int bpe_encode_grid(int cap, int min_sweep) {
+// K10's grid for a stream of cap tokens on the current device: the blocks
+// that can be resident at once, capped at the stream's tiles; a negative
+// CUDA error when the device takes no cooperative launch.
+int bpe_encode_grid(int cap) {
   int dev, coop, sms, per;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -2662,10 +3524,8 @@ int bpe_encode_grid(int cap, int min_sweep) {
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
-    e = min_sweep ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                        &per, encode_min_sweep_kernel, TPB, 0)
-                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                        &per, encode_sweep_kernel, TPB, 0);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per, encode_sweep_kernel, TPB, 0);
   if (e != cudaSuccess) return -(int)e;
   if (!coop || per < 1) return -(int)cudaErrorCooperativeLaunchTooLarge;
   const int tiles = tiles_for(cap);
@@ -2692,45 +3552,88 @@ int bpe_encode_sweep(const int* ids, const int* seg, int n, const int* pairs,
 }
 
 // K11 over the chunks which[0 .. S) (S >= 1) of ids, chunk c being
-// ids[bounds[c] .. bounds[c + 1]) with at most CHUNK_MAX tokens. rows:
-// int32[2 H][4], 16-byte aligned, H a power of two; seeds s1 .. s4 as in
-// ops/ranktab.py; new_ids: int32[M] by rank. Writes each chunk's tokens to
-// out[bounds[c] ..] and their count to lens[c]. A grid-stride over the
-// chunks: at most the blocks that fit on the device at once.
+// ids[bounds[c] .. bounds[c + 1]) with at most CHUNK_MAX tokens, the first
+// `lanes` 32 to a warp (best those of at most LANE_MAX), every later one a
+// warp of its own. rows: int32[2 H][4], 16-byte aligned, H a power of two;
+// seeds s1 .. s4 as in ops/ranktab.py; new_ids: int32[M] by rank. Writes
+// each chunk's tokens to out[bounds[c] ..] and their count to lens[c]. A
+// grid-stride: at most the blocks that fit on the device at once.
 int bpe_chunk_encode(const int* ids, const int* bounds, const int* which,
-                     int S, const int* rows, int H, unsigned s1, unsigned s2,
-                     unsigned s3, unsigned s4, const int* new_ids, int* out,
-                     int* lens, void* stream) {
+                     int S, int lanes, const int* rows, int H, unsigned s1,
+                     unsigned s2, unsigned s3, unsigned s4,
+                     const int* new_ids, int* out, int* lens, void* stream) {
+  if (lanes < 0 || lanes > S) return cudaErrorInvalidValue;
   int dev, sms;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
-  const int want = (S + K11_WARPS - 1) / K11_WARPS;
+  const int warps = (lanes + 31) / 32 + S - lanes;
+  const int want = (warps + K11_WARPS - 1) / K11_WARPS;
   const int most = sms * (2048 / (K11_WARPS * 32));
   const Cuckoo ck{reinterpret_cast<const int4*>(rows), H, s1, s2, s3, s4};
   chunk_encode_kernel<<<want < most ? want : most, K11_WARPS * 32, 0,
-                        (cudaStream_t)stream>>>(ids, bounds, which, S, ck,
-                                                new_ids, out, lens);
+                        (cudaStream_t)stream>>>(ids, bounds, which, S, lanes,
+                                                ck, new_ids, out, lens);
   return cudaGetLastError();
 }
 
-// K12 over ids[0 .. n), seg[0 .. n); rows, H and the seeds as for K11;
-// pairs: int32[M][2] and new_ids: int32[M] by rank; w_*: int32[max(n, 1)]
-// each, 16-byte aligned; blk: int32[4 * grid]; n_out: int32[1]. The result
-// is in w_ids0, w_seg0. A refused cooperative launch returns its error.
-int bpe_encode_min_sweep(const int* ids, const int* seg, int n,
+// K12 over the chunks of ids (chunk c: ids[bounds[c] .. bounds[c + 1])) that
+// jobs names: int32[blocks][4], 16-byte aligned, one (w, mode | S << 4, P,
+// base) a block (encode_min_sweep_kernel), `cluster` blocks a cluster
+// (blocks a multiple of it). rows, H, the seeds and new_ids as for K11.
+// Writes each chunk's tokens to out[bounds[c] ..], their count to lens[c]
+// and, where rounds is not null, its rounds to rounds[c]. scratch: the
+// device-memory tier's slots; ns: its sub-ranges a thread. A launch whose
+// clusters cannot be resident returns its error (the cluster-size and
+// shared-memory allowances are set once per device).
+int bpe_encode_min_sweep(const int* ids, const int* bounds, const int* which,
+                         const int* jobs, int blocks, int cluster,
                          const int* rows, int H, unsigned s1, unsigned s2,
-                         unsigned s3, unsigned s4, const int* pairs,
-                         const int* new_ids, int* w_ids0, int* w_seg0,
-                         int* w_ids1, int* w_seg1, int* blk, int grid,
-                         int* n_out, void* stream) {
-  Cuckoo ck{reinterpret_cast<const int4*>(rows), H, s1, s2, s3, s4};
-  void* args[] = {&ids,    &seg,    &n,      &ck,     &pairs, &new_ids,
-                  &w_ids0, &w_seg0, &w_ids1, &w_seg1, &blk,   &n_out};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)encode_min_sweep_kernel, dim3(grid), dim3(TPB), args, 0,
-      (cudaStream_t)stream);
+                         unsigned s3, unsigned s4, const int* new_ids,
+                         int* out, int* lens, int* rounds, int* scratch,
+                         int ns, void* stream) {
+  static std::atomic<int> allowed[64];
+  if (blocks < 1 || cluster < 1 || blocks % cluster || ns < 1 ||
+      ns > K12_NS_MAX || (reinterpret_cast<uintptr_t>(jobs) & 15))
+    return cudaErrorInvalidValue;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (allowed[dev] == 0) {
+    e = cudaFuncSetAttribute((const void*)encode_min_sweep_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed,
+                             1);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute((const void*)encode_min_sweep_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               K12_SUM_BYTES * K12_NS_MAX);
+    if (e != cudaSuccess) return e;
+    allowed[dev] = 1;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(K12_TPB);
+  cfg.dynamicSmemBytes = K12_SUM_BYTES * (size_t)ns;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  int fit = 0;
+  e = cudaOccupancyMaxActiveClusters(
+      &fit, (const void*)encode_min_sweep_kernel, &cfg);
+  if (e == cudaSuccess && fit < 1) e = cudaErrorInvalidConfiguration;
+  if (e == cudaSuccess) {
+    const Cuckoo ck{reinterpret_cast<const int4*>(rows), H, s1, s2, s3, s4};
+    e = cudaLaunchKernelEx(&cfg, encode_min_sweep_kernel, ids, bounds, which,
+                           reinterpret_cast<const int4*>(jobs), ck, new_ids,
+                           out, lens, rounds, scratch, ns);
+  }
   if (e != cudaSuccess) {
     cudaGetLastError();  // the refusal is returned, not left for the next
     return e;

@@ -19,11 +19,11 @@ same device, so a whole run launches without a host sync per merge:
 - ``encode_sweep``   K10: the encoder's whole rank sweep, every merge of a
   table applied and compacted in turn, in one cooperative launch;
 - ``chunk_encode``   K11: encode with a table above the dense route's vocab
-  (a cuckoo pair table, ops/ranktab.py), one warp per chunk of at most
-  CHUNK_MAX tokens;
-- ``encode_min_sweep`` K12: the same for a stream of longer chunks: K10's
-  sweep, each round applying the lowest rank present, in one cooperative
-  launch.
+  (a cuckoo pair table, ops/ranktab.py), chunks of at most CHUNK_WARP_MAX
+  tokens: one lane a chunk of up to 8, one warp a longer one;
+- ``encode_min_sweep`` K12: the same for longer chunks, each chunk's own
+  lowest-rank loop in one block or one thread-block cluster (``k12_plan``),
+  all in one launch;
 - ``pair_select``    K13: one round of the sort-round trainer: every pair's
   count and first position into a device hash table (``PairTable``), then
   the round's pair and record, leaving the table empty, in one cooperative
@@ -87,8 +87,10 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # positions per tile of K3, K4 and K10 (bpe_tile_size() on the card)
 TILE = 2048
 INT32_MAX = 2**31 - 1
-# the longest chunk K11 takes (CHUNK_MAX on the card)
+# the longest chunk K11 takes (CHUNK_MAX on the card), and the longest one
+# lane of it takes (LANE_MAX)
 CHUNK_WARP_MAX = 256
+K11_LANE_MAX = 8
 # the batch (fused_train.py:398 K_CAP) and its creation histograms
 K_CAP = 16
 HIST_BUCKETS = 128
@@ -196,13 +198,13 @@ SIGNATURES = {
     "bpe_batch_hist": [_P, _P, _P, _P, _I, _P, _P, _P],
     "bpe_batch_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "bpe_compact": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
-    "bpe_encode_grid": [_I, _I],
+    "bpe_encode_grid": [_I],
     "bpe_encode_sweep": [_P, _P, _I, _P, _P, _I, _P,
                          _P, _P, _P, _P, _I, _P, _P],
-    "bpe_chunk_encode": [_P, _P, _P, _I, _P, _I, _U, _U, _U, _U, _P, _P, _P,
-                         _P],
-    "bpe_encode_min_sweep": [_P, _P, _I, _P, _I, _U, _U, _U, _U, _P, _P,
-                             _P, _P, _P, _P, _P, _I, _P, _P],
+    "bpe_chunk_encode": [_P, _P, _P, _I, _I, _P, _I, _U, _U, _U, _U, _P, _P,
+                         _P, _P],
+    "bpe_encode_min_sweep": [_P, _P, _P, _P, _I, _I, _P, _I, _U, _U, _U, _U,
+                             _P, _P, _P, _P, _P, _I, _P],
     "bpe_pair_count": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bpe_pair_hist_grid": [_I, _I, _I],
     "bpe_pair_select_grid": [],
@@ -892,14 +894,14 @@ def _sweep_buffers(dev, cap: int, grid: int, words: int):
             torch.empty(1, dtype=torch.int32, device=dev))
 
 
-def _sweep_grid(lib, dev, cap: int, min_sweep: bool, name: str) -> int:
+def _sweep_grid(lib, dev, cap: int) -> int:
     if cap > INT32_MAX - TILE:
-        raise ValueError(f"{name}: {cap} tokens; the kernel takes fewer "
-                         f"than 2^31 - {TILE}")
+        raise ValueError(f"encode_sweep: {cap} tokens; the kernel takes "
+                         f"fewer than 2^31 - {TILE}")
     with torch.cuda.device(dev):
-        grid = lib.bpe_encode_grid(cap, int(min_sweep))
+        grid = lib.bpe_encode_grid(cap)
     if grid < 1:
-        raise RuntimeError(f"{name}: no cooperative launch on {dev} "
+        raise RuntimeError(f"encode_sweep: no cooperative launch on {dev} "
                            f"(CUDA error {-grid})")
     return grid
 
@@ -926,7 +928,7 @@ def encode_sweep(ids, seg, pairs, new_ids):
     _check("seg", seg, torch.int32, dev, cap)
     _check_rank_table(pairs, new_ids, dev)
     lib = _load()
-    grid = _sweep_grid(lib, dev, cap, False, "encode_sweep")
+    grid = _sweep_grid(lib, dev, cap)
     w, blk, n_out = _sweep_buffers(dev, cap, grid, 3)
     _run(dev, lib.bpe_encode_sweep, _ptr(ids), _ptr(seg), cap, _ptr(pairs),
          _ptr(new_ids), pairs.shape[0], _ptr(w[0]), _ptr(w[1]), _ptr(w[2]),
@@ -941,14 +943,14 @@ def encode_sweep(ids, seg, pairs, new_ids):
 # CuckooPairTable: rows, H, seeds, and the rank-order pairs and new_ids)
 # ---------------------------------------------------------------------------
 
-def encode_min_sweep_plain(ids, seg, table):
+def encode_min_sweep_plain(ids, seg, table, lows=None):
     """(ids, seg, n): every chunk (a run of equal seg) of the stream merges
     all occurrences of its own lowest-rank pair, left first, until it has
     none (minbpe/regex.py:96-108 per chunk; minbpe_tpu's _encode_flat,
-    ops/flat_encode.py:61-186); n is an int32[1] tensor. The plain version
-    of K11 and K12: chunks are independent and the ranks a chunk applies
-    only rise, so K12's rule (the grid's lowest rank, applied everywhere)
-    gives the same stream."""
+    ops/flat_encode.py:61-186); n is an int32[1] tensor. Every chunk takes
+    its own round at once. The loop of chunk_encode_plain, the plain version
+    of K11 and K12. ``lows``: a list that takes each round's rank per chunk
+    index (RANK_INF where the chunk applied none)."""
     ids, seg = ids.clone(), seg.clone()
     while ids.numel() >= 2:
         same = seg[:-1] == seg[1:]
@@ -960,6 +962,8 @@ def encode_min_sweep_plain(ids, seg, table):
         low = torch.full((int(seg.max()) + 1,), RANK_INF, dtype=rank.dtype,
                          device=ids.device)
         low.scatter_reduce_(0, s, rank, "amin")
+        if lows is not None:
+            lows.append(low)
         m = (rank == low[s]) & (rank != RANK_INF)
         # consecutive matches are a run of one token (a, a): keep the even
         # offsets from the run's start
@@ -975,6 +979,24 @@ def encode_min_sweep_plain(ids, seg, table):
         ids, seg = merged[live], seg[live]
     return ids, seg, torch.full((1,), ids.numel(), dtype=torch.int32,
                                 device=ids.device)
+
+
+def sweep_rounds(ids, seg, table):
+    """(rounds of each chunk index of seg, distinct ranks applied anywhere)
+    of encode_min_sweep_plain over the stream: a chunk's rounds are the
+    distinct ranks it applies (its own sweep's length, what K12's
+    ``rounds`` reports); a sweep whose rounds are global, one rank a round
+    everywhere, takes as many rounds as all chunks' distinct ranks
+    together."""
+    lows = []
+    encode_min_sweep_plain(ids, seg, table, lows)
+    rounds = torch.zeros(int(seg.max()) + 1 if seg.numel() else 0,
+                         dtype=torch.int64, device=ids.device)
+    for low in lows:
+        rounds += low != RANK_INF
+    applied = [low[low != RANK_INF] for low in lows]
+    union = int(torch.unique(torch.cat(applied)).numel()) if applied else 0
+    return rounds, union
 
 
 def place_chunks(ids, seg, n, bounds, out, lens):
@@ -1000,10 +1022,11 @@ def place_chunks(ids, seg, n, bounds, out, lens):
 
 
 def chunk_encode_plain(ids, bounds, which, table, out, lens):
-    """K11's function: each chunk c of ``which`` (chunk c is ids[bounds[c]
-    .. bounds[c + 1])) encoded by encode_min_sweep_plain, its tokens
-    written to out[bounds[c] ..] and their count to lens[c] (out and lens
-    with one entry more than they hold, as place_chunks takes them)."""
+    """K11's and K12's function: each chunk c of ``which`` (chunk c is
+    ids[bounds[c] .. bounds[c + 1]), of any length) encoded by
+    encode_min_sweep_plain, its tokens written to out[bounds[c] ..] and
+    their count to lens[c] (out and lens with one entry more than they
+    hold, as place_chunks takes them)."""
     b = bounds.long()
     w = which.long()
     lo, L = b[w], b[w + 1] - b[w]
@@ -1026,10 +1049,14 @@ def _cuckoo_args(table, dev):
     return (_ptr(table.rows), table.H, *table.seeds)
 
 
-def chunk_encode(ids, bounds, which, table, out, lens):
+def chunk_encode(ids, bounds, which, table, out, lens, *, lanes):
     """One launch for the chunks of ``which`` (chunk_encode_plain), each of
     at most CHUNK_WARP_MAX tokens: ids, bounds (int32, C + 1 entries), which
-    (int32), out and lens (int32) on one device."""
+    (int32), out and lens (int32) on one device. ``lanes``: the first
+    ``lanes`` chunks of ``which`` go 32 to a warp, one a lane where it has
+    at most K11_LANE_MAX tokens (the warp takes a longer one), and each
+    later one has a warp of its own; ops/flat_encode.k11_order puts those
+    of at most K11_LANE_MAX tokens first and counts them."""
     if not ids.is_cuda:
         return chunk_encode_plain(ids, bounds, which, table, out, lens)
     dev = ids.device
@@ -1038,32 +1065,144 @@ def chunk_encode(ids, bounds, which, table, out, lens):
     _check("which", which, torch.int32, dev, 1)
     _check("out", out, torch.int32, dev, ids.numel())
     _check("lens", lens, torch.int32, dev, bounds.numel() - 1)
+    S = which.numel()
+    lanes = int(lanes)
+    if not 0 <= lanes <= S:
+        raise ValueError(f"lanes = {lanes} for {S} chunks")
     args = _cuckoo_args(table, dev)
     lib = _load()
-    _run(dev, lib.bpe_chunk_encode, _ptr(ids), _ptr(bounds), _ptr(which),
-         which.numel(), *args, _ptr(table.new_ids), _ptr(out), _ptr(lens))
+    _run(dev, lib.bpe_chunk_encode, _ptr(ids), _ptr(bounds), _ptr(which), S,
+         lanes, *args, _ptr(table.new_ids), _ptr(out), _ptr(lens))
     CHUNK_ENCODE.launches += 1
 
 
-def encode_min_sweep(ids, seg, table):
-    """One cooperative launch for the whole stream (encode_min_sweep_plain).
-    The result's ids and seg are views of one new allocation; the inputs
-    are not written. Raises where the cooperative launch is refused."""
+# K12's geometry (csrc/bpe_kernels.cu): threads a block, slots a thread in
+# registers, the largest cluster, sub-ranges a thread in device memory
+K12_TPB = 256
+K12_P = 32
+K12_CLUSTER_MAX = 16
+K12_NS_MAX = 24
+# the longest chunk one block holds in registers, and one cluster
+K12_BLOCK_CAP = K12_TPB * K12_P
+K12_ONCHIP_CAP = K12_CLUSTER_MAX * K12_BLOCK_CAP
+# the cluster of a chunk in the device-memory tier, and its slots' groups
+K12_DEVICE_CLUSTER = 16
+K12_GROUP = 8
+# the device tier's scratch offsets count units of this many ints (a slot
+# is two ints; a chunk's scratch is whole groups of every thread's slots)
+K12_BASE_UNIT = 2 * K12_TPB * K12_GROUP
+# job modes: a block's own chunk, a cluster's in registers, a cluster's in
+# device memory
+K12_BLOCK, K12_CLUSTER, K12_DEVICE = 0, 1, 2
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _k12_device_slots(n: int) -> tuple[int, int]:
+    """(P, S): a device-tier chunk of n tokens takes P slots a thread of a
+    K12_DEVICE_CLUSTER cluster, in sub-ranges of S slots (whole groups, at
+    most K12_NS_MAX a thread)."""
+    P = -(-n // (K12_DEVICE_CLUSTER * K12_TPB))
+    S = _round_up(max(K12_GROUP, -(-P // K12_NS_MAX)), K12_GROUP)
+    return _round_up(P, S), S
+
+
+def _k12_device_max() -> int:
+    """The longest chunk whose slots the kernel's int32 positions reach."""
+    lo, hi = K12_ONCHIP_CAP, INT32_MAX
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if K12_DEVICE_CLUSTER * K12_TPB * _k12_device_slots(mid)[0] \
+                <= INT32_MAX:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+K12_DEVICE_MAX = _k12_device_max()
+
+
+def k12_plan(lengths):
+    """K12's launch for chunks of these lengths (each above CHUNK_WARP_MAX,
+    none above K12_DEVICE_MAX: ValueError): (jobs, cluster, ns, scratch
+    ints, modes). A chunk of at most K12_BLOCK_CAP tokens is one block's,
+    with the fewest of 8, 16 or K12_P slots a thread in registers that hold
+    it; one of at most K12_ONCHIP_CAP a whole cluster's, 16 slots a thread
+    (K12_P where the largest cluster needs them); a longer one a cluster's
+    of K12_DEVICE_CLUSTER blocks, its slots in device memory. The launch's
+    cluster is the least power of two every chunk fits; blocks that take a
+    chunk alone are packed a cluster at a time. jobs: int32 (blocks, 4),
+    one (w, mode | S << 4, P, base) a block, w the chunk's index in
+    ``lengths`` (-1: idle), and for the device tier P slots a thread in
+    sub-ranges of S, base their offset in the scratch in K12_BASE_UNIT
+    ints; ns: the device tier's sub-ranges a thread."""
+    lengths = [int(n) for n in lengths]
+    if lengths and max(lengths) > K12_DEVICE_MAX:
+        raise ValueError(f"a chunk of {max(lengths)} tokens: K12 takes at "
+                         f"most {K12_DEVICE_MAX} tokens a chunk")
+    need = 1
+    for n in lengths:
+        if n > K12_ONCHIP_CAP:
+            need = max(need, K12_DEVICE_CLUSTER)
+        elif n > K12_BLOCK_CAP:  # as many blocks as 16 slots a thread need
+            blocks = -(-n // (16 * K12_TPB))
+            need = max(need, min(K12_CLUSTER_MAX,
+                                 1 << (blocks - 1).bit_length()))
+    cs = need
+    jobs, alone, modes = [], [], []
+    ns, base = 1, 0
+    for w, n in enumerate(lengths):
+        if n <= K12_BLOCK_CAP:  # the fewest slots a thread that hold it
+            P = next(p for p in (8, 16, K12_P) if n <= p * K12_TPB)
+            alone.append((w, K12_BLOCK, P, 0))
+            modes.append(K12_BLOCK)
+        elif n <= cs * K12_BLOCK_CAP:  # 16 slots a thread where they hold it
+            P = 16 if n <= cs * K12_TPB * 16 else K12_P
+            jobs += [(w, K12_CLUSTER, P, 0)] * cs
+            modes.append(K12_CLUSTER)
+        else:
+            P, S = _k12_device_slots(n)
+            jobs += [(w, K12_DEVICE | S << 4, P, base // K12_BASE_UNIT)] * cs
+            modes.append(K12_DEVICE)
+            base += 2 * cs * K12_TPB * P
+            ns = max(ns, P // S)
+    alone += [(-1, 0, 0, 0)] * (-len(alone) % cs)
+    return jobs + alone, cs, ns, base, modes
+
+
+def encode_min_sweep(ids, bounds, which, table, out, lens, *, lengths,
+                     rounds=None):
+    """One launch for the chunks of ``which``, each longer than
+    CHUNK_WARP_MAX tokens (chunk_encode_plain; on the card by k12_plan's
+    jobs): ids, bounds (int32, C + 1 entries), which (int32), out and lens
+    (int32) on one device, as chunk_encode takes them. ``lengths``: the
+    chunks' lengths, on the host; ``rounds`` (int32, C entries, the card
+    only): each chunk's rounds. Raises where the launch is refused."""
     if not ids.is_cuda:
-        return encode_min_sweep_plain(ids, seg, table)
+        return chunk_encode_plain(ids, bounds, which, table, out, lens)
     dev = ids.device
-    cap = ids.numel()
     _check("ids", ids, torch.int32, dev, 0)
-    _check("seg", seg, torch.int32, dev, cap)
+    _check("bounds", bounds, torch.int32, dev, 1)
+    _check("which", which, torch.int32, dev, 1)
+    _check("out", out, torch.int32, dev, ids.numel())
+    _check("lens", lens, torch.int32, dev, bounds.numel() - 1)
+    if rounds is not None:
+        _check("rounds", rounds, torch.int32, dev, bounds.numel() - 1)
     args = _cuckoo_args(table, dev)
+    if len(lengths) != which.numel():
+        raise ValueError(f"{len(lengths)} lengths for {which.numel()} chunks")
+    jobs, cs, ns, base, _ = k12_plan(lengths)
+    jt = torch.tensor(jobs, dtype=torch.int32).to(dev)
+    scratch = (torch.empty(base, dtype=torch.int32, device=dev) if base
+               else None)
     lib = _load()
-    grid = _sweep_grid(lib, dev, cap, True, "encode_min_sweep")
-    w, blk, n_out = _sweep_buffers(dev, cap, grid, 4)
-    _run(dev, lib.bpe_encode_min_sweep, _ptr(ids), _ptr(seg), cap, *args,
-         _ptr(table.pairs), _ptr(table.new_ids), _ptr(w[0]), _ptr(w[1]),
-         _ptr(w[2]), _ptr(w[3]), _ptr(blk), grid, _ptr(n_out))
+    _run(dev, lib.bpe_encode_min_sweep, _ptr(ids), _ptr(bounds),
+         _ptr(which), _ptr(jt), len(jobs), cs, *args, _ptr(table.new_ids),
+         _ptr(out), _ptr(lens), _ptr(rounds), _ptr(scratch), ns)
     ENCODE_MIN_SWEEP.launches += 1
-    return w[0, :cap], w[1, :cap], n_out
 
 
 # ---------------------------------------------------------------------------

@@ -10,13 +10,13 @@ looked up in a cuckoo table (ops/ranktab.py).
 
 Chunks are routed by length on the host, from the chunk ends, with no
 sync: those of at most ``CHUNK_WARP_MAX`` tokens (a GPT-4 split's words,
-numbers, punctuation) go to K11 ``chunk_encode``, one warp a chunk; the
-longer ones (a BasicTokenizer's single chunk, long runs of whitespace or
-punctuation) are gathered into a stream of their own for K12
-``encode_min_sweep``. Both write each chunk's tokens back at its input
-offset in one buffer, which comes to the host in one fetch with the
+numbers, punctuation) go to K11 ``chunk_encode``, a lane or a warp a
+chunk; the longer ones (a BasicTokenizer's single chunk, long runs of
+whitespace or punctuation) to K12 ``encode_min_sweep``, a block or a
+thread-block cluster a chunk. Both write each chunk's tokens back at its
+input offset in one buffer, which comes to the host in one fetch with the
 per-chunk lengths. On the CPU, kernels.py runs their plain version
-(``encode_min_sweep_plain``).
+(``chunk_encode_plain``).
 """
 
 from __future__ import annotations
@@ -28,10 +28,25 @@ from .. import kernels
 from .train import check_device_memory
 
 CHUNK_WARP_MAX = kernels.CHUNK_WARP_MAX
-# device bytes per input token at the peak: the bytes as int32 ids (4) and
-# the output buffer (4); the long chunks' stream (8) and K12's four work
-# rows (16)
-BYTES_PER_TOKEN = 32
+# device bytes per input token at the peak: the output buffer (4) and the
+# bytes (1) while they become int32 ids (4), which go before the fetch
+# takes their place; K12's scratch for chunks past its on-chip tier comes
+# on top, as kernels.k12_plan sizes it
+BYTES_PER_TOKEN = 9
+
+
+def k11_order(lengths, short):
+    """(which, lanes): the indices (int32) of the chunks of these lengths
+    that ``short`` marks (each at most CHUNK_WARP_MAX tokens), those of at
+    most K11_LANE_MAX tokens first (a lane of K11 each), and how many
+    those are: K11's ``which`` and ``lanes``. A few passes over the
+    lengths: it runs on the host for every encode."""
+    lane = lengths <= kernels.K11_LANE_MAX
+    first, rest = np.flatnonzero(lane), np.flatnonzero(short ^ lane)
+    which = np.empty(first.size + rest.size, np.int32)
+    which[:first.size] = first
+    which[first.size:] = rest
+    return which, first.size
 
 
 def encode_offsets_arrays(data: np.ndarray, ends: np.ndarray, table):
@@ -44,31 +59,33 @@ def encode_offsets_arrays(data: np.ndarray, ends: np.ndarray, table):
     if C == 0 or N == 0:
         return (np.zeros(0, np.int32), np.zeros(C, np.int64),
                 np.zeros(0, np.int32))
+    if N > kernels.INT32_MAX:
+        raise ValueError(f"{N} tokens: the chunk offsets are int32")
     dev = table.device
-    if dev.type == "cuda":
-        check_device_memory(dev, BYTES_PER_TOKEN * N,
-                            f"encoding {N} tokens ({BYTES_PER_TOKEN} B/token)")
-    ends = np.asarray(ends, dtype=np.int64)
     data = np.array(data, dtype=np.uint8)  # writable, for torch
-    L = np.diff(ends, prepend=0)
+    # int32 throughout: half the bytes of each pass over the chunks
+    ends32 = np.concatenate([[0], ends]).astype(np.int32)
+    L = np.diff(ends32)
     short = L <= CHUNK_WARP_MAX
-    bounds = torch.from_numpy(
-        np.concatenate([[0], ends]).astype(np.int32)).to(dev)
+    long = [] if short.all() else L[~short].tolist()
+    if dev.type == "cuda":
+        scratch = 4 * kernels.k12_plan(long)[3]
+        check_device_memory(dev, BYTES_PER_TOKEN * N + scratch,
+                            f"encoding {N} tokens ({BYTES_PER_TOKEN} B/token "
+                            f"and {scratch} B of K12 scratch)")
+    bounds = torch.from_numpy(ends32).to(dev)
     out = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
     lens = torch.zeros(C + 1, dtype=torch.int32, device=dev)
+    ids = torch.from_numpy(data).to(dev).to(torch.int32)
     if short.any():
-        ids = torch.from_numpy(data).to(dev).to(torch.int32)
-        which = torch.from_numpy(
-            np.flatnonzero(short).astype(np.int32)).to(dev)
-        kernels.chunk_encode(ids, bounds, which, table, out, lens)
-    if not short.all():
-        longs = np.flatnonzero(~short)
-        l_ids = torch.from_numpy(data[np.repeat(~short, L)]).to(dev).to(
-            torch.int32)
-        l_seg = torch.from_numpy(
-            np.repeat(longs.astype(np.int32), L[longs])).to(dev)
-        kernels.place_chunks(*kernels.encode_min_sweep(l_ids, l_seg, table),
-                             bounds, out, lens)
+        which, lanes = k11_order(L, short)
+        kernels.chunk_encode(ids, bounds, torch.from_numpy(which).to(dev),
+                             table, out, lens, lanes=lanes)
+    if long:
+        which = np.flatnonzero(~short).astype(np.int32)
+        kernels.encode_min_sweep(ids, bounds, torch.from_numpy(which).to(dev),
+                                 table, out, lens, lengths=long)
+    del ids
     host = torch.cat([out[:N], lens[:C]]).cpu().numpy()
     flat = host[:N]
     lens = host[N:].astype(np.int64)

@@ -563,7 +563,7 @@ def test_encode_sweep_one_block(dev):
     text = _words(8, 300).encode()[:1500]
     ids = np.frombuffer(text, np.uint8).astype(np.int32)
     seg = np.cumsum(ids == 32).astype(np.int32)
-    assert kernels._load().bpe_encode_grid(ids.size, 0) == 1
+    assert kernels._load().bpe_encode_grid(ids.size) == 1
     tok = BasicTokenizer(device="cpu")
     tok.train(_words(9, 2000), 320)
     pairs, new_ids = tok._merge_arrays()
@@ -865,8 +865,9 @@ RUN_TABLE = [(97, 97), (256, 256), (257, 257), (256, 97), (258, 97),
 
 def _flat_both(dev, chunks, pairs, new_ids):
     """The sorted route on the card against the plain one on the CPU, then
-    K11 and K12 each against the plain version on the card's tensors.
-    Returns the tokens."""
+    K11 and K12 each against the plain version on the card's tensors (K12
+    also its rounds against the chunks' own: each chunk runs its own
+    sweep). Returns the tokens."""
     from minbpe_tpu_torch.ops import flat_encode
     from minbpe_tpu_torch.ops.ranktab import CuckooPairTable
 
@@ -887,26 +888,37 @@ def _flat_both(dev, chunks, pairs, new_ids):
     N, C = len(data), len(ends)
     ids = torch.from_numpy(data.astype(np.int32)).to(dev)
     bounds = torch.from_numpy(np.r_[0, ends].astype(np.int32)).to(dev)
-    if short.any():
-        which = torch.from_numpy(np.flatnonzero(short).astype(np.int32)).to(
-            dev)
+    at, long = np.flatnonzero(short), np.flatnonzero(~short)
+    order, lanes = flat_encode.k11_order(L, short)
+    # K11 with the short chunks first, with each a warp, and with all 32 to
+    # a warp (a warp takes a lane's longer chunk); K12
+    for kernel, pick, kw in (
+            (kernels.chunk_encode, order, {"lanes": lanes}),
+            (kernels.chunk_encode, at, {"lanes": 0}),
+            (kernels.chunk_encode, at, {"lanes": at.size}),
+            (kernels.encode_min_sweep, long, {"lengths": L[long].tolist()})):
+        if not pick.size:
+            continue
+        which = torch.from_numpy(pick.astype(np.int32)).to(dev)
         outs = []
-        for fn in (kernels.chunk_encode, kernels.chunk_encode_plain):
+        for fn in (kernel, kernels.chunk_encode_plain):
             out = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
             lens = torch.zeros(C + 1, dtype=torch.int32, device=dev)
-            fn(ids, bounds, which, tg, out, lens)
+            fn(ids, bounds, which, tg, out, lens,
+               **(kw if fn is kernel else {}))
             outs.append((out, lens))
         assert torch.equal(outs[0][0], outs[1][0])
         assert torch.equal(outs[0][1], outs[1][1])
     if (~short).any():
-        at = torch.from_numpy(np.flatnonzero(np.repeat(~short, L))).to(dev)
-        seg = torch.from_numpy(np.repeat(np.arange(C, dtype=np.int32),
-                                         L)).to(dev)
-        gi, gs, gn = kernels.encode_min_sweep(ids[at], seg[at], tg)
-        wi, ws, wn = kernels.encode_min_sweep_plain(ids[at], seg[at], tg)
-        k = int(wn)
-        assert int(gn) == k
-        assert torch.equal(gi[:k], wi[:k]) and torch.equal(gs[:k], ws[:k])
+        rounds = torch.full((C,), -1, dtype=torch.int32, device=dev)
+        out = torch.full((N + 1,), -1, dtype=torch.int32, device=dev)
+        lens = torch.zeros(C + 1, dtype=torch.int32, device=dev)
+        kernels.encode_min_sweep(ids, bounds, torch.from_numpy(
+            long.astype(np.int32)).to(dev), tg, out, lens,
+            lengths=L[long].tolist(), rounds=rounds)
+        own, _ = kernels.sweep_rounds(ids, torch.from_numpy(
+            np.repeat(np.arange(C, dtype=np.int32), L)).to(dev), tg)
+        assert rounds[long].tolist() == own[long].tolist()
     return got[0]
 
 
@@ -918,6 +930,11 @@ def _flat_both(dev, chunks, pairs, new_ids):
     [1] * 3000 + [EDGE] * 40 + [33] * 500,
     [TILE - 1, TILE, TILE + 1, 5 * TILE + 3],
     [1 << 20],
+    [EDGE, EDGE + 1, EDGE + 2],
+    [kernels.K11_LANE_MAX, kernels.K11_LANE_MAX + 1, 31, 32, 33, EDGE - 1],
+    [kernels.K12_BLOCK_CAP, kernels.K12_BLOCK_CAP + 1],
+    [kernels.K12_ONCHIP_CAP],
+    [kernels.K12_ONCHIP_CAP + 1],
 ])
 @pytest.mark.parametrize("fill", ["run", "mixed"])
 def test_sorted_route_kernels_match_plain(dev, sizes, fill):
@@ -930,11 +947,78 @@ def test_sorted_route_kernels_match_plain(dev, sizes, fill):
     _flat_both(dev, chunks, pairs, new_ids)
 
 
+@pytest.mark.parametrize("length", [5000, 30_000, 100_000])
+def test_k12_runs_across_borders(dev, length):
+    """Runs of one byte (a, a) of odd and even lengths across a thread's,
+    a warp's and a block's first positions (from the plan's slots a thread),
+    in text of other bytes: the left-first parity crosses each."""
+    jobs, cs, *_ = kernels.k12_plan([length])
+    P = jobs[0][2]
+    rng = np.random.default_rng(length)
+    buf = bytearray(rng.choice([98, 99], length).tolist())
+    for at, run in ((P, 5), (2 * P, 6), (32 * P, 9), (32 * P * 3, 10),
+                    (kernels.K12_TPB * P, 13), (kernels.K12_TPB * P * 2, 4)):
+        lo = max(0, at - run // 2)
+        buf[lo:min(length, lo + run)] = b"a" * len(buf[lo:lo + run])
+    pairs = np.array(RUN_TABLE + [(98, 99), (99, 98), (262, 262)], np.int32)
+    new_ids = 256 + np.arange(len(pairs), dtype=np.int32)
+    _flat_both(dev, [bytes(buf)], pairs, new_ids)
+
+
+def test_k12_many_long_chunks(dev):
+    """Many chunks of seeded lengths, from just past K11's tier to a
+    cluster's, in one launch."""
+    rng = np.random.default_rng(11)
+    lengths = rng.integers(EDGE + 1, 3 * kernels.K12_BLOCK_CAP, 40)
+    text = _words(12, 60_000).encode()
+    chunks = [text[o:o + n] for o, n in
+              zip(rng.integers(0, len(text) - lengths.max(), 40), lengths)]
+    tok = BasicTokenizer(device="cpu")
+    tok.train(_words(13, 20_000), 256 + 300)
+    pairs, new_ids = tok._merge_arrays()
+    _flat_both(dev, chunks + [b"x" * 300], pairs, new_ids)
+
+
+def test_k12_refused_launch_raises(dev, monkeypatch):
+    """A plan whose cluster is larger than the card takes: the launch is
+    refused, the wrapper raises, and the next launch runs."""
+    from minbpe_tpu_torch.ops.ranktab import CuckooPairTable
+
+    plan = kernels.k12_plan
+
+    t = CuckooPairTable(np.array(RUN_TABLE, np.int32),
+                        256 + np.arange(len(RUN_TABLE), dtype=np.int32), dev)
+    ids = torch.full((3000,), 97, dtype=torch.int32, device=dev)
+    bounds = torch.tensor([0, 3000], dtype=torch.int32, device=dev)
+    which = torch.zeros(1, dtype=torch.int32, device=dev)
+    out = torch.full((3001,), -1, dtype=torch.int32, device=dev)
+    lens = torch.zeros(2, dtype=torch.int32, device=dev)
+    kernels.reset_launches()
+
+    def too_large(lengths):
+        jobs, _, ns, base, modes = plan(lengths)
+        return [jobs[0]] * 64, 64, ns, base, modes
+
+    monkeypatch.setattr(kernels, "k12_plan", too_large)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        kernels.encode_min_sweep(ids, bounds, which, t, out, lens,
+                                 lengths=[3000])
+    assert kernels.ENCODE_MIN_SWEEP.launches == 0
+    monkeypatch.setattr(kernels, "k12_plan", plan)
+    kernels.encode_min_sweep(ids, bounds, which, t, out, lens,
+                             lengths=[3000])
+    torch.cuda.synchronize()
+    want_out = torch.full_like(out, -1)
+    want_lens = torch.zeros_like(lens)
+    kernels.chunk_encode_plain(ids, bounds, which, t, want_out, want_lens)
+    assert torch.equal(out, want_out) and torch.equal(lens, want_lens)
+
+
 def test_sorted_route_ids_above_2_16(dev):
     pairs = np.array([(97, 98), (70_000, 99), (70_001, 97)], np.int32)
     new_ids = np.array([70_000, 70_001, 100_260], np.int32)
-    got = _flat_both(dev, [b"abca", b"ab", b"abcabcab" * 40, b"abca" * 100],
-                     pairs, new_ids)
+    got = _flat_both(dev, [b"abca", b"ab", b"abcabcab" * 40, b"abca" * 100,
+                           b"abca" * 10_000], pairs, new_ids)
     assert 100_260 in got.tolist()
 
 
