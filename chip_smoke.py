@@ -34,14 +34,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the 400K stream, the smoke stream after the vocab-8192 golden's first
    4,000 merges, 2^20 copies of "a", 2^20 distinct ids, the XL corpus's
    stream and that stream four times over (50,353,352 tokens), each with
-   its bytes bound and torch.unique's time; the outputs are integers and
-   must be exactly equal;
+   its bytes bound and torch.unique's time; K15 presplit_succ and
+   presplit_orbit (the device pre-split) against their plain twin, the
+   split's boundaries and segment ids and each kernel's own step, on the
+   smoke and the XL corpus in both modes and on 2^20 spaces, letters and
+   digits, each with its bytes bound (the whole split's time at the main
+   shape also from the profiler); the outputs are integers and must be
+   exactly equal;
 3. drive the main path through the user's entry points, one path at a
    time, with every launch count set to 0 just before each path and read
    just after it: RegexTokenizer (GPT-4 pattern) training at vocab 1024 on
    the frozen in-repo smoke corpus (merges and counts equal to the golden
    that minbpe_tpu produced, in fewer rebuilds than merges), encode (ids'
-   sha256 equal to the golden's), decode, encode_batch and the same
+   sha256 equal to the golden's), the same encode with the device
+   pre-split (K15 once each, K10 once, every other kernel and the host
+   scanner never), decode, encode_batch and the same
    documents encoded one by one, special tokens, save/load, a
    BasicTokenizer at vocab 512 and one on 2^20 copies of "a", both equal to
    the plain path on the CPU (every encode path launching K10 once per
@@ -58,7 +65,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    decode, the 256 documents as one batch, special tokens), RegexTokenizer
    on smoke_plus_4096 (dense) and smoke_plus_4353 (sorted), the
    BasicTokenizer on the latter (one chunk), and the XL corpus through the
-   dense route. Then the routes past vocab 2048 and 48·2^20 tokens:
+   dense route, with the host split and with the device split. Then the
+   routes past vocab 2048 and 48·2^20 tokens:
    smoke-8192 (vocab 8,192 on the smoke corpus) by the default route (the
    sort-round trainer), "sortloop_inc", "sparse" and "sparse_inc", each
    equal to the vocab-8192 golden; the XL corpus at vocab 1024 with a
@@ -66,7 +74,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the XL golden; and the XL corpus's split tiled four times (50,353,352
    tokens), equal to the XL golden's merges with four times its counts;
 4. in a process of its own, the device's busy time (torch.profiler) in
-   the encode runs (the 768-merge table and GPT-4's), the training runs
+   the encode runs (the 768-merge table and GPT-4's; the whole smoke
+   encode with the host split and with the device split), the training runs
    on both corpora, the "pallas" and stepped runs on the smoke corpus and
    smoke-8192's default route against their wall time: the idle share;
 5. print the kernels line (launches of each path in phase 3, errors and
@@ -135,20 +144,41 @@ def phase_build(kernels, native):
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# sleep cycles a call, tried in turn, for device_ms and split_ms
+SLEEP_CYCLES = (400_000, 3_200_000)
+# the readings device_ms and split_ms took again behind a longer sleep
+# (the function, the sleep, the reading set aside), and those they took
+# from the profiler (the function, the reading, each activity's count over
+# the reps): the host outran the sleep
+RETAKEN_READINGS: list = []
+PROFILED_READINGS: list = []
+
+
 def device_ms(torch, fn, reps: int) -> float:
     """Device time per call: the host enqueues every call behind a sleeping
-    kernel, so the events time the device work and not the enqueue."""
+    kernel, so the events time the device work and not the enqueue. That
+    holds only while the sleep outlasts the enqueue: where the start event
+    has already passed when the last call is enqueued, the device may have
+    waited on the host, and the reading is taken again behind a longer
+    sleep, then from the profiler's device time (a call that syncs
+    outruns any sleep)."""
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(reps * 400_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    for cycles in SLEEP_CYCLES:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(reps * cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        covered = not start.query()
+        end.record()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(end) / reps
+        RETAKEN_READINGS.append((getattr(fn, "__qualname__", "?"), cycles,
+                                 start.elapsed_time(end) / reps))
+    return profiled_call_ms(torch, fn, reps)
 
 
 def profiled_events(torch, fn):
@@ -169,10 +199,11 @@ def profiled_events(torch, fn):
     return sorted(parts, reverse=True)
 
 
-def profiled_ms(torch, fn, reps: int) -> float:
-    """Device time per call from the profiler's device activity, for calls
-    that wait on the device (a library call that reads a size back): CUDA
-    events around them would also time the host's round trip."""
+def profiled_call(torch, fn, reps: int):
+    """(ms, counts): device time per call from the profiler, each device
+    activity's mean time times its count a call (its count over reps,
+    rounded, at least 1), so that records the profiler drops do not lower
+    the reading; and each activity's count, as "count/reps"."""
     fn()
     torch.cuda.synchronize()
 
@@ -180,10 +211,25 @@ def profiled_ms(torch, fn, reps: int) -> float:
         for _ in range(reps):
             fn()
 
-    busy = sum(p[0] for p in profiled_events(torch, loop))
-    if not busy:
+    parts = profiled_events(torch, loop)
+    if not parts:
         raise RuntimeError("the profiler recorded no device time")
-    return busy / reps
+    ms = sum(t / c * max(1, round(c / reps)) for t, c, _ in parts)
+    return ms, {name: f"{c}/{reps}" for _, c, name in parts}
+
+
+def profiled_ms(torch, fn, reps: int) -> float:
+    """Device time per call from the profiler (profiled_call), for calls
+    that wait on the device (a library call that reads a size back): CUDA
+    events around them would also time the host's round trip."""
+    return profiled_call(torch, fn, reps)[0]
+
+
+def profiled_call_ms(torch, fn, reps: int) -> float:
+    """profiled_ms, kept in PROFILED_READINGS with the counts."""
+    ms, counts = profiled_call(torch, fn, reps)
+    PROFILED_READINGS.append((getattr(fn, "__qualname__", "?"), ms, counts))
+    return ms
 
 
 def host_ms(torch, fn, reps: int) -> float:
@@ -859,23 +905,128 @@ def phase_flat(torch, np, kernels, golden_mod, gpt4, plus):
     return rows
 
 
+def presplit_case(torch, pdp, name, text, mode, profiled=False):
+    """K15 against its plain twin on the card for one text: the whole split
+    (presplit_seg_ids against presplit_plain, boundaries and segment ids
+    exact), then each kernel against its own step's plain version on the
+    same inputs. Bounds: the bytes of each function, each input read once
+    and each output written once. The whole split reads the n bytes and
+    the 64 KB class table and writes n boundaries and 4 n of segment ids;
+    presplit_succ reads the bytes and the table and writes 4 n of
+    successors; presplit_orbit reads the successors and writes the
+    boundaries and segment ids. No PyTorch call computes the function, so
+    there is no library time. With ``profiled``, the whole split's time
+    is also read from the profiler's device activity (None where the
+    profiler records none)."""
+    raw = text.encode("utf-8")
+    n = len(raw)
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to("cuda")
+    table = 0x10000 + 5 * pdp._device_tables(data.device)[1].numel()
+    got = pdp.presplit_seg_ids(data, n, mode)
+    want = pdp.presplit_plain(data, n, mode)
+    f = pdp.presplit_succ(data, n, mode)
+    f_plain = pdp.successor_plain(data, n, mode)
+    orb = pdp.presplit_orbit(f_plain, n)
+    orb_plain = pdp.orbit_plain(f_plain, n)
+    err = max_err(torch, [(got[0].int(), want[0].int()), (got[1], want[1])])
+    err_succ = max_err(torch, [(f, f_plain)])
+    err_orbit = max_err(torch, [(orb[0].int(), orb_plain[0].int()),
+                               (orb[1], orb_plain[1])])
+    big = n > (1 << 22)
+    reps = 5 if big else 20
+    rec = dict(
+        case=f"{name}_{mode}", n=n, chunks=int(got[1][-1]) + 1,
+        max_abs_err=max(err, err_succ, err_orbit), max_abs_err_split=err,
+        ms=device_ms(torch, lambda: pdp.presplit_seg_ids(data, n, mode),
+                     reps),
+        plain_ms=host_ms(torch, lambda: pdp.presplit_plain(data, n, mode),
+                         1),
+        bytes=n + table + 5 * n,
+        succ_ms=device_ms(torch, lambda: pdp.presplit_succ(data, n, mode),
+                          reps),
+        succ_plain_ms=host_ms(
+            torch, lambda: pdp.successor_plain(data, n, mode), 1),
+        succ_bytes=n + table + 4 * n, succ_max_abs_err=err_succ,
+        orbit_ms=device_ms(torch, lambda: pdp.presplit_orbit(f, n), reps),
+        orbit_plain_ms=host_ms(torch, lambda: pdp.orbit_plain(f, n), 1),
+        orbit_bytes=4 * n + 5 * n, orbit_max_abs_err=err_orbit)
+    for key in ("", "succ_", "orbit_"):
+        rec[f"{key}bound_ms"] = rec[f"{key}bytes"] / HBM_BYTES_PER_S * 1e3
+    rec["profiled_ms"] = None
+    if profiled:
+        try:
+            rec["profiled_ms"] = profiled_ms(
+                torch, lambda: pdp.presplit_seg_ids(data, n, mode), reps)
+        except RuntimeError:  # the profiler recorded no device time
+            pass
+    print(f"presplit {rec['case']}: {n} bytes -> {rec['chunks']} chunks, "
+          f"max_abs_err {err} / {err_succ} / {err_orbit}, {rec['ms']:.4f} "
+          f"ms (profiler {rec['profiled_ms']}; succ "
+          f"{rec['succ_ms']:.4f}, orbit {rec['orbit_ms']:.4f}; "
+          f"bound {rec['bound_ms']:.6f}), plain {rec['plain_ms']:.2f} ms")
+    return rec
+
+
+def phase_presplit(torch, golden_mod):
+    """K15 against its plain twin at the device split's shapes: the smoke
+    corpus and the XL corpus in both modes, and 2^20 spaces, letters and
+    digits (GPT-4). Returns the rows of presplit_succ and presplit_orbit;
+    the main shape is the smoke corpus with GPT-4's split (the
+    encode_device_split path)."""
+    from minbpe_tpu_torch import kernels
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+
+    corpus = golden_mod.smoke_corpus(ROOT)
+    xl = golden_mod.xl_corpus(ROOT)
+    k = 1 << 20
+    cases = [("smoke", corpus, "gpt4"), ("smoke", corpus, "gpt2"),
+             ("xl", xl, "gpt4"), ("xl", xl, "gpt2"),
+             ("spaces_2e20", " " * k + "x", "gpt4"),
+             ("letters_2e20", " " + "a" * k + "!", "gpt4"),
+             ("digits_2e20", "1" * k + " 22", "gpt4")]
+    recs = [presplit_case(torch, pdp, *c, profiled=not i)
+            for i, c in enumerate(cases)]
+    torch.cuda.empty_cache()
+    main = recs[0]
+    rows = []
+    for info, key in ((kernels.PRESPLIT_SUCC, "succ_"),
+                      (kernels.PRESPLIT_ORBIT, "orbit_")):
+        rows.append(dict(
+            k=info, err=max(r["max_abs_err"] for r in recs),
+            ms=main[f"{key}ms"], plain_ms=main[f"{key}plain_ms"],
+            bytes=main[f"{key}bytes"], library_ms=None,
+            k15_ms=main["ms"], k15_profiled_ms=main["profiled_ms"],
+            k15_plain_ms=main["plain_ms"],
+            k15_bound_ms=main["bound_ms"], shapes=recs))
+    return rows
+
+
 def split_ms(torch, fns, reps: int):
     """Device time per call of each of fns, called in turn reps times behind
-    a sleeping kernel, with an event between every two launches."""
+    a sleeping kernel, with an event between every two launches; taken
+    again behind a longer sleep where the host outran the first, then from
+    the profiler, one fn at a time (as device_ms)."""
     for fn in fns:
         fn()
     torch.cuda.synchronize()
-    ev = [[torch.cuda.Event(enable_timing=True) for _ in range(len(fns) + 1)]
-          for _ in range(reps)]
-    torch.cuda._sleep(reps * 400_000)
-    for r in range(reps):
-        ev[r][0].record()
-        for j, fn in enumerate(fns):
-            fn()
-            ev[r][j + 1].record()
-    torch.cuda.synchronize()
-    return [sum(ev[r][j].elapsed_time(ev[r][j + 1]) for r in range(reps))
-            / reps for j in range(len(fns))]
+    for cycles in SLEEP_CYCLES:
+        ev = [[torch.cuda.Event(enable_timing=True)
+               for _ in range(len(fns) + 1)] for _ in range(reps)]
+        torch.cuda._sleep(reps * len(fns) * cycles)
+        for r in range(reps):
+            ev[r][0].record()
+            for j, fn in enumerate(fns):
+                fn()
+                ev[r][j + 1].record()
+        covered = not ev[0][0].query()
+        torch.cuda.synchronize()
+        if covered:
+            return [sum(ev[r][j].elapsed_time(ev[r][j + 1])
+                        for r in range(reps)) / reps
+                    for j in range(len(fns))]
+        RETAKEN_READINGS.extend((getattr(fn, "__qualname__", "?"), cycles,
+                                 None) for fn in fns)
+    return [profiled_call_ms(torch, fn, reps) for fn in fns]
 
 
 def table_case(torch, kernels, name, ids, seg):
@@ -1034,6 +1185,30 @@ def merges_in_rank_order(np, merges):
     return np.array([list(p) for p, _ in items], dtype=np.int32)
 
 
+# the device pre-split encode: K15's two kernels and K10, once each
+DEVICE_SPLIT = {"presplit_succ": 1, "presplit_orbit": 1, "encode_sweep": 1}
+
+
+@contextlib.contextmanager
+def scanner_calls():
+    """The calls of the host pre-split scanner (utils/native.split_offsets)
+    while the block runs, as a list with one entry a call."""
+    from minbpe_tpu_torch.utils import native
+
+    calls = []
+    real = native.split_offsets
+
+    def counted(*args):
+        calls.append(1)
+        return real(*args)
+
+    native.split_offsets = counted
+    try:
+        yield calls
+    finally:
+        native.split_offsets = real
+
+
 TRAIN_KERNELS = ("pair_stats", "select_batch", "merge_apply", "batch_hist",
                  "batch_apply", "compact")
 ENCODE_KERNELS = ("encode_sweep",)
@@ -1121,6 +1296,27 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
     timings["decode_MB_per_s"] = nbytes / timings["decode_s"] / 1e6
     print(f"encode: {len(ids)} ids, sha256 equal to the golden; "
           f"decode round trip ok")
+
+    # the same encode with the device pre-split: only the raw bytes cross
+    tok.device_presplit = True
+    with scanner_calls() as calls, path("encode_device_split",
+                                        tuple(DEVICE_SPLIT),
+                                        exact=DEVICE_SPLIT):
+        t0 = time.perf_counter()
+        split_ids = tok.encode(corpus)
+        timings["encode_device_split_s"] = time.perf_counter() - t0
+    tok.device_presplit = False
+    if calls:
+        raise AssertionError(f"encode_device_split called the host scanner "
+                             f"{len(calls)} times")
+    if (golden_mod.ids_digest(split_ids) != golden["encode_sha256"]
+            or split_ids != ids):
+        raise AssertionError("the device-split encode differs from the "
+                             "golden or the host-split encode")
+    timings["encode_device_split_MB_per_s"] = (
+        nbytes / timings["encode_device_split_s"] / 1e6)
+    print(f"encode_device_split: {len(split_ids)} ids equal to the golden "
+          f"and the host split ({timings['encode_device_split_s']:.3f} s)")
 
     # encode_batch of 256 documents against per-document encode
     step = -(-len(corpus) // 256)
@@ -1331,6 +1527,17 @@ def encode_paths(np, golden_mod, corpus, path, timings, gpt4, plus):
         len(xl_text.encode("utf-8")) / timings["encode_xl_dense_s"] / 1e6)
     print(f"encode_xl_dense: {len(ids)} ids equal to the golden "
           f"({timings['encode_xl_dense_s']:.3f} s)")
+    xl_tok.device_presplit = True
+    with scanner_calls() as calls, path("encode_device_split_xl",
+                                        tuple(DEVICE_SPLIT),
+                                        exact=DEVICE_SPLIT):
+        split_ids = timed("encode_device_split_xl",
+                          lambda: xl_tok.encode(xl_text))
+    if calls:
+        raise AssertionError("encode_device_split_xl called the host scanner")
+    held("xl_dense_1024", split_ids)
+    print(f"encode_device_split_xl: {len(split_ids)} ids equal to the golden "
+          f"({timings['encode_device_split_xl_s']:.3f} s)")
 
 
 def selection_paths(torch, np, golden_mod, corpus, path, timings, head, gb,
@@ -1589,13 +1796,15 @@ def _kernel_name(key: str) -> str:
 def phase_device_time(torch, golden_mod):
     """Device busy time against wall time of the training and encode runs on
     the smoke corpus (encode also with the GPT-4 tokenizer at 100,256
-    ranks, from the split's bytes to the ids on the host), and of the
-    training run on the XL corpus. The wall
+    ranks, from the split's bytes to the ids on the host, and the whole
+    encode from the text with the host split and with the device split),
+    and of the training run on the XL corpus. The wall
     time is a plain run's; the busy time is the sum of device activity
     (kernels, memsets, copies) that torch.profiler records for the same
     call, which runs on one stream, so nothing overlaps. The idle share is
     1 - busy / wall."""
     from minbpe_tpu_torch import RegexTokenizer
+    from minbpe_tpu_torch.convert import tokenizer_from_arrays
     from minbpe_tpu_torch.engine import device_table
     from minbpe_tpu_torch.ops.encode import encode_stream
     from minbpe_tpu_torch.ops.flat_encode import encode_offsets_arrays
@@ -1609,6 +1818,9 @@ def phase_device_time(torch, golden_mod):
     corpus = golden_mod.smoke_corpus(ROOT)
     tok = RegexTokenizer(device="cuda")
     tok.train(corpus, golden_mod.VOCAB_SIZE)
+    split_tok = tokenizer_from_arrays(RegexTokenizer, *tok._merge_arrays(),
+                                      device="cuda")
+    split_tok.device_presplit = True
     table = device_table(tok)
     data, ends = tok._split_arrays(corpus)
     ids, seg = build_stream(data, ends, "cuda")
@@ -1625,6 +1837,9 @@ def phase_device_time(torch, golden_mod):
     runs = {
         "encode": lambda: encode_stream(ids, seg, table.pairs,
                                         table.new_ids)[2].item(),
+        # the whole encode from the text, host split against device split
+        "encode_host_split": lambda: tok.encode(corpus),
+        "encode_device_split": lambda: split_tok.encode(corpus),
         "encode_gpt4": lambda: encode_offsets_arrays(g_data, g_ends,
                                                      g_table),
         "train": lambda: train_merges(ids, seg, M),
@@ -1722,7 +1937,13 @@ def main() -> int:
         torch.cuda.empty_cache()
         gpt4, plus, gpt4_build_s = sorted_tables(golden_mod)
         rows += phase_flat(torch, np, kernels, golden_mod, gpt4, plus)
+        rows += phase_presplit(torch, golden_mod)
         check_rows(rows)
+        print(f"timing: the host outran the sleep {len(RETAKEN_READINGS)} "
+              f"time(s) (function, sleep cycles a call, the reading set "
+              f"aside): {RETAKEN_READINGS}; {len(PROFILED_READINGS)} "
+              f"reading(s) from the profiler (function, ms, counts): "
+              f"{PROFILED_READINGS}")
         timings, launches = phase_main_path(torch, np, kernels, golden_mod,
                                             scratch, gpt4, plus)
         timings["gpt4_table_build_s"] = gpt4_build_s
@@ -1746,7 +1967,9 @@ def main() -> int:
          "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
          "bound_ms": r["bytes"] / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": r["library_ms"],
-         **{k: r[k] for k in ("xl", "shapes", "by_pair", "ms_per_rank")
+         **{k: r[k] for k in ("xl", "shapes", "by_pair", "ms_per_rank",
+                              "k15_ms", "k15_profiled_ms", "k15_plain_ms",
+                              "k15_bound_ms")
             if k in r}}
         for r in rows]}
     print(json.dumps(line))

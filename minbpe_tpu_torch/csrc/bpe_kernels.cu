@@ -53,6 +53,11 @@
 //                        first position into a device hash table, then the
 //                        largest count, earliest first occurrence, in one
 //                        cooperative launch that leaves the table empty
+//   K15 presplit_succ and presplit_orbit <- no Pallas site:
+//                        ops/device_presplit.py::_presplit_device (:208),
+//                        the GPT-2 / GPT-4 pre-split of raw UTF-8 bytes,
+//                        two cooperative launches (the last section of
+//                        this file)
 //
 // Training runs in rebuild SLOTS. The host enqueues slots without knowing
 // what a slot does: that lives in device memory.
@@ -70,8 +75,9 @@
 // Each extern "C" entry point launches one kernel on the caller's stream
 // (K1 two, K9 a memset and one), allocates nothing, and returns
 // cudaGetLastError() (0 on success), or the error of a refused
-// cooperative or cluster launch (K10, K12, K13). K1, K9 and K12 also
-// return the error of allowing their shared memory (once per device).
+// cooperative or cluster launch (K10, K12, K13, K15). K1, K9, K12 and
+// K15's presplit_orbit also return the error of allowing their shared
+// memory (once per device).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libbpe_kernels.so bpe_kernels.cu
@@ -3639,6 +3645,678 @@ int bpe_encode_min_sweep(const int* ids, const int* bounds, const int* which,
     return e;
   }
   return cudaGetLastError();
+}
+
+}  // extern "C"
+
+// ===========================================================================
+// K15 presplit: the GPT-2 / GPT-4 pre-split of a UTF-8 byte stream on the
+// card (sm_90a), as two cooperative launches:
+//
+//   K15 presplit_succ   every char start p's successor f(p): the byte where
+//                       the chunk that would start at p ends
+//   K15 presplit_orbit  the chunk starts {0, f(0), f(f(0)), ...}, as
+//                       per-byte boundary flags and segment ids
+//
+// They replace minbpe_tpu/ops/device_presplit.py::_presplit_device (:208),
+// a jitted jnp program with no Pallas site: its UTF-8 decode (_decode_utf8,
+// :74-90), class lookup (_char_flags, :93-98), successor (_successor,
+// :117-205) and orbit by pointer doubling (_orbit, :101-114). Its output
+// feeds K10 encode_sweep (fused_encode.py::_kernel) through the segment ids.
+//
+// Bound: bytes. The function reads the n bytes and the 64 KB class table
+// and writes 4 n of segment ids and n of boundaries; the successors (4 n),
+// the exits (8 n) and the tile records are the design's scratch.
+//
+// K15 presplit_succ works in bytes, not chars: the next char is p + len(p),
+// the length read from the lead byte, so the contraction tests, \p{N}{1,3}
+// and the optional space prefixes read at most three chars ahead. Every
+// other look-ahead of the two patterns is the end of a class run, and each
+// is a reverse scan over the stream of a per-byte value:
+//   C1, C2  the first and second coarse class change after p (classes L,
+//           N, O = [^\s\p{L}\p{N}], whitespace); C1 ends p's run, C2 the
+//           run after it, which is the letter run of a prefixed [^\r\n
+//           \p{L}\p{N}]?+\p{L}+ and the run after GPT-2's optional space;
+//   O1, O2  the same for GPT-4's [^\s\p{L}\p{N}]++[\r\n]*: the break after
+//           an O run and the CR/LF run that follows it (the second, after
+//           a leading space);
+//   LCR     the last CR/LF in [p, end of p's whitespace run), -1 if none
+//           (\s*[\r\n] ends after it).
+// The scans chain across tiles with one grid barrier: each tile's
+// aggregate (its two least breaks of each kind; whether it holds a
+// non-space byte, and the last CR/LF before the first one), then block 0
+// scans the aggregates from the right, then each tile scans its own bytes
+// from the carry it got. No thread walks a run: a 2^20-byte run of letters
+// costs what any 2^20 bytes cost.
+//
+// K15 presplit_orbit cuts the stream into tiles of 4,096 bytes. Each block
+// resolves, by pointer doubling in shared memory (12 rounds), where a walk
+// from each char start of its tile leaves the tile and how many chunk
+// starts it makes there; one thread then walks the chain of tile entries
+// (one dependent load per tile that holds a chunk start); then each tile
+// marks the orbit from its entry, again by doubling, and counts its
+// boundaries into segment ids from the chain's running count.
+// ===========================================================================
+
+namespace {
+namespace presplit {
+
+// class flags of data/unicode_tables.npz (utils/presplit.py)
+constexpr int FLAG_L = 1;
+constexpr int FLAG_N = 2;
+constexpr int FLAG_WS = 4;
+constexpr int FLAG_C1 = 8;
+constexpr int FLAG_CI_L = 16;
+constexpr int FLAG_CI_V = 32;
+constexpr int FLAG_CI_E = 64;
+constexpr int FLAG_CI_R = 128;
+
+// the class of a byte's char: letter, number, other ([^\s\p{L}\p{N}]),
+// whitespace other than CR/LF, CR/LF
+constexpr int CL_L = 0;
+constexpr int CL_N = 1;
+constexpr int CL_O = 2;
+constexpr int CL_WS = 3;
+constexpr int CL_CR = 4;
+
+constexpr int BIG = 0x7FFFFFFF;
+
+constexpr int S_TPB = 256;             // K15 presplit_succ: threads a block
+constexpr int S_BPT = 16;              // consecutive bytes a thread
+constexpr int S_TILE = S_TPB * S_BPT;  // bytes a tile
+constexpr int S_AGG = 6;               // ints of a tile aggregate
+
+constexpr int O_TPB = 512;             // K15 presplit_orbit
+constexpr int O_PER = 8;
+constexpr int O_TILE = O_TPB * O_PER;  // bytes a tile
+constexpr int O_ROUNDS = 12;           // 2^12 >= the hops of a walk
+static_assert(O_TILE == S_TILE, "one tile for both K15 kernels");
+constexpr int O_SMEM = 2 * O_TILE * (int)sizeof(int) +
+                       2 * O_TILE * (int)sizeof(unsigned short);
+
+struct Tables {
+  const uint8_t* dense;  // flags of each BMP code point
+  const int* starts;     // range starts over [0, 0x110000), ascending
+  const uint8_t* flags;  // their flags
+  int nstarts;
+};
+
+struct Char {
+  int cp, len, fl, cls;
+};
+
+__device__ __forceinline__ int byte_at(const uint8_t* d, int n, long long q) {
+  return q < n ? (int)__ldg(d + q) : 0;
+}
+
+__device__ __forceinline__ bool lead(int b) { return (b & 0xC0) != 0x80; }
+
+__device__ __forceinline__ int utf8_len(int b) {
+  return b < 0x80 ? 1 : (b & 0xE0) == 0xC0 ? 2 : (b & 0xF0) == 0xE0 ? 3 : 4;
+}
+
+__device__ __forceinline__ int flags_of(const Tables& t, int cp) {
+  if (cp < 0x10000) return __ldg(t.dense + cp);
+  int lo = 0, hi = t.nstarts - 1;  // the last start <= cp (starts[0] = 0)
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (__ldg(t.starts + mid) <= cp) lo = mid;
+    else hi = mid - 1;
+  }
+  return __ldg(t.flags + lo);
+}
+
+// the char that starts at byte p < n (decoded as _decode_utf8 does)
+__device__ Char char_at(const uint8_t* d, int n, const Tables& t, int p) {
+  const int b = byte_at(d, n, p), b1 = byte_at(d, n, p + 1) & 0x3F,
+            b2 = byte_at(d, n, p + 2) & 0x3F, b3 = byte_at(d, n, p + 3) & 0x3F;
+  Char c;
+  c.len = utf8_len(b);
+  c.cp = c.len == 1 ? b
+       : c.len == 2 ? ((b & 0x1F) << 6) | b1
+       : c.len == 3 ? ((b & 0x0F) << 12) | (b1 << 6) | b2
+                    : ((b & 0x07) << 18) | (b1 << 12) | (b2 << 6) | b3;
+  c.fl = flags_of(t, c.cp);
+  c.cls = (c.fl & FLAG_L)    ? CL_L
+        : (c.fl & FLAG_N)    ? CL_N
+        : (c.fl & FLAG_WS)   ? ((c.cp == 10 || c.cp == 13) ? CL_CR : CL_WS)
+                             : CL_O;
+  return c;
+}
+
+__device__ __forceinline__ int coarse(int c) { return c == CL_CR ? CL_WS : c; }
+
+// a GPT-4 [^\s\p{L}\p{N}]++[\r\n]* span goes on from a char of class prev
+// to one of class cur
+__device__ __forceinline__ bool o_goes_on(int prev, int cur) {
+  return (prev == CL_O && (cur == CL_O || cur == CL_CR)) ||
+         (prev == CL_CR && cur == CL_CR);
+}
+
+// the start of the char that holds byte q (valid UTF-8: at most 3 back)
+__device__ __forceinline__ int char_start(const uint8_t* d, int q) {
+  for (int k = 0; k < 3 && q > 0 && !lead(__ldg(d + q)); ++k) --q;
+  return q;
+}
+
+// ---------------------------------------------------------------------------
+// K15 presplit_succ
+// ---------------------------------------------------------------------------
+
+// A thread's S_BPT bytes [a, a + cnt): the class of each byte's char (3 bits
+// a byte), the char starts, and where a coarse class or an O span breaks
+// (bit j: between bytes a + j - 1 and a + j).
+struct Seg {
+  unsigned long long cls;
+  unsigned starts, brk_c, brk_o;
+};
+
+__device__ Seg classify(const uint8_t* d, int n, const Tables& t,
+                        long long a, int cnt) {
+  Seg s{0ull, 0u, 0u, 0u};
+  int prev = a > 0 ? char_at(d, n, t, char_start(d, (int)(a - 1))).cls : -1;
+  for (int j = 0; j < cnt; ++j) {
+    const int q = (int)(a + j);
+    int c;
+    if (lead(__ldg(d + q))) {
+      c = char_at(d, n, t, q).cls;
+      s.starts |= 1u << j;
+      if (prev >= 0) {
+        if (coarse(prev) != coarse(c)) s.brk_c |= 1u << j;
+        if (!o_goes_on(prev, c)) s.brk_o |= 1u << j;
+      }
+    } else {
+      c = prev >= 0 ? prev : CL_O;
+    }
+    s.cls |= (unsigned long long)c << (3 * j);
+    prev = c;
+  }
+  return s;
+}
+
+__device__ __forceinline__ int cls_of(const Seg& s, int j) {
+  return (int)((s.cls >> (3 * j)) & 7);
+}
+
+// The aggregate of a range of bytes: its least two breaks of each kind
+// (c1 <= c2, o1 <= o2; BIG where absent); lr: whether it holds a byte that
+// is not whitespace; lc: the last CR/LF before that byte (any, if lr is 0),
+// -1 if none. As a state at position q (the aggregate of everything from q
+// on, text end included): the breaks after q and LCR(q) = lc.
+struct Agg {
+  int c1, c2, o1, o2, lr, lc;
+};
+
+__device__ __forceinline__ Agg agg_identity() {
+  return {BIG, BIG, BIG, BIG, 0, -1};
+}
+
+// a: the range to the left of b's
+__device__ __forceinline__ Agg agg_combine(const Agg& a, const Agg& b) {
+  Agg r;
+  r.c1 = min(a.c1, b.c1);
+  r.c2 = min(max(a.c1, b.c1), min(a.c2, b.c2));
+  r.o1 = min(a.o1, b.o1);
+  r.o2 = min(max(a.o1, b.o1), min(a.o2, b.o2));
+  r.lr = a.lr | b.lr;
+  r.lc = a.lr ? a.lc : (b.lc >= 0 ? b.lc : a.lc);
+  return r;
+}
+
+__device__ Agg seg_agg(const Seg& s, long long a, int cnt) {
+  Agg g = agg_identity();
+  unsigned m = s.brk_c;
+  if (m) {
+    g.c1 = (int)a + __ffs(m) - 1;
+    m &= m - 1;
+    if (m) g.c2 = (int)a + __ffs(m) - 1;
+  }
+  m = s.brk_o;
+  if (m) {
+    g.o1 = (int)a + __ffs(m) - 1;
+    m &= m - 1;
+    if (m) g.o2 = (int)a + __ffs(m) - 1;
+  }
+  for (int j = cnt - 1; j >= 0; --j) {
+    const int c = cls_of(s, j);
+    if (coarse(c) != CL_WS) {
+      g.lr = 1;
+      g.lc = -1;
+    } else if (g.lc < 0 && c == CL_CR) {
+      g.lc = (int)a + j;
+    }
+  }
+  return g;
+}
+
+__device__ __forceinline__ void agg_store(int* p, const Agg& g) {
+  p[0] = g.c1; p[1] = g.c2; p[2] = g.o1; p[3] = g.o2; p[4] = g.lr;
+  p[5] = g.lc;
+}
+
+__device__ __forceinline__ Agg agg_load(const int* p) {
+  return {__ldcg(p), __ldcg(p + 1), __ldcg(p + 2), __ldcg(p + 3),
+          __ldcg(p + 4), __ldcg(p + 5)};
+}
+
+// Inclusive scan from the right over the block's threads: returns the
+// buffer in which sm[buf][k] = g_k (+) g_k+1 (+) ... (+) g_last; the block
+// is synced on return, and the next call syncs before it writes.
+__device__ int block_rscan(Agg (*sm)[S_TPB], const Agg& g) {
+  __syncthreads();
+  int cur = 0;
+  sm[0][threadIdx.x] = g;
+  __syncthreads();
+  for (int dist = 1; dist < S_TPB; dist <<= 1) {
+    Agg v = sm[cur][threadIdx.x];
+    if (threadIdx.x + dist < S_TPB)
+      v = agg_combine(v, sm[cur][threadIdx.x + dist]);
+    sm[cur ^ 1][threadIdx.x] = v;
+    cur ^= 1;
+    __syncthreads();
+  }
+  return cur;
+}
+
+// f(p): where the chunk that starts at char start p < n ends, p's class
+// cls, the breaks after p and LCR(p) given (utils/presplit.py's
+// alternatives in order)
+__device__ int successor(const uint8_t* d, int n, const Tables& t, int mode,
+                         int p, int cls, int c1, int c2, int o1, int o2,
+                         int lcr) {
+  const Char ch = char_at(d, n, t, p);
+  const int p1 = p + ch.len;
+  const bool v1 = p1 < n;
+  Char n1{-1, 1, 0, -1};
+  if (v1) n1 = char_at(d, n, t, p1);
+  const int p2 = p1 + n1.len;
+  if (mode == 4) {
+    // '(?i:[sdmt]|ll|ve|re): the case-folding flags, never ASCII
+    if (ch.cp == 39 && v1) {
+      if (n1.fl & FLAG_C1) return p2;
+      if (p2 < n) {
+        const Char n2 = char_at(d, n, t, p2);
+        if (((n1.fl & FLAG_CI_L) && (n2.fl & FLAG_CI_L)) ||
+            ((n1.fl & FLAG_CI_V) && (n2.fl & FLAG_CI_E)) ||
+            ((n1.fl & FLAG_CI_R) && (n2.fl & FLAG_CI_E)))
+          return p2 + n2.len;
+      }
+    }
+    // [^\r\n\p{L}\p{N}]?+\p{L}+
+    if (cls == CL_L) return c1;
+    if (cls != CL_N && cls != CL_CR && v1 && n1.cls == CL_L) return c2;
+    // \p{N}{1,3}
+    if (cls == CL_N) {
+      if (p1 < c1 && p2 < c1) return p2 + utf8_len(__ldg(d + p2));
+      return c1;
+    }
+    // " "?[^\s\p{L}\p{N}]++[\r\n]*
+    const bool sp = ch.cp == 32 && v1;
+    if ((sp ? n1.cls : cls) == CL_O) return sp ? o2 : o1;
+    // \s*[\r\n] | \s+(?!\S) | \s+ (every other char is whitespace)
+    if (lcr >= 0) return lcr + 1;
+  } else {
+    // '(?:[sdmt]|ll|ve|re): exact code points
+    if (ch.cp == 39 && v1) {
+      const int a = n1.cp;
+      if (a == 's' || a == 'd' || a == 'm' || a == 't') return p2;
+      if (p2 < n) {
+        const Char n2 = char_at(d, n, t, p2);
+        const int b = n2.cp;
+        if ((a == 'l' && b == 'l') || (a == 'v' && b == 'e') ||
+            (a == 'r' && b == 'e'))
+          return p2 + n2.len;
+      }
+    }
+    // " "?\p{L}+ | " "?\p{N}+ | " "?[^\s\p{L}\p{N}]+
+    if (ch.cp == 32) {
+      if (v1 && coarse(n1.cls) != CL_WS) return c2;
+    } else if (coarse(cls) != CL_WS) {
+      return c1;
+    }
+  }
+  // \s+(?!\S) | \s+: the whole run at the text's end, else all but its last
+  // char when it has two or more, else the one char
+  if (c1 >= n) return c1;
+  if (p1 < c1) return char_start(d, c1 - 1);
+  return c1;
+}
+
+// grid: cooperative (every block resident). f: int32[n] (the successor at
+// each char start, -1 elsewhere); agg, carry: int32[S_AGG * tiles] each.
+__global__ void __launch_bounds__(S_TPB)
+presplit_succ_kernel(const uint8_t* __restrict__ d, int n, int mode,
+                     Tables t, int* __restrict__ f, int* agg, int* carry) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ Agg sm[2][S_TPB];
+  const int tiles = (int)(((long long)n + S_TILE - 1) / S_TILE);
+
+  // 1. each tile's aggregate
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long a = (long long)tile * S_TILE + threadIdx.x * S_BPT;
+    const int cnt = (int)max(0ll, min((long long)S_BPT, n - a));
+    Agg g = agg_identity();
+    if (cnt > 0) g = seg_agg(classify(d, n, t, a, cnt), a, cnt);
+    const int buf = block_rscan(sm, g);
+    if (threadIdx.x == 0) agg_store(agg + (long long)S_AGG * tile, sm[buf][0]);
+  }
+  grid.sync();
+
+  // 2. block 0: the state at each tile's end, from the text's end
+  if (blockIdx.x == 0) {
+    Agg run{n, BIG, n, BIG, 1, -1};  // at n: a break, no CR/LF after
+    for (int hi = tiles; hi > 0; hi -= S_TPB) {
+      const int i = hi - S_TPB + (int)threadIdx.x;
+      const Agg g = i >= 0 ? agg_load(agg + (long long)S_AGG * i)
+                           : agg_identity();
+      const int buf = block_rscan(sm, g);
+      const Agg excl = threadIdx.x + 1 < S_TPB ? sm[buf][threadIdx.x + 1]
+                                               : agg_identity();
+      if (i >= 0)
+        agg_store(carry + (long long)S_AGG * i, agg_combine(excl, run));
+      run = agg_combine(sm[buf][0], run);
+    }
+  }
+  grid.sync();
+
+  // 3. each tile from its carry: the per-byte states, right to left, and
+  // the successor at every char start
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long a = (long long)tile * S_TILE + threadIdx.x * S_BPT;
+    const int cnt = (int)max(0ll, min((long long)S_BPT, n - a));
+    Seg s{0ull, 0u, 0u, 0u};
+    Agg g = agg_identity();
+    if (cnt > 0) {
+      s = classify(d, n, t, a, cnt);
+      g = seg_agg(s, a, cnt);
+    }
+    const int buf = block_rscan(sm, g);
+    const Agg excl = threadIdx.x + 1 < S_TPB ? sm[buf][threadIdx.x + 1]
+                                             : agg_identity();
+    const Agg st =
+        agg_combine(excl, agg_load(carry + (long long)S_AGG * tile));
+    int c1 = st.c1, c2 = st.c2, o1 = st.o1, o2 = st.o2, lcr = st.lc;
+    for (int j = cnt - 1; j >= 0; --j) {
+      const int q = (int)(a + j);
+      const int c = cls_of(s, j);
+      if (coarse(c) != CL_WS) lcr = -1;
+      else if (lcr < 0 && c == CL_CR) lcr = q;
+      f[q] = ((s.starts >> j) & 1u)
+                 ? successor(d, n, t, mode, q, c, c1, c2, o1, o2, lcr)
+                 : -1;
+      if ((s.brk_c >> j) & 1u) {
+        c2 = c1;
+        c1 = q;
+      }
+      if ((s.brk_o >> j) & 1u) {
+        o2 = o1;
+        o1 = q;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K15 presplit_orbit
+// ---------------------------------------------------------------------------
+
+// J[p]: tile-relative successor of each char start of the tile at s (>=
+// O_TILE once the walk has left the tile; non-starts leave at once);
+// K[p]: 1 at a char start, else 0
+__device__ __forceinline__ void load_jumps(const int* __restrict__ f,
+                                           long long s, int len, int* J,
+                                           unsigned short* K) {
+#pragma unroll
+  for (int k = 0; k < O_PER; ++k) {
+    const int p = threadIdx.x + k * O_TPB;
+    int j = O_TILE;
+    unsigned short c = 0;
+    if (p < len) {
+      const int fp = __ldg(f + s + p);
+      if (fp >= 0) {
+        j = (int)(fp - s);
+        c = 1;
+      }
+    }
+    J[p] = j;
+    if (K != nullptr) K[p] = c;
+  }
+}
+
+// grid: cooperative. ek: int32[2 n] (scratch: a char start's exit and
+// count); tl: int32[2 * tiles] (scratch: each tile's entry and the chunk
+// starts before it); boundary: uint8[n]; seg: int32[n].
+__global__ void __launch_bounds__(O_TPB)
+presplit_orbit_kernel(const int* __restrict__ f, int n,
+                      uint8_t* __restrict__ boundary, int* __restrict__ seg,
+                      int* ek, int* tl) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ int4 o_smem[];
+  int* const J0 = reinterpret_cast<int*>(o_smem);
+  int* const J1 = J0 + O_TILE;
+  unsigned short* const K0 = reinterpret_cast<unsigned short*>(J1 + O_TILE);
+  unsigned short* const K1 = K0 + O_TILE;
+  const int tiles = (int)(((long long)n + O_TILE - 1) / O_TILE);
+
+  // 1. each char start's exit from its tile and the chunk starts it makes
+  // there
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long s = (long long)tile * O_TILE;
+    const int len = (int)min((long long)O_TILE, n - s);
+    load_jumps(f, s, len, J0, K0);
+    __syncthreads();
+    int* Ja = J0;
+    int* Jb = J1;
+    unsigned short* Ka = K0;
+    unsigned short* Kb = K1;
+    for (int r = 0; r < O_ROUNDS; ++r) {
+#pragma unroll
+      for (int k = 0; k < O_PER; ++k) {
+        const int p = threadIdx.x + k * O_TPB;
+        const int j = Ja[p];
+        if (j < O_TILE) {
+          Jb[p] = Ja[j];
+          Kb[p] = (unsigned short)(Ka[p] + Ka[j]);
+        } else {
+          Jb[p] = j;
+          Kb[p] = Ka[p];
+        }
+      }
+      __syncthreads();
+      int* tj = Ja; Ja = Jb; Jb = tj;
+      unsigned short* tk = Ka; Ka = Kb; Kb = tk;
+    }
+#pragma unroll
+    for (int k = 0; k < O_PER; ++k) {
+      const int p = threadIdx.x + k * O_TPB;
+      if (p < len && Ka[p] != 0) {
+        ek[2 * (s + p)] = (int)(s + Ja[p]);
+        ek[2 * (s + p) + 1] = Ka[p];
+      }
+    }
+    __syncthreads();
+  }
+  grid.sync();
+
+  // 2. the chain of tile entries: x, the first chunk start at or after the
+  // tile; base, the chunk starts before it
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    long long x = 0;
+    int base = 0;
+    for (int tile = 0; tile < tiles; ++tile) {
+      tl[2 * tile] = (int)x;
+      tl[2 * tile + 1] = base;
+      if (x < min((long long)(tile + 1) * O_TILE, (long long)n)) {
+        const int2 e = __ldcg(reinterpret_cast<const int2*>(ek) + x);
+        x = e.x;
+        base += e.y;
+      }
+    }
+  }
+  grid.sync();
+
+  // 3. each tile's orbit from its entry, then the segment ids
+  uint8_t* const vis = reinterpret_cast<uint8_t*>(K0);
+  int* const wsum = reinterpret_cast<int*>(K1);
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long long s = (long long)tile * O_TILE;
+    const int len = (int)min((long long)O_TILE, n - s);
+    const long long entry = __ldcg(tl + 2 * tile) - s;
+    const int base = __ldcg(tl + 2 * tile + 1);
+    load_jumps(f, s, len, J0, nullptr);
+#pragma unroll
+    for (int k = 0; k < O_PER; ++k) {
+      const int p = threadIdx.x + k * O_TPB;
+      vis[p] = p == entry ? 1 : 0;
+    }
+    __syncthreads();
+    if (entry < len) {
+      int* Ja = J0;
+      int* Jb = J1;
+      for (int r = 0; r < O_ROUNDS; ++r) {
+#pragma unroll
+        for (int k = 0; k < O_PER; ++k) {
+          const int p = threadIdx.x + k * O_TPB;
+          const int j = Ja[p];
+          if (vis[p] && j < O_TILE) vis[j] = 1;
+          Jb[p] = j < O_TILE ? Ja[j] : j;
+        }
+        __syncthreads();
+        int* tj = Ja; Ja = Jb; Jb = tj;
+      }
+    }
+    // segment ids: a block scan of the boundary counts, 8 bytes a thread
+    const int p0 = threadIdx.x * O_PER;
+    int mine = 0;
+#pragma unroll
+    for (int k = 0; k < O_PER; ++k) mine += vis[p0 + k];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int incl = mine;
+#pragma unroll
+    for (int dist = 1; dist < 32; dist <<= 1) {
+      const int v = __shfl_up_sync(0xFFFFFFFFu, incl, dist);
+      if (lane >= dist) incl += v;
+    }
+    if (lane == 31) wsum[warp] = incl;
+    __syncthreads();
+    int before = 0;
+    for (int w = 0; w < warp; ++w) before += wsum[w];
+    int running = base + before + incl - mine;
+#pragma unroll
+    for (int k = 0; k < O_PER; ++k) {
+      const int p = p0 + k;
+      if (p < len) {
+        running += vis[p];
+        boundary[s + p] = vis[p];
+        seg[s + p] = running - 1;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// the cooperative grid of a kernel (0 presplit_succ, 1 presplit_orbit) on
+// the current device: the blocks that fit at once, queried once per device
+// (presplit_orbit's shared-memory allowance is set then too)
+cudaError_t coop_grid(int kind, int* grid) {
+  static std::atomic<int> resident[2][64];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64 || kind < 0 || kind > 1) return cudaErrorInvalidValue;
+  if (resident[kind][dev] == 0) {
+    int coop, sms, per;
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (kind == 0) {
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per, presplit_succ_kernel, S_TPB, 0);
+    } else {
+      if (e == cudaSuccess)
+        e = cudaFuncSetAttribute((const void*)presplit_orbit_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 O_SMEM);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per, presplit_orbit_kernel, O_TPB, O_SMEM);
+    }
+    if (e != cudaSuccess) return e;
+    if (!coop || per < 1) return cudaErrorCooperativeLaunchTooLarge;
+    resident[kind][dev] = per * sms;
+  }
+  *grid = resident[kind][dev];
+  return cudaSuccess;
+}
+
+// a launch that exceeds the resident blocks is refused, not run
+cudaError_t launch(int kind, const void* fn, int grid, int tpb, void** args,
+                   int smem, void* stream) {
+  int resident;
+  cudaError_t e = coop_grid(kind, &resident);
+  if (e == cudaSuccess && (grid < 1 || grid > resident))
+    e = cudaErrorInvalidValue;
+  if (e == cudaSuccess)
+    e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(tpb), args, smem,
+                                    (cudaStream_t)stream);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // the refusal is returned, not left for the next
+    return e;
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace presplit
+}  // namespace
+
+extern "C" {
+
+// bytes a tile of either K15 kernel
+int bpe_presplit_tile_size() { return presplit::S_TILE; }
+
+// ints of bpe_presplit_succ's scratch a tile
+int bpe_presplit_scratch_ints() { return 2 * presplit::S_AGG; }
+
+// the most blocks of K15's kind 0 (presplit_succ) or 1 (presplit_orbit)
+// that the current device holds at once (the same for every stream); a
+// negative CUDA error where it takes no cooperative launch. A launch uses
+// at most these, and at most the stream's tiles.
+int bpe_presplit_grid(int kind) {
+  int grid = 0;
+  const cudaError_t e = presplit::coop_grid(kind, &grid);
+  return e == cudaSuccess ? grid : -(int)e;
+}
+
+// K15 presplit_succ over data[0 .. n), n >= 1, mode 4 (GPT-4) or 2
+// (GPT-2); the class tables: dense uint8[0x10000], starts int32[nstarts]
+// and flags uint8[nstarts]. f: int32[n]; scratch: int32[tiles *
+// bpe_presplit_scratch_ints()].
+int bpe_presplit_succ(const unsigned char* data, int n, int mode,
+                      const unsigned char* dense, const int* starts,
+                      const unsigned char* flags, int nstarts, int* f,
+                      int* scratch, int grid, void* stream) {
+  using namespace presplit;
+  if (n < 1 || (mode != 4 && mode != 2) || nstarts < 1)
+    return cudaErrorInvalidValue;
+  const long long tiles = ((long long)n + S_TILE - 1) / S_TILE;
+  Tables t{dense, starts, flags, nstarts};
+  int* agg = scratch;
+  int* carry = scratch + S_AGG * tiles;
+  void* args[] = {&data, &n, &mode, &t, &f, &agg, &carry};
+  return launch(0, (const void*)presplit_succ_kernel, grid, S_TPB, args, 0,
+                stream);
+}
+
+// K15 presplit_orbit over the successors f[0 .. n), n >= 1. boundary:
+// uint8[n]; seg: int32[n]; ek: int32[2 n]; tl: int32[2 * tiles].
+int bpe_presplit_orbit(const int* f, int n, unsigned char* boundary,
+                       int* seg, int* ek, int* tl, int grid, void* stream) {
+  using namespace presplit;
+  if (n < 1) return cudaErrorInvalidValue;
+  void* args[] = {&f, &n, &boundary, &seg, &ek, &tl};
+  return launch(1, (const void*)presplit_orbit_kernel, grid, O_TPB, args,
+                O_SMEM, stream);
 }
 
 }  // extern "C"

@@ -5,10 +5,11 @@ The port's counterpart of minbpe_tpu/engine.py, for the slices it covers:
 ``run_train`` (engine.py:57-238) with its route choice, the whole-run,
 selection, stepped, sort-round and sparse routes, checkpoints, progress
 and ``profile_dir``;
-``train_offsets``/``train_bytes`` (468-484) and
+``train_offsets``/``train_bytes`` (468-484),
 ``encode_bytes``/``encode_offsets``/``encode_parts`` (322-423) with their
-two routes, dense and sorted (``DeviceMergeTable``, 20-47). A kernel that
-fails raises: there is no fallback route.
+two routes, dense and sorted (``DeviceMergeTable``, 20-47), and the opt-in
+device pre-split encode ``encode_text_device_split`` (269-319). A kernel
+that fails raises: there is no fallback route.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import numpy as np
 import torch
 
 from .ops import stream as stream_ops
-from .ops import flat_encode
+from .ops import device_presplit, flat_encode
 from .ops.encode import check_memory, encode_stream
 from .ops.ranktab import CuckooPairTable
 from .ops.train import TRAIN_MAX_N, TRAIN_MAX_V, train_merges
@@ -218,6 +219,54 @@ def _encode_arrays(tokenizer, data, ends):
     k = int(n.item())
     out = torch.stack([ids[:k], seg[:k]]).cpu().numpy()
     return out[0], out[1]
+
+
+def _device_split_mode(tokenizer) -> int | None:
+    """The device pre-split's mode (4 GPT-4, 2 GPT-2) where the tokenizer
+    splits with a GPT pattern: the scanner mode its constructor fixed
+    (``_split_mode``), which load() does not change, where minbpe_tpu reads
+    ``pattern`` (engine.py:269-275)."""
+    return device_presplit.mode_code(getattr(tokenizer, "_split_mode", None))
+
+
+def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
+    """The whole front half on the device: only the text's raw UTF-8 bytes
+    cross to it; the pre-split (K15, ops/device_presplit.py), the ids (the
+    bytes through the tokenizer's byte transform) and the rank sweep (K10)
+    run there, and only the output ids come back. None where the
+    configuration does not qualify, as minbpe_tpu/engine.py:278-319
+    declines: ``device_presplit`` not set, a split other than GPT-2's or
+    GPT-4's, or a sorted table; the caller then splits on the host. Raises
+    ValueError for a text past the kernels' int32 range and MemoryError
+    where the encode does not fit, before any work.
+
+    Opt-in (``tokenizer.device_presplit = True``), as in minbpe_tpu. On the
+    CPU it runs the kernels' plain twins."""
+    if not getattr(tokenizer, "device_presplit", False):
+        return None
+    mode = _device_split_mode(tokenizer)
+    if mode is None:
+        return None
+    dev = device_table(tokenizer)
+    if dev.kind != "dense":
+        return None
+    raw = text.encode("utf-8")
+    n = len(raw)
+    if n == 0:
+        return []
+    if n > device_presplit.MAX_N:
+        raise ValueError(f"{n} bytes: the device pre-split takes at most "
+                         f"{device_presplit.MAX_N}")
+    device = tokenizer.device
+    check_memory(device, n, device_presplit.BYTES_PER_BYTE)
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
+    _, seg = device_presplit.presplit_seg_ids(data, n, mode)
+    # the ids: the bytes through the byte transform (GPT4Tokenizer's
+    # shuffle, the identity elsewhere) as a 256-entry table
+    perm = tokenizer._transform_bytes_array(np.arange(256, dtype=np.uint8))
+    ids = torch.from_numpy(perm.astype(np.int32)).to(device)[data.long()]
+    ids, _, k = encode_stream(ids, seg, dev.pairs, dev.new_ids)
+    return ids[:int(k.item())].tolist()
 
 
 def encode_bytes(tokenizer, data: bytes) -> list[int]:

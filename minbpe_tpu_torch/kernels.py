@@ -27,7 +27,11 @@ same device, so a whole run launches without a host sync per merge:
 - ``pair_select``    K13: one round of the sort-round trainer: every pair's
   count and first position into a device hash table (``PairTable``), then
   the round's pair and record, leaving the table empty, in one cooperative
-  launch.
+  launch;
+- ``presplit_succ`` and ``presplit_orbit`` K15: the GPT-2 / GPT-4
+  pre-split of raw UTF-8 bytes, every char start's chunk end, then the
+  chunk starts as segment ids (ops/device_presplit.py holds their
+  wrappers and plain twins).
 
 K1 and K9 share one counting core: each block of a persistent grid counts
 one contiguous range of the stream into a hash table of pairs in shared
@@ -105,6 +109,10 @@ SLOT_ZBASE = SLOT_BSEL + 1
 SLOT_I = SLOT_BSEL + 2
 SLOT_BSTAR = SLOT_BSEL + 3
 SLOT_SIZE = 64
+# bytes a tile of K15's two kernels, and ints of presplit_succ's scratch a
+# tile (bpe_presplit_tile_size() and bpe_presplit_scratch_ints() on the card)
+PRESPLIT_TILE = 4096
+PRESPLIT_SCRATCH_INTS = 12
 
 
 class KernelInfo:
@@ -171,9 +179,19 @@ PAIR_SELECT = KernelInfo(
     "body; no Pallas site): its stable lax.sort of (a, b, position) and run "
     "scans, :62-76, and its selection, :70-78 (largest count, then earliest "
     "first occurrence)")
+_PRESPLIT = ("minbpe_tpu/ops/device_presplit.py:208 (_presplit_device, a "
+             "jitted jnp program; no Pallas site): ")
+PRESPLIT_SUCC = KernelInfo(
+    "presplit_succ",
+    _PRESPLIT + "_decode_utf8 :74-90, _char_flags :93-98, _successor "
+    ":117-205")
+PRESPLIT_ORBIT = KernelInfo(
+    "presplit_orbit",
+    _PRESPLIT + "_orbit :101-114 and the boundaries and segment ids "
+    ":221-233")
 KERNELS = (PAIR_STATS, SELECT_BATCH, MERGE_APPLY, BATCH_HIST, BATCH_APPLY,
            COMPACT, PAIR_COUNT, ENCODE_SWEEP, CHUNK_ENCODE, ENCODE_MIN_SWEEP,
-           PAIR_SELECT)
+           PAIR_SELECT, PRESPLIT_SUCC, PRESPLIT_ORBIT)
 
 
 def reset_launches():
@@ -210,6 +228,11 @@ SIGNATURES = {
     "bpe_pair_select_grid": [],
     "bpe_pair_select": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                         _I, _P],
+    "bpe_presplit_tile_size": [],
+    "bpe_presplit_scratch_ints": [],
+    "bpe_presplit_grid": [_I],
+    "bpe_presplit_succ": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
+    "bpe_presplit_orbit": [_P, _I, _P, _P, _P, _P, _I, _P],
 }
 
 _lib = None
@@ -254,6 +277,8 @@ def build() -> str:
 
 def _load():
     global _lib
+    if _lib is not None:
+        return _lib
     with _lib_lock:
         if _lib is not None:
             return _lib
@@ -262,9 +287,15 @@ def _load():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        if lib.bpe_tile_size() != TILE:
-            raise RuntimeError(f"the kernels' tile is {lib.bpe_tile_size()} "
-                               f"positions, kernels.TILE {TILE}")
+        for name, got, want in (
+                ("tile", lib.bpe_tile_size(), TILE),
+                ("pre-split tile", lib.bpe_presplit_tile_size(),
+                 PRESPLIT_TILE),
+                ("pre-split scratch", lib.bpe_presplit_scratch_ints(),
+                 PRESPLIT_SCRATCH_INTS)):
+            if got != want:
+                raise RuntimeError(f"the kernels' {name} is {got}, "
+                                   f"kernels.py's {want}")
         _lib = lib
         return _lib
 

@@ -1,0 +1,493 @@
+"""Device GPT-2/GPT-4 pre-split: per-byte chunk boundaries and segment ids
+of a UTF-8 byte stream, computed on the stream's device.
+
+The port's counterpart of minbpe_tpu/ops/device_presplit.py, with its
+public functions and contracts: ``presplit_seg_ids(data, n, mode)`` and
+``split_spans_host(text, mode, device="cuda")``. A mode is "gpt4" or
+"gpt2", or its code 4 or 2, the tokenizers' scanner mode. Only the raw
+bytes cross to the device;
+the split, and after it the stream build and the encode's rank sweep
+(engine.encode_text_device_split), run there.
+
+On a CUDA tensor the split is K15, two hand-written kernels
+(csrc/bpe_kernels.cu): ``presplit_succ`` finds, for every char start,
+where the chunk that would start there ends, working in bytes with reverse
+scans over class runs; ``presplit_orbit`` follows those ends from byte 0
+and writes the boundaries and segment ids. On a CPU tensor it is
+``presplit_plain``, the plain PyTorch twin: minbpe_tpu's array program
+(UTF-8 decode, class lookup, every char's successor from cummin/cummax
+scans, the orbit by pointer doubling) carried over op by op. Each kernel
+also has a plain version of its own step, in bytes: ``successor_plain``
+and ``orbit_plain``.
+
+The class tables (dense BMP flags, 64 KB; the range starts and flags for
+the astral planes) come from the port's own utils/presplit tables and go to
+each device once.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import kernels
+from ..utils.presplit import (
+    FLAG_C1, FLAG_CI_E, FLAG_CI_L, FLAG_CI_R, FLAG_CI_V, FLAG_L, FLAG_N,
+    FLAG_WS, _load,
+)
+
+# the kernels' mode codes, which are also regex.py's scanner modes
+MODES = {"gpt4": 4, "gpt2": 2}
+# the kernels index bytes with int32 (two tiles of slack)
+MAX_N = 2**31 - 2**13
+# device bytes a text byte takes in the split: the bytes, the successors,
+# the exits and their counts, the boundaries, the segment ids
+BYTES_PER_BYTE = 18
+
+_BIG = 2**30
+_TABLES: dict = {}
+
+
+def _device_tables(device):
+    """(dense flags uint8[0x10000], range starts int32, their flags uint8)
+    on ``device``, sent there once."""
+    key = str(device)
+    tabs = _TABLES.get(key)
+    if tabs is None:
+        starts, flags, dense = _load()
+        tabs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in (dense.astype(np.uint8),
+                               starts.astype(np.int32),
+                               flags.astype(np.uint8)))
+        _TABLES[key] = tabs
+    return tabs
+
+
+def mode_code(mode) -> int | None:
+    """4 (GPT-4) or 2 (GPT-2) of a split named "gpt4"/"gpt2" or given by
+    that code; None for any other."""
+    code = MODES.get(mode, mode) if isinstance(mode, (str, int)) else None
+    return code if code in MODES.values() else None
+
+
+def _check_args(data, n: int, mode) -> int:
+    """mode's code, once the arguments are checked."""
+    code = mode_code(mode)
+    if code is None:
+        raise ValueError(f"unknown mode {mode!r}")
+    if data.dtype != torch.uint8 or data.dim() != 1:
+        raise TypeError("data: expected a 1-D uint8 tensor")
+    if not 0 <= n <= data.numel():
+        raise ValueError(f"n = {n} outside 0 .. {data.numel()}")
+    if n > MAX_N:
+        raise ValueError(f"{n} bytes: the pre-split takes at most {MAX_N}")
+    return code
+
+
+# ---------------------------------------------------------------------------
+# the plain twin, in chars (minbpe_tpu/ops/device_presplit.py:56-233)
+# ---------------------------------------------------------------------------
+
+def _shift_next(x, k: int, fill):
+    """x[i + k], out of range -> fill."""
+    k = min(k, x.numel())
+    if not k:
+        return x
+    return torch.cat([x[k:], torch.full((k,), fill, dtype=x.dtype,
+                                        device=x.device)])
+
+
+def _rev_cummin(x):
+    return torch.flip(torch.cummin(torch.flip(x, [0]), 0).values, [0])
+
+
+def _next_non(mask, idx):
+    """Smallest j >= i with mask[j] False."""
+    return _rev_cummin(torch.where(~mask, idx, _BIG))
+
+
+def _gather(a, i):
+    """a[i], with i clipped into a."""
+    return a[i.clamp(0, a.numel() - 1).long()]
+
+
+def _decode_utf8(data):
+    """Per-byte (is_start, code point at a start) of a valid UTF-8 stream."""
+    b = data.to(torch.int32)
+    is_start = (b & 0xC0) != 0x80
+    b1, b2, b3 = (_shift_next(b, k, 0) for k in (1, 2, 3))
+    cp = torch.where(
+        b < 0x80, b,
+        torch.where(
+            (b & 0xE0) == 0xC0, ((b & 0x1F) << 6) | (b1 & 0x3F),
+            torch.where(
+                (b & 0xF0) == 0xE0,
+                ((b & 0x0F) << 12) | ((b1 & 0x3F) << 6) | (b2 & 0x3F),
+                ((b & 0x07) << 18) | ((b1 & 0x3F) << 12)
+                | ((b2 & 0x3F) << 6) | (b3 & 0x3F))))
+    return is_start, cp
+
+
+def _char_flags(cp):
+    dense, starts, flags = _device_tables(cp.device)
+    f_bmp = _gather(dense, cp).to(torch.int32)
+    hi = torch.searchsorted(starts, cp, right=True) - 1
+    f_ast = _gather(flags, hi).to(torch.int32)
+    return torch.where(cp < 0x10000, f_bmp, f_ast)
+
+
+def _orbit(J, n_items: int):
+    """Visited set of {0, J[0], J[J[0]], ...} below n_items, by pointer
+    doubling: each round squares the jump table and scatters the
+    frontier."""
+    NC = J.numel()
+    ar = torch.arange(NC, dtype=torch.int32, device=J.device)
+    Jx = torch.where(ar < n_items, J.clamp(max=NC), NC)
+    visited = (ar == 0) & (n_items > 0)
+    sentinel = torch.full((1,), NC, dtype=Jx.dtype, device=J.device)
+    for _ in range(max(1, (NC - 1).bit_length())):
+        tgt = torch.where(visited, Jx, NC).long()
+        hit = torch.zeros(NC + 1, dtype=torch.bool, device=J.device)
+        hit[tgt] = True
+        visited = visited | hit[:NC]
+        Jx = torch.minimum(_gather(torch.cat([Jx, sentinel]), Jx), sentinel)
+    return visited
+
+
+def _successor(cp, F, idx, n: int, mode: int):
+    """f(i): end of the span the scanner would emit starting at char i, in
+    utils/presplit.py's alternative order."""
+    valid = idx < n
+    L = valid & ((F & FLAG_L) != 0)
+    Nd = valid & ((F & FLAG_N) != 0)
+    WS = valid & ((F & FLAG_WS) != 0)
+    CRLF = valid & ((cp == 10) | (cp == 13))
+    OTHER = valid & ~L & ~Nd & ~WS
+    APOS = valid & (cp == 39)
+    SP = valid & (cp == 32)
+
+    next_non_l = _next_non(L, idx).clamp(max=n)
+    next_non_n = _next_non(Nd, idx).clamp(max=n)
+    next_non_ws = _next_non(WS, idx).clamp(max=n)
+    next_non_other = _next_non(OTHER, idx).clamp(max=n)
+    next_non_crlf = _next_non(CRLF, idx).clamp(max=n)
+    last_crlf = torch.cummax(torch.where(CRLF, idx, -1), 0).values
+    nvec = torch.full((1,), n, dtype=idx.dtype, device=idx.device)
+    none = torch.full((1,), -1, dtype=idx.dtype, device=idx.device)
+    false = torch.zeros(1, dtype=torch.bool, device=idx.device)
+
+    def gat_pos(a, i):
+        """Gather from a positions array; index n (the buffer end) -> n."""
+        return _gather(torch.cat([a, nvec]), i)
+
+    def gat_mask(m, i):
+        return _gather(torch.cat([m, false]), i)
+
+    F1 = _shift_next(F, 1, 0)
+    F2 = _shift_next(F, 2, 0)
+    cp1 = _shift_next(cp, 1, -1)
+    cp2 = _shift_next(cp, 2, -1)
+    L1 = _shift_next(L, 1, False)
+
+    f = torch.full_like(idx, -1)
+
+    def put(pred, val):
+        return torch.where((f < 0) & pred, val, f)
+
+    if mode == 4:
+        # P1: '(?i:[sdmt]|ll|ve|re)
+        c1 = (F1 & FLAG_C1) != 0
+        ci2 = ((((F1 & FLAG_CI_L) != 0) & ((F2 & FLAG_CI_L) != 0))
+               | (((F1 & FLAG_CI_V) != 0) & ((F2 & FLAG_CI_E) != 0))
+               | (((F1 & FLAG_CI_R) != 0) & ((F2 & FLAG_CI_E) != 0)))
+        p1 = APOS & (idx + 1 < n)
+        f = put(p1 & c1, idx + 2)
+        f = put(p1 & ~c1 & (idx + 2 < n) & ci2, idx + 3)
+        # P2: [^\r\n\p{L}\p{N}]?+ \p{L}+
+        f = put(L, next_non_l)
+        f = put(~L & ~Nd & ~CRLF & valid & L1, gat_pos(next_non_l, idx + 1))
+        # P3: \p{N}{1,3}
+        f = put(Nd, torch.minimum(next_non_n, idx + 3))
+        # P4: " "? [^\s\p{L}\p{N}]++ [\r\n]*
+        k4 = torch.where(SP & (idx + 1 < n), idx + 1, idx)
+        other4 = gat_mask(OTHER, k4)
+        end4 = gat_pos(next_non_other, k4)
+        f = put(valid & other4, gat_pos(next_non_crlf, end4))
+        # P5/P6/P7: \s*[\r\n] | \s+(?!\S) | \s+
+        kws = next_non_ws
+        lnl = _gather(torch.cat([last_crlf, none]), kws - 1)
+        f = put(WS & (lnl >= idx), lnl + 1)
+        f = put(WS & (kws >= n), kws)
+        f = put(WS & (kws - idx >= 2), kws - 1)
+        f = put(WS, kws)
+    elif mode == 2:
+        # Q1: '([sdmt]|ll|ve|re) exact case
+        q1 = APOS & (idx + 1 < n)
+        c1 = (cp1 == 115) | (cp1 == 100) | (cp1 == 109) | (cp1 == 116)
+        c2 = (((cp1 == 108) & (cp2 == 108)) | ((cp1 == 118) & (cp2 == 101))
+              | ((cp1 == 114) & (cp2 == 101)))
+        f = put(q1 & c1, idx + 2)
+        f = put(q1 & ~c1 & (idx + 2 < n) & c2, idx + 3)
+        # Q2/Q3/Q4: " "? (\p{L}+ | \p{N}+ | [^\s\p{L}\p{N}]+)
+        k = torch.where(SP, idx + 1, idx)
+        f = put(valid & gat_mask(L, k), gat_pos(next_non_l, k))
+        f = put(valid & gat_mask(Nd, k), gat_pos(next_non_n, k))
+        f = put(valid & gat_mask(OTHER, k), gat_pos(next_non_other, k))
+        # Q5/Q6: \s+(?!\S) | \s+
+        kws = next_non_ws
+        f = put(WS & (kws >= n), kws)
+        f = put(WS & (kws - idx >= 2), kws - 1)
+        f = put(WS, kws)
+    else:  # pragma: no cover
+        raise ValueError(f"unknown mode {mode!r}")
+    return torch.where(valid & (f > idx), f, _BIG)
+
+
+def _chars(data, n: int):
+    """(is_start, char_of_byte, cp, F, n_chars) of data with n valid bytes:
+    the per-char code points and flags compacted to char k's slot."""
+    NB = data.numel()
+    bidx = torch.arange(NB, dtype=torch.int32, device=data.device)
+    bvalid = bidx < n
+    is_start, cp_b = _decode_utf8(torch.where(bvalid, data, 0x41))
+    is_start = is_start & bvalid
+    char_of_byte = torch.cumsum(is_start.to(torch.int32), 0,
+                                dtype=torch.int32) - 1
+    n_chars = max(int(char_of_byte[-1]) + 1, 0)
+    cp = torch.zeros(NB, dtype=torch.int32, device=data.device)
+    cp[char_of_byte[is_start].long()] = cp_b[is_start]
+    return is_start, char_of_byte, cp, _char_flags(cp), n_chars
+
+
+def presplit_plain(data, n: int, mode):
+    """K15's plain twin (minbpe_tpu's _presplit_device, :208-233): per-byte
+    (boundary bool, seg int32) of uint8 ``data`` whose first n bytes are
+    valid UTF-8; seg[i] is the index of the chunk byte i belongs to. Values
+    past n are unspecified."""
+    mode = _check_args(data, n, mode)
+    if data.numel() == 0:
+        return (torch.zeros(0, dtype=torch.bool, device=data.device),
+                torch.zeros(0, dtype=torch.int32, device=data.device))
+    is_start, char_of_byte, cp, F, n_chars = _chars(data, n)
+    cidx = torch.arange(data.numel(), dtype=torch.int32, device=data.device)
+    f = _successor(cp, F, cidx, n_chars, mode)
+    starts_chunk = _orbit(f, n_chars)
+    false = torch.zeros(1, dtype=torch.bool, device=data.device)
+    boundary = is_start & _gather(torch.cat([starts_chunk, false]),
+                                  char_of_byte)
+    seg = torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1
+    return boundary, seg
+
+
+# ---------------------------------------------------------------------------
+# the kernels' own steps, in bytes
+# ---------------------------------------------------------------------------
+
+# byte classes, as csrc/bpe_kernels.cu numbers them
+_CL_L, _CL_N, _CL_O, _CL_WS, _CL_CR = range(5)
+
+
+def successor_plain(data, n: int, mode):
+    """presplit_succ's function: int32 f of data's length, f[p] for each
+    char start p < n the byte where the chunk that would start at p ends,
+    -1 at every other byte. In the kernel's terms: each rule reads the
+    first and second class-run break after p (C1, C2), the first and second
+    break of GPT-4's [^\\s\\p{L}\\p{N}]++[\\r\\n]* (O1, O2) and the last
+    CR/LF of p's whitespace run (LCR)."""
+    mode = _check_args(data, n, mode)
+    dev = data.device
+    f = torch.full((data.numel(),), -1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return f
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    b = data[:n].to(torch.int64)
+    start = (b & 0xC0) != 0x80
+    ln = torch.where(b < 0x80, 1, torch.where(
+        (b & 0xE0) == 0xC0, 2, torch.where((b & 0xF0) == 0xE0, 3, 4)))
+    _, cp = _decode_utf8(data[:n])
+    cp = cp.to(torch.int64)
+    F = _char_flags(cp.to(torch.int32)).to(torch.int64)
+    cls = torch.where((F & FLAG_L) != 0, _CL_L, torch.where(
+        (F & FLAG_N) != 0, _CL_N, torch.where(
+            (F & FLAG_WS) != 0,
+            torch.where((cp == 10) | (cp == 13), _CL_CR, _CL_WS), _CL_O)))
+    # every byte takes its char's class and start
+    lead = torch.cummax(torch.where(start, pos, 0), 0).values
+    cls = cls[lead]
+    coarse = torch.where(cls == _CL_CR, _CL_WS, cls)
+    prev = torch.cat([cls[:1], cls[:-1]])
+    prev_c = torch.where(prev == _CL_CR, _CL_WS, prev)
+    first = pos >= 1
+    brk_c = start & first & (prev_c != coarse)
+    goes_on = (((prev == _CL_O) & ((cls == _CL_O) | (cls == _CL_CR)))
+               | ((prev == _CL_CR) & (cls == _CL_CR)))
+    brk_o = start & first & ~goes_on
+    nn = torch.full((1,), n, dtype=torch.int64, device=dev)
+
+    def after(brk):
+        """The first break after each byte (n past the last), and the
+        second."""
+        incl = _rev_cummin(torch.where(brk, pos, n))
+        one = torch.cat([incl[1:], nn])
+        return one, torch.cat([one, nn])[one]
+
+    C1, C2 = after(brk_c)
+    O1, O2 = after(brk_o)
+    last_cr = torch.cummax(torch.where(cls == _CL_CR, pos, -1), 0).values
+    lcr = last_cr[C1 - 1]
+    lcr = torch.where((coarse == _CL_WS) & (lcr >= pos), lcr, -1)
+
+    def at(a, i, fill):
+        """a[i] where i < n, else fill."""
+        return torch.where(i < n, a[i.clamp(max=n - 1)], fill)
+
+    p1 = pos + ln
+    v1 = p1 < n
+    p2 = p1 + at(ln, p1, 1)
+    v2 = p2 < n
+    p3 = p2 + at(ln, p2, 1)
+    cp1, cp2 = at(cp, p1, -1), at(cp, p2, -1)
+    cls1 = at(cls, p1, -1)
+    apos = start & (cp == 39) & v1
+    ws = start & (coarse == _CL_WS)
+    g = torch.full((n,), -1, dtype=torch.int64, device=dev)
+
+    def put(pred, val):
+        return torch.where((g < 0) & pred, val, g)
+
+    if mode == 4:
+        F1, F2 = at(F, p1, 0), at(F, p2, 0)
+        c1 = (F1 & FLAG_C1) != 0
+        ci2 = ((((F1 & FLAG_CI_L) != 0) & ((F2 & FLAG_CI_L) != 0))
+               | (((F1 & FLAG_CI_V) != 0) & ((F2 & FLAG_CI_E) != 0))
+               | (((F1 & FLAG_CI_R) != 0) & ((F2 & FLAG_CI_E) != 0)))
+        g = put(apos & c1, p2)
+        g = put(apos & ~c1 & v2 & ci2, p3)
+        g = put(start & (cls == _CL_L), C1)
+        g = put(start & (cls != _CL_N) & (cls != _CL_CR) & (cls1 == _CL_L),
+                C2)
+        g = put(start & (cls == _CL_N), torch.where(C1 > p2, p3, C1))
+        sp = (cp == 32) & v1
+        g = put(start & (torch.where(sp, cls1, cls) == _CL_O),
+                torch.where(sp, O2, O1))
+        g = put(ws & (lcr >= 0), lcr + 1)
+    else:
+        c1 = (cp1 == 115) | (cp1 == 100) | (cp1 == 109) | (cp1 == 116)
+        c2 = (((cp1 == 108) & (cp2 == 108)) | ((cp1 == 118) & (cp2 == 101))
+              | ((cp1 == 114) & (cp2 == 101)))
+        g = put(apos & c1, p2)
+        g = put(apos & ~c1 & v2 & c2, p3)
+        sp = cp == 32
+        word = (cls1 >= 0) & (cls1 != _CL_WS) & (cls1 != _CL_CR)
+        g = put(start & sp & v1 & word, C2)
+        g = put(start & ~sp & (coarse != _CL_WS), C1)
+    g = put(ws & (C1 >= n), C1)
+    g = put(ws & (p1 < C1), lead[(C1 - 1).clamp(min=0)])
+    g = put(ws, C1)
+    f[:n] = torch.where(start, g, -1).to(torch.int32)
+    return f
+
+
+def orbit_plain(f, n: int):
+    """presplit_orbit's function: per-byte (boundary bool, seg int32) of the
+    chunk starts {0, f[0], f[f[0]], ...} below n (f: int32, -1 at bytes
+    that start no char); values past n are unspecified."""
+    NB = f.numel()
+    J = torch.where(f >= 0, f, NB).to(torch.int32)
+    visited = _orbit(J, n)
+    pos = torch.arange(NB, device=f.device)
+    boundary = visited & (pos < n)
+    seg = torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1
+    return boundary, seg
+
+
+# ---------------------------------------------------------------------------
+# K15 wrappers
+# ---------------------------------------------------------------------------
+
+# the blocks each kernel (0 presplit_succ, 1 presplit_orbit) can hold
+# resident on a device, asked once per device
+_RESIDENT: dict = {}
+
+
+def _grid(dev, kind: int, n: int) -> int:
+    """K15's cooperative grid over n bytes on dev: the resident blocks,
+    capped at the tiles."""
+    resident = _RESIDENT.get((dev.index, kind))
+    if resident is None:
+        with torch.cuda.device(dev):
+            resident = kernels._load().bpe_presplit_grid(kind)
+        if resident < 1:
+            raise RuntimeError(f"presplit: no cooperative launch on {dev} "
+                               f"(CUDA error {-resident})")
+        _RESIDENT[(dev.index, kind)] = resident
+    return min(resident, -(-n // kernels.PRESPLIT_TILE))
+
+
+def presplit_succ(data, n: int, mode):
+    """K15 presplit_succ: ``successor_plain`` on the card (one cooperative
+    launch). f past n is unspecified there."""
+    code = _check_args(data, n, mode)
+    if not data.is_cuda:
+        return successor_plain(data, n, code)
+    dev = data.device
+    kernels._check("data", data, torch.uint8, dev, 0)
+    f = torch.empty(data.numel(), dtype=torch.int32, device=dev)
+    if n == 0:
+        return f.fill_(-1)
+    dense, starts, flags = _device_tables(dev)
+    tiles = -(-n // kernels.PRESPLIT_TILE)
+    scratch = torch.empty(kernels.PRESPLIT_SCRATCH_INTS * tiles,
+                          dtype=torch.int32, device=dev)
+    kernels._run(dev, kernels._load().bpe_presplit_succ, data.data_ptr(), n,
+                 code, dense.data_ptr(), starts.data_ptr(), flags.data_ptr(),
+                 starts.numel(), f.data_ptr(), scratch.data_ptr(),
+                 _grid(dev, 0, n))
+    kernels.PRESPLIT_SUCC.launches += 1
+    return f
+
+
+def presplit_orbit(f, n: int):
+    """K15 presplit_orbit: ``orbit_plain`` on the card (one cooperative
+    launch). Values past n are unspecified there."""
+    if not f.is_cuda:
+        return orbit_plain(f, n)
+    dev = f.device
+    kernels._check("f", f, torch.int32, dev, n)
+    if n == 0:
+        return (torch.zeros(f.numel(), dtype=torch.bool, device=dev),
+                torch.full((f.numel(),), -1, dtype=torch.int32, device=dev))
+    boundary = torch.empty(f.numel(), dtype=torch.bool, device=dev)
+    seg = torch.empty(f.numel(), dtype=torch.int32, device=dev)
+    ek = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    tl = torch.empty(2 * -(-n // kernels.PRESPLIT_TILE), dtype=torch.int32,
+                     device=dev)
+    kernels._run(dev, kernels._load().bpe_presplit_orbit, f.data_ptr(), n,
+                 boundary.data_ptr(), seg.data_ptr(), ek.data_ptr(),
+                 tl.data_ptr(), _grid(dev, 1, n))
+    kernels.PRESPLIT_ORBIT.launches += 1
+    return boundary, seg
+
+
+def presplit_seg_ids(data, n: int, mode):
+    """Per-byte (boundary, seg) of uint8 ``data`` (valid UTF-8 in [:n],
+    possibly padded past n), on data's device: K15 on the card, the plain
+    twin on the CPU. mode: "gpt4" | "gpt2" (or 4 | 2). Values past n are
+    unspecified."""
+    code = _check_args(data, n, mode)
+    if not data.is_cuda:
+        return presplit_plain(data, n, code)
+    return presplit_orbit(presplit_succ(data, n, code), n)
+
+
+def split_spans_host(text: str, mode, device="cuda"):
+    """Host-visible byte spans via the device splitter (test/debug use), on
+    ``device``: the card by default, the plain twin on "cpu"."""
+    raw = text.encode("utf-8")
+    if not raw:
+        return []
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
+    boundary, _ = presplit_seg_ids(data, len(raw), mode)
+    cuts = torch.nonzero(boundary[:len(raw)]).flatten().tolist()
+    cuts.append(len(raw))
+    return [(cuts[i], cuts[i + 1]) for i in range(len(cuts) - 1)]

@@ -30,13 +30,15 @@ from .train import check_device_memory
 BYTES_PER_TOKEN = 24
 
 
-def check_memory(device, n_tokens: int):
+def check_memory(device, n_tokens: int, split_bytes: int = 0):
     """Raise MemoryError, before any work, where an encode of n_tokens does
-    not fit in the card's free memory (nothing to check on the CPU)."""
+    not fit in the card's free memory (nothing to check on the CPU);
+    ``split_bytes``: the device pre-split's own bytes per token
+    (ops/device_presplit.BYTES_PER_BYTE), where the split runs there."""
     if device.type == "cuda":
-        check_device_memory(device, BYTES_PER_TOKEN * n_tokens,
-                            f"encoding {n_tokens} tokens ({BYTES_PER_TOKEN} "
-                            "B/token)")
+        per = BYTES_PER_TOKEN + split_bytes
+        check_device_memory(device, per * n_tokens,
+                            f"encoding {n_tokens} tokens ({per} B/token)")
 
 
 def encode_stream(ids, seg, pairs, new_ids):

@@ -55,6 +55,8 @@ class RegexTokenizer(Tokenizer):
                                  else _compile_custom(self.pattern))
         self.special_tokens: dict[str, int] = {}
         self.inverse_special_tokens: dict[int, str] = {}
+        # encode_ordinary's opt-in device pre-split
+        self.device_presplit = False
 
     # -- helpers ------------------------------------------------------------
     def _split_arrays(self, text: str):
@@ -130,7 +132,13 @@ class RegexTokenizer(Tokenizer):
     # -- encode -------------------------------------------------------------
     def encode_ordinary(self, text: str) -> list[int]:
         """Encode ignoring special tokens (minbpe/regex.py:111-121): the
-        whole chunked text is one device stream."""
+        whole chunked text is one device stream. With ``device_presplit``
+        set (False by default), a GPT-2 or GPT-4 split with a dense table
+        runs on the device too, and only the raw bytes cross
+        (engine.encode_text_device_split)."""
+        out = engine.encode_text_device_split(self, text)
+        if out is not None:
+            return out
         data, ends = self._split_arrays(text)
         return engine.encode_offsets(self, data, ends)
 

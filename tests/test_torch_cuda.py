@@ -1316,3 +1316,155 @@ def test_large_vocab_modes_match_cpu(dev, mode, basic_3000_cpu):
     else:
         assert not any(launches.values())
     assert tok.merges == want
+
+
+# ---------------------------------------------------------------------------
+# K15 presplit_succ and presplit_orbit (ops/device_presplit.py)
+# ---------------------------------------------------------------------------
+
+def _presplit_texts():
+    """name -> text: the shapes of tests/test_torch_device_presplit.py, and
+    runs of 2^20 bytes."""
+    from minbpe_tpu_torch.utils import golden
+
+    rng = random.Random(11)
+    alpha = list("abcXYZ 019'\t\n\r!.,;-_é你٦\U0001F600\U0001D11E  ſK　٣")
+    corpus = golden.smoke_corpus(ROOT)
+    texts = {
+        "cases": " | ".join([
+            "Hello's world IT'S you'LL we've THEY'RE", "abc123456789def",
+            "  spaces   and\t tabs ", "\n\nnewlines\r\n mix \n",
+            "héllo wörld 你好世界 😊🎉 test", "x'll !'ll ''ll \n'll 12'll  'll",
+            "word  \n  word", "\r\n\r\n", "𝕏 astral 𝄞 chars 🚀", "( )",
+            "a  'b", " \r\n ", "'t"]),
+        "fuzz": "".join(rng.choice(alpha) for _ in range(20_000)),
+        "smoke": corpus,
+        "one_char": "x",
+        "astral": "𝕏𝕐 astral 𝄞 🚀🚀 x🚀y 𐐀𐐨 '𐐀 1𝟙2 \U0001F600  " * 300,
+    }
+    for log2 in (12, 16, 20):
+        k = 1 << log2
+        texts.update({
+            f"spaces_{log2}": " " * k + "x",
+            f"spaces_at_end_{log2}": "ab" + " " * k,
+            f"letters_{log2}": " " + "a" * k + "!",
+            f"digits_{log2}": "1" * k + " 22",
+            f"crlf_{log2}": "x" + "\r\n" * (k // 2) + "  y",
+            f"apostrophes_{log2}": "'" * k + "ll",
+        })
+    return texts
+
+
+PRESPLIT_TEXTS = ["cases", "fuzz", "smoke", "one_char", "astral"] + [
+    f"{kind}_{log2}" for log2 in (12, 16, 20)
+    for kind in ("spaces", "spaces_at_end", "letters", "digits", "crlf",
+                 "apostrophes")]
+
+
+@pytest.fixture(scope="module")
+def presplit_texts():
+    return _presplit_texts()
+
+
+@pytest.mark.parametrize("mode", ["gpt4", "gpt2"])
+@pytest.mark.parametrize("name", PRESPLIT_TEXTS)
+def test_presplit_matches_plain(dev, presplit_texts, mode, name):
+    """K15 against its plain twin (presplit_plain, on the CPU), each kernel
+    against its own step's plain version on the same inputs, and the ends
+    against the host scanner's: exact. The input is padded past n."""
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+    from minbpe_tpu_torch.utils import native
+
+    raw = presplit_texts[name].encode("utf-8")
+    n = len(raw)
+    data = torch.frombuffer(bytearray(raw + b" 1a" * 7), dtype=torch.uint8)
+    gdata = data.to(dev)
+    kernels.reset_launches()
+    gb, gs = pdp.presplit_seg_ids(gdata, n, mode)
+    torch.cuda.synchronize()
+    assert kernels.PRESPLIT_SUCC.launches == kernels.PRESPLIT_ORBIT.launches \
+        == 1
+    cb, cs = pdp.presplit_plain(data, n, mode)
+    assert torch.equal(gb[:n].cpu(), cb[:n])
+    assert torch.equal(gs[:n].cpu(), cs[:n])
+    f = pdp.presplit_succ(gdata, n, mode)
+    cf = pdp.successor_plain(gdata, n, mode)
+    assert torch.equal(f[:n], cf[:n])
+    ob, os_ = pdp.presplit_orbit(cf, n)
+    pb, ps = pdp.orbit_plain(cf, n)
+    assert torch.equal(ob[:n], pb[:n]) and torch.equal(os_[:n], ps[:n])
+    ends = np.flatnonzero(cb[:n].numpy()).tolist()[1:] + [n]
+    assert ends == native.split_offsets(raw, 4 if mode == "gpt4" else 2
+                                        ).tolist()
+
+
+def test_presplit_cuda_never_takes_plain(dev, monkeypatch):
+    """A CUDA tensor goes to the kernels, never to a plain version."""
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran on a CUDA tensor")
+
+    for name in ("presplit_plain", "successor_plain", "orbit_plain"):
+        monkeypatch.setattr(pdp, name, refuse)
+    raw = "Hello's world 123456 !!\r\n  x".encode()
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
+    kernels.reset_launches()
+    b, s = pdp.presplit_seg_ids(data, len(raw), "gpt4")
+    assert int(s[-1]) == 8 and bool(b[0])
+    assert kernels.PRESPLIT_SUCC.launches == kernels.PRESPLIT_ORBIT.launches \
+        == 1
+
+
+@pytest.mark.parametrize("mode", ["gpt4", "gpt2"])
+def test_split_spans_host_on_card(dev, presplit_texts, mode):
+    """split_spans_host runs on the card by default (K15 once each) and
+    gives the host scanner's spans."""
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+    from minbpe_tpu_torch.utils import native
+
+    text = presplit_texts["cases"] + presplit_texts["fuzz"]
+    raw = text.encode("utf-8")
+    kernels.reset_launches()
+    spans = pdp.split_spans_host(text, mode)
+    assert kernels.PRESPLIT_SUCC.launches == kernels.PRESPLIT_ORBIT.launches \
+        == 1
+    ends = native.split_offsets(raw, 4 if mode == "gpt4" else 2).tolist()
+    assert spans == list(zip([0] + ends[:-1], ends))
+    assert pdp.split_spans_host("", mode) == []
+
+
+@pytest.mark.parametrize("case", ["gpt4", "gpt2", "gpt4_dense_synthetic"])
+def test_device_split_encode_on_card(dev, case, monkeypatch):
+    """The opted-in encode on the card equals the host-split encode: K15
+    once each, K10 once, no host scanner."""
+    from minbpe_tpu_torch import GPT4Tokenizer
+    from minbpe_tpu_torch.convert import tokenizer_from_arrays
+    from minbpe_tpu_torch.regex import GPT2_SPLIT_PATTERN
+    from minbpe_tpu_torch.utils import golden, native
+    from minbpe_tpu_torch.utils.synthranks import synthetic_ranks
+
+    text = golden.smoke_corpus(ROOT)
+    if case == "gpt4_dense_synthetic":
+        ranks, _, specials = synthetic_ranks(1000, seed=3)
+        tok = GPT4Tokenizer.from_mergeable_ranks(ranks, specials,
+                                                 device="cuda")
+    else:
+        merges = golden.load_golden()["merges"]
+        tok = tokenizer_from_arrays(
+            RegexTokenizer, merges, 256 + np.arange(len(merges)),
+            pattern=GPT2_SPLIT_PATTERN if case == "gpt2" else None,
+            device="cuda")
+    want = tok.encode_ordinary(text)
+    tok.device_presplit = True
+    calls = []
+    real = native.split_offsets
+    monkeypatch.setattr(native, "split_offsets",
+                        lambda *a: calls.append(1) or real(*a))
+    kernels.reset_launches()
+    got = tok.encode_ordinary(text)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    assert got == want
+    assert not calls
+    assert launches == {**{k: 0 for k in launches}, "presplit_succ": 1,
+                        "presplit_orbit": 1, "encode_sweep": 1}

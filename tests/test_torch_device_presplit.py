@@ -1,0 +1,353 @@
+"""The port's device pre-split (minbpe_tpu_torch/ops/device_presplit.py, its
+plain CPU path) against minbpe_tpu's (ops/device_presplit.py, jitted on
+the CPU) and the port's host scanner, boundaries and segment ids exact;
+the kernels' own steps in bytes (successor_plain, orbit_plain) against the
+same; and the opted-in encode (engine.encode_text_device_split) against
+the host-split encode and minbpe_tpu's, with the configurations it
+declines. K15 itself runs on the card: tests/test_torch_cuda.py."""
+
+import os
+import random
+
+import numpy as np
+import pytest
+import torch
+
+# The suite runs in several worker processes at once: one intra-op
+# thread each keeps the plain PyTorch paths from contending for cores.
+torch.set_num_threads(1)
+
+pytest.importorskip("jax")
+
+import minbpe_tpu  # noqa: E402
+from minbpe_tpu import gpt4 as jgpt4  # noqa: E402
+from minbpe_tpu.ops import device_presplit as jdp  # noqa: E402
+
+import minbpe_tpu_torch as port  # noqa: E402
+from minbpe_tpu_torch import engine, kernels  # noqa: E402
+from minbpe_tpu_torch.convert import tokenizer_from_arrays  # noqa: E402
+from minbpe_tpu_torch.ops import device_presplit as pdp  # noqa: E402
+from minbpe_tpu_torch.regex import (GPT2_SPLIT_PATTERN,  # noqa: E402
+                                    GPT4_SPLIT_PATTERN)
+from minbpe_tpu_torch.utils import golden, native, presplit  # noqa: E402
+from minbpe_tpu_torch.utils.synthranks import synthetic_ranks  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODES = ("gpt4", "gpt2")
+SCANNER = {"gpt4": 4, "gpt2": 2}
+# every input is padded to one of these, so minbpe_tpu's jitted split
+# compiles once a length and mode
+BUCKETS = (512, 8192, 1 << 18)
+
+# minbpe_tpu's tests/test_device_presplit.py cases
+CASES = [
+    "hello world", "Hello's world IT'S you'LL we've THEY'RE",
+    "abc123456789def", "  spaces   and\t tabs ", "\n\nnewlines\r\n mix \n",
+    "a b", "  b", "   b", " 1", "  1", "don't stop!!! 42x",
+    "héllo wörld 你好世界 😊🎉 test", "'ll 've 're 's 'd 'm 't",
+    "x'll !'ll ''ll \n'll 12'll  'll", "...1234...", "a!!!b",
+    "word  \n  word", "\r\n\r\n", "trailing space ", "  ", " ", "\n",
+    "𝕏 astral 𝄞 chars 🚀", "tab\ttab", "12 345 6789", "( )", "(  )",
+    "a  'b", "\r\nx", " \r\n ", "'", "5", "'t",
+]
+# minbpe_tpu's fuzz alphabet, and the case-folding letters of GPT-4's
+# contractions (long s, Kelvin sign), a wide space and an Arabic digit
+ALPHA = list("abcXYZ 019'\t\n\r!.,;-_é你٦\U0001F600\U0001D11E  ")
+ALPHA_WIDE = ALPHA + list("ſK　 ٣LlVvEeRr")
+
+
+def _padded(raw: bytes) -> np.ndarray:
+    cap = next(b for b in BUCKETS if b >= len(raw))
+    out = np.zeros(cap, np.uint8)
+    out[:len(raw)] = np.frombuffer(raw, np.uint8)
+    return out
+
+
+def _host_ends(text: str, mode: str) -> list[int]:
+    ends = native.split_offsets(text.encode("utf-8"), SCANNER[mode])
+    if ends is None:
+        ends = presplit.split_offsets(text, SCANNER[mode])
+    return [int(e) for e in ends]
+
+
+def _ends(boundary, n: int) -> list[int]:
+    cuts = np.flatnonzero(np.asarray(boundary)[:n]).tolist()
+    return cuts[1:] + [n] if n else []
+
+
+def _check(text: str, mode: str):
+    """The port's split of ``text`` equals minbpe_tpu's and the host
+    scanner's; the kernels' steps in bytes equal it too."""
+    raw = text.encode("utf-8")
+    n = len(raw)
+    arr = _padded(raw)
+    data = torch.from_numpy(arr)
+    pb, ps = pdp.presplit_seg_ids(data, n, mode)
+    assert pb.shape == ps.shape == (arr.size,)
+    jb, js = jdp.presplit_seg_ids(arr, n, mode)
+    assert np.array_equal(pb.numpy()[:n], np.asarray(jb)[:n])
+    assert np.array_equal(ps.numpy()[:n], np.asarray(js)[:n])
+    assert _ends(pb.numpy(), n) == _host_ends(text, mode)
+    f = pdp.successor_plain(data, n, mode)
+    ob, os_ = pdp.orbit_plain(f, n)
+    assert torch.equal(ob[:n], pb[:n]) and torch.equal(os_[:n], ps[:n])
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_cases(mode, case):
+    _check(CASES[case], mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("seed", range(4))
+def test_fuzz(mode, seed):
+    rng = random.Random(seed)
+    alpha = ALPHA if seed < 2 else ALPHA_WIDE
+    for length in (64, 300, 1500):
+        _check("".join(rng.choice(alpha) for _ in range(length)), mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("part", range(3))
+def test_smoke_corpus_slice(mode, part):
+    text = golden.smoke_corpus(ROOT)
+    raw = text.encode("utf-8")[part * 100_000:part * 100_000 + 8000]
+    _check(raw.decode("utf-8", errors="ignore"), mode)
+
+
+RUNS = {
+    "spaces": lambda k: " " * k + "x",
+    "spaces_at_end": lambda k: "ab" + " " * k,
+    "letters": lambda k: " " + "a" * k + "!",
+    "digits": lambda k: "1" * k + " 22",
+    "crlf": lambda k: "x" + "\r\n" * (k // 2) + "  y",
+    "apostrophes": lambda k: "'" * k + "ll",
+}
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", sorted(RUNS))
+@pytest.mark.parametrize("log2", [12, 16])
+def test_runs(mode, kind, log2):
+    """Runs far longer than a kernel tile (4,096 bytes)."""
+    _check(RUNS[kind](1 << log2), mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_astral(mode):
+    _check("𝕏𝕐 astral 𝄞 chars 🚀🚀 x🚀y 𐐀𐐨 '𐐀 1𝟙2 \U0001F600  \U0001F600",
+           mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_padded_input_matches_exact(mode):
+    """Pad bytes past n change no boundary or segment id below n."""
+    raw = "pad me 123  ok\n 'll".encode()
+    n = len(raw)
+    exact = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    for pad in (b"\x00", b" ", b"a", b"1", b"\n"):
+        padded = torch.frombuffer(bytearray(raw + pad * 61), dtype=torch.uint8)
+        for got, want in zip(pdp.presplit_seg_ids(padded, n, mode),
+                             pdp.presplit_seg_ids(exact, n, mode)):
+            assert torch.equal(got[:n], want[:n])
+        f = pdp.successor_plain(padded, n, mode)
+        assert torch.equal(f[:n], pdp.successor_plain(exact, n, mode))
+        assert (f[n:] == -1).all()
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_empty_and_one_char(mode):
+    assert pdp.split_spans_host("", mode, device="cpu") == [] == \
+        jdp.split_spans_host("", mode)
+    b, s = pdp.presplit_seg_ids(torch.zeros(0, dtype=torch.uint8), 0, mode)
+    assert b.numel() == s.numel() == 0
+    b, s = pdp.presplit_seg_ids(torch.zeros(8, dtype=torch.uint8), 0, mode)
+    assert not b.any()
+    for text in ("x", "😊", " ", "\n", "7", "'"):
+        _check(text, mode)
+        assert pdp.split_spans_host(text, mode, device="cpu") == \
+            jdp.split_spans_host(text, mode) == [(0, len(text.encode()))]
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_split_spans_host(mode):
+    text = " | ".join(CASES)
+    assert pdp.split_spans_host(text, mode, device="cpu") == \
+        jdp.split_spans_host(text, mode)
+
+
+def test_arguments_checked():
+    data = torch.zeros(4, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        pdp.presplit_seg_ids(data, 4, "gpt3")
+    with pytest.raises(ValueError):
+        pdp.presplit_seg_ids(data, 5, "gpt4")
+    with pytest.raises(TypeError):
+        pdp.presplit_seg_ids(data.to(torch.int32), 4, "gpt4")
+
+
+def test_cpu_wrappers_take_the_plain_steps():
+    """On CPU tensors the kernel wrappers are their plain versions, and
+    nothing counts as a launch."""
+    raw = "Hello's world 123456 !!\r\n  x".encode()
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    kernels.reset_launches()
+    f = pdp.presplit_succ(data, len(raw), "gpt4")
+    assert torch.equal(f, pdp.successor_plain(data, len(raw), "gpt4"))
+    for got, want in zip(pdp.presplit_orbit(f, len(raw)),
+                         pdp.orbit_plain(f, len(raw))):
+        assert torch.equal(got, want)
+    assert kernels.PRESPLIT_SUCC.launches == 0
+    assert kernels.PRESPLIT_ORBIT.launches == 0
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_mode_codes(mode):
+    """A split given by its scanner code (regex.py's _split_mode, what the
+    engine passes) is the split given by name."""
+    raw = " | ".join(CASES).encode()
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    code = SCANNER[mode]
+    assert pdp.mode_code(mode) == pdp.mode_code(code) == code
+    for got, want in zip(pdp.presplit_seg_ids(data, len(raw), code),
+                         pdp.presplit_seg_ids(data, len(raw), mode)):
+        assert torch.equal(got, want)
+    assert torch.equal(pdp.successor_plain(data, len(raw), code),
+                       pdp.successor_plain(data, len(raw), mode))
+    for other in (None, 0, 1, 3, "gpt3", "4", 4.5, [4]):
+        assert pdp.mode_code(other) is None
+
+
+# ---------------------------------------------------------------------------
+# the opted-in encode
+# ---------------------------------------------------------------------------
+
+TEXT = golden.smoke_corpus(ROOT)[:24_000]
+PATTERNS = {"gpt4": GPT4_SPLIT_PATTERN, "gpt2": GPT2_SPLIT_PATTERN}
+
+
+def _pair(mode: str, vocab: int, special_tokens=None):
+    """The port's and minbpe_tpu's RegexTokenizer with the smoke golden's
+    first vocab - 256 merges."""
+    merges = golden.load_golden()["merges"][:vocab - 256]
+    p = tokenizer_from_arrays(port.RegexTokenizer, merges,
+                              256 + np.arange(len(merges)),
+                              pattern=PATTERNS[mode],
+                              special_tokens=special_tokens, device="cpu")
+    j = minbpe_tpu.RegexTokenizer(PATTERNS[mode])
+    j.merges = dict(p.merges)
+    j.vocab = j._build_vocab()
+    if special_tokens:
+        j.register_special_tokens(dict(special_tokens))
+    return p, j
+
+
+def _calls(monkeypatch):
+    """A counter of the host scanner's calls."""
+    calls = []
+    real = native.split_offsets
+    monkeypatch.setattr(native, "split_offsets",
+                        lambda *a: calls.append(1) or real(*a))
+    return calls
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("vocab", [300, 512, 1024])
+def test_encode_device_split(mode, vocab, monkeypatch):
+    p, j = _pair(mode, vocab)
+    want = p.encode_ordinary(TEXT)
+    assert want == j.encode_ordinary(TEXT)
+    p.device_presplit = True
+    calls = _calls(monkeypatch)
+    assert p.encode_ordinary(TEXT) == want
+    assert p.encode(TEXT) == want
+    assert not calls
+    assert p.decode(want) == TEXT
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_encode_device_split_specials(mode):
+    """encode reaches the device split when no special is allowed; with
+    specials, and in encode_batch, the host split stays, as in
+    minbpe_tpu."""
+    specials = {"<|a|>": 1100, "<|b|>": 1101}
+    p, j = _pair(mode, 700, specials)
+    p.device_presplit = True
+    text = TEXT[:3000] + "<|a|>" + TEXT[3000:6000] + "<|b|>"
+    for allowed in ("none", "all", {"<|b|>"}):
+        assert p.encode(text, allowed_special=allowed) == j.encode(
+            text, allowed_special=allowed)
+    docs = [TEXT[:500], "", TEXT[500:4000]]
+    assert p.encode_batch(docs) == [j.encode(d) for d in docs]
+
+
+@pytest.mark.parametrize("case", ["cases", "runs"])
+def test_encode_device_split_edges(case):
+    p, j = _pair("gpt4", 600)
+    p.device_presplit = True
+    texts = (CASES if case == "cases"
+             else [RUNS[k](3000) for k in sorted(RUNS)] + ["", "x"])
+    for text in texts:
+        assert p.encode_ordinary(text) == j.encode_ordinary(text), repr(text)
+
+
+def test_gpt4_dense_synthetic_device_split(monkeypatch):
+    """GPT4Tokenizer with a dense table: the split on the raw bytes, then
+    the byte shuffle on the device (minbpe_tpu's device split skips it)."""
+    ranks, _, specials = synthetic_ranks(1000, seed=3)
+    p = port.GPT4Tokenizer.from_mergeable_ranks(ranks, specials,
+                                                device="cpu")
+    j = jgpt4.GPT4Tokenizer.from_mergeable_ranks(ranks, specials)
+    assert engine.device_table(p).kind == "dense"
+    assert not np.array_equal(p.byte_shuffle, np.arange(256))
+    want = p.encode_ordinary(TEXT)
+    assert want == j.encode_ordinary(TEXT)
+    p.device_presplit = True
+    calls = _calls(monkeypatch)
+    got = p.encode_ordinary(TEXT)
+    assert not calls
+    assert got == want
+    assert p.decode(got) == TEXT
+
+
+def test_declines(tmp_path, monkeypatch):
+    """None (the host split) for a custom pattern, a BasicTokenizer, a
+    sorted table and a GPT-4 model loaded into RegexTokenizer(custom)."""
+    custom = r"\w+|\s+|[^\w\s]+"
+    merges = golden.load_golden()["merges"][:100]
+    c = tokenizer_from_arrays(port.RegexTokenizer, merges,
+                              256 + np.arange(100), pattern=custom,
+                              device="cpu")
+    b = tokenizer_from_arrays(port.BasicTokenizer, merges,
+                              256 + np.arange(100), device="cpu")
+    s = tokenizer_from_arrays(port.RegexTokenizer, [[97, 98]], [5000],
+                              device="cpu")
+    assert engine.device_table(s).kind == "sorted"
+    g, _ = _pair("gpt4", 400)
+    g.save(str(tmp_path / "g"))
+    loaded = port.RegexTokenizer(custom, device="cpu")
+    loaded.load(str(tmp_path / "g.model"))
+    assert loaded.pattern == GPT4_SPLIT_PATTERN
+    for tok in (c, b, s, loaded):
+        tok.device_presplit = True
+        assert engine.encode_text_device_split(tok, "hello world") is None
+    g.device_presplit = False
+    assert engine.encode_text_device_split(g, "hello world") is None
+    # the loaded tokenizer keeps its constructor's split
+    calls = _calls(monkeypatch)
+    assert loaded.encode_ordinary(TEXT[:2000]) == tokenizer_from_arrays(
+        port.RegexTokenizer, *g._merge_arrays(), pattern=custom,
+        device="cpu").encode_ordinary(TEXT[:2000])
+    assert not calls  # a custom pattern splits with regex, not the scanner
+
+
+def test_device_split_limits(monkeypatch):
+    p, _ = _pair("gpt4", 300)
+    p.device_presplit = True
+    assert p.encode_ordinary("") == []
+    monkeypatch.setattr(pdp, "MAX_N", 10)
+    with pytest.raises(ValueError, match="at most 10"):
+        p.encode_ordinary("eleven byte")
+    assert p.encode_ordinary("ten bytes!") == p.encode_batch(
+        ["ten bytes!"])[0]

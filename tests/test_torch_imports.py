@@ -66,7 +66,8 @@ def test_import_leaves_jax_minbpe_tpu_and_regex_out():
         "import sys\n"
         "import minbpe_tpu_torch\n"
         "from minbpe_tpu_torch import convert, engine, gpt4, kernels\n"
-        "from minbpe_tpu_torch.ops import (encode, flat_encode, merge,\n"
+        "from minbpe_tpu_torch.ops import (device_presplit, encode,\n"
+        "    flat_encode, merge,\n"
         "    ranktab, select, stream, train, train_inc, train_select,\n"
         "    train_sortloop, train_sparse)\n"
         "from minbpe_tpu_torch.utils import (checkpoint, golden, native,\n"
@@ -77,6 +78,8 @@ def test_import_leaves_jax_minbpe_tpu_and_regex_out():
         "             'sortloop_inc', 'sparse', 'sparse_inc'):\n"
         "    t.train('hello world, hello there', 260, select_mode=mode)\n"
         "assert t.decode(t.encode('hello')) == 'hello'\n"
+        "t.device_presplit = True\n"
+        "assert t.decode(t.encode('hello  world')) == 'hello  world'\n"
         "ranks, _, sp = synthranks.synthetic_ranks(4353, seed=1)\n"
         "g = minbpe_tpu_torch.GPT4Tokenizer.from_mergeable_ranks(\n"
         "    ranks, sp, device='cpu')\n"
