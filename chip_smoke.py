@@ -37,10 +37,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    its bytes bound and torch.unique's time; K15 presplit_succ and
    presplit_orbit (the device pre-split) against their plain twin, the
    split's boundaries and segment ids and each kernel's own step, on the
-   smoke and the XL corpus in both modes and on 2^20 spaces, letters and
-   digits, each with its bytes bound (the whole split's time at the main
-   shape also from the profiler); the outputs are integers and must be
-   exactly equal;
+   smoke and the XL corpus in both modes, the XL corpus four times over
+   and 2^20 spaces, letters and digits, each with its bytes bound (the
+   whole split's time at the main shape also from the profiler); the
+   outputs are integers and must be exactly equal;
 3. drive the main path through the user's entry points, one path at a
    time, with every launch count set to 0 just before each path and read
    just after it: RegexTokenizer (GPT-4 pattern) training at vocab 1024 on
@@ -969,10 +969,11 @@ def presplit_case(torch, pdp, name, text, mode, profiled=False):
 
 def phase_presplit(torch, golden_mod):
     """K15 against its plain twin at the device split's shapes: the smoke
-    corpus and the XL corpus in both modes, and 2^20 spaces, letters and
-    digits (GPT-4). Returns the rows of presplit_succ and presplit_orbit;
-    the main shape is the smoke corpus with GPT-4's split (the
-    encode_device_split path)."""
+    corpus and the XL corpus in both modes, the XL corpus four times over
+    (50,353,352 bytes, GPT-4) and 2^20 spaces, letters and digits (GPT-4).
+    Returns the rows of presplit_succ and presplit_orbit; the main shape
+    is the smoke corpus with GPT-4's split (the encode_device_split
+    path)."""
     from minbpe_tpu_torch import kernels
     from minbpe_tpu_torch.ops import device_presplit as pdp
 
@@ -980,7 +981,7 @@ def phase_presplit(torch, golden_mod):
     xl = golden_mod.xl_corpus(ROOT)
     k = 1 << 20
     cases = [("smoke", corpus, "gpt4"), ("smoke", corpus, "gpt2"),
-             ("xl", xl, "gpt4"), ("xl", xl, "gpt2"),
+             ("xl", xl, "gpt4"), ("xl", xl, "gpt2"), ("xl4", xl * 4, "gpt4"),
              ("spaces_2e20", " " * k + "x", "gpt4"),
              ("letters_2e20", " " + "a" * k + "!", "gpt4"),
              ("digits_2e20", "1" * k + " 22", "gpt4")]

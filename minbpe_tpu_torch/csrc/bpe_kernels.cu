@@ -3665,14 +3665,23 @@ int bpe_encode_min_sweep(const int* ids, const int* bounds, const int* which,
 // feeds K10 encode_sweep (fused_encode.py::_kernel) through the segment ids.
 //
 // Bound: bytes. The function reads the n bytes and the 64 KB class table
-// and writes 4 n of segment ids and n of boundaries; the successors (4 n),
-// the exits (8 n) and the tile records are the design's scratch.
+// and writes 4 n of segment ids and n of boundaries. The design moves
+// about 18 n: presplit_succ reads the bytes (and a block's first tile
+// again) and writes 4 n of successors; presplit_orbit reads them once,
+// keeps 4 n of exit records in the segment-id buffer and n / 8 of trunk
+// bits until step 4, and writes the boundaries and the ids.
+//
+// Both kernels cut the stream into tiles of 4,096 bytes on a cooperative
+// grid. No loop that one thread, warp or block runs has a trip count that
+// grows with the number of tiles on text: a block's loop over its own
+// tiles is its share of the work, and what crosses blocks is one record a
+// block (bounded by the grid, a constant of the card) or a doubling of
+// depth log2 of the nodes.
 //
 // K15 presplit_succ works in bytes, not chars: the next char is p + len(p),
 // the length read from the lead byte, so the contraction tests, \p{N}{1,3}
 // and the optional space prefixes read at most three chars ahead. Every
-// other look-ahead of the two patterns is the end of a class run, and each
-// is a reverse scan over the stream of a per-byte value:
+// other look-ahead of the two patterns is the end of a class run:
 //   C1, C2  the first and second coarse class change after p (classes L,
 //           N, O = [^\s\p{L}\p{N}], whitespace); C1 ends p's run, C2 the
 //           run after it, which is the letter run of a prefixed [^\r\n
@@ -3682,20 +3691,51 @@ int bpe_encode_min_sweep(const int* ids, const int* bounds, const int* which,
 //           a leading space);
 //   LCR     the last CR/LF in [p, end of p's whitespace run), -1 if none
 //           (\s*[\r\n] ends after it).
-// The scans chain across tiles with one grid barrier: each tile's
-// aggregate (its two least breaks of each kind; whether it holds a
-// non-space byte, and the last CR/LF before the first one), then block 0
-// scans the aggregates from the right, then each tile scans its own bytes
-// from the carry it got. No thread walks a run: a 2^20-byte run of letters
-// costs what any 2^20 bytes cost.
+// These are an associative aggregate of the bytes to the right (Agg). Each
+// block owns a contiguous range of tiles. It stages a tile and 16 bytes
+// either side in shared memory with 16-byte loads (the next tile's load in
+// flight meanwhile) and classifies every byte there once (an ASCII chunk
+// of 16 by table); the aggregates, the successors and the look-aheads read
+// that. Before the one grid barrier each block combines its tiles'
+// aggregates from the left and stops at the first saturated one (two
+// breaks of each kind and a byte that is not whitespace: nothing to its
+// right changes it), in text its first tile; after it, a warp combines the
+// later blocks' aggregates 32 at a time until one saturates, in text the
+// next block's, and the block walks its tiles from the right, each tile's
+// carry its right neighbour's aggregate combined with that one's carry.
+// Worst case (a run without breaks across the whole stream): phase 1
+// reads a block's whole range and the look-right reads every later
+// block's record, at most ceil(grid / 32) rounds of a warp.
 //
-// K15 presplit_orbit cuts the stream into tiles of 4,096 bytes. Each block
-// resolves, by pointer doubling in shared memory (12 rounds), where a walk
-// from each char start of its tile leaves the tile and how many chunk
-// starts it makes there; one thread then walks the chain of tile entries
-// (one dependent load per tile that holds a chunk start); then each tile
-// marks the orbit from its entry, again by doubling, and counts its
-// boundaries into segment ids from the chain's running count.
+// K15 presplit_orbit, in four steps split by two grid barriers:
+//   1. each tile resolves by pointer doubling in shared memory (at most 12
+//      rounds, each byte's word its walk's next byte and hops, the next
+//      tile's successors loading meanwhile) where the walk from each of its
+//      bytes leaves the tile (its exit) and how many chunk starts it makes
+//      there, and marks the walk from its first char start, its trunk
+//      (written as bits); where the walks leave at more than one exit it
+//      dedupes them in a shared-memory hash (a char start inserts unless
+//      the byte before it has its exit); it lists them (the tile's nodes,
+//      in text one, at most two) and writes at each byte the index of its
+//      exit in that list and its count (into seg);
+//   2. the node graph: node (u, k), an exit of tile u landing on byte e of
+//      tile w, leads to node (w, index at e). The path from byte 0's exit
+//      is marked by doubling over the nodes, ceil(log2(nodes + 1)) rounds:
+//      in block 0's shared memory while the tiles and the nodes number at
+//      most 4,096 (the XL corpus has 3,108 nodes), else over the whole
+//      grid with a grid barrier a round (at most 31). Each node on the path
+//      is the entry of its tile and adds its count to its tile's block;
+//   3. each block sums the chunk starts of the blocks before it;
+//   4. each tile follows the walk from its entry, at most 16 hops, until it
+//      meets the trunk (in text at once: the entry is the end of the chunk
+//      that crosses into the tile, and so is the trunk's first jump), then
+//      takes the trunk from there; a walk that does neither is marked by
+//      doubling from the entry (inside a long digit run, where the walks
+//      of the three residues never meet). A block counts its tiles'
+//      boundaries into segment ids from its running count.
+// A tile may list any number of exits up to its bytes, so there is no cap
+// and no slow case but the doubling of step 4: a general forward f gives
+// more nodes and more rounds.
 // ===========================================================================
 
 namespace {
@@ -3720,19 +3760,31 @@ constexpr int CL_WS = 3;
 constexpr int CL_CR = 4;
 
 constexpr int BIG = 0x7FFFFFFF;
+constexpr int TILE = 4096;             // bytes a tile, both kernels
 
 constexpr int S_TPB = 256;             // K15 presplit_succ: threads a block
 constexpr int S_BPT = 16;              // consecutive bytes a thread
-constexpr int S_TILE = S_TPB * S_BPT;  // bytes a tile
-constexpr int S_AGG = 6;               // ints of a tile aggregate
+constexpr int S_HALO = 16;             // bytes staged either side of a tile
+constexpr int S_WIN = TILE + 2 * S_HALO;
+constexpr int S_AGG = 6;               // ints of an aggregate
+static_assert(S_TPB * S_BPT == TILE, "a thread's bytes tile the tile");
 
 constexpr int O_TPB = 512;             // K15 presplit_orbit
 constexpr int O_PER = 8;
-constexpr int O_TILE = O_TPB * O_PER;  // bytes a tile
 constexpr int O_ROUNDS = 12;           // 2^12 >= the hops of a walk
-static_assert(O_TILE == S_TILE, "one tile for both K15 kernels");
-constexpr int O_SMEM = 2 * O_TILE * (int)sizeof(int) +
-                       2 * O_TILE * (int)sizeof(unsigned short);
+constexpr int O_BLOCK_NODES = 4096;    // the node graph's one-block tier
+constexpr int O_OWN = O_BLOCK_NODES / O_TPB;  // its tiles a thread
+constexpr int O_WALK = 16;             // hops of an entry to its trunk
+constexpr int O_CHUNK = 64;            // tiles whose trunks step 4 loads
+static_assert(O_CHUNK * (TILE / 32) <= 2 * TILE, "in step 1's word buffers");
+constexpr unsigned ND_NONE = 0xFFFFu;  // exit index of a byte off a start
+static_assert(O_TPB * O_PER == TILE, "a block's bytes tile the tile");
+static_assert(O_PER == 8, "step 4 moves a thread's bytes as 8 and 2 x 16");
+// step 1: two word buffers, the roots' exits and the trunk's marks; step
+// 2 in one block: each tile's first node, the next nodes twice, the marks
+constexpr int O_SMEM = 3 * O_BLOCK_NODES * (int)sizeof(int) + O_BLOCK_NODES;
+static_assert(O_SMEM >= 3 * TILE * (int)sizeof(int) + TILE,
+              "step 1 fits the shared memory of step 2");
 
 struct Tables {
   const uint8_t* dense;  // flags of each BMP code point
@@ -3740,14 +3792,6 @@ struct Tables {
   const uint8_t* flags;  // their flags
   int nstarts;
 };
-
-struct Char {
-  int cp, len, fl, cls;
-};
-
-__device__ __forceinline__ int byte_at(const uint8_t* d, int n, long long q) {
-  return q < n ? (int)__ldg(d + q) : 0;
-}
 
 __device__ __forceinline__ bool lead(int b) { return (b & 0xC0) != 0x80; }
 
@@ -3766,22 +3810,11 @@ __device__ __forceinline__ int flags_of(const Tables& t, int cp) {
   return __ldg(t.flags + lo);
 }
 
-// the char that starts at byte p < n (decoded as _decode_utf8 does)
-__device__ Char char_at(const uint8_t* d, int n, const Tables& t, int p) {
-  const int b = byte_at(d, n, p), b1 = byte_at(d, n, p + 1) & 0x3F,
-            b2 = byte_at(d, n, p + 2) & 0x3F, b3 = byte_at(d, n, p + 3) & 0x3F;
-  Char c;
-  c.len = utf8_len(b);
-  c.cp = c.len == 1 ? b
-       : c.len == 2 ? ((b & 0x1F) << 6) | b1
-       : c.len == 3 ? ((b & 0x0F) << 12) | (b1 << 6) | b2
-                    : ((b & 0x07) << 18) | (b1 << 12) | (b2 << 6) | b3;
-  c.fl = flags_of(t, c.cp);
-  c.cls = (c.fl & FLAG_L)    ? CL_L
-        : (c.fl & FLAG_N)    ? CL_N
-        : (c.fl & FLAG_WS)   ? ((c.cp == 10 || c.cp == 13) ? CL_CR : CL_WS)
-                             : CL_O;
-  return c;
+__device__ __forceinline__ int class_of(int fl, int cp) {
+  return (fl & FLAG_L)    ? CL_L
+       : (fl & FLAG_N)    ? CL_N
+       : (fl & FLAG_WS)   ? ((cp == 10 || cp == 13) ? CL_CR : CL_WS)
+                          : CL_O;
 }
 
 __device__ __forceinline__ int coarse(int c) { return c == CL_CR ? CL_WS : c; }
@@ -3799,43 +3832,33 @@ __device__ __forceinline__ int char_start(const uint8_t* d, int q) {
   return q;
 }
 
+// the contiguous tiles [lo, hi) of this block (gridDim.x <= tiles)
+__device__ __forceinline__ void block_range(int tiles, int& lo, int& hi) {
+  lo = (int)((long long)blockIdx.x * tiles / gridDim.x);
+  hi = (int)((long long)(blockIdx.x + 1) * tiles / gridDim.x);
+}
+
+// the block that owns tile w
+__device__ __forceinline__ int owner(int w, int tiles) {
+  return (int)((((long long)w + 1) * gridDim.x - 1) / tiles);
+}
+
 // ---------------------------------------------------------------------------
 // K15 presplit_succ
 // ---------------------------------------------------------------------------
 
-// A thread's S_BPT bytes [a, a + cnt): the class of each byte's char (3 bits
-// a byte), the char starts, and where a coarse class or an O span breaks
-// (bit j: between bytes a + j - 1 and a + j).
-struct Seg {
-  unsigned long long cls;
-  unsigned starts, brk_c, brk_o;
-};
+// A byte's info word: its char's class (bits 0-2), whether it starts the
+// char (bit 3), the char's length (bits 4-6) and flags (bits 8-15), the
+// last two at a start only.
+constexpr int I_START = 8;
+__device__ __forceinline__ int i_cls(int w) { return w & 7; }
+__device__ __forceinline__ bool i_start(int w) { return (w & I_START) != 0; }
+__device__ __forceinline__ int i_len(int w) { return (w >> 4) & 7; }
+__device__ __forceinline__ int i_fl(int w) { return w >> 8; }
 
-__device__ Seg classify(const uint8_t* d, int n, const Tables& t,
-                        long long a, int cnt) {
-  Seg s{0ull, 0u, 0u, 0u};
-  int prev = a > 0 ? char_at(d, n, t, char_start(d, (int)(a - 1))).cls : -1;
-  for (int j = 0; j < cnt; ++j) {
-    const int q = (int)(a + j);
-    int c;
-    if (lead(__ldg(d + q))) {
-      c = char_at(d, n, t, q).cls;
-      s.starts |= 1u << j;
-      if (prev >= 0) {
-        if (coarse(prev) != coarse(c)) s.brk_c |= 1u << j;
-        if (!o_goes_on(prev, c)) s.brk_o |= 1u << j;
-      }
-    } else {
-      c = prev >= 0 ? prev : CL_O;
-    }
-    s.cls |= (unsigned long long)c << (3 * j);
-    prev = c;
-  }
-  return s;
-}
-
-__device__ __forceinline__ int cls_of(const Seg& s, int j) {
-  return (int)((s.cls >> (3 * j)) & 7);
+__device__ __forceinline__ int info_word(int cp, int len, const Tables& t) {
+  const int fl = flags_of(t, cp);
+  return class_of(fl, cp) | I_START | (len << 4) | (fl << 8);
 }
 
 // The aggregate of a range of bytes: its least two breaks of each kind
@@ -3861,6 +3884,159 @@ __device__ __forceinline__ Agg agg_combine(const Agg& a, const Agg& b) {
   r.lr = a.lr | b.lr;
   r.lc = a.lr ? a.lc : (b.lc >= 0 ? b.lc : a.lc);
   return r;
+}
+
+// nothing to the right of a saturated aggregate changes a combine with it:
+// its breaks lie left of any other's, and its lc is its own
+__device__ __forceinline__ bool agg_saturated(const Agg& a) {
+  return a.c2 != BIG && a.o2 != BIG && a.lr;
+}
+
+__device__ __forceinline__ Agg agg_shfl_up(const Agg& a, int d) {
+  return {__shfl_up_sync(0xFFFFFFFFu, a.c1, d),
+          __shfl_up_sync(0xFFFFFFFFu, a.c2, d),
+          __shfl_up_sync(0xFFFFFFFFu, a.o1, d),
+          __shfl_up_sync(0xFFFFFFFFu, a.o2, d),
+          __shfl_up_sync(0xFFFFFFFFu, a.lr, d),
+          __shfl_up_sync(0xFFFFFFFFu, a.lc, d)};
+}
+
+__device__ __forceinline__ Agg agg_shfl(const Agg& a, int lane) {
+  return {__shfl_sync(0xFFFFFFFFu, a.c1, lane),
+          __shfl_sync(0xFFFFFFFFu, a.c2, lane),
+          __shfl_sync(0xFFFFFFFFu, a.o1, lane),
+          __shfl_sync(0xFFFFFFFFu, a.o2, lane),
+          __shfl_sync(0xFFFFFFFFu, a.lr, lane),
+          __shfl_sync(0xFFFFFFFFu, a.lc, lane)};
+}
+
+__device__ __forceinline__ void agg_store(int* p, const Agg& g) {
+  p[0] = g.c1; p[1] = g.c2; p[2] = g.o1; p[3] = g.o2; p[4] = g.lr;
+  p[5] = g.lc;
+}
+
+__device__ __forceinline__ Agg agg_load(const int* p) {
+  return {__ldcg(p), __ldcg(p + 1), __ldcg(p + 2), __ldcg(p + 3),
+          __ldcg(p + 4), __ldcg(p + 5)};
+}
+
+struct SuccSmem {
+  alignas(16) uint8_t buf[S_WIN];   // the tile's bytes, 16 either side
+  unsigned short info[S_WIN];       // their info words
+  unsigned short ascii[128];        // the info word of each ASCII char
+  alignas(16) int fbuf[TILE];       // the tile's successors
+  Agg wagg[S_TPB / 32];             // block_rscan's warp aggregates
+  Agg carry;
+  int flag;
+};
+
+// Stage the tile at s and its halo (bytes outside [0, n) read as 0) and
+// classify every byte once: a thread takes 16 bytes, by table where all
+// are ASCII; a continuation byte takes its char's class, its lead decoded
+// again where it lies before the thread's bytes.
+// a thread's 16-byte chunks of the staged window of the tile at s: chunk
+// threadIdx.x, and chunk S_TPB + threadIdx.x where the window has it
+constexpr int S_CHUNKS = (S_WIN / 16 + S_TPB - 1) / S_TPB;
+
+__device__ __forceinline__ void fetch(uint4 (&v)[S_CHUNKS],
+                                      const uint8_t* __restrict__ d, int n,
+                                      long long s, bool vec) {
+#pragma unroll
+  for (int c = 0; c < S_CHUNKS; ++c) {
+    const int i = threadIdx.x + c * S_TPB;
+    const long long q = s - S_HALO + 16 * i;
+    if (i >= S_WIN / 16) continue;
+    if (vec && q >= 0 && q + 16 <= n) {
+      v[c] = __ldg(reinterpret_cast<const uint4*>(d + q));
+    } else {
+      uint8_t* const b = reinterpret_cast<uint8_t*>(&v[c]);
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        b[j] = (q + j >= 0 && q + j < n) ? __ldg(d + q + j) : 0;
+    }
+  }
+}
+
+__device__ void stage(SuccSmem& S, const uint4 (&v)[S_CHUNKS],
+                      const Tables& t) {
+#pragma unroll
+  for (int c = 0; c < S_CHUNKS; ++c) {
+    const int i = threadIdx.x + c * S_TPB;
+    if (i < S_WIN / 16) *reinterpret_cast<uint4*>(S.buf + 16 * i) = v[c];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < S_WIN / 16; i += S_TPB) {
+    const uint4 v = *reinterpret_cast<const uint4*>(S.buf + 16 * i);
+    const int w0 = 16 * i;
+    if (((v.x | v.y | v.z | v.w) & 0x80808080u) == 0) {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) S.info[w0 + j] = S.ascii[S.buf[w0 + j]];
+      continue;
+    }
+    // the class of the char that holds the byte before this run
+    int cls = CL_O;
+    if (!lead(S.buf[w0]) && w0 >= 3) {
+      int q = w0 - 1;
+      while (q > w0 - 3 && !lead(S.buf[q])) --q;
+      const int b = S.buf[q];
+      const int len = utf8_len(b);
+      int cp = len == 1 ? b : b & (0x7F >> len);
+      for (int k = 1; k < len; ++k)
+        cp = (cp << 6) | (q + k < S_WIN ? S.buf[q + k] & 0x3F : 0);
+      cls = class_of(flags_of(t, cp), cp);
+    }
+    for (int j = 0; j < 16; ++j) {
+      const int w = w0 + j;
+      const int b = S.buf[w];
+      int word;
+      if (b < 0x80) {
+        word = S.ascii[b];
+      } else if (lead(b)) {
+        const int len = utf8_len(b);
+        int cp = b & (0x7F >> len);
+        for (int k = 1; k < len; ++k)
+          cp = (cp << 6) | (w + k < S_WIN ? S.buf[w + k] & 0x3F : 0);
+        word = info_word(cp, len, t);
+      } else {
+        word = cls;
+      }
+      cls = i_cls(word);
+      S.info[w] = (unsigned short)word;
+    }
+  }
+  __syncthreads();
+}
+
+// A thread's S_BPT bytes [a, a + cnt): the class of each byte's char (3 bits
+// a byte), the char starts, and where a coarse class or an O span breaks
+// (bit j: between bytes a + j - 1 and a + j).
+struct Seg {
+  unsigned long long cls;
+  unsigned starts, brk_c, brk_o;
+};
+
+__device__ __forceinline__ Seg seg_of(const SuccSmem& S, long long a,
+                                      int w0, int cnt) {
+  Seg s{0ull, 0u, 0u, 0u};
+  int prev = a > 0 ? i_cls(S.info[w0 - 1]) : -1;
+  for (int j = 0; j < cnt; ++j) {
+    const int w = S.info[w0 + j];
+    const int c = i_cls(w);
+    if (i_start(w)) {
+      s.starts |= 1u << j;
+      if (prev >= 0) {
+        if (coarse(prev) != coarse(c)) s.brk_c |= 1u << j;
+        if (!o_goes_on(prev, c)) s.brk_o |= 1u << j;
+      }
+    }
+    s.cls |= (unsigned long long)c << (3 * j);
+    prev = c;
+  }
+  return s;
+}
+
+__device__ __forceinline__ int cls_of(const Seg& s, int j) {
+  return (int)((s.cls >> (3 * j)) & 7);
 }
 
 __device__ Agg seg_agg(const Seg& s, long long a, int cnt) {
@@ -3889,88 +4065,96 @@ __device__ Agg seg_agg(const Seg& s, long long a, int cnt) {
   return g;
 }
 
-__device__ __forceinline__ void agg_store(int* p, const Agg& g) {
-  p[0] = g.c1; p[1] = g.c2; p[2] = g.o1; p[3] = g.o2; p[4] = g.lr;
-  p[5] = g.lc;
+__device__ __forceinline__ Agg agg_shfl_down(const Agg& a, int d) {
+  return {__shfl_down_sync(0xFFFFFFFFu, a.c1, d),
+          __shfl_down_sync(0xFFFFFFFFu, a.c2, d),
+          __shfl_down_sync(0xFFFFFFFFu, a.o1, d),
+          __shfl_down_sync(0xFFFFFFFFu, a.o2, d),
+          __shfl_down_sync(0xFFFFFFFFu, a.lr, d),
+          __shfl_down_sync(0xFFFFFFFFu, a.lc, d)};
 }
 
-__device__ __forceinline__ Agg agg_load(const int* p) {
-  return {__ldcg(p), __ldcg(p + 1), __ldcg(p + 2), __ldcg(p + 3),
-          __ldcg(p + 4), __ldcg(p + 5)};
-}
-
-// Inclusive scan from the right over the block's threads: returns the
-// buffer in which sm[buf][k] = g_k (+) g_k+1 (+) ... (+) g_last; the block
-// is synced on return, and the next call syncs before it writes.
-__device__ int block_rscan(Agg (*sm)[S_TPB], const Agg& g) {
-  __syncthreads();
-  int cur = 0;
-  sm[0][threadIdx.x] = g;
-  __syncthreads();
-  for (int dist = 1; dist < S_TPB; dist <<= 1) {
-    Agg v = sm[cur][threadIdx.x];
-    if (threadIdx.x + dist < S_TPB)
-      v = agg_combine(v, sm[cur][threadIdx.x + dist]);
-    sm[cur ^ 1][threadIdx.x] = v;
-    cur ^= 1;
-    __syncthreads();
+// Scan from the right over the block's threads, by warp shuffles and one
+// exchange of the warps' aggregates: returns the aggregate of the threads
+// after this one, and the block's in total.
+__device__ Agg block_rscan(Agg* wagg, const Agg& g, Agg& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  Agg v = g;
+#pragma unroll
+  for (int dist = 1; dist < 32; dist <<= 1) {
+    const Agg o = agg_shfl_down(v, dist);
+    if (lane + dist < 32) v = agg_combine(v, o);
   }
-  return cur;
+  Agg after = agg_shfl_down(v, 1);
+  if (lane == 31) after = agg_identity();
+  __syncthreads();  // the last call's readers are done with wagg
+  if (lane == 0) wagg[warp] = v;
+  __syncthreads();
+  Agg later = agg_identity();
+  for (int w = S_TPB / 32 - 1; w > warp; --w)
+    later = agg_combine(wagg[w], later);
+  total = later;
+  for (int w = warp; w >= 0; --w) total = agg_combine(wagg[w], total);
+  return agg_combine(after, later);
 }
 
 // f(p): where the chunk that starts at char start p < n ends, p's class
 // cls, the breaks after p and LCR(p) given (utils/presplit.py's
-// alternatives in order)
-__device__ int successor(const uint8_t* d, int n, const Tables& t, int mode,
+// alternatives in order). The staged window starts at byte wb; every
+// look-ahead but the last whitespace char's start lies in it.
+__device__ int successor(const SuccSmem& S, long long wb,
+                         const uint8_t* __restrict__ d, int n, int mode,
                          int p, int cls, int c1, int c2, int o1, int o2,
                          int lcr) {
-  const Char ch = char_at(d, n, t, p);
-  const int p1 = p + ch.len;
+  const int wp = (int)(p - wb);
+  const int byte = S.buf[wp];
+  const int p1 = p + i_len(S.info[wp]);
   const bool v1 = p1 < n;
-  Char n1{-1, 1, 0, -1};
-  if (v1) n1 = char_at(d, n, t, p1);
-  const int p2 = p1 + n1.len;
+  const int n1 = v1 ? S.info[p1 - wb] : 0;
+  const int n1cls = v1 ? i_cls(n1) : -1;
+  const int p2 = p1 + (v1 ? i_len(n1) : 1);
   if (mode == 4) {
     // '(?i:[sdmt]|ll|ve|re): the case-folding flags, never ASCII
-    if (ch.cp == 39 && v1) {
-      if (n1.fl & FLAG_C1) return p2;
+    if (byte == 39 && v1) {
+      const int f1 = i_fl(n1);
+      if (f1 & FLAG_C1) return p2;
       if (p2 < n) {
-        const Char n2 = char_at(d, n, t, p2);
-        if (((n1.fl & FLAG_CI_L) && (n2.fl & FLAG_CI_L)) ||
-            ((n1.fl & FLAG_CI_V) && (n2.fl & FLAG_CI_E)) ||
-            ((n1.fl & FLAG_CI_R) && (n2.fl & FLAG_CI_E)))
-          return p2 + n2.len;
+        const int n2 = S.info[p2 - wb];
+        const int f2 = i_fl(n2);
+        if (((f1 & FLAG_CI_L) && (f2 & FLAG_CI_L)) ||
+            ((f1 & FLAG_CI_V) && (f2 & FLAG_CI_E)) ||
+            ((f1 & FLAG_CI_R) && (f2 & FLAG_CI_E)))
+          return p2 + i_len(n2);
       }
     }
     // [^\r\n\p{L}\p{N}]?+\p{L}+
     if (cls == CL_L) return c1;
-    if (cls != CL_N && cls != CL_CR && v1 && n1.cls == CL_L) return c2;
+    if (cls != CL_N && cls != CL_CR && n1cls == CL_L) return c2;
     // \p{N}{1,3}
     if (cls == CL_N) {
-      if (p1 < c1 && p2 < c1) return p2 + utf8_len(__ldg(d + p2));
+      if (p1 < c1 && p2 < c1) return p2 + i_len(S.info[p2 - wb]);
       return c1;
     }
     // " "?[^\s\p{L}\p{N}]++[\r\n]*
-    const bool sp = ch.cp == 32 && v1;
-    if ((sp ? n1.cls : cls) == CL_O) return sp ? o2 : o1;
+    const bool sp = byte == 32 && v1;
+    if ((sp ? n1cls : cls) == CL_O) return sp ? o2 : o1;
     // \s*[\r\n] | \s+(?!\S) | \s+ (every other char is whitespace)
     if (lcr >= 0) return lcr + 1;
   } else {
-    // '(?:[sdmt]|ll|ve|re): exact code points
-    if (ch.cp == 39 && v1) {
-      const int a = n1.cp;
+    // '(?:[sdmt]|ll|ve|re): exact code points, ASCII lead bytes
+    if (byte == 39 && v1) {
+      const int a = S.buf[p1 - wb];
       if (a == 's' || a == 'd' || a == 'm' || a == 't') return p2;
       if (p2 < n) {
-        const Char n2 = char_at(d, n, t, p2);
-        const int b = n2.cp;
+        const int b = S.buf[p2 - wb];
         if ((a == 'l' && b == 'l') || (a == 'v' && b == 'e') ||
             (a == 'r' && b == 'e'))
-          return p2 + n2.len;
+          return p2 + 1;
       }
     }
     // " "?\p{L}+ | " "?\p{N}+ | " "?[^\s\p{L}\p{N}]+
-    if (ch.cp == 32) {
-      if (v1 && coarse(n1.cls) != CL_WS) return c2;
+    if (byte == 32) {
+      if (v1 && coarse(n1cls) != CL_WS) return c2;
     } else if (coarse(cls) != CL_WS) {
       return c1;
     }
@@ -3978,79 +4162,134 @@ __device__ int successor(const uint8_t* d, int n, const Tables& t, int mode,
   // \s+(?!\S) | \s+: the whole run at the text's end, else all but its last
   // char when it has two or more, else the one char
   if (c1 >= n) return c1;
-  if (p1 < c1) return char_start(d, c1 - 1);
+  if (p1 < c1) {
+    int q = c1 - 1;
+    const long long wq = q - wb;
+    if (wq >= 3 && wq < S_WIN) {
+      while (!i_start(S.info[q - wb])) --q;
+      return q;
+    }
+    return char_start(d, q);
+  }
   return c1;
 }
 
-// grid: cooperative (every block resident). f: int32[n] (the successor at
-// each char start, -1 elsewhere); agg, carry: int32[S_AGG * tiles] each.
+// grid: cooperative (every block resident), at most the tiles. f: int32[n]
+// (the successor at each char start, -1 elsewhere); agg: int32[S_AGG *
+// gridDim.x], each block's aggregate (its tiles' from the left, up to the
+// first saturated one).
 __global__ void __launch_bounds__(S_TPB)
 presplit_succ_kernel(const uint8_t* __restrict__ d, int n, int mode,
-                     Tables t, int* __restrict__ f, int* agg, int* carry) {
+                     Tables t, int* __restrict__ f, int* agg) {
   cg::grid_group grid = cg::this_grid();
-  __shared__ Agg sm[2][S_TPB];
-  const int tiles = (int)(((long long)n + S_TILE - 1) / S_TILE);
+  __shared__ SuccSmem S;
+  const int tiles = (int)(((long long)n + TILE - 1) / TILE);
+  const bool vec = (reinterpret_cast<uintptr_t>(d) & 15) == 0;
+  int lo, hi;
+  block_range(tiles, lo, hi);
+  if (threadIdx.x < 128) S.ascii[threadIdx.x] = (unsigned short)info_word(
+      threadIdx.x, 1, t);
+  __syncthreads();
 
-  // 1. each tile's aggregate
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long a = (long long)tile * S_TILE + threadIdx.x * S_BPT;
+  // 1. the block's aggregate, from the left up to the first saturated one
+  const int tb = threadIdx.x * S_BPT;
+  Agg g = agg_identity();
+  for (int tile = lo; tile < hi; ++tile) {
+    const long long s = (long long)tile * TILE;
+    const long long a = s + tb;
     const int cnt = (int)max(0ll, min((long long)S_BPT, n - a));
-    Agg g = agg_identity();
-    if (cnt > 0) g = seg_agg(classify(d, n, t, a, cnt), a, cnt);
-    const int buf = block_rscan(sm, g);
-    if (threadIdx.x == 0) agg_store(agg + (long long)S_AGG * tile, sm[buf][0]);
+    uint4 v[S_CHUNKS];
+    fetch(v, d, n, s, vec);
+    stage(S, v, t);
+    Agg mine = agg_identity();
+    if (cnt > 0) mine = seg_agg(seg_of(S, a, S_HALO + tb, cnt), a, cnt);
+    Agg total;
+    block_rscan(S.wagg, mine, total);
+    g = agg_combine(g, total);
+    if (agg_saturated(g)) break;
   }
+  if (threadIdx.x == 0) agg_store(agg + (long long)S_AGG * blockIdx.x, g);
   grid.sync();
 
-  // 2. block 0: the state at each tile's end, from the text's end
-  if (blockIdx.x == 0) {
-    Agg run{n, BIG, n, BIG, 1, -1};  // at n: a break, no CR/LF after
-    for (int hi = tiles; hi > 0; hi -= S_TPB) {
-      const int i = hi - S_TPB + (int)threadIdx.x;
-      const Agg g = i >= 0 ? agg_load(agg + (long long)S_AGG * i)
-                           : agg_identity();
-      const int buf = block_rscan(sm, g);
-      const Agg excl = threadIdx.x + 1 < S_TPB ? sm[buf][threadIdx.x + 1]
-                                               : agg_identity();
-      if (i >= 0)
-        agg_store(carry + (long long)S_AGG * i, agg_combine(excl, run));
-      run = agg_combine(sm[buf][0], run);
+  // 2. the carry at the block's end: the later blocks' aggregates, a warp
+  // at a time, up to the first saturated prefix, else the text's end
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    Agg run = agg_identity();
+    bool done = false;
+    for (int base = blockIdx.x + 1; base < (int)gridDim.x && !done;
+         base += 32) {
+      const int k = base + lane;
+      Agg v = k < (int)gridDim.x ? agg_load(agg + (long long)S_AGG * k)
+                                 : agg_identity();
+#pragma unroll
+      for (int dist = 1; dist < 32; dist <<= 1) {
+        const Agg o = agg_shfl_up(v, dist);
+        if (lane >= dist) v = agg_combine(o, v);
+      }
+      v = agg_combine(run, v);
+      const unsigned sat =
+          __ballot_sync(0xFFFFFFFFu, k < (int)gridDim.x && agg_saturated(v));
+      run = agg_shfl(v, sat ? __ffs(sat) - 1 : 31);
+      done = sat != 0;
     }
+    if (!done) run = agg_combine(run, Agg{n, BIG, n, BIG, 1, -1});
+    if (lane == 0) S.carry = run;
   }
-  grid.sync();
+  __syncthreads();
+  Agg carry = S.carry;
 
-  // 3. each tile from its carry: the per-byte states, right to left, and
-  // the successor at every char start
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long a = (long long)tile * S_TILE + threadIdx.x * S_BPT;
+  // 3. the block's tiles from the right: each byte's state from its
+  // thread's and its tile's carry, and the successor at every char start;
+  // the next tile's bytes load meanwhile
+  uint4 vnext[S_CHUNKS];
+  fetch(vnext, d, n, (long long)(hi - 1) * TILE, vec);
+  for (int tile = hi - 1; tile >= lo; --tile) {
+    const long long s = (long long)tile * TILE;
+    const long long a = s + tb;
     const int cnt = (int)max(0ll, min((long long)S_BPT, n - a));
-    Seg s{0ull, 0u, 0u, 0u};
-    Agg g = agg_identity();
+    uint4 v[S_CHUNKS];
+#pragma unroll
+    for (int c = 0; c < S_CHUNKS; ++c) v[c] = vnext[c];
+    if (tile > lo) fetch(vnext, d, n, s - TILE, vec);
+    stage(S, v, t);
+    Seg sg{0ull, 0u, 0u, 0u};
+    Agg mine = agg_identity();
     if (cnt > 0) {
-      s = classify(d, n, t, a, cnt);
-      g = seg_agg(s, a, cnt);
+      sg = seg_of(S, a, S_HALO + tb, cnt);
+      mine = seg_agg(sg, a, cnt);
     }
-    const int buf = block_rscan(sm, g);
-    const Agg excl = threadIdx.x + 1 < S_TPB ? sm[buf][threadIdx.x + 1]
-                                             : agg_identity();
-    const Agg st =
-        agg_combine(excl, agg_load(carry + (long long)S_AGG * tile));
+    Agg total;
+    const Agg excl = block_rscan(S.wagg, mine, total);
+    const Agg st = agg_combine(excl, carry);
     int c1 = st.c1, c2 = st.c2, o1 = st.o1, o2 = st.o2, lcr = st.lc;
     for (int j = cnt - 1; j >= 0; --j) {
       const int q = (int)(a + j);
-      const int c = cls_of(s, j);
+      const int c = cls_of(sg, j);
       if (coarse(c) != CL_WS) lcr = -1;
       else if (lcr < 0 && c == CL_CR) lcr = q;
-      f[q] = ((s.starts >> j) & 1u)
-                 ? successor(d, n, t, mode, q, c, c1, c2, o1, o2, lcr)
-                 : -1;
-      if ((s.brk_c >> j) & 1u) {
+      S.fbuf[tb + j] = ((sg.starts >> j) & 1u)
+                           ? successor(S, s - S_HALO, d, n, mode, q, c, c1,
+                                       c2, o1, o2, lcr)
+                           : -1;
+      if ((sg.brk_c >> j) & 1u) {
         c2 = c1;
         c1 = q;
       }
-      if ((s.brk_o >> j) & 1u) {
+      if ((sg.brk_o >> j) & 1u) {
         o2 = o1;
         o1 = q;
+      }
+    }
+    carry = agg_combine(total, carry);
+    __syncthreads();
+    const int len = (int)min((long long)TILE, n - s);
+    for (int i = threadIdx.x; i < TILE / 4; i += S_TPB) {
+      if (4 * i + 4 <= len) {
+        reinterpret_cast<int4*>(f + s)[i] =
+            reinterpret_cast<const int4*>(S.fbuf)[i];
+      } else {
+        for (int j = 4 * i; j < len; ++j) f[s + j] = S.fbuf[j];
       }
     }
   }
@@ -4060,158 +4299,601 @@ presplit_succ_kernel(const uint8_t* __restrict__ d, int n, int mode,
 // K15 presplit_orbit
 // ---------------------------------------------------------------------------
 
-// J[p]: tile-relative successor of each char start of the tile at s (>=
-// O_TILE once the walk has left the tile; non-starts leave at once);
-// K[p]: 1 at a char start, else 0
-__device__ __forceinline__ void load_jumps(const int* __restrict__ f,
-                                           long long s, int len, int* J,
-                                           unsigned short* K) {
+// sum of v over the block (every thread gets it); red: O_TPB / 32 ints
+__device__ __forceinline__ long long block_sum(long long v, long long* red) {
 #pragma unroll
-  for (int k = 0; k < O_PER; ++k) {
-    const int p = threadIdx.x + k * O_TPB;
-    int j = O_TILE;
-    unsigned short c = 0;
-    if (p < len) {
-      const int fp = __ldg(f + s + p);
-      if (fp >= 0) {
-        j = (int)(fp - s);
-        c = 1;
+  for (int dist = 16; dist > 0; dist >>= 1)
+    v += __shfl_xor_sync(0xFFFFFFFFu, v, dist);
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  long long total = 0;
+  for (int w = 0; w < O_TPB / 32; ++w) total += red[w];
+  return total;
+}
+
+// The path over the node graph in one block (step 2, while the tiles and
+// the nodes number at most O_BLOCK_NODES): node ids compact, each tile's
+// first id in base; a thread owns O_OWN consecutive tiles. Shared memory:
+// base, then the next node of each id in two buffers, then the marks.
+__device__ void path_in_block(int n, int tiles, const int* lists,
+                              const int* seg, int* tl, int* bl, int G,
+                              int* base, long long* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // red was read by the block sum before
+  int* Ja = base + O_BLOCK_NODES;
+  int* Jb = Ja + O_BLOCK_NODES;
+  uint8_t* const vis = reinterpret_cast<uint8_t*>(Jb + O_BLOCK_NODES);
+  const int w0 = threadIdx.x * O_OWN;
+  // each tile's node count, then its first id (an exclusive scan)
+  int m[O_OWN];
+  int mine = 0;
+#pragma unroll
+  for (int u = 0; u < O_OWN; ++u) {
+    m[u] = w0 + u < tiles ? __ldcg(tl + w0 + u) : 0;
+    mine += m[u];
+  }
+  int incl = mine;
+#pragma unroll
+  for (int dist = 1; dist < 32; dist <<= 1) {
+    const int v = __shfl_up_sync(0xFFFFFFFFu, incl, dist);
+    if (lane >= dist) incl += v;
+  }
+  if (lane == 31) red[warp] = incl;
+  __syncthreads();
+  int id = incl - mine;
+  for (int w = 0; w < warp; ++w) id += (int)red[w];
+#pragma unroll
+  for (int u = 0; u < O_OWN; ++u) {
+    if (w0 + u < tiles) base[w0 + u] = id;
+    id += m[u];
+  }
+  __syncthreads();
+  // each node's next node: the node of its byte's own exit; the first
+  // node of each tile with independent loads, any more one by one
+  int e[O_OWN];
+#pragma unroll
+  for (int u = 0; u < O_OWN; ++u)
+    e[u] = m[u] > 0 ? __ldcg(lists + (long long)(w0 + u) * TILE) : n;
+  int nd[O_OWN];
+#pragma unroll
+  for (int u = 0; u < O_OWN; ++u) nd[u] = e[u] < n ? __ldcg(seg + e[u]) : -1;
+#pragma unroll
+  for (int u = 0; u < O_OWN; ++u) {
+    for (int k = 0; k < m[u]; ++k) {
+      int ek = e[u], ndk = nd[u];
+      if (k > 0) {
+        ek = __ldcg(lists + (long long)(w0 + u) * TILE + k);
+        ndk = ek < n ? __ldcg(seg + ek) : -1;
+      }
+      const unsigned ix = (unsigned)ndk & 0xFFFFu;
+      const int x = base[w0 + u] + k;
+      Ja[x] = ek < n && ix != ND_NONE ? base[ek / TILE] + (int)ix : -1;
+      vis[x] = 0;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned ix = (unsigned)__ldcg(seg) & 0xFFFFu;
+    if (ix != ND_NONE) vis[base[0] + ix] = 1;
+  }
+  int M = 0;
+  for (int w = 0; w < O_TPB / 32; ++w) M += (int)red[w];
+  __syncthreads();
+  for (int r = 0; r < 32 - __clz(M); ++r) {
+    int j[O_OWN], jj[O_OWN], vp[O_OWN];
+#pragma unroll
+    for (int i = 0; i < O_OWN; ++i) {
+      const int x = threadIdx.x + i * O_TPB;
+      j[i] = x < M ? Ja[x] : -1;
+    }
+#pragma unroll
+    for (int i = 0; i < O_OWN; ++i) {
+      jj[i] = -1;
+      vp[i] = 0;
+      if (j[i] >= 0) {
+        jj[i] = Ja[j[i]];
+        vp[i] = vis[threadIdx.x + i * O_TPB];
       }
     }
-    J[p] = j;
-    if (K != nullptr) K[p] = c;
+    int more = 0;
+#pragma unroll
+    for (int i = 0; i < O_OWN; ++i) {
+      const int x = threadIdx.x + i * O_TPB;
+      if (x < M) {
+        if (vp[i]) vis[j[i]] = 1;
+        Jb[x] = jj[i];
+        more |= jj[i] >= 0;
+      }
+    }
+    int* tj = Ja; Ja = Jb; Jb = tj;
+    if (!__syncthreads_or(more)) break;
+  }
+  // each tile's marked node (at most one) enters its tile and adds its
+  // chunk starts to the tile's block
+  int x[O_OWN];
+#pragma unroll
+  for (int u = 0; u < O_OWN; ++u) {
+    x[u] = -1;
+    for (int k = 0; k < m[u]; ++k)
+      if (vis[base[w0 + u] + k]) x[u] = (w0 + u) * TILE + k;
+  }
+#pragma unroll
+  for (int u = 0; u < O_OWN; ++u) e[u] = x[u] >= 0 ? __ldcg(lists + x[u]) : n;
+#pragma unroll
+  for (int u = 0; u < O_OWN; ++u) nd[u] = e[u] < n ? __ldcg(seg + e[u]) : 0;
+#pragma unroll
+  for (int u = 0; u < O_OWN; ++u) {
+    if (e[u] < n) {
+      const int wt = e[u] / TILE;
+      tl[tiles + wt] = e[u];
+      atomicAdd(bl + G + owner(wt, tiles), (int)((unsigned)nd[u] >> 16));
+    }
+  }
+  if (threadIdx.x == 0) {
+    tl[tiles] = 0;
+    atomicAdd(bl + G, (int)((unsigned)__ldcg(seg) >> 16));
   }
 }
 
-// grid: cooperative. ek: int32[2 n] (scratch: a char start's exit and
-// count); tl: int32[2 * tiles] (scratch: each tile's entry and the chunk
-// starts before it); boundary: uint8[n]; seg: int32[n].
-__global__ void __launch_bounds__(O_TPB)
+// The same over the whole grid, a grid barrier a round: node (w, k) at
+// slot w * TILE + k; nj, nj2 its next node's slot in two buffers; its mark
+// in boundary.
+__device__ void path_in_grid(cg::grid_group& grid, int n, int tiles,
+                             const int* lists, const int* seg, int* tl,
+                             int* bl, int G, int* nj, int* nj2,
+                             uint8_t* boundary, long long M) {
+  const int step = G * O_TPB;
+  const int first = blockIdx.x * O_TPB + threadIdx.x;
+  for (int w = first; w < tiles; w += step) {
+    const int m = __ldcg(tl + w);
+    for (int k = 0; k < m; ++k) {
+      const long long x = (long long)w * TILE + k;
+      const int e = __ldcg(lists + x);
+      int j = -1;
+      if (e < n) {
+        const unsigned ix = (unsigned)__ldcg(seg + e) & 0xFFFFu;
+        if (ix != ND_NONE) j = (int)((e / TILE) * TILE + ix);
+      }
+      nj[x] = j;
+      boundary[x] = 0;
+    }
+  }
+  grid.sync();
+  if (first == 0) {
+    const unsigned ix = (unsigned)__ldcg(seg) & 0xFFFFu;
+    if (ix != ND_NONE) boundary[ix] = 1;
+  }
+  grid.sync();
+  int* Ja = nj;
+  int* Jb = nj2;
+  for (int r = 0; r < 64 - __clzll(M); ++r) {
+    for (int w = first; w < tiles; w += step) {
+      const int m = __ldcg(tl + w);
+      for (int k = 0; k < m; ++k) {
+        const long long x = (long long)w * TILE + k;
+        const int j = __ldcg(Ja + x);
+        int jj = -1;
+        if (j >= 0) {
+          if (__ldcg(boundary + x)) boundary[j] = 1;
+          jj = __ldcg(Ja + j);
+        }
+        Jb[x] = jj;
+      }
+    }
+    grid.sync();
+    int* tj = Ja; Ja = Jb; Jb = tj;
+  }
+  for (int w = first; w < tiles; w += step) {
+    const int m = __ldcg(tl + w);
+    for (int k = 0; k < m; ++k) {
+      const long long x = (long long)w * TILE + k;
+      if (!__ldcg(boundary + x)) continue;
+      const int e = __ldcg(lists + x);
+      if (e >= n) continue;
+      const int wt = e / TILE;
+      tl[tiles + wt] = e;
+      atomicAdd(bl + G + owner(wt, tiles),
+                (int)((unsigned)__ldcg(seg + e) >> 16));
+    }
+  }
+  if (first == 0) {
+    tl[tiles] = 0;
+    atomicAdd(bl + G, (int)((unsigned)__ldcg(seg) >> 16));
+  }
+}
+
+// grid: cooperative, at most the tiles. Scratch: lists, nj, nj2:
+// int32[n] (each tile's distinct exits at its first bytes' slots; the node
+// graph's next nodes, two buffers, grid-wide only); tl: int32[2 * tiles]
+// (each tile's node count, then its entry); bl: int32[2 * gridDim.x]
+// (each block's node count, then the chunk starts in its tiles); trunk:
+// uint32[128 * tiles] (each tile's trunk, a bit a byte). boundary:
+// uint8[n] (the node marks, grid-wide, until step 4); seg: int32[n]
+// (each byte's exit index and count until step 4).
+__global__ void __launch_bounds__(O_TPB, 2)
 presplit_orbit_kernel(const int* __restrict__ f, int n,
-                      uint8_t* __restrict__ boundary, int* __restrict__ seg,
-                      int* ek, int* tl) {
+                      uint8_t* boundary, int* seg, int* lists, int* nj,
+                      int* nj2, int* tl, int* bl, unsigned* trunk) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int4 o_smem[];
-  int* const J0 = reinterpret_cast<int*>(o_smem);
-  int* const J1 = J0 + O_TILE;
-  unsigned short* const K0 = reinterpret_cast<unsigned short*>(J1 + O_TILE);
-  unsigned short* const K1 = K0 + O_TILE;
-  const int tiles = (int)(((long long)n + O_TILE - 1) / O_TILE);
+  __shared__ long long red[O_TPB / 32];
+  __shared__ int first, tile_min, tile_max, walk_end, walk_len,
+      walked[O_WALK], wsum[O_TPB / 32];
+  __shared__ int ent[O_CHUNK];
+  unsigned* const W0 = reinterpret_cast<unsigned*>(o_smem);
+  unsigned* const W1 = W0 + TILE;
+  int* const EX = reinterpret_cast<int*>(W1 + TILE);
+  uint8_t* const vis = reinterpret_cast<uint8_t*>(EX + TILE);
+  const int tiles = (int)(((long long)n + TILE - 1) / TILE);
+  const int G = gridDim.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int lo, hi;
+  block_range(tiles, lo, hi);
 
-  // 1. each char start's exit from its tile and the chunk starts it makes
-  // there
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long s = (long long)tile * O_TILE;
-    const int len = (int)min((long long)O_TILE, n - s);
-    load_jumps(f, s, len, J0, K0);
+  // 1. each byte's exit from its tile and the chunk starts it makes there;
+  // the walk from the tile's first char start (its trunk); each tile's
+  // distinct exits. W: a byte's word, a byte on its walk (bits 0-11; the
+  // walk's last byte in the tile, its root, in the end), the hops to it
+  // (bits 16-27), whether it starts a char (bit 31); EX: each root's exit.
+  long long nodes = 0;
+  if (threadIdx.x == 0) {
+    first = TILE;
+    tile_min = 0x7FFFFFFF;
+    tile_max = -1;
+  }
+  __syncthreads();
+  // the next tile's successors load while this one is resolved
+  int fnext[O_PER];
+#pragma unroll
+  for (int k = 0; k < O_PER; ++k) {
+    const long long q = (long long)lo * TILE + threadIdx.x + k * O_TPB;
+    fnext[k] = q < n ? __ldg(f + q) : -1;
+  }
+  for (int tile = lo; tile < hi; ++tile) {
+    const long long s = (long long)tile * TILE;
+    const int len = (int)min((long long)TILE, n - s);
+    int fcur[O_PER];
+#pragma unroll
+    for (int k = 0; k < O_PER; ++k) {
+      fcur[k] = fnext[k];
+      const long long q = s + TILE + threadIdx.x + k * O_TPB;
+      fnext[k] = tile + 1 < hi && q < n ? __ldg(f + q) : -1;
+    }
+    int lead = TILE;
+#pragma unroll
+    for (int k = 0; k < O_PER; ++k) {
+      const int p = threadIdx.x + k * O_TPB;
+      const int fp = p < len ? fcur[k] : -1;
+      unsigned w = (unsigned)p;  // a root: its own byte, no hops
+      int ex = n;
+      if (fp >= 0) {
+        lead = min(lead, p);
+        w |= 0x80000000u;
+        if (fp > s + p && fp < s + len) w = 0x80010000u | (unsigned)(fp - s);
+        else if (fp > s + p) ex = min(fp, n);
+      }
+      W0[p] = w;
+      EX[p] = ex;
+    }
+    lead = __reduce_min_sync(0xFFFFFFFFu, lead);
+    if (lane == 0 && lead < TILE) atomicMin(&first, lead);
     __syncthreads();
-    int* Ja = J0;
-    int* Jb = J1;
-    unsigned short* Ka = K0;
-    unsigned short* Kb = K1;
+#pragma unroll
+    for (int k = 0; k < O_PER; ++k) {
+      const int p = threadIdx.x + k * O_TPB;
+      vis[p] = p == first;
+    }
+    __syncthreads();
+    unsigned* Wa = W0;
+    unsigned* Wb = W1;
     for (int r = 0; r < O_ROUNDS; ++r) {
+      // every load of the round before any store, so that the loads of a
+      // thread's bytes overlap
+      unsigned w[O_PER], wj[O_PER];
+      int vp[O_PER];
+#pragma unroll
+      for (int k = 0; k < O_PER; ++k) w[k] = Wa[threadIdx.x + k * O_TPB];
 #pragma unroll
       for (int k = 0; k < O_PER; ++k) {
         const int p = threadIdx.x + k * O_TPB;
-        const int j = Ja[p];
-        if (j < O_TILE) {
-          Jb[p] = Ja[j];
-          Kb[p] = (unsigned short)(Ka[p] + Ka[j]);
-        } else {
-          Jb[p] = j;
-          Kb[p] = Ka[p];
+        const int j = (int)(w[k] & 0xFFFu);
+        wj[k] = Wa[j];
+        vp[k] = j != p ? vis[p] : 0;
+      }
+      int more = 0;
+#pragma unroll
+      for (int k = 0; k < O_PER; ++k) {
+        const int p = threadIdx.x + k * O_TPB;
+        const int j = (int)(w[k] & 0xFFFu);
+        if (vp[k]) vis[j] = 1;
+        Wb[p] = ((w[k] & 0xFFFF0000u) + (wj[k] & 0x0FFF0000u)) |
+                (wj[k] & 0xFFFu);
+        more |= (int)(wj[k] & 0xFFFu) != j;
+      }
+      unsigned* tw = Wa; Wa = Wb; Wb = tw;
+      if (!__syncthreads_or(more)) break;
+    }
+    // each byte's exit (-1 off a char start) and count, the trunk's bits,
+    // the tile's least and greatest exit
+    int ex[O_PER], cnt[O_PER];
+    int emin = 0x7FFFFFFF, emax = -1;
+#pragma unroll
+    for (int k = 0; k < O_PER; ++k) {
+      const int p = threadIdx.x + k * O_TPB;
+      const unsigned w = Wa[p];
+      ex[k] = p < len && (w >> 31) ? EX[w & 0xFFFu] : -1;
+      cnt[k] = (int)((w >> 16) & 0xFFFu) + 1;
+      if (ex[k] >= 0) {
+        emin = min(emin, ex[k]);
+        emax = max(emax, ex[k]);
+      }
+      const unsigned bits = __ballot_sync(0xFFFFFFFFu, vis[p]);
+      if (lane == 0) trunk[(long long)tile * (TILE / 32) + k * (O_TPB / 32) +
+                           warp] = bits;
+    }
+    emin = __reduce_min_sync(0xFFFFFFFFu, emin);
+    emax = __reduce_max_sync(0xFFFFFFFFu, emax);
+    if (lane == 0) {
+      atomicMin(&tile_min, emin);
+      atomicMax(&tile_max, emax);
+    }
+    __syncthreads();
+    // in text the tile's walks all leave at one exit: its only node
+    const int tmin = tile_min, tmax = tile_max;
+    int m;
+    if (tmin >= tmax) {
+      m = tmax >= 0;
+      if (threadIdx.x == 0 && m) lists[s] = tmax;
+#pragma unroll
+      for (int k = 0; k < O_PER; ++k) {
+        const int p = threadIdx.x + k * O_TPB;
+        if (p < len)
+          seg[s + p] = (int)((ex[k] >= 0 ? 0u : ND_NONE) |
+                             ((unsigned)cnt[k] << 16));
+      }
+    } else {
+      // the distinct exits: a hash of TILE slots in Wb (exit, or -1); a char
+      // start inserts its exit unless the byte before it starts a char with
+      // the same exit, then every char start looks its slot up
+      int* const keys = reinterpret_cast<int*>(Wb);
+  #pragma unroll
+      for (int k = 0; k < O_PER; ++k) {
+        EX[threadIdx.x + k * O_TPB] = ex[k];
+        keys[threadIdx.x + k * O_TPB] = -1;
+      }
+      __syncthreads();
+  #pragma unroll
+      for (int k = 0; k < O_PER; ++k) {
+        const int p = threadIdx.x + k * O_TPB;
+        const int e = ex[k];
+        if (e >= 0 && (p == 0 || EX[p - 1] != e)) {
+          int h = (int)(((unsigned)e * 0x9E3779B1u) >> 20);
+          for (;;) {
+            const int old = keys[h] == e ? e : atomicCAS(keys + h, -1, e);
+            if (old == -1 || old == e) break;
+            h = (h + 1) & (TILE - 1);
+          }
         }
       }
       __syncthreads();
-      int* tj = Ja; Ja = Jb; Jb = tj;
-      unsigned short* tk = Ka; Ka = Kb; Kb = tk;
-    }
-#pragma unroll
-    for (int k = 0; k < O_PER; ++k) {
-      const int p = threadIdx.x + k * O_TPB;
-      if (p < len && Ka[p] != 0) {
-        ek[2 * (s + p)] = (int)(s + Ja[p]);
-        ek[2 * (s + p) + 1] = Ka[p];
+      int slot[O_PER];
+  #pragma unroll
+      for (int k = 0; k < O_PER; ++k) {
+        const int e = ex[k];
+        slot[k] = -1;
+        if (e >= 0) {
+          int h = (int)(((unsigned)e * 0x9E3779B1u) >> 20);
+          while (keys[h] != e) h = (h + 1) & (TILE - 1);
+          slot[k] = h;
+        }
+      }
+      __syncthreads();
+      // number the occupied slots (a thread's 8 consecutive slots) and list
+      // their exits
+      int mine = 0;
+  #pragma unroll
+      for (int k = 0; k < O_PER; ++k)
+        mine += keys[threadIdx.x * O_PER + k] >= 0;
+      int incl = mine;
+  #pragma unroll
+      for (int dist = 1; dist < 32; dist <<= 1) {
+        const int v = __shfl_up_sync(0xFFFFFFFFu, incl, dist);
+        if (lane >= dist) incl += v;
+      }
+      if (lane == 31) red[warp] = incl;
+      __syncthreads();
+      int idx = incl - mine;
+      m = 0;
+      for (int w = 0; w < O_TPB / 32; ++w) {
+        if (w < warp) idx += (int)red[w];
+        m += (int)red[w];
+      }
+  #pragma unroll
+      for (int k = 0; k < O_PER; ++k) {
+        const int h = threadIdx.x * O_PER + k;
+        const int e = keys[h];
+        if (e >= 0) {
+          lists[s + idx] = e;
+          keys[h] = idx++;
+        }
+      }
+      __syncthreads();
+      // each byte's exit index and count
+  #pragma unroll
+      for (int k = 0; k < O_PER; ++k) {
+        const int p = threadIdx.x + k * O_TPB;
+        if (p < len) {
+          const unsigned ix = slot[k] < 0 ? ND_NONE : (unsigned)keys[slot[k]];
+          seg[s + p] = (int)(ix | ((unsigned)cnt[k] << 16));
+        }
       }
     }
+    if (threadIdx.x == 0) {
+      tl[tile] = m;
+      tl[tiles + tile] = -1;
+      first = TILE;
+    }
+    nodes += m;
     __syncthreads();
+    if (threadIdx.x == 0) {  // read by every thread before the barrier
+      tile_min = 0x7FFFFFFF;
+      tile_max = -1;
+    }
+  }
+  if (threadIdx.x == 0) {
+    bl[blockIdx.x] = (int)nodes;
+    bl[G + blockIdx.x] = 0;
   }
   grid.sync();
 
-  // 2. the chain of tile entries: x, the first chunk start at or after the
-  // tile; base, the chunk starts before it
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    long long x = 0;
-    int base = 0;
-    for (int tile = 0; tile < tiles; ++tile) {
-      tl[2 * tile] = (int)x;
-      tl[2 * tile + 1] = base;
-      if (x < min((long long)(tile + 1) * O_TILE, (long long)n)) {
-        const int2 e = __ldcg(reinterpret_cast<const int2*>(ek) + x);
-        x = e.x;
-        base += e.y;
-      }
-    }
+  // 2. the path from byte 0's exit over the node graph: each node on it
+  // is its tile's entry
+  long long total = 0;
+  for (int b = threadIdx.x; b < G; b += O_TPB) total += __ldcg(bl + b);
+  const long long M = block_sum(total, red);
+  if (M <= O_BLOCK_NODES && tiles <= O_BLOCK_NODES) {
+    if (blockIdx.x == 0)
+      path_in_block(n, tiles, lists, seg, tl, bl, G,
+                    reinterpret_cast<int*>(o_smem), red);
+  } else {
+    path_in_grid(grid, n, tiles, lists, seg, tl, bl, G, nj, nj2, boundary,
+                 M);
   }
   grid.sync();
 
-  // 3. each tile's orbit from its entry, then the segment ids
-  uint8_t* const vis = reinterpret_cast<uint8_t*>(K0);
-  int* const wsum = reinterpret_cast<int*>(K1);
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long long s = (long long)tile * O_TILE;
-    const int len = (int)min((long long)O_TILE, n - s);
-    const long long entry = __ldcg(tl + 2 * tile) - s;
-    const int base = __ldcg(tl + 2 * tile + 1);
-    load_jumps(f, s, len, J0, nullptr);
-#pragma unroll
-    for (int k = 0; k < O_PER; ++k) {
-      const int p = threadIdx.x + k * O_TPB;
-      vis[p] = p == entry ? 1 : 0;
-    }
+  // 3. the chunk starts before this block's tiles
+  total = 0;
+  for (int b = threadIdx.x; b < (int)blockIdx.x; b += O_TPB)
+    total += __ldcg(bl + G + b);
+  int base = (int)block_sum(total, red);
+
+  // 4. each tile's walk from its entry: up to O_WALK hops until it meets
+  // the trunk, then the trunk from there; by doubling where it does not
+  // meet it in those hops. Then the segment ids. The entries and trunks of
+  // O_CHUNK tiles at a time are loaded at once.
+  unsigned* const tb = W0;
+  unsigned short* const H0 = reinterpret_cast<unsigned short*>(EX);
+  unsigned short* const H1 = H0 + TILE;
+  for (int c0 = lo; c0 < hi; c0 += O_CHUNK) {
+    const int cn = min(O_CHUNK, hi - c0);
+    for (int i = threadIdx.x; i < cn * (TILE / 32); i += O_TPB)
+      tb[i] = __ldcg(trunk + (long long)c0 * (TILE / 32) + i);
+    if (threadIdx.x < cn) ent[threadIdx.x] = __ldcg(tl + tiles + c0 +
+                                                    threadIdx.x);
     __syncthreads();
-    if (entry < len) {
-      int* Ja = J0;
-      int* Jb = J1;
-      for (int r = 0; r < O_ROUNDS; ++r) {
+    for (int t = 0; t < cn; ++t) {
+      const int tile = c0 + t;
+      const long long s = (long long)tile * TILE;
+      const int len = (int)min((long long)TILE, n - s);
+      const unsigned* const tw = tb + t * (TILE / 32);
+      const int entry = ent[t] >= 0 ? (int)(ent[t] - s) : -1;
+      if (threadIdx.x == 0) {
+        // walk_end: where the walk met the trunk, TILE if it left the
+        // tile, -1 without an entry, -2 if it did none in O_WALK hops
+        int x = entry, k = 0;
+        while (x >= 0 && k < O_WALK && !((tw[x >> 5] >> (x & 31)) & 1u)) {
+          walked[k++] = x;
+          const int fx = __ldg(f + s + x);
+          x = fx > s + x && fx < s + len ? (int)(fx - s) : TILE;
+          if (x == TILE) break;
+        }
+        walk_len = k;
+        walk_end = x < 0 || x == TILE || ((tw[x >> 5] >> (x & 31)) & 1u)
+                       ? x : -2;
+      }
+      __syncthreads();
+      const int end = walk_end;
+      if (end == -2) {
+        // H: each char start's tile-relative successor, TILE if it leaves
 #pragma unroll
         for (int k = 0; k < O_PER; ++k) {
           const int p = threadIdx.x + k * O_TPB;
-          const int j = Ja[p];
-          if (vis[p] && j < O_TILE) vis[j] = 1;
-          Jb[p] = j < O_TILE ? Ja[j] : j;
+          int j = TILE;
+          if (p < len) {
+            const int fp = __ldg(f + s + p);
+            if (fp > s + p && fp < s + len) j = (int)(fp - s);
+          }
+          H0[p] = (unsigned short)j;
+          vis[p] = p == entry ? 1 : 0;
         }
         __syncthreads();
-        int* tj = Ja; Ja = Jb; Jb = tj;
+        unsigned short* Ha = H0;
+        unsigned short* Hb = H1;
+        for (int r = 0; r < O_ROUNDS; ++r) {
+          int j[O_PER], jj[O_PER], vp[O_PER];
+#pragma unroll
+          for (int k = 0; k < O_PER; ++k) j[k] = Ha[threadIdx.x + k * O_TPB];
+#pragma unroll
+          for (int k = 0; k < O_PER; ++k) {
+            jj[k] = j[k];
+            vp[k] = 0;
+            if (j[k] < TILE) {
+              jj[k] = Ha[j[k]];
+              vp[k] = vis[threadIdx.x + k * O_TPB];
+            }
+          }
+          int more = 0;
+#pragma unroll
+          for (int k = 0; k < O_PER; ++k) {
+            if (vp[k]) vis[j[k]] = 1;
+            Hb[threadIdx.x + k * O_TPB] = (unsigned short)jj[k];
+            more |= jj[k] < TILE;
+          }
+          unsigned short* th = Ha; Ha = Hb; Hb = th;
+          if (!__syncthreads_or(more)) break;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < O_PER; ++k) {
+          const int p = threadIdx.x + k * O_TPB;
+          vis[p] = end >= 0 && p >= end && ((tw[p >> 5] >> (p & 31)) & 1u);
+        }
+        __syncthreads();
+        if (threadIdx.x < walk_len) vis[walked[threadIdx.x]] = 1;
+        __syncthreads();
       }
-    }
-    // segment ids: a block scan of the boundary counts, 8 bytes a thread
-    const int p0 = threadIdx.x * O_PER;
-    int mine = 0;
+      // segment ids: a block scan of the boundary counts, 8 bytes a thread
+      const int p0 = threadIdx.x * O_PER;
+      uint2 bv = *reinterpret_cast<const uint2*>(vis + p0);
+      uint8_t* const bb = reinterpret_cast<uint8_t*>(&bv);
+      int mine = 0;
 #pragma unroll
-    for (int k = 0; k < O_PER; ++k) mine += vis[p0 + k];
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    int incl = mine;
+      for (int k = 0; k < O_PER; ++k) mine += bb[k];
+      int incl = mine;
 #pragma unroll
-    for (int dist = 1; dist < 32; dist <<= 1) {
-      const int v = __shfl_up_sync(0xFFFFFFFFu, incl, dist);
-      if (lane >= dist) incl += v;
-    }
-    if (lane == 31) wsum[warp] = incl;
-    __syncthreads();
-    int before = 0;
-    for (int w = 0; w < warp; ++w) before += wsum[w];
-    int running = base + before + incl - mine;
-#pragma unroll
-    for (int k = 0; k < O_PER; ++k) {
-      const int p = p0 + k;
-      if (p < len) {
-        running += vis[p];
-        boundary[s + p] = vis[p];
-        seg[s + p] = running - 1;
+      for (int dist = 1; dist < 32; dist <<= 1) {
+        const int v = __shfl_up_sync(0xFFFFFFFFu, incl, dist);
+        if (lane >= dist) incl += v;
       }
+      if (lane == 31) wsum[warp] = incl;
+      __syncthreads();
+      int before = 0, in_tile = 0;
+      for (int w = 0; w < O_TPB / 32; ++w) {
+        if (w < warp) before += wsum[w];
+        in_tile += wsum[w];
+      }
+      int running = base + before + incl - mine;
+      int4 sv[2];
+      int* const ss = reinterpret_cast<int*>(sv);
+#pragma unroll
+      for (int k = 0; k < O_PER; ++k) {
+        running += bb[k];
+        ss[k] = running - 1;
+      }
+      if (p0 + O_PER <= len) {
+        *reinterpret_cast<uint2*>(boundary + s + p0) = bv;
+        reinterpret_cast<int4*>(seg + s + p0)[0] = sv[0];
+        reinterpret_cast<int4*>(seg + s + p0)[1] = sv[1];
+      } else {
+        for (int k = 0; k < len - p0; ++k) {
+          boundary[s + p0 + k] = bb[k];
+          seg[s + p0 + k] = ss[k];
+        }
+      }
+      base += in_tile;
+      __syncthreads();
     }
-    __syncthreads();
   }
 }
 
@@ -4273,10 +4955,13 @@ cudaError_t launch(int kind, const void* fn, int grid, int tpb, void** args,
 extern "C" {
 
 // bytes a tile of either K15 kernel
-int bpe_presplit_tile_size() { return presplit::S_TILE; }
+int bpe_presplit_tile_size() { return presplit::TILE; }
 
-// ints of bpe_presplit_succ's scratch a tile
-int bpe_presplit_scratch_ints() { return 2 * presplit::S_AGG; }
+// ints of bpe_presplit_succ's scratch a block of its grid
+int bpe_presplit_scratch_ints() { return presplit::S_AGG; }
+
+// the most nodes that bpe_presplit_orbit's path marking takes in one block
+int bpe_presplit_block_nodes() { return presplit::O_BLOCK_NODES; }
 
 // the most blocks of K15's kind 0 (presplit_succ) or 1 (presplit_orbit)
 // that the current device holds at once (the same for every stream); a
@@ -4289,32 +4974,35 @@ int bpe_presplit_grid(int kind) {
 }
 
 // K15 presplit_succ over data[0 .. n), n >= 1, mode 4 (GPT-4) or 2
-// (GPT-2); the class tables: dense uint8[0x10000], starts int32[nstarts]
-// and flags uint8[nstarts]. f: int32[n]; scratch: int32[tiles *
-// bpe_presplit_scratch_ints()].
+// (GPT-2), on grid blocks (at most the tiles); the class tables: dense
+// uint8[0x10000], starts int32[nstarts] and flags uint8[nstarts]. f:
+// int32[n]; scratch: int32[grid * bpe_presplit_scratch_ints()].
 int bpe_presplit_succ(const unsigned char* data, int n, int mode,
                       const unsigned char* dense, const int* starts,
                       const unsigned char* flags, int nstarts, int* f,
                       int* scratch, int grid, void* stream) {
   using namespace presplit;
-  if (n < 1 || (mode != 4 && mode != 2) || nstarts < 1)
+  const long long tiles = ((long long)n + presplit::TILE - 1) / presplit::TILE;
+  if (n < 1 || (mode != 4 && mode != 2) || nstarts < 1 || grid > tiles)
     return cudaErrorInvalidValue;
-  const long long tiles = ((long long)n + S_TILE - 1) / S_TILE;
   Tables t{dense, starts, flags, nstarts};
-  int* agg = scratch;
-  int* carry = scratch + S_AGG * tiles;
-  void* args[] = {&data, &n, &mode, &t, &f, &agg, &carry};
+  void* args[] = {&data, &n, &mode, &t, &f, &scratch};
   return launch(0, (const void*)presplit_succ_kernel, grid, S_TPB, args, 0,
                 stream);
 }
 
-// K15 presplit_orbit over the successors f[0 .. n), n >= 1. boundary:
-// uint8[n]; seg: int32[n]; ek: int32[2 n]; tl: int32[2 * tiles].
+// K15 presplit_orbit over the successors f[0 .. n), n >= 1 (f[p] > p or
+// -1), on grid blocks (at most the tiles). boundary: uint8[n]; seg:
+// int32[n]; lists, nj, nj2: int32[n]; tl: int32[2 * tiles]; bl:
+// int32[2 * grid]; trunk: uint32[tiles * tile size / 32].
 int bpe_presplit_orbit(const int* f, int n, unsigned char* boundary,
-                       int* seg, int* ek, int* tl, int grid, void* stream) {
+                       int* seg, int* lists, int* nj, int* nj2, int* tl,
+                       int* bl, unsigned* trunk, int grid, void* stream) {
   using namespace presplit;
-  if (n < 1) return cudaErrorInvalidValue;
-  void* args[] = {&f, &n, &boundary, &seg, &ek, &tl};
+  const long long tiles = ((long long)n + presplit::TILE - 1) / presplit::TILE;
+  if (n < 1 || grid > tiles) return cudaErrorInvalidValue;
+  void* args[] = {&f, &n, &boundary, &seg, &lists, &nj, &nj2, &tl, &bl,
+                  &trunk};
   return launch(1, (const void*)presplit_orbit_kernel, grid, O_TPB, args,
                 O_SMEM, stream);
 }

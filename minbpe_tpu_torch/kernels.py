@@ -110,9 +110,14 @@ SLOT_I = SLOT_BSEL + 2
 SLOT_BSTAR = SLOT_BSEL + 3
 SLOT_SIZE = 64
 # bytes a tile of K15's two kernels, and ints of presplit_succ's scratch a
-# tile (bpe_presplit_tile_size() and bpe_presplit_scratch_ints() on the card)
+# block of its grid (bpe_presplit_tile_size() and bpe_presplit_scratch_ints()
+# on the card)
 PRESPLIT_TILE = 4096
-PRESPLIT_SCRATCH_INTS = 12
+PRESPLIT_SCRATCH_INTS = 6
+# presplit_orbit marks the path over its node graph in one block up to
+# this many nodes (every distinct exit of every tile), else grid-wide
+# (bpe_presplit_block_nodes() on the card)
+PRESPLIT_BLOCK_NODES = 4096
 
 
 class KernelInfo:
@@ -230,9 +235,10 @@ SIGNATURES = {
                         _I, _P],
     "bpe_presplit_tile_size": [],
     "bpe_presplit_scratch_ints": [],
+    "bpe_presplit_block_nodes": [],
     "bpe_presplit_grid": [_I],
     "bpe_presplit_succ": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
-    "bpe_presplit_orbit": [_P, _I, _P, _P, _P, _P, _I, _P],
+    "bpe_presplit_orbit": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
 }
 
 _lib = None
@@ -292,7 +298,9 @@ def _load():
                 ("pre-split tile", lib.bpe_presplit_tile_size(),
                  PRESPLIT_TILE),
                 ("pre-split scratch", lib.bpe_presplit_scratch_ints(),
-                 PRESPLIT_SCRATCH_INTS)):
+                 PRESPLIT_SCRATCH_INTS),
+                ("pre-split block nodes", lib.bpe_presplit_block_nodes(),
+                 PRESPLIT_BLOCK_NODES)):
             if got != want:
                 raise RuntimeError(f"the kernels' {name} is {got}, "
                                    f"kernels.py's {want}")

@@ -11,14 +11,17 @@ the split, and after it the stream build and the encode's rank sweep
 
 On a CUDA tensor the split is K15, two hand-written kernels
 (csrc/bpe_kernels.cu): ``presplit_succ`` finds, for every char start,
-where the chunk that would start there ends, working in bytes with reverse
-scans over class runs; ``presplit_orbit`` follows those ends from byte 0
-and writes the boundaries and segment ids. On a CPU tensor it is
+where the chunk that would start there ends, working in bytes with scans
+over class runs chained across tiles; ``presplit_orbit`` follows those ends
+from byte 0 (each tile's exits, then the path over the tiles' exits by
+doubling) and writes the boundaries and segment ids. On a CPU tensor it is
 ``presplit_plain``, the plain PyTorch twin: minbpe_tpu's array program
 (UTF-8 decode, class lookup, every char's successor from cummin/cummax
 scans, the orbit by pointer doubling) carried over op by op. Each kernel
 also has a plain version of its own step, in bytes: ``successor_plain``
-and ``orbit_plain``.
+and ``orbit_plain``; and ``succ_tiles_model`` and ``orbit_tiles_model``
+carry out the kernels' tile steps in plain PyTorch at any tile size and
+grid, so the CPU tests hold the design itself to the plain steps.
 
 The class tables (dense BMP flags, 64 KB; the range starts and flags for
 the astral planes) come from the port's own utils/presplit tables and go to
@@ -26,6 +29,8 @@ each device once.
 """
 
 from __future__ import annotations
+
+import bisect
 
 import numpy as np
 import torch
@@ -41,8 +46,9 @@ MODES = {"gpt4": 4, "gpt2": 2}
 # the kernels index bytes with int32 (two tiles of slack)
 MAX_N = 2**31 - 2**13
 # device bytes a text byte takes in the split: the bytes, the successors,
-# the exits and their counts, the boundaries, the segment ids
-BYTES_PER_BYTE = 18
+# the orbit's scratch (each tile's exits, the node graph's two buffers), the
+# boundaries, the segment ids
+BYTES_PER_BYTE = 22
 
 _BIG = 2**30
 _TABLES: dict = {}
@@ -287,18 +293,12 @@ def presplit_plain(data, n: int, mode):
 _CL_L, _CL_N, _CL_O, _CL_WS, _CL_CR = range(5)
 
 
-def successor_plain(data, n: int, mode):
-    """presplit_succ's function: int32 f of data's length, f[p] for each
-    char start p < n the byte where the chunk that would start at p ends,
-    -1 at every other byte. In the kernel's terms: each rule reads the
-    first and second class-run break after p (C1, C2), the first and second
-    break of GPT-4's [^\\s\\p{L}\\p{N}]++[\\r\\n]* (O1, O2) and the last
-    CR/LF of p's whitespace run (LCR)."""
-    mode = _check_args(data, n, mode)
+def _byte_state(data, n: int):
+    """Per-byte arrays of data[:n] (n >= 1) that presplit_succ reads: the
+    positions, char starts, lead-byte lengths, code points and flags at
+    starts, each byte's char class and lead, and where a coarse class run
+    (brk_c) and a GPT-4 [^\\s\\p{L}\\p{N}]++[\\r\\n]* span (brk_o) break."""
     dev = data.device
-    f = torch.full((data.numel(),), -1, dtype=torch.int32, device=dev)
-    if n == 0:
-        return f
     pos = torch.arange(n, dtype=torch.int64, device=dev)
     b = data[:n].to(torch.int64)
     start = (b & 0xC0) != 0x80
@@ -322,20 +322,38 @@ def successor_plain(data, n: int, mode):
     goes_on = (((prev == _CL_O) & ((cls == _CL_O) | (cls == _CL_CR)))
                | ((prev == _CL_CR) & (cls == _CL_CR)))
     brk_o = start & first & ~goes_on
-    nn = torch.full((1,), n, dtype=torch.int64, device=dev)
+    return dict(pos=pos, start=start, ln=ln, cp=cp, F=F, cls=cls, lead=lead,
+                coarse=coarse, brk_c=brk_c, brk_o=brk_o)
+
+
+def _breaks_plain(st, n: int):
+    """(C1, C2, O1, O2, LCR) of every byte by reverse scans over the whole
+    stream: the first and second break of each kind after the byte (n past
+    the last), and the last CR/LF of the byte's whitespace run at or after
+    it (-1 if none, or if the byte is not whitespace)."""
+    pos = st["pos"]
+    nn = torch.full((1,), n, dtype=torch.int64, device=pos.device)
 
     def after(brk):
-        """The first break after each byte (n past the last), and the
-        second."""
         incl = _rev_cummin(torch.where(brk, pos, n))
         one = torch.cat([incl[1:], nn])
         return one, torch.cat([one, nn])[one]
 
-    C1, C2 = after(brk_c)
-    O1, O2 = after(brk_o)
-    last_cr = torch.cummax(torch.where(cls == _CL_CR, pos, -1), 0).values
+    C1, C2 = after(st["brk_c"])
+    O1, O2 = after(st["brk_o"])
+    last_cr = torch.cummax(torch.where(st["cls"] == _CL_CR, pos, -1),
+                           0).values
     lcr = last_cr[C1 - 1]
-    lcr = torch.where((coarse == _CL_WS) & (lcr >= pos), lcr, -1)
+    lcr = torch.where((st["coarse"] == _CL_WS) & (lcr >= pos), lcr, -1)
+    return C1, C2, O1, O2, lcr
+
+
+def _succ_rules(st, n: int, mode: int, C1, C2, O1, O2, lcr):
+    """f at every byte of data[:n] (-1 off the char starts) from the byte
+    state and the breaks: utils/presplit.py's alternatives in order."""
+    pos, start, ln, cp, F, cls = (st[k] for k in ("pos", "start", "ln", "cp",
+                                                  "F", "cls"))
+    coarse, lead = st["coarse"], st["lead"]
 
     def at(a, i, fill):
         """a[i] where i < n, else fill."""
@@ -350,7 +368,7 @@ def successor_plain(data, n: int, mode):
     cls1 = at(cls, p1, -1)
     apos = start & (cp == 39) & v1
     ws = start & (coarse == _CL_WS)
-    g = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    g = torch.full((n,), -1, dtype=torch.int64, device=pos.device)
 
     def put(pred, val):
         return torch.where((g < 0) & pred, val, g)
@@ -384,7 +402,23 @@ def successor_plain(data, n: int, mode):
     g = put(ws & (C1 >= n), C1)
     g = put(ws & (p1 < C1), lead[(C1 - 1).clamp(min=0)])
     g = put(ws, C1)
-    f[:n] = torch.where(start, g, -1).to(torch.int32)
+    return torch.where(start, g, -1).to(torch.int32)
+
+
+def successor_plain(data, n: int, mode):
+    """presplit_succ's function: int32 f of data's length, f[p] for each
+    char start p < n the byte where the chunk that would start at p ends,
+    -1 at every other byte. In the kernel's terms: each rule reads the
+    first and second class-run break after p (C1, C2), the first and second
+    break of GPT-4's [^\\s\\p{L}\\p{N}]++[\\r\\n]* (O1, O2) and the last
+    CR/LF of p's whitespace run (LCR)."""
+    mode = _check_args(data, n, mode)
+    f = torch.full((data.numel(),), -1, dtype=torch.int32,
+                   device=data.device)
+    if n == 0:
+        return f
+    st = _byte_state(data, n)
+    f[:n] = _succ_rules(st, n, mode, *_breaks_plain(st, n))
     return f
 
 
@@ -398,6 +432,329 @@ def orbit_plain(f, n: int):
     pos = torch.arange(NB, device=f.device)
     boundary = visited & (pos < n)
     seg = torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1
+    return boundary, seg
+
+
+# ---------------------------------------------------------------------------
+# a CPU model of the kernels' tile steps, the tile size and the grid given
+# ---------------------------------------------------------------------------
+
+# an absent break in a tile aggregate (csrc/bpe_kernels.cu: presplit::BIG)
+_AGG_BIG = 2**31 - 1
+# presplit_orbit follows a tile's entry this many hops to its trunk before it
+# marks the walk by doubling instead (csrc/bpe_kernels.cu: O_WALK)
+WALK_HOPS = 16
+
+
+def _agg_combine(a, b):
+    """presplit::agg_combine: the aggregate (c1, c2, o1, o2, lr, lc) of a
+    range followed by the range of b."""
+    return (min(a[0], b[0]), min(max(a[0], b[0]), min(a[1], b[1])),
+            min(a[2], b[2]), min(max(a[2], b[2]), min(a[3], b[3])),
+            a[4] | b[4], a[5] if a[4] else (b[5] if b[5] >= 0 else a[5]))
+
+
+def _agg_saturated(a) -> bool:
+    """Whether nothing to the right of ``a`` changes a combine with it: two
+    breaks of each kind and a byte that is not whitespace."""
+    return a[1] < _AGG_BIG and a[3] < _AGG_BIG and a[4] == 1
+
+
+def block_ranges(tiles: int, blocks: int):
+    """The contiguous tile range [lo, hi) of each block of a K15 grid."""
+    return [(b * tiles // blocks, (b + 1) * tiles // blocks)
+            for b in range(blocks)]
+
+
+def succ_tiles_model(data, n: int, mode, tile: int, blocks: int,
+                     stats=None):
+    """presplit_succ's tile steps in plain PyTorch: ``successor_plain``
+    with the breaks chained across tiles of ``tile`` bytes as the kernel
+    chains them. Each of ``blocks`` blocks owns a contiguous range of
+    tiles; before the grid barrier it combines its tiles' aggregates from
+    the left and stops at the first saturated one; after it, it combines
+    the later blocks' aggregates a warp (32) at a time until one saturates
+    (else the text's end), then walks its own tiles from the right, each
+    tile's carry its right neighbour's aggregate combined with that one's
+    carry. ``stats`` (a dict) gets the tiles that phase 1 read and the
+    most look-right rounds of a block."""
+    code = _check_args(data, n, mode)
+    f = torch.full((data.numel(),), -1, dtype=torch.int32,
+                   device=data.device)
+    if n == 0:
+        return f
+    st = _byte_state(data, n)
+    pos = st["pos"]
+    tiles = -(-n // tile)
+    tid = pos // tile
+    tend = torch.clamp((tid + 1) * tile, max=n)
+    cr = (st["cls"] == _CL_CR).tolist()
+    nonws = (st["coarse"] != _CL_WS).tolist()
+    bc = torch.nonzero(st["brk_c"]).flatten().tolist()
+    bo = torch.nonzero(st["brk_o"]).flatten().tolist()
+
+    def firsts(brks, lo, hi):
+        i = bisect.bisect_left(brks, lo)
+        got = [q for q in brks[i:i + 2] if q < hi]
+        return got + [_AGG_BIG] * (2 - len(got))
+
+    def tile_agg(t):
+        lo, hi = t * tile, min((t + 1) * tile, n)
+        c, o = firsts(bc, lo, hi), firsts(bo, lo, hi)
+        first = next((q for q in range(lo, hi) if nonws[q]), None)
+        top = hi if first is None else first
+        lc = max((q for q in range(lo, top) if cr[q]), default=-1)
+        return (c[0], c[1], o[0], o[1], int(first is not None), lc)
+
+    aggs = [tile_agg(t) for t in range(tiles)]
+    ranges = block_ranges(tiles, min(blocks, tiles))
+    end = (n, _AGG_BIG, n, _AGG_BIG, 1, -1)
+    # phase 1: each block's aggregate, stopped where it saturates
+    read = 0
+    block_agg = []
+    for lo, hi in ranges:
+        g = (_AGG_BIG, _AGG_BIG, _AGG_BIG, _AGG_BIG, 0, -1)
+        for t in range(lo, hi):
+            g = _agg_combine(g, aggs[t])
+            read += 1
+            if _agg_saturated(g):
+                break
+        block_agg.append(g)
+    # phases 2 and 3: each block's carry by a saturating look-right, then
+    # its tiles' carries from the right
+    carry = [None] * tiles
+    most_rounds = 0
+    for b, (lo, hi) in enumerate(ranges):
+        g = (_AGG_BIG, _AGG_BIG, _AGG_BIG, _AGG_BIG, 0, -1)
+        rounds = 0
+        for k in range(b + 1, len(ranges)):
+            if (k - b - 1) % 32 == 0:
+                rounds += 1
+            g = _agg_combine(g, block_agg[k])
+            if _agg_saturated(g):
+                break
+        else:
+            g = _agg_combine(g, end)
+        most_rounds = max(most_rounds, rounds)
+        for t in range(hi - 1, lo - 1, -1):
+            carry[t] = g
+            g = _agg_combine(aggs[t], g)
+    if stats is not None:
+        stats.update(tiles=tiles, phase1_tiles_read=read,
+                     lookright_rounds=most_rounds)
+    # each byte's state: its tile's breaks after it, then its tile's carry
+    cy = torch.tensor(carry, dtype=torch.int64, device=pos.device)[tid]
+    big = torch.full_like(pos, _AGG_BIG)
+
+    def in_tile(brk):
+        nxt = torch.cat([_rev_cummin(torch.where(brk, pos, _AGG_BIG))[1:],
+                         big[:1]])
+        one = torch.where(nxt < tend, nxt, _AGG_BIG)
+        two = torch.where(one < _AGG_BIG, nxt[one.clamp(max=n - 1)],
+                          _AGG_BIG)
+        return one, torch.where(two < tend, two, _AGG_BIG)
+
+    def chain(one, two, c1, c2):
+        return (torch.minimum(one, c1),
+                torch.minimum(torch.maximum(one, c1), torch.minimum(two, c2)))
+
+    C1, C2 = chain(*in_tile(st["brk_c"]), cy[:, 0], cy[:, 1])
+    O1, O2 = chain(*in_tile(st["brk_o"]), cy[:, 2], cy[:, 3])
+    # LCR: the tile's own [q, first non-space) if it has one, else the
+    # carry's, else the tile's last CR/LF at or after q
+    ns = _rev_cummin(torch.where(st["coarse"] != _CL_WS, pos, _AGG_BIG))
+    ns_in = ns < tend
+    top = torch.where(ns_in, ns, tend)
+    last_cr = torch.cummax(torch.where(st["cls"] == _CL_CR, pos, -1),
+                           0).values
+    own = last_cr[(top - 1).clamp(min=0)]
+    own = torch.where(own >= pos, own, -1)
+    lcr = torch.where(ns_in | (cy[:, 5] < 0), own, cy[:, 5])
+    lcr = torch.where(st["coarse"] == _CL_WS, lcr, -1)
+    C1, C2, O1, O2 = (x.clamp(max=n) for x in (C1, C2, O1, O2))
+    f[:n] = _succ_rules(st, n, code, C1, C2, O1, O2, lcr)
+    return f
+
+
+def _in_tile_walk(fv, tile: int, marks=None):
+    """Doubling inside tiles of ``tile`` bytes over the successors fv
+    (int64, -1 off a char start): (the last byte of each walk in its tile,
+    the chunk starts it makes there), or with ``marks`` the bytes that the
+    walks from the marked bytes visit."""
+    n = fv.numel()
+    pos = torch.arange(n, dtype=torch.int64, device=fv.device)
+    tend = torch.clamp((pos // tile + 1) * tile, max=n)
+    inside = (fv > pos) & (fv < tend)
+    jump = torch.where(inside, fv, pos)
+    depth = inside.to(torch.int64)
+    for _ in range(max(1, (tile - 1).bit_length())):
+        if marks is not None:
+            hit = torch.zeros(n, dtype=torch.bool, device=fv.device)
+            hit[jump[marks]] = True
+            marks = marks | hit
+        depth = depth + torch.where(jump != pos, depth[jump], 0)
+        jump = jump[jump]
+    return (jump, depth + 1) if marks is None else marks
+
+
+def _tile_exits(f, n: int, tile: int):
+    """(exit, count) of every byte below n: the byte where the walk from it
+    leaves its tile (n past the text, -1 off a char start) and the chunk
+    starts it makes in the tile."""
+    fv = f[:n].to(torch.int64)
+    root, cnt = _in_tile_walk(fv, tile)
+    out = torch.where(fv[root] > root, fv[root].clamp(max=n), n)
+    return torch.where(fv >= 0, out, -1), cnt
+
+
+def orbit_nodes(f, n: int, tile: int = kernels.PRESPLIT_TILE) -> int:
+    """The nodes of presplit_orbit's graph over f: the distinct exits of
+    every tile (``orbit_tiles_model``, step 1)."""
+    if n == 0:
+        return 0
+    exit_, _ = _tile_exits(f, n, tile)
+    pos = torch.arange(n, dtype=torch.int64, device=f.device)
+    ok = exit_ >= 0
+    key = (pos[ok] // tile) * (n + 1) + exit_[ok]
+    return int(torch.unique(key).numel())
+
+
+def orbit_tiles_model(f, n: int, tile: int, blocks: int, stats=None):
+    """presplit_orbit's tile steps in plain PyTorch: ``orbit_plain`` as the
+    kernel computes it over tiles of ``tile`` bytes, with ``blocks`` blocks
+    each owning a contiguous range of tiles.
+
+    1. Each tile resolves, by doubling inside the tile, where the walk from
+       each of its bytes leaves it (its exit) and how many chunk starts it
+       makes there; it lists its distinct exits (a tile's nodes) and keeps,
+       at each byte, the index of its exit in that list and its count.
+    2. The nodes form a graph: a node, an exit of tile u landing at byte e
+       of tile w, leads to e's own exit, node (w, index at e). The path
+       from byte 0's exit is marked by doubling over the nodes, ceil(log2
+       (nodes + 1)) rounds: in one block where the nodes and the tiles
+       number at most ``kernels.PRESPLIT_BLOCK_NODES``, else grid-wide.
+       Each node on the path is its tile's entry and adds its count to the
+       chunk starts of its tile's block.
+    3. Each tile follows the walk from its entry, at most ``WALK_HOPS``
+       hops, until it meets the tile's trunk (the walk from its first char
+       start, marked in step 1 by the same doubling), then takes the trunk
+       from there; a walk that neither meets it nor leaves the tile in
+       those hops is marked by doubling from the entry. Each block counts
+       its boundaries into segment ids from the chunk starts of the blocks
+       before it.
+
+    ``stats`` (a dict) gets the node count, the most nodes of a tile, the
+    tier and the rounds of step 2, and how step 3's walks ended."""
+    NB = f.numel()
+    dev = f.device
+    boundary = torch.zeros(NB, dtype=torch.bool, device=dev)
+    seg = torch.full((NB,), -1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return boundary, seg
+
+    # 1. exits, counts, each tile's distinct exits
+    exit_, cnt = _tile_exits(f, n, tile)
+    tiles = -(-n // tile)
+    lists, idx = [], torch.full((n,), -1, dtype=torch.int64, device=dev)
+    for t in range(tiles):
+        lo, hi = t * tile, min((t + 1) * tile, n)
+        e = exit_[lo:hi]
+        ok = e >= 0
+        vals, inv = torch.unique(e[ok], return_inverse=True)
+        lists.append(vals.tolist())
+        idx[lo:hi][ok] = inv
+    m = [len(v) for v in lists]
+    M = sum(m)
+    ranges = block_ranges(tiles, min(blocks, tiles))
+    owner = [b for b, (lo, hi) in enumerate(ranges) for _ in range(lo, hi)]
+
+    # 2. the node graph (node (t, k) at slot t * tile + k) and its path
+    TERM = -1
+    nodes = [(t, k) for t in range(tiles) for k in range(m[t])]
+
+    def target(e):
+        """The node of byte e's exit, TERM past the text or off a char
+        start."""
+        if e >= n or idx[e] < 0:
+            return TERM
+        return (e // tile) * tile + int(idx[e])
+
+    J = {t * tile + k: target(lists[t][k]) for t, k in nodes}
+    vis = {s: False for s in J}
+    if target(0) != TERM:
+        vis[target(0)] = True  # byte 0's exit: the first node of the path
+    rounds = max(1, M.bit_length())
+    for _ in range(rounds):
+        new = dict(vis)
+        for s, j in J.items():
+            if vis[s] and j != TERM:
+                new[j] = True
+        vis = new
+        J = {s: (TERM if j == TERM else J[j]) for s, j in J.items()}
+    entry = [None] * tiles
+    blockcount = [0] * len(ranges)
+    entry[0] = 0
+    blockcount[owner[0]] += int(cnt[0])
+    for (t, k) in nodes:
+        e = lists[t][k]
+        if vis[t * tile + k] and e < n:
+            w = e // tile
+            entry[w] = e
+            blockcount[owner[w]] += int(cnt[e])
+    if stats is not None:
+        one = max(M, tiles) <= kernels.PRESPLIT_BLOCK_NODES
+        stats.update(tiles=tiles, nodes=M, most_nodes=max(m),
+                     tier="block" if one else "grid", rounds=rounds)
+
+    # 3. each tile's walk from its entry: up to WALK_HOPS hops until it
+    # meets the tile's trunk (the walk from its first char start, marked in
+    # step 1) or leaves the tile; then the trunk from there on. A walk that
+    # does neither is marked by doubling from the entry, as step 1 marks
+    # the trunk.
+    fv = f[:n].to(torch.int64)
+    first = torch.zeros(n, dtype=torch.bool, device=dev)
+    for t in range(tiles):
+        got = torch.nonzero(fv[t * tile:(t + 1) * tile] >= 0)
+        if got.numel():
+            first[t * tile + int(got[0])] = True
+    trunk = _in_tile_walk(fv, tile, first)
+    marks = torch.zeros(n, dtype=torch.bool, device=dev)
+    doubled = torch.zeros(n, dtype=torch.bool, device=dev)
+    outcome = {"trunk": 0, "left": 0, "doubled": 0}
+    fl, tr = fv.tolist(), trunk.tolist()
+    for t, e in enumerate(entry):
+        if e is None:
+            continue
+        end = min((t + 1) * tile, n)
+        x, walked = e, []
+        while len(walked) < WALK_HOPS and not tr[x]:
+            walked.append(x)
+            if not x < fl[x] < end:
+                x = None
+                break
+            x = fl[x]
+        for q in walked:
+            marks[q] = True
+        if x is None:
+            outcome["left"] += 1
+        elif tr[x]:
+            marks[x:end] |= trunk[x:end]
+            outcome["trunk"] += 1
+        else:
+            doubled[e] = True
+            outcome["doubled"] += 1
+    if outcome["doubled"]:
+        marks |= _in_tile_walk(fv, tile, doubled)
+    if stats is not None:
+        stats.update(walks=outcome)
+    for b, (lo, hi) in enumerate(ranges):
+        if lo == hi:
+            continue
+        a, z = lo * tile, min(hi * tile, n)
+        base = sum(blockcount[:b])
+        seg[a:z] = base + torch.cumsum(marks[a:z].to(torch.int32), 0,
+                                       dtype=torch.int32) - 1
+    boundary[:n] = marks
     return boundary, seg
 
 
@@ -436,20 +793,20 @@ def presplit_succ(data, n: int, mode):
     if n == 0:
         return f.fill_(-1)
     dense, starts, flags = _device_tables(dev)
-    tiles = -(-n // kernels.PRESPLIT_TILE)
-    scratch = torch.empty(kernels.PRESPLIT_SCRATCH_INTS * tiles,
+    grid = _grid(dev, 0, n)
+    scratch = torch.empty(kernels.PRESPLIT_SCRATCH_INTS * grid,
                           dtype=torch.int32, device=dev)
     kernels._run(dev, kernels._load().bpe_presplit_succ, data.data_ptr(), n,
                  code, dense.data_ptr(), starts.data_ptr(), flags.data_ptr(),
-                 starts.numel(), f.data_ptr(), scratch.data_ptr(),
-                 _grid(dev, 0, n))
+                 starts.numel(), f.data_ptr(), scratch.data_ptr(), grid)
     kernels.PRESPLIT_SUCC.launches += 1
     return f
 
 
 def presplit_orbit(f, n: int):
     """K15 presplit_orbit: ``orbit_plain`` on the card (one cooperative
-    launch). Values past n are unspecified there."""
+    launch), for successors that jump forward (f[p] > p, or -1 off a char
+    start). Values past n are unspecified there."""
     if not f.is_cuda:
         return orbit_plain(f, n)
     dev = f.device
@@ -459,12 +816,19 @@ def presplit_orbit(f, n: int):
                 torch.full((f.numel(),), -1, dtype=torch.int32, device=dev))
     boundary = torch.empty(f.numel(), dtype=torch.bool, device=dev)
     seg = torch.empty(f.numel(), dtype=torch.int32, device=dev)
-    ek = torch.empty(2 * n, dtype=torch.int32, device=dev)
+    # each tile's exits, the node graph's two next-node buffers
+    lists, nj, nj2 = torch.empty((3, n), dtype=torch.int32, device=dev)
+    grid = _grid(dev, 1, n)
     tl = torch.empty(2 * -(-n // kernels.PRESPLIT_TILE), dtype=torch.int32,
                      device=dev)
+    bl = torch.empty(2 * grid, dtype=torch.int32, device=dev)
+    # each tile's trunk, a bit a byte
+    trunk = torch.empty(tl.numel() // 2 * kernels.PRESPLIT_TILE // 32,
+                        dtype=torch.int32, device=dev)
     kernels._run(dev, kernels._load().bpe_presplit_orbit, f.data_ptr(), n,
-                 boundary.data_ptr(), seg.data_ptr(), ek.data_ptr(),
-                 tl.data_ptr(), _grid(dev, 1, n))
+                 boundary.data_ptr(), seg.data_ptr(), lists.data_ptr(),
+                 nj.data_ptr(), nj2.data_ptr(), tl.data_ptr(), bl.data_ptr(),
+                 trunk.data_ptr(), grid)
     kernels.PRESPLIT_ORBIT.launches += 1
     return boundary, seg
 

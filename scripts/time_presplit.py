@@ -1,0 +1,120 @@
+#!/usr/bin/env python3
+"""Device time of the device pre-split, K15 ``presplit_succ`` and
+``presplit_orbit``, on one NVIDIA GPU.
+
+    python3 scripts/time_presplit.py [--ptxas]
+
+Times the whole split (``presplit_seg_ids``) and each kernel alone
+(``presplit_succ`` on the bytes, ``presplit_orbit`` on its successors)
+through the Python wrappers, with CUDA events behind a sleeping kernel
+(chip_smoke.device_ms), at chip_smoke.py's phase-2 shapes: the smoke corpus
+(397,366 bytes) and the XL corpus (12,588,338) in both modes, the XL
+corpus four times over (50,353,352; GPT-4) and 2^20 spaces, letters and
+digits (GPT-4). Each shape also gets the sha256 of the split (boundaries,
+then segment ids, below n) and its bytes bound (n read, 5 n written, the
+64 KB class table; 3.35 TB/s). With ``--ptxas`` it first compiles the
+kernel source once more with ``-Xptxas -v`` and prints what ptxas reports
+for the K15 kernels (registers, shared memory, spills).
+
+It goes through the wrappers alone, so it also times an earlier commit's
+package: unpack that commit with git archive into _archive/ (git-ignored),
+copy this script and chip_smoke.py into it, and run both trees in turns in
+one call (parent, this, this, parent); equal hashes show equal outputs. It
+prints one JSON object, {"root", "ptxas", "shapes": [{"case", "n",
+"chunks", "ms", "succ_ms", "orbit_ms", "bound_ms", "sha256"}]}, then the
+card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke  # noqa: E402
+
+
+def shapes(golden_mod):
+    """(name, text, mode) of chip_smoke.py phase 2's K15 shapes."""
+    corpus = golden_mod.smoke_corpus(ROOT)
+    xl = golden_mod.xl_corpus(ROOT)
+    k = 1 << 20
+    return [("smoke", corpus, "gpt4"), ("smoke", corpus, "gpt2"),
+            ("xl", xl, "gpt4"), ("xl", xl, "gpt2"), ("xl4", xl * 4, "gpt4"),
+            ("spaces_2e20", " " * k + "x", "gpt4"),
+            ("letters_2e20", " " + "a" * k + "!", "gpt4"),
+            ("digits_2e20", "1" * k + " 22", "gpt4")]
+
+
+def ptxas_report(kernels) -> list[str]:
+    """ptxas's lines on the K15 kernels from one more build of the source
+    with -Xptxas -v (to a scratch file in the build directory)."""
+    out = os.path.join(kernels.BUILD_DIR, "ptxas_probe.so")
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    cmd = kernels.build_command(out)
+    proc = subprocess.run(cmd[:1] + ["-Xptxas", "-v"] + cmd[1:],
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed:\n{proc.stderr}")
+    lines = proc.stderr.splitlines()
+    keep = []
+    for i, line in enumerate(lines):
+        if "presplit" in line and "Compiling entry function" in line:
+            keep += [line.strip()] + [x.strip() for x in lines[i + 1:i + 4]
+                                      if "ptxas info" in x]
+    return keep
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        return chip_smoke.fail("CUDA is not available")
+    from minbpe_tpu_torch import kernels
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+    from minbpe_tpu_torch.utils import golden as golden_mod
+
+    kernels.build()
+    report = ptxas_report(kernels) if "--ptxas" in sys.argv[1:] else []
+    for line in report:
+        print(line, file=sys.stderr)
+    table = 0x10000 + 5 * pdp._device_tables(torch.device("cuda"))[1].numel()
+    out = []
+    for name, text, mode in shapes(golden_mod):
+        raw = text.encode("utf-8")
+        n = len(raw)
+        data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).cuda()
+        del raw
+        boundary, seg = pdp.presplit_seg_ids(data, n, mode)
+        h = hashlib.sha256(boundary[:n].cpu().numpy().tobytes())
+        h.update(seg[:n].cpu().numpy().tobytes())
+        f = pdp.presplit_succ(data, n, mode)
+        reps = 5 if n > 1 << 22 else 20
+        rec = dict(
+            case=f"{name}_{mode}", n=n, chunks=int(seg[n - 1]) + 1,
+            ms=chip_smoke.device_ms(
+                torch, lambda: pdp.presplit_seg_ids(data, n, mode), reps),
+            succ_ms=chip_smoke.device_ms(
+                torch, lambda: pdp.presplit_succ(data, n, mode), reps),
+            orbit_ms=chip_smoke.device_ms(
+                torch, lambda: pdp.presplit_orbit(f, n), reps),
+            bound_ms=(6 * n + table) / chip_smoke.HBM_BYTES_PER_S * 1e3,
+            sha256=h.hexdigest())
+        out.append(rec)
+        print(f"{rec['case']}: " + ", ".join(
+            f"{k} {v}" for k, v in rec.items() if k != "case"),
+            file=sys.stderr)
+        del data, boundary, seg, f
+        torch.cuda.empty_cache()
+    print(json.dumps({"root": ROOT, "ptxas": report, "shapes": out}))
+    print(chip_smoke.nvidia_smi_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1351,6 +1351,7 @@ def _presplit_texts():
             f"digits_{log2}": "1" * k + " 22",
             f"crlf_{log2}": "x" + "\r\n" * (k // 2) + "  y",
             f"apostrophes_{log2}": "'" * k + "ll",
+            f"o_before_letters_{log2}": "a " + "!" * k + "abc d",
         })
     return texts
 
@@ -1358,7 +1359,7 @@ def _presplit_texts():
 PRESPLIT_TEXTS = ["cases", "fuzz", "smoke", "one_char", "astral"] + [
     f"{kind}_{log2}" for log2 in (12, 16, 20)
     for kind in ("spaces", "spaces_at_end", "letters", "digits", "crlf",
-                 "apostrophes")]
+                 "apostrophes", "o_before_letters")]
 
 
 @pytest.fixture(scope="module")
@@ -1396,6 +1397,55 @@ def test_presplit_matches_plain(dev, presplit_texts, mode, name):
     ends = np.flatnonzero(cb[:n].numpy()).tolist()[1:] + [n]
     assert ends == native.split_offsets(raw, 4 if mode == "gpt4" else 2
                                         ).tolist()
+
+
+@pytest.mark.parametrize("mode", ["gpt4", "gpt2"])
+def test_presplit_xl4_matches_plain(dev, mode):
+    """The XL corpus four times over (50,353,352 bytes): K15 equals its
+    plain twin run on the card, and its orbit lists more nodes than the
+    one-block tier takes, so the path is marked grid-wide."""
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+    from minbpe_tpu_torch.utils import golden
+
+    raw = (golden.xl_corpus(ROOT) * 4).encode("utf-8")
+    n = len(raw)
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
+    del raw
+    kernels.reset_launches()
+    gb, gs = pdp.presplit_seg_ids(data, n, mode)
+    assert kernels.PRESPLIT_SUCC.launches == kernels.PRESPLIT_ORBIT.launches \
+        == 1
+    cb, cs = pdp.presplit_plain(data, n, mode)
+    assert torch.equal(gb[:n], cb[:n]) and torch.equal(gs[:n], cs[:n])
+    del cb, cs
+    f = pdp.successor_plain(data, n, mode)
+    assert torch.equal(pdp.presplit_succ(data, n, mode)[:n], f[:n])
+    assert pdp.orbit_nodes(f, n) > kernels.PRESPLIT_BLOCK_NODES
+    ob, os_ = pdp.presplit_orbit(f, n)
+    assert torch.equal(ob[:n], gb[:n]) and torch.equal(os_[:n], gs[:n])
+
+
+@pytest.mark.parametrize("seed, n", [(0, 1 << 20), (1, 3 * 4096 + 17),
+                                     (2, 100)])
+def test_presplit_orbit_forward_jumps(dev, seed, n):
+    """presplit_orbit on any forward successor (random jumps up to four
+    tiles long, a fifth of the bytes off a char start), against
+    orbit_plain on the card: walks seldom merge, so a tile lists hundreds
+    of exits, and past the one-block tier the path is marked grid-wide."""
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+
+    rng = np.random.default_rng(seed)
+    f = np.arange(n) + 1 + rng.integers(0, 4 * kernels.PRESPLIT_TILE, n)
+    f[rng.random(n) < 0.2] = -1
+    f[0] = 1 + rng.integers(0, 4 * kernels.PRESPLIT_TILE)
+    f = torch.from_numpy(np.r_[f, [-1] * 3].astype(np.int32)).to(dev)
+    kernels.reset_launches()
+    gb, gs = pdp.presplit_orbit(f, n)
+    assert kernels.PRESPLIT_ORBIT.launches == 1
+    pb, ps = pdp.orbit_plain(f, n)
+    assert torch.equal(gb[:n], pb[:n]) and torch.equal(gs[:n], ps[:n])
+    if seed == 0:
+        assert pdp.orbit_nodes(f, n) > kernels.PRESPLIT_BLOCK_NODES
 
 
 def test_presplit_cuda_never_takes_plain(dev, monkeypatch):

@@ -220,6 +220,122 @@ def test_mode_codes(mode):
 
 
 # ---------------------------------------------------------------------------
+# the CPU model of K15's tile steps (succ_tiles_model, orbit_tiles_model), at
+# tiles of 8-64 bytes so that every text crosses many tiles
+# ---------------------------------------------------------------------------
+
+TILES = (8, 16, 64)
+BLOCKS = (1, 3, 7)
+# runs that cross dozens of 8-64-byte tiles, in text around them
+LONG_RUNS = {
+    "letters": lambda k: "x " + "a" * k + " b",
+    "spaces": lambda k: "a" + " " * k + "b",
+    "crlf": lambda k: "a" + "\r\n" * (k // 2) + " b",
+    "digits": lambda k: "a " + "7" * k + "x",
+    "apostrophes": lambda k: "a" + "'" * k + "s",
+    "o_before_letters": lambda k: "a " + "!" * k + "abc d",
+}
+
+
+def _check_model(text: str, mode: str, tile: int):
+    """The tile model's successors equal successor_plain's, and its orbit
+    equals orbit_plain's and minbpe_tpu's split, at every grid in BLOCKS."""
+    raw = text.encode("utf-8")
+    n = len(raw)
+    arr = _padded(raw)
+    data = torch.from_numpy(arr)
+    f = pdp.successor_plain(data, n, mode)
+    pb, ps = pdp.orbit_plain(f, n)
+    jb, js = (np.asarray(a)[:n] for a in jdp.presplit_seg_ids(arr, n, mode))
+    for blocks in BLOCKS:
+        assert torch.equal(pdp.succ_tiles_model(data, n, mode, tile, blocks),
+                           f), (tile, blocks)
+        mb, ms = pdp.orbit_tiles_model(f, n, tile, blocks)
+        assert torch.equal(mb[:n], pb[:n]) and torch.equal(ms[:n], ps[:n])
+        assert np.array_equal(mb.numpy()[:n], jb)
+        assert np.array_equal(ms.numpy()[:n], js)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("tile", TILES)
+def test_tile_model_cases(mode, tile):
+    for text in CASES:
+        _check_model(text, mode, tile)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("seed", range(4))
+def test_tile_model_fuzz(mode, seed):
+    rng = random.Random(100 + seed)
+    alpha = ALPHA if seed < 2 else ALPHA_WIDE
+    for length, tile in ((64, 8), (300, 16), (1500, 64), (1500, 8)):
+        _check_model("".join(rng.choice(alpha) for _ in range(length)),
+                     mode, tile)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", sorted(RUNS) + [
+    f"long_{k}" for k in sorted(LONG_RUNS)])
+def test_tile_model_runs(mode, kind):
+    """Runs of 1,000 bytes: 15-125 tiles of one class."""
+    make = (LONG_RUNS[kind[5:]] if kind.startswith("long_")
+            else RUNS[kind])
+    for tile in TILES:
+        _check_model(make(1000), mode, tile)
+
+
+@pytest.mark.parametrize("kind", sorted(LONG_RUNS))
+def test_long_runs(kind):
+    """The long runs through the split itself, in both modes, at 2^12 and
+    2^14 bytes."""
+    for mode in MODES:
+        for log2 in (12, 14):
+            _check(LONG_RUNS[kind](1 << log2), mode)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_orbit_model_forward_jumps(seed):
+    """The orbit model on any forward successor: random jumps up to 4
+    tiles long and bytes off a char start (-1), so that walks seldom merge
+    and a tile lists many exits; held to orbit_plain, with the node count
+    that orbit_nodes gives."""
+    rng = np.random.default_rng(seed)
+    n = 3000
+    f = np.arange(n) + 1 + rng.integers(0, 4 * 16 * (seed + 1), n)
+    f[rng.random(n) < 0.2] = -1
+    f[0] = max(f[0], 1)
+    f = torch.from_numpy(np.r_[f, [-1] * 5].astype(np.int32))
+    pb, ps = pdp.orbit_plain(f, n)
+    tile = 16 * (seed + 1)
+    for blocks in BLOCKS:
+        stats = {}
+        mb, ms = pdp.orbit_tiles_model(f, n, tile, blocks, stats=stats)
+        assert torch.equal(mb[:n], pb[:n]) and torch.equal(ms[:n], ps[:n])
+        assert stats["nodes"] == pdp.orbit_nodes(f, n, tile)
+        assert stats["most_nodes"] > 2
+
+
+def test_tile_model_stats():
+    """On text the succ model's phase 1 stops in a block's first tile and
+    each block looks right one round; the orbit lists about one node a
+    tile, so its path takes the one-block tier."""
+    text = golden.smoke_corpus(ROOT)[:60_000]
+    raw = text.encode("utf-8")
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    n = len(raw)
+    for mode in MODES:
+        s_stats, o_stats = {}, {}
+        f = pdp.succ_tiles_model(data, n, mode, 256, 16, s_stats)
+        assert torch.equal(f, pdp.successor_plain(data, n, mode))
+        pdp.orbit_tiles_model(f, n, 256, 16, stats=o_stats)
+        assert s_stats["phase1_tiles_read"] == 16
+        assert s_stats["lookright_rounds"] == 1
+        assert o_stats["tiles"] <= o_stats["nodes"] <= 2 * o_stats["tiles"]
+        assert o_stats["tier"] == "block"
+        assert o_stats["nodes"] == pdp.orbit_nodes(f, n, 256)
+
+
+# ---------------------------------------------------------------------------
 # the opted-in encode
 # ---------------------------------------------------------------------------
 
