@@ -34,7 +34,12 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the 400K stream, the smoke stream after the vocab-8192 golden's first
    4,000 merges, 2^20 copies of "a", 2^20 distinct ids, the XL corpus's
    stream and that stream four times over (50,353,352 tokens), each with
-   its bytes bound and torch.unique's time; K15 presplit_succ and
+   its bytes bound and torch.unique's time; K16 pair_summaries' count at
+   the same six shapes at K = 2^17 (its rows, the rows written and the
+   overflow flag against pair_summaries_plain, the table empty after it)
+   and its merge of four ranks' rows of the 400K stream; K3 also from a
+   carry-in of 1, with its transfer bits and the gated launch; K15
+   presplit_succ and
    presplit_orbit (the device pre-split) against their plain twin, the
    split's boundaries and segment ids and each kernel's own step, on the
    smoke and the XL corpus in both modes, the XL corpus four times over
@@ -78,9 +83,20 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    encode with the host split and with the device split), the training runs
    on both corpora, the "pallas" and stepped runs on the smoke corpus and
    smoke-8192's default route against their wall time: the idle share;
-5. print the kernels line (launches of each path in phase 3, errors and
-   times of phase 2), the main path's timings, the busy times, the card's
-   name and power limit, and last the result line.
+5. the distributed layer (minbpe_tpu_torch.parallel): world 1 over NCCL
+   in this process (smoke-1024 by the dense, sparse and owner selections,
+   the XL corpus dense, each equal to its golden; a run checkpointed every
+   256 rounds, cut at round 512 and resumed; the sharded encode of the
+   smoke corpus), then world 4 over gloo as four processes on the one card
+   (smoke-1024 by each selection, sparse and owner to the golden's first
+   256 merges, the Basic byte path against the single-device
+   BasicTokenizer on the same 64 KB, the sharded encode),
+   every path's launches held exactly and its wall, rounds a second and
+   share of the wall inside collectives printed;
+6. print the kernels line (launches of each path in phases 3 and 5,
+   errors and times of phase 2), the main path's timings, the busy times,
+   the distributed paths' timings, the card's name and power limit, and
+   last the result line.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
@@ -483,14 +499,36 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int,
                                          (kk, kp)]))
         if int(kk) <= 0:
             raise AssertionError(f"merge_apply kept nothing for {pair}")
+    # the distributed trainer's carry-in: from token 1, with the transfer
+    # bits, and the gated launch that redoes carry-in 1 over carry-in 0's
+    # output
+    one = torch.ones(1, dtype=torch.int32, device=dev)
+    for pair in ((7, 7), tuple(got[0][:2].tolist())):
+        pt = torch.tensor(pair, dtype=torch.int32, device=dev)
+        tk = torch.zeros(2, dtype=torch.int32, device=dev)
+        tp = torch.zeros(2, dtype=torch.int32, device=dev)
+        ok_ids, ok_live = kernels.merge_apply(ids, seg, nt, pt, 5000,
+                                              carry=one, tf=tk)
+        op_ids, op_live = kernels.merge_apply_plain(ids, seg, nt, pt, 5000,
+                                                    carry=one, tf=tp)
+        out = kernels.merge_apply(ids, seg, nt, pt, 5000)
+        kernels.merge_apply(ids, seg, nt, pt, 5000, carry=one, gate=True,
+                            out=out)
+        err3 = max(err3, max_err(torch, [
+            (ok_ids[:n], op_ids[:n]), (ok_live[:n], op_live[:n]), (tk, tp),
+            (out[0][:n], op_ids[:n]), (out[1][:n], op_live[:n])]))
     # timed at the run pair (homogeneous: the run-start chain) and at the
-    # stream's top heterogeneous pair (the common case: no chain)
+    # stream's top heterogeneous pair (the common case: no chain), from
+    # carry-in 0 and from carry-in 1 (with the transfer bits)
     hetero = draw_batch(np, ck.cpu().numpy(), fk.cpu().numpy(), 1)[0][:2]
     by_pair = []
+    tk = torch.zeros(2, dtype=torch.int32, device=dev)
     for pair in ((7, 7), hetero):
         pt = torch.tensor(pair, dtype=torch.int32, device=dev)
         by_pair.append(dict(pair=list(pair), ms=device_ms(
-            torch, lambda: kernels.merge_apply(ids, seg, nt, pt, 5000), 50)))
+            torch, lambda: kernels.merge_apply(ids, seg, nt, pt, 5000), 50),
+            carry1_ms=device_ms(torch, lambda: kernels.merge_apply(
+                ids, seg, nt, pt, 5000, carry=one, tf=tk), 50)))
     pt = torch.tensor((7, 7), dtype=torch.int32, device=dev)
     rows.append(dict(
         k=kernels.MERGE_APPLY, err=err3, ms=by_pair[0]["ms"],
@@ -499,7 +537,8 @@ def phase_kernels(torch, np, kernels, xl_max_n: int, stepped_max_n: int,
             ids, seg, nt, pt, 5000), 5),
         bytes=13 * n, library_ms=None))
     print(f"merge_apply: {by_pair[0]['ms']:.5f} ms at {by_pair[0]['pair']}, "
-          f"{by_pair[1]['ms']:.5f} ms at {by_pair[1]['pair']}")
+          f"{by_pair[1]['ms']:.5f} ms at {by_pair[1]['pair']}; carry-in 1: "
+          f"{by_pair[0]['carry1_ms']:.5f}, {by_pair[1]['carry1_ms']:.5f}")
 
     # K6 batch_hist, then K8, on a batch of K_CAP candidates drawn from the
     # stream; K6's library call: bincount over the left partners' keys
@@ -1151,19 +1190,143 @@ def table_cases(torch, np, kernels, golden_mod, texts):
     ]
 
 
+# K16's rows a rank (the trainer's default cap, min(Nl + 1, 2^17))
+SUMMARY_CAP = 1 << 17
+
+
+def _sorted_rows(torch, rows):
+    r = rows.long()
+    return r[torch.argsort((r[:, 0] << 32) | r[:, 1])]
+
+
+def summary_case(torch, kernels, name, ids, seg):
+    """K16 pair_summaries' count over a whole stream at K = 2^17 against
+    pair_summaries_plain on the card: the rows written and the overflow
+    flag, and where it does not overflow the rows (in key order), with the
+    table empty after the first launch and after the timed ones. Bound: the
+    function's bytes, 8 N + 16 rows + 40 (ids and seg read, the rows
+    written, n, base, used and overflow); the table is scratch, as K13's.
+    Library: torch.unique over the countable pairs' keys with counts (no
+    first positions). Returns (record, the rows)."""
+    dev = ids.device
+    N = ids.numel()
+    n = torch.full((1,), N, dtype=torch.int32, device=dev)
+    table = kernels.PairTable(N, dev, kernel="pair_summaries")
+
+    def state():
+        return (torch.zeros((SUMMARY_CAP, 4), dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))
+
+    got, want = state(), state()
+
+    def k16():
+        kernels.pair_summaries(ids, seg, n, table, 0, *got)
+
+    def empty():
+        return (int(table.used) == 0 and bool((table.key == -1).all())
+                and not bool(table.cnt.any()))
+
+    k16()
+    if not empty():
+        raise AssertionError(f"pair_summaries left the table of {name} full")
+    kernels.pair_summaries_plain(ids, seg, n, None, 0, *want)
+    u, over = int(got[1]), int(got[2])
+    err = max_err(torch, [(got[1], want[1]), (got[2], want[2])])
+    if not over:
+        err = max(err, max_err(torch, [(_sorted_rows(torch, got[0][:u]),
+                                        _sorted_rows(torch, want[0][:u]))]))
+    a, b = ids[:-1].long(), ids[1:].long()
+    keys = ((a << 32) | b)[seg[:-1] == seg[1:]]
+    del a, b
+    D = torch.unique(keys).numel()
+    if over != int(D > SUMMARY_CAP):
+        raise AssertionError(f"pair_summaries on {name}: overflow {over} "
+                             f"with {D} distinct pairs")
+    big = N > (1 << 22)
+    ms = split_ms(torch, [k16], 10 if big else 50)[0]
+    if not empty():
+        raise AssertionError(f"pair_summaries left the table of {name} full "
+                             "after the timed launches")
+    lib = profiled_ms(torch, lambda: torch.unique(
+        keys, sorted=True, return_counts=True), 5 if big else 20)
+    del keys
+    plain_ms = host_ms(torch, lambda: kernels.pair_summaries_plain(
+        ids, seg, n, None, 0, *want), 1 if big else 5)
+    rec = dict(case=name, mode="count", n=N, distinct=D, rows=u,
+               overflow=over, max_abs_err=err, grid=table.grid, ms=ms,
+               plain_ms=plain_ms, bytes=8 * N + 16 * u + 40,
+               library_ms=lib)
+    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"pair_summaries {name}: n {N}, D {D}, rows {u}, overflow "
+          f"{over}, max_abs_err {err}, {ms:.5f} ms (bound "
+          f"{rec['bound_ms']:.5f}), unique {lib:.5f} ms")
+    return rec, got[0][:u].clone()
+
+
+def summary_merge_case(torch, kernels, rows, D: int = 4):
+    """K16's merge of D blocks of summary rows (one stream's rows, each
+    block's first positions shifted as D ranks' would be, so every pair's
+    count is D times and its first the first block's) against
+    pair_summaries_merge_plain. Bound: 16 B a row read, the champion
+    written."""
+    dev = rows.device
+    u = rows.shape[0]
+    blocks = torch.zeros((D, u + 1, 4), dtype=torch.int32, device=dev)
+    for d in range(D):
+        blocks[d, :u] = rows
+        blocks[d, :u, 3] += d * (1 << 24)
+        blocks[d, u, 0] = u
+    flat = blocks.view(-1, 4)
+    lens = blocks[:, u, 0].contiguous()
+    table = kernels.PairTable(D * (u + 1), dev, kernel="pair_summaries")
+    got = torch.zeros(4, dtype=torch.int32, device=dev)
+    want = torch.zeros(4, dtype=torch.int32, device=dev)
+
+    def k16():
+        kernels.pair_summaries_merge(flat, lens, table, got)
+
+    k16()
+    kernels.pair_summaries_merge_plain(flat, lens, None, want)
+    err = max_err(torch, [(got, want)])
+    ms = split_ms(torch, [k16], 50)[0]
+    rec = dict(case=f"merge_{D}x{u}", mode="merge", n=D * u, max_abs_err=err,
+               grid=table.grid, ms=ms,
+               plain_ms=host_ms(torch, lambda: kernels.
+                                pair_summaries_merge_plain(flat, lens, None,
+                                                           want), 5),
+               bytes=16 * D * u + 16, library_ms=None,
+               champion=got.tolist())
+    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"pair_summaries merge of {D} x {u} rows: max_abs_err {err}, "
+          f"{ms:.5f} ms (bound {rec['bound_ms']:.5f}), champion "
+          f"{rec['champion']}")
+    return rec
+
+
 def phase_table(torch, np, kernels, golden_mod, texts):
-    """K13 against its plain version at table_cases' shapes. Returns its
-    row; the main shape is the Zipf stream."""
+    """K13, and K16's count, against their plain versions at table_cases'
+    shapes, and K16's merge of four ranks' rows of the Zipf stream.
+    Returns their rows; the main shape is the Zipf stream."""
     cases = table_cases(torch, np, kernels, golden_mod, texts)
-    recs = []
+    recs, sums = [], []
     for name, c_ids, c_seg in cases:
         recs.append(table_case(torch, kernels, name, c_ids, c_seg))
+        rec, rows = summary_case(torch, kernels, name, c_ids, c_seg)
+        sums.append(rec)
+        if name == "zipf_400k":
+            sums.append(summary_merge_case(torch, kernels, rows))
+        del rows
         torch.cuda.empty_cache()
-    main = recs[0]
-    return dict(k=kernels.PAIR_SELECT,
-                err=max(r["max_abs_err"] for r in recs), ms=main["ms"],
-                plain_ms=main["plain_ms"], bytes=main["bytes"],
-                library_ms=main["library_ms"], shapes=recs)
+    out = []
+    for k, shapes in ((kernels.PAIR_SELECT, recs),
+                      (kernels.PAIR_SUMMARIES, sums)):
+        main = shapes[0]
+        out.append(dict(k=k, err=max(r["max_abs_err"] for r in shapes),
+                        ms=main["ms"], plain_ms=main["plain_ms"],
+                        bytes=main["bytes"], library_ms=main["library_ms"],
+                        shapes=shapes))
+    return out
 
 
 def check_rows(rows):
@@ -1908,6 +2071,282 @@ def device_time_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the distributed layer (minbpe_tpu_torch.parallel)
+# ---------------------------------------------------------------------------
+
+# every group the phase makes raises after this long instead of hanging
+DIST_TIMEOUT_S = 120
+# the kernels of the distributed paths, and a round's launches on one rank
+DIST_KERNELS = ("pair_stats", "merge_apply", "compact", "encode_sweep",
+                "pair_summaries")
+ROUND_LAUNCHES = {
+    "dense": {"pair_stats": 1, "merge_apply": 2, "compact": 1},
+    "sparse": {"pair_summaries": 2, "merge_apply": 2, "compact": 1},
+    "owner": {"pair_summaries": 2, "merge_apply": 2, "compact": 1},
+    "replay": {"merge_apply": 2, "compact": 1},
+}
+# merges of the world-4 sparse and owner runs on the smoke corpus (the
+# golden's prefix): over gloo on one H100 all 768 rounds of both take
+# about 50 s, past the phase's budget of 120 s
+WORLD4_PREFIX = 256
+# the Basic byte path's corpus and vocab
+BASIC_BYTES = 65536
+BASIC_MERGES = 256
+
+
+def rounds_of(**kinds) -> dict:
+    """The launches of so many rounds of each kind."""
+    out = {}
+    for kind, rounds in kinds.items():
+        for k, c in ROUND_LAUNCHES[kind].items():
+            out[k] = out.get(k, 0) + c * rounds
+    return out
+
+
+def mps_status() -> str:
+    """Whether the CUDA MPS daemon is running (its pipe directory)."""
+    pipe = os.environ.get("CUDA_MPS_PIPE_DIRECTORY", "/tmp/nvidia-mps")
+    return (f"MPS running ({pipe})" if os.path.exists(pipe)
+            else f"MPS not running (no {pipe})")
+
+
+def dist_inputs(np, golden_mod):
+    """What the distributed paths take: the smoke corpus's split (bytes,
+    chunk ends), its first BASIC_BYTES bytes for the Basic path, and the
+    golden's 768 merges."""
+    from minbpe_tpu_torch import RegexTokenizer
+
+    corpus = golden_mod.smoke_corpus(ROOT)
+    data, ends = RegexTokenizer(device="cpu")._split_arrays(corpus)
+    # whole characters only, so the text and its bytes are one corpus
+    basic = corpus.encode("utf-8")[:BASIC_BYTES].decode("utf-8", "ignore")
+    return dict(corpus=corpus, data=np.asarray(data), ends=np.asarray(ends),
+                basic=basic.encode("utf-8"),
+                merges=golden_mod.load_golden()["merges"])
+
+
+def dist_paths(torch, np, comm, inp, golden_mod, world: int, scratch,
+               launches: dict, timings: dict):
+    """The distributed paths on this rank, each checked and timed alone:
+    smoke-1024 by each selection (all 768 merges; at world 4 the sparse and
+    owner runs stop at the first WORLD4_PREFIX) against the golden's
+    merges, counts and fail round; at world 1 also the XL corpus (dense) and a checkpointed run
+    cut at round 512 and resumed; at world 4 the Basic byte path; the
+    sharded encode of the smoke corpus. launches[path] gets this rank's
+    launch counts, timings[path] the wall time, the rounds a second and
+    the share of the wall inside collectives."""
+    from minbpe_tpu_torch import RegexTokenizer, kernels
+    from minbpe_tpu_torch.convert import tokenizer_from_arrays
+    from minbpe_tpu_torch.parallel import encode as pencode
+    from minbpe_tpu_torch.parallel import train as ptrain
+    from minbpe_tpu_torch.utils import checkpoint as ckpt
+
+    golden = golden_mod.load_golden()
+    tag = f"dist{world}"
+
+    @contextlib.contextmanager
+    def path(name, exact, rounds=0):
+        kernels.reset_launches()
+        comm.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k.name: k.launches for k in kernels.KERNELS}
+        launches[name] = counts
+        if any(counts[k] != exact.get(k, 0) for k in counts):
+            raise AssertionError(f"path {name} launched {counts}, expected "
+                                 f"{exact}")
+        inside = comm.seconds()
+        timings[name] = dict(wall_s=wall, collective_s=inside,
+                             collective_share=inside / wall,
+                             collectives=comm.calls)
+        if rounds:
+            timings[name]["rounds_per_s"] = rounds / wall
+        print(f"{name}: {wall:.3f} s, {comm.calls} collectives "
+              f"({inside / wall:.3f} of the wall)"
+              + (f", {rounds / wall:.1f} rounds/s" if rounds else ""))
+
+    def held(name, pairs, counts, fail, oflow, M, g=golden):
+        if oflow or fail != M:
+            raise AssertionError(f"{name}: fail round {fail}, overflow "
+                                 f"{oflow}")
+        if not (np.array_equal(pairs, g["merges"][:M])
+                and np.array_equal(counts, g["counts"][:M])):
+            raise AssertionError(f"{name}: merges or counts differ from the "
+                                 "golden")
+
+    ids, seg, lens = ptrain.shard_offsets(inp["data"], inp["ends"],
+                                          comm.size)
+    M = len(golden["merges"])
+    for sel in ptrain.SELECTIONS:
+        name = f"{tag}_smoke_{sel}"
+        Ms = M if world == 1 or sel == "dense" else WORLD4_PREFIX
+        with path(name, rounds_of(**{sel: Ms}), Ms):
+            out = ptrain.train_distributed(ids, seg, lens, Ms,
+                                           selection=sel, comm=comm)
+        held(name, *out, Ms)
+    if world == 1:
+        xl_golden = golden_mod.load_xl_golden()
+        xd, xe = RegexTokenizer(device="cpu")._split_arrays(
+            golden_mod.xl_corpus(ROOT))
+        x_ids, x_seg, x_lens = ptrain.shard_offsets(xd, xe, comm.size)
+        del xd, xe
+        Mx = len(xl_golden["merges"])
+        with path(f"{tag}_xl_dense", rounds_of(dense=Mx), Mx):
+            out = ptrain.train_distributed(x_ids, x_seg, x_lens, Mx,
+                                           comm=comm)
+        held(f"{tag}_xl_dense", *out, Mx, xl_golden)
+        del x_ids, x_seg
+        ck = os.path.join(scratch, "dist.ckpt.npz")
+        every = M // 3
+        want = {(int(a), int(b)): 256 + r
+                for r, (a, b) in enumerate(golden["merges"])}
+        with path(f"{tag}_ckpt_run", rounds_of(dense=M), M):
+            got = ptrain.train_offsets_distributed(
+                inp["data"], inp["ends"], M, comm=comm, checkpoint_path=ck,
+                checkpoint_every=every)[0]
+        st = ckpt.load(ck)
+        cut = 2 * every
+        ckpt.save(ck, st["pairs"][:cut], st["counts"][:cut], cut, M,
+                  st["fingerprint"])
+        with path(f"{tag}_ckpt_resume",
+                  rounds_of(replay=cut, dense=M - cut), M - cut):
+            got2 = ptrain.train_offsets_distributed(
+                inp["data"], inp["ends"], M, comm=comm, resume_from=ck,
+                checkpoint_every=every)[0]
+        if got != want or got2 != want:
+            raise AssertionError("the checkpointed or the resumed run "
+                                 "differs from the golden")
+    else:
+        with path(f"{tag}_basic", rounds_of(dense=BASIC_MERGES),
+                  BASIC_MERGES):
+            got = ptrain.train_bytes_distributed(inp["basic"], BASIC_MERGES,
+                                                 comm=comm)[0]
+        timings[f"{tag}_basic"]["merges"] = [list(p) for p in got]
+    tok = tokenizer_from_arrays(RegexTokenizer, inp["merges"],
+                                256 + np.arange(len(inp["merges"])),
+                                device=comm.device)
+    mine = int(lens[comm.rank]) > 0
+    with path(f"{tag}_encode", {"encode_sweep": int(mine)}):
+        enc = pencode.encode_text_distributed(tok, inp["corpus"], comm=comm)
+    if golden_mod.ids_digest(enc) != golden["encode_sha256"]:
+        raise AssertionError(f"{tag}_encode: ids differ from the golden")
+
+
+def world4_worker(rank: int, port: int, inp, scratch, out_q):
+    """One of the phase's four gloo ranks on the one card."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from minbpe_tpu_torch.parallel.comm import Comm
+    from minbpe_tpu_torch.utils import golden as golden_mod
+
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+            world_size=4,
+            timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        comm = Comm(device="cuda:0", timing=True)
+        launches, timings = {}, {}
+        dist_paths(torch, np, comm, inp, golden_mod, 4, scratch, launches,
+                   timings)
+        out_q.put((rank, "ok", (launches, timings)))
+        dist.destroy_process_group()
+    except Exception as e:  # reported by the parent, which fails
+        import traceback
+
+        out_q.put((rank, "err", f"{type(e).__name__}: {e}\n"
+                                f"{traceback.format_exc()}"))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_distributed(torch, np, golden_mod, scratch):
+    """World 1 over NCCL in this process (a file store), then world 4 over
+    gloo as four processes on the one card. Returns (timings, launches);
+    a refused launch, a failed collective or a wrong result raises."""
+    import datetime
+    import multiprocessing as mp
+
+    import torch.distributed as dist
+
+    from minbpe_tpu_torch import BasicTokenizer
+    from minbpe_tpu_torch.parallel.comm import Comm
+
+    print(f"phase 5: {mps_status()}")
+    t_phase = time.perf_counter()
+    inp = dist_inputs(np, golden_mod)
+    launches, timings = {}, {}
+    store = os.path.join(scratch, "nccl_store")
+    dist.init_process_group(
+        "nccl", init_method=f"file://{store}", rank=0, world_size=1,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S),
+        device_id=torch.device("cuda", 0))
+    try:
+        comm = Comm(device="cuda:0", timing=True)
+        dist_paths(torch, np, comm, inp, golden_mod, 1, scratch, launches,
+                   timings)
+    finally:
+        dist.destroy_process_group()
+
+    # the single-device BasicTokenizer on the Basic path's bytes
+    single = BasicTokenizer(device="cuda")
+    single.train(inp["basic"].decode("utf-8"), 256 + BASIC_MERGES)
+    ctx = mp.get_context("spawn")
+    out_q = ctx.Queue()
+    port = free_port()
+    procs = [ctx.Process(target=world4_worker,
+                         args=(r, port, inp, scratch, out_q))
+             for r in range(4)]
+    for p in procs:
+        p.start()
+    results = {}
+    try:
+        deadline = time.monotonic() + 6 * DIST_TIMEOUT_S
+        while len(results) < 4:
+            left = deadline - time.monotonic()
+            rank, status, res = out_q.get(timeout=max(left, 1))
+            if status != "ok":
+                raise RuntimeError(f"world-4 rank {rank} failed: {res}")
+            results[rank] = res
+    finally:
+        for p in procs:
+            p.join(30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    l0, t0 = results[0]
+    for r in range(1, 4):
+        if results[r][0] != l0:
+            raise AssertionError(f"world-4 rank {r} launched "
+                                 f"{results[r][0]}, rank 0 {l0}")
+    basic = {tuple(p): 256 + i for i, p in
+             enumerate(t0["dist4_basic"].pop("merges"))}
+    if basic != single.merges:
+        raise AssertionError("dist4_basic differs from the single-device "
+                             "BasicTokenizer")
+    launches.update(l0)
+    timings.update({k: dict(v, per_rank_wall_s=[results[r][1][k]["wall_s"]
+                                                for r in range(4)])
+                    for k, v in t0.items()})
+    timings["phase5_s"] = time.perf_counter() - t_phase
+    timings["mps"] = mps_status()
+    print(f"phase 5: {timings['phase5_s']:.1f} s")
+    return timings, launches
+
+
 def main() -> int:
     import torch
 
@@ -1933,7 +2372,7 @@ def main() -> int:
         rows = phase_kernels(torch, np, kernels, XL_MAX_N,
                              STEPPED_AUTO_MAX_N, texts)
         rows.append(phase_sweep(torch, np, kernels, golden_mod))
-        rows.append(phase_table(torch, np, kernels, golden_mod, texts))
+        rows += phase_table(torch, np, kernels, golden_mod, texts)
         del texts
         torch.cuda.empty_cache()
         gpt4, plus, gpt4_build_s = sorted_tables(golden_mod)
@@ -1949,6 +2388,9 @@ def main() -> int:
                                             scratch, gpt4, plus)
         timings["gpt4_table_build_s"] = gpt4_build_s
         device_time = phase_device_time_fresh(torch)
+        dist_timings, dist_launches = phase_distributed(torch, np,
+                                                        golden_mod, scratch)
+        launches.update(dist_launches)
     except Exception as e:  # report the failing phase, exit non-zero
         import traceback
 
@@ -1976,6 +2418,7 @@ def main() -> int:
     print(json.dumps(line))
     print(json.dumps({"main_path": timings}))
     print(json.dumps({"device_time": device_time}))
+    print(json.dumps({"distributed": dist_timings}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,9 @@
 //                        (fused_train_xl.py:158-173), _tie_kernel (:176-244)
 //                        and _train_xl's walk (:689-731)
 //   K3 merge_apply    <- tiled_apply (fused_train.py:293-340), _apply_kernel
-//                        (fused_train_xl.py:247-297)
+//                        (fused_train_xl.py:247-297); with a carry-in, the
+//                        distributed trainer's apply (parallel/train.py
+//                        _extended_keep, _apply_round :192-226, :420-449)
 //   K6 batch_hist     <- tiled_batch_mark and tiled_batch_hist_rev
 //                        (fused_train.py:452-593), _mark_kernel and
 //                        _histrev_kernel (fused_train_xl.py:328-439): the
@@ -53,6 +55,12 @@
 //                        first position into a device hash table, then the
 //                        largest count, earliest first occurrence, in one
 //                        cooperative launch that leaves the table empty
+//   K16 pair_summaries <- no Pallas site: parallel/train.py's
+//                        _local_run_summaries, and the merges of
+//                        _sparse_global_select and _owner_global_select
+//                        (:229-383): a rank's distinct pairs with counts
+//                        and first positions, and the champion of gathered
+//                        ones, on K13's table, one cooperative launch each
 //   K15 presplit_succ and presplit_orbit <- no Pallas site:
 //                        ops/device_presplit.py::_presplit_device (:208),
 //                        the GPT-2 / GPT-4 pre-split of raw UTF-8 bytes,
@@ -75,7 +83,7 @@
 // Each extern "C" entry point launches one kernel on the caller's stream
 // (K1 two, K9 a memset and one), allocates nothing, and returns
 // cudaGetLastError() (0 on success), or the error of a refused
-// cooperative or cluster launch (K10, K12, K13, K15). K1, K9, K12 and
+// cooperative or cluster launch (K10, K12, K13, K15, K16). K1, K9, K12 and
 // K15's presplit_orbit also return the error of allowing their shared
 // memory (once per device).
 //
@@ -1149,6 +1157,157 @@ __global__ void __launch_bounds__(TPB)
 }
 
 // ---------------------------------------------------------------------------
+// K16 pair_summaries: the distributed trainer's sparse and owner selections
+// (minbpe_tpu/parallel/train.py: _local_run_summaries :229-270, the merge
+// of _sparse_global_select :272-301 and the owner's merge in
+// _owner_global_select :355-374; jitted XLA sorts and run scans, no Pallas
+// site), on K13's device table. One cooperative launch in either mode, over
+// K13's grid; the table is empty before and after it.
+//   count (mode 0): one rank's extended stream (its tokens, then the halo
+//     token of the next rank that has one) is counted into the table by
+//     K13's phase 1 (count_into_table); after a grid barrier every block
+//     takes its share of the listed slots: entry e < cap becomes summary
+//     row e, (a, b, count, first + base), base the rank's rank * Nl, and the
+//     slot is emptied. After a second barrier block 0 writes the rows
+//     written, min(used, cap), sets *overflow to 1 where used > cap (JAX's
+//     n_runs > K; it never clears it) and empties used. The rows' order is
+//     the list's, which the result does not depend on.
+//   merge (mode 1): nb blocks of bs summary rows, the first lens[j] of
+//     block j valid (the D gathered summaries, or an owner's D received
+//     buckets), each inserted like a flushed shared slot (counts add,
+//     firsts take the minimum), then K13's phases 2 and 3: the champion,
+//     the largest count and among equal counts the earliest first, into
+//     champ = (a, b, count, first), or (-1, -1, 0, INT32_MAX) when the
+//     blocks hold nothing.
+// Bound: bytes. Count: 8 (n + 1) in, 16 a distinct pair out, 40 the
+// scalars; merge: 16 a row in, 16 out. The table's traffic is the design's
+// (as K13's).
+// ---------------------------------------------------------------------------
+struct SummaryArgs {
+  const int* ids;  // count: the extended stream and its length
+  const int* seg;
+  const int* n;
+  int base;
+  int4* out;  // count: the summary rows
+  int cap;
+  int* used_out;
+  int* overflow;
+  const int4* rows;  // merge: the rows, lens, nb blocks of bs
+  const int* lens;
+  int nb;
+  int bs;
+  int* champ;
+};
+
+__device__ __forceinline__ int table_log2(const DeviceTable& t, int n) {
+  return min(t.log2, max(PS_HASH_LOG2_MIN,
+                         n > 1 ? 32 - __clz(2 * n - 1) : PS_HASH_LOG2_MIN));
+}
+
+__global__ void __launch_bounds__(TPB)
+    pair_summaries_kernel(int mode, SummaryArgs a, DeviceTable t,
+                          unsigned long long* scratch) {
+  cg::grid_group grid = cg::this_grid();
+  const int step = gridDim.x * TPB;
+  const int gtid = blockIdx.x * TPB + threadIdx.x;
+  int hl;
+  if (mode == 0) {
+    const int n = *a.n;
+    hl = table_log2(t, n);
+    count_into_table(a.ids, a.seg, n, t, hl);
+  } else {
+    const int T = a.nb * a.bs;
+    hl = table_log2(t, T);
+    const int lane = threadIdx.x & 31;
+    // whole warps iterate together: table_insert is warp-wide
+    for (int e0 = gtid - lane; e0 < T; e0 += step) {
+      const int e = e0 + lane;
+      int4 r = make_int4(0, 0, 0, 0);
+      bool has = false;
+      if (e < T) {
+        const int j = e / a.bs;
+        has = e - j * a.bs < __ldg(a.lens + j);
+        if (has) r = __ldg(a.rows + e);
+      }
+      table_insert(t, hl, has,
+                   (unsigned long long)(unsigned)r.x << 32 | (unsigned)r.y,
+                   (unsigned)r.z, (unsigned)r.w);
+    }
+  }
+  grid.sync();
+
+  const int used = __ldcg(t.used);
+  ulonglong2* const slot2 = reinterpret_cast<ulonglong2*>(t.slots);
+  const ulonglong2 empty = make_ulonglong2(EMPTY_PAIR, EMPTY_HI);
+  if (mode == 0) {
+    for (int e = gtid; e < used; e += step) {
+      const int s = __ldcg(t.list + e);
+      const ulonglong2 v = __ldcg(slot2 + s);
+      if (e < a.cap)
+        a.out[e] = make_int4((int)(v.x >> 32), (int)(unsigned)v.x,
+                             (int)(unsigned)v.y,
+                             (int)(unsigned)(v.y >> 32) + a.base);
+      slot2[s] = empty;
+    }
+    grid.sync();  // every block has read used
+    if (blockIdx.x == 0 && threadIdx.x == 0) {
+      *a.used_out = min(used, a.cap);
+      if (used > a.cap) *a.overflow = 1;
+      *t.used = 0;
+    }
+    return;
+  }
+
+  unsigned long long best = 0, pair = 0;
+  auto take = [&](int s, ulonglong2 v) {
+    const unsigned long long k = sel_key((unsigned)v.y,
+                                         (unsigned)(v.y >> 32));
+    if (k > best) {
+      best = k;
+      pair = v.x;
+    }
+    slot2[s] = empty;
+  };
+  if (scan_in_order(used, hl)) {
+    for (int s = 2 * gtid; s < (1 << hl); s += 2 * step) {
+      const ulonglong2 v0 = __ldcg(slot2 + s);
+      const ulonglong2 v1 = __ldcg(slot2 + s + 1);
+      if (v0.x != EMPTY_PAIR) take(s, v0);
+      if (v1.x != EMPTY_PAIR) take(s + 1, v1);
+    }
+  } else {
+    for (int e = gtid; e < used; e += step) {
+      const int s = __ldcg(t.list + e);
+      take(s, __ldcg(slot2 + s));
+    }
+  }
+  block_max_pair(best, pair);
+  if (threadIdx.x == 0) {
+    scratch[2 * blockIdx.x] = best;
+    scratch[2 * blockIdx.x + 1] = pair;
+  }
+  grid.sync();
+
+  if (blockIdx.x != 0) return;
+  best = pair = 0;
+  for (int b = threadIdx.x; b < (int)gridDim.x; b += TPB) {
+    const unsigned long long k = __ldcg(scratch + 2 * b);
+    if (k > best) {
+      best = k;
+      pair = __ldcg(scratch + 2 * b + 1);
+    }
+  }
+  block_max_pair(best, pair);
+  if (threadIdx.x != 0) return;
+  const bool ok = best != 0;
+  a.champ[0] = ok ? (int)(pair >> 32) : -1;
+  a.champ[1] = ok ? (int)(unsigned)pair : -1;
+  a.champ[2] = ok ? (int)(best >> 32) : 0;
+  a.champ[3] = ok ? (int)(0xFFFFFFFFu - (unsigned)best) : 0x7FFFFFFF;
+  *t.used = 0;
+}
+
+// ---------------------------------------------------------------------------
 // The batch (bsel >= 2): K6 batch_hist, then K8 batch_apply.
 //
 // The accepted candidates are heterogeneous and share no cross-side token,
@@ -1670,7 +1829,7 @@ __device__ __forceinline__ int staged_at(const int4* v, const int* halo,
 }
 
 __device__ __forceinline__ Lane lane_matches(const Stage& sh, int t0, int n,
-                                             int pa, int pb) {
+                                             int pa, int pb, int start = 0) {
   const int l0 = threadIdx.x * IPT;
   int id[IPT + 2], sg[IPT + 2];  // positions l0 - 1 .. l0 + IPT
 #pragma unroll
@@ -1689,8 +1848,8 @@ __device__ __forceinline__ Lane lane_matches(const Stage& sh, int t0, int n,
 #pragma unroll
   for (int k = 0; k <= IPT; ++k) {
     const int p = p0 + k;
-    const bool mk = p >= 0 && p + 1 < n && id[k] == pa && id[k + 1] == pb &&
-                    sg[k] == sg[k + 1];
+    const bool mk = p >= start && p + 1 < n && id[k] == pa &&
+                    id[k + 1] == pb && sg[k] == sg[k + 1];
     if (k == 0) x.mb = mk;
     else x.m |= (unsigned)mk << (k - 1);
   }
@@ -1812,6 +1971,17 @@ __device__ int look_back(const unsigned long long* st, int t, unsigned gen) {
 // it runs only for bsel == 1. A heterogeneous pair has no runs: its tiles
 // need no chain, take their block's index, and touch neither the counter
 // nor the status words.
+//
+// The carry-in (the distributed trainer, minbpe_tpu/parallel/train.py
+// _extended_keep :192-226 and _apply_round :420-449): start = *carry_in
+// (0 without it) drops the first `start` tokens, which the left rank's
+// boundary merge took: no match starts before `start`, those tokens are
+// dead, and the left-first parity starts at token `start`. With gate set,
+// a launch whose start is 0 returns at once (it only redoes, at carry-in
+// 1, what an earlier launch wrote at 0). tf (may be null) gets the
+// transfer bits of the stream's last pair (n - 2, n - 1), the boundary
+// pair of an extended stream: tf[0] = it is kept, tf[1] = it closes a run
+// of matches that began at `start`; both 0 where it is not a pair.
 __global__ void __launch_bounds__(TPB)
     merge_apply_kernel(const int* __restrict__ ids,
                        const int* __restrict__ seg,
@@ -1819,9 +1989,12 @@ __global__ void __launch_bounds__(TPB)
                        const int* __restrict__ pair, int z, const int* slot,
                        int* __restrict__ ids_out,
                        unsigned char* __restrict__ live, int* kept,
+                       const int* carry_in, int gate, int* tf,
                        unsigned long long* st, unsigned* counter,
                        unsigned gen) {
   if (gated_off(slot, 1, 1)) return;
+  const int start = carry_in != nullptr ? *carry_in : 0;
+  if (gate && start == 0) return;
   __shared__ Stage sh;
   __shared__ int bcast;
   const int n = *n_ptr;
@@ -1833,9 +2006,11 @@ __global__ void __launch_bounds__(TPB)
   const bool homog = pa == pb;
   const int t = homog ? tile_ticket(counter) : (int)blockIdx.x;
   const int t0 = t * TILE;
+  if (tf != nullptr && t == 0 && threadIdx.x == 0 && n - 2 < start)
+    tf[0] = tf[1] = 0;
   if (t0 >= n) return;
   stage_tile<false>(ids, seg, t0, n, sh);
-  const Lane x = lane_matches(sh, t0, n, pa, pb);
+  const Lane x = lane_matches(sh, t0, n, pa, pb, start);
   int s[IPT];
   int carry = -1;
 #pragma unroll
@@ -1864,9 +2039,19 @@ __global__ void __launch_bounds__(TPB)
     }
   }
   const unsigned kp = keep_mask(x, s, t0, homog, carry);
-  const unsigned lv = valid_mask(t0, n) &
-                      ~dead_mask(sh, x, kp, t0, homog, carry);
   const int base = t0 + threadIdx.x * IPT;
+  // the tokens before start are dead
+  const unsigned taken =
+      start > base ? (1u << min(start - base, IPT)) - 1 : 0u;
+  const unsigned lv = valid_mask(t0, n) & ~taken &
+                      ~dead_mask(sh, x, kp, t0, homog, carry);
+  const int q = n - 2;  // the last pair
+  if (tf != nullptr && q >= start && q >= base && q < base + IPT) {
+    const int k = q - base;
+    const bool mk = (x.m >> k) & 1u;
+    tf[0] = (kp >> k) & 1u;
+    tf[1] = mk && (homog ? max(carry, s[k]) : q) == start;
+  }
   int out[IPT];
 #pragma unroll
   for (int k = 0; k < IPT; ++k) out[k] = ((kp >> k) & 1u) ? z : x.id[k];
@@ -3336,11 +3521,11 @@ cudaError_t hist_geometry(int kind, int cap, int* log2, int* grid) {
   return cudaSuccess;
 }
 
-// K13's cooperative grid on the current device: the blocks that fit at
-// once with its shared table (queried once per device; the allowance is
-// set then too)
-cudaError_t pair_select_grid(int* grid) {
-  static std::atomic<int> resident[64];
+// K13's or K16's cooperative grid on the current device: the blocks that
+// fit at once with the shared table (queried once per device; the
+// allowance is set then too)
+cudaError_t table_grid(const void* kernel, std::atomic<int>* resident,
+                       int* grid) {
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -3351,18 +3536,49 @@ cudaError_t pair_select_grid(int* grid) {
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute((const void*)pair_select_kernel,
+      e = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)PS_SMEM);
     if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per, pair_select_kernel, TPB, PS_SMEM);
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per, kernel, TPB,
+                                                        PS_SMEM);
     if (e != cudaSuccess) return e;
     if (!coop || per < 1) return cudaErrorCooperativeLaunchTooLarge;
     resident[dev] = per * sms;
   }
   *grid = resident[dev];
   return cudaSuccess;
+}
+
+cudaError_t pair_select_grid(int* grid) {
+  static std::atomic<int> resident[64];
+  return table_grid((const void*)pair_select_kernel, resident, grid);
+}
+
+cudaError_t pair_summaries_grid(int* grid) {
+  static std::atomic<int> resident[64];
+  return table_grid((const void*)pair_summaries_kernel, resident, grid);
+}
+
+cudaError_t launch_summaries(int mode, const SummaryArgs& a, void* slots,
+                             int* list, int* used, int tlog2,
+                             unsigned long long* scratch, int grid,
+                             void* stream) {
+  if (tlog2 < PS_HASH_LOG2_MIN || tlog2 > 30) return cudaErrorInvalidValue;
+  int resident;  // also sets the shared-memory allowance on this device
+  const cudaError_t e = pair_summaries_grid(&resident);
+  if (e != cudaSuccess) return e;
+  DeviceTable t{reinterpret_cast<Slot*>(slots), list, used, tlog2};
+  SummaryArgs args = a;
+  void* params[] = {&mode, &args, &t, &scratch};
+  const cudaError_t l = cudaLaunchCooperativeKernel(
+      (const void*)pair_summaries_kernel, dim3(grid), dim3(TPB), params,
+      PS_SMEM, (cudaStream_t)stream);
+  if (l != cudaSuccess) {
+    cudaGetLastError();  // the refusal is returned, not left for the next
+    return l;
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -3453,6 +3669,52 @@ int bpe_pair_select(const int* ids, const int* seg, const int* n, int* fail,
   return cudaGetLastError();
 }
 
+// K16's cooperative grid on the current device; a negative CUDA error
+// where the device has none. Its scratch is uint64[2 * grid].
+int bpe_pair_summaries_grid() {
+  int grid = 0;
+  const cudaError_t e = pair_summaries_grid(&grid);
+  return e == cudaSuccess ? grid : -(int)e;
+}
+
+// K16, count: the countable pairs of ids[0 .. *n) (the extended stream)
+// into the empty table (slots, list, used, tlog2 as for bpe_pair_select),
+// then its first cap distinct pairs as rows (a, b, count, first + base) of
+// out (int32[cap][4], 16-byte aligned), *used_out = the rows written and
+// *overflow = 1 where the stream holds more than cap distinct pairs; the
+// table is left empty. grid: bpe_pair_summaries_grid()'s.
+int bpe_pair_summaries(const int* ids, const int* seg, const int* n,
+                       int base, void* slots, int* list, int* used,
+                       int tlog2, int* out, int cap, int* used_out,
+                       int* overflow, unsigned long long* scratch, int grid,
+                       void* stream) {
+  if (reinterpret_cast<uintptr_t>(out) & 15) return cudaErrorInvalidValue;
+  SummaryArgs a{ids,     seg,      n,       base,    (int4*)out,
+                cap,     used_out, overflow, nullptr, nullptr,
+                0,       1,        nullptr};
+  return launch_summaries(0, a, slots, list, used, tlog2, scratch, grid,
+                          stream);
+}
+
+// K16, merge: nb blocks of bs rows (a, b, count, first) of rows
+// (int32[nb * bs][4], 16-byte aligned), the first lens[j] of block j
+// valid, merged pair by pair in the empty table; the champion (largest
+// count, then earliest first) into champ (int32[4]); the table is left
+// empty.
+int bpe_pair_summaries_merge(const int* rows, const int* lens, int nb,
+                             int bs, void* slots, int* list, int* used,
+                             int tlog2, int* champ,
+                             unsigned long long* scratch, int grid,
+                             void* stream) {
+  if (reinterpret_cast<uintptr_t>(rows) & 15) return cudaErrorInvalidValue;
+  if (nb < 1 || bs < 1) return cudaErrorInvalidValue;
+  SummaryArgs a{nullptr, nullptr, nullptr, 0,  nullptr,
+                0,       nullptr, nullptr, (const int4*)rows,
+                lens,    nb,      bs,      champ};
+  return launch_summaries(1, a, slots, list, used, tlog2, scratch, grid,
+                          stream);
+}
+
 // scratch: uint64[1 + 2 * bpe_select_blocks(V) * 16], zero before the
 // first call (the last block leaves it zero again)
 int bpe_select_batch(const unsigned* cnt, const unsigned* first, int V,
@@ -3469,14 +3731,16 @@ int bpe_select_batch(const unsigned* cnt, const unsigned* first, int V,
 // holds the tile counter (each launch leaves it 0), then one status word
 // per tile; gen: 1 .. 2^30 - 1, a new one per call on the state. kept may
 // be null. With slot given: pair = slot, z and kept's row from the slot,
-// kept = the merge log.
+// kept = the merge log. carry_in (int32[1], may be null: 0) and gate, and
+// tf (int32[2], may be null), as merge_apply_kernel takes them.
 int bpe_merge_apply(const int* ids, const int* seg, const int* n,
                     const int* pair, int z, const int* slot, int cap,
                     int* ids_out, unsigned char* live, int* kept,
+                    const int* carry_in, int gate, int* tf,
                     unsigned long long* state, int gen, void* stream) {
   merge_apply_kernel<<<tiles_for(cap), TPB, 0, (cudaStream_t)stream>>>(
-      ids, seg, n, pair, z, slot, ids_out, live, kept, state + 1,
-      reinterpret_cast<unsigned*>(state), (unsigned)gen);
+      ids, seg, n, pair, z, slot, ids_out, live, kept, carry_in, gate, tf,
+      state + 1, reinterpret_cast<unsigned*>(state), (unsigned)gen);
   return cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
 """The CUDA kernels of the main path, their build, bindings and plain twins.
 
-Eleven kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
+Fourteen kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
 token stream (ids, seg) whose live length n is an int32[1] tensor on the
 same device, so a whole run launches without a host sync per merge:
 
@@ -8,7 +8,8 @@ same device, so a whole run launches without a host sync per merge:
 - ``select_batch``   K5: the selection walk of one count rebuild: up to
   K_CAP candidates in the reference's order, stopped at the first one that
   cannot join the batch;
-- ``merge_apply``    K3: apply one merge everywhere, left first;
+- ``merge_apply``    K3: apply one merge everywhere, left first (from a
+  carry-in of 0 or 1 tokens, in the distributed trainer);
 - ``batch_hist``     K6: the batch's sites and both creation histograms,
   in one pass;
 - ``batch_apply``    K8: the trim, then the batch's combined apply, in one
@@ -28,6 +29,10 @@ same device, so a whole run launches without a host sync per merge:
   count and first position into a device hash table (``PairTable``), then
   the round's pair and record, leaving the table empty, in one cooperative
   launch;
+- ``pair_summaries`` K16: the distributed trainer's sparse and owner
+  selections on K13's table: a rank's distinct pairs as summary rows
+  (a, b, count, first position), and ``pair_summaries_merge``, the
+  champion of gathered rows, one cooperative launch each;
 - ``presplit_succ`` and ``presplit_orbit`` K15: the GPT-2 / GPT-4
   pre-split of raw UTF-8 bytes, every char start's chunk end, then the
   chunk starts as segment ids (ops/device_presplit.py holds their
@@ -194,9 +199,14 @@ PRESPLIT_ORBIT = KernelInfo(
     "presplit_orbit",
     _PRESPLIT + "_orbit :101-114 and the boundaries and segment ids "
     ":221-233")
+PAIR_SUMMARIES = KernelInfo(
+    "pair_summaries",
+    "minbpe_tpu/parallel/train.py:229 (_local_run_summaries, a jitted "
+    "lax.sort and run scans; no Pallas site), and the merges of "
+    "_sparse_global_select :272-301 and _owner_global_select :355-374")
 KERNELS = (PAIR_STATS, SELECT_BATCH, MERGE_APPLY, BATCH_HIST, BATCH_APPLY,
            COMPACT, PAIR_COUNT, ENCODE_SWEEP, CHUNK_ENCODE, ENCODE_MIN_SWEEP,
-           PAIR_SELECT, PRESPLIT_SUCC, PRESPLIT_ORBIT)
+           PAIR_SELECT, PRESPLIT_SUCC, PRESPLIT_ORBIT, PAIR_SUMMARIES)
 
 
 def reset_launches():
@@ -217,7 +227,8 @@ SIGNATURES = {
     "bpe_select_blocks": [_I],
     "bpe_pair_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bpe_select_batch": [_P, _P, _I, _P, _P, _P, _P, _P],
-    "bpe_merge_apply": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P],
+    "bpe_merge_apply": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P,
+                        _P, _I, _P],
     "bpe_batch_hist": [_P, _P, _P, _P, _I, _P, _P, _P],
     "bpe_batch_apply": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "bpe_compact": [_P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P],
@@ -233,6 +244,11 @@ SIGNATURES = {
     "bpe_pair_select_grid": [],
     "bpe_pair_select": [_P, _P, _P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                         _I, _P],
+    "bpe_pair_summaries_grid": [],
+    "bpe_pair_summaries": [_P, _P, _P, _I, _P, _P, _P, _I, _P, _I, _P, _P,
+                           _P, _I, _P],
+    "bpe_pair_summaries_merge": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
+                                 _P],
     "bpe_presplit_tile_size": [],
     "bpe_presplit_scratch_ints": [],
     "bpe_presplit_block_nodes": [],
@@ -580,44 +596,69 @@ def select_batch(cnt, first, ids, ctl, slot, log, scratch=None):
 # ---------------------------------------------------------------------------
 
 def merge_apply_plain(ids, seg, n, pair=None, z: int = 0, kept=None, *,
-                      slot=None, log=None):
+                      slot=None, log=None, carry=None, gate: bool = False,
+                      tf=None, out=None):
     """(ids_out, live): pair (pair[0], pair[1]) -> z at every occurrence in
     ids[:n], left first; live[i] is False for the token consumed by a kept
     match. Adds the kept count to kept[0] when given. With ``slot`` (the
     trainer): only when bsel == 1, the pair is the slot's candidate 0, z its
-    256 + i, and the kept count goes to log row i."""
+    256 + i, and the kept count goes to log row i.
+
+    The distributed trainer's carry-in: start = carry[0] (an int32[1]
+    tensor; 0 without it) tokens are dropped, taken by the left rank's
+    boundary merge: no match starts before start, those tokens are dead,
+    and the parity starts at token start. ``gate``: return ``out`` as it is
+    where start is 0. ``tf`` (int32[2]): the transfer bits of the last pair
+    (n - 2, n - 1): kept, and kept or not, closing a run of matches that
+    began at start; zeros where there is no such pair. ``out``: (ids_out,
+    live) to write into."""
+    start = 0 if carry is None else int(carry[0])
+    if gate and start == 0:
+        return out
     ids_out = ids.clone()
     live = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
+    if out is not None:
+        ids_out, live = out
+        ids_out.copy_(ids)
+        live.fill_(True)
     if _gated_off(slot, 1, 1):
         return ids_out, live
     if slot is not None:
         pair, z = slot[:2], int(slot[SLOT_ZBASE])
         kept = log[int(slot[SLOT_I]), 3:4]
     nn = int(n.item())
-    if nn < 2:
-        return ids_out, live
     pa, pb = int(pair[0]), int(pair[1])
     x = ids[:nn]
     m = torch.zeros(nn, dtype=torch.bool, device=ids.device)
-    m[:-1] = (x[:-1] == pa) & (x[1:] == pb) & (seg[:nn - 1] == seg[1:nn])
+    if nn >= 2:
+        m[:-1] = (x[:-1] == pa) & (x[1:] == pb) & (seg[:nn - 1] == seg[1:nn])
+    m[:start] = False
     prev = torch.zeros_like(m)
     prev[1:] = m[:-1]
     pos = torch.arange(nn, device=ids.device)
-    start = torch.where(m & ~prev, pos, torch.full_like(pos, -1))
-    run_start = torch.cummax(start, 0).values
+    first = torch.where(m & ~prev, pos, torch.full_like(pos, -1))
+    run_start = torch.cummax(first, 0).values if nn else first
     keep = m & ((pos - run_start) % 2 == 0)
     ids_out[:nn] = torch.where(keep, torch.full_like(x, z), x)
     live[1:nn] = ~keep[:-1]
+    live[:min(start, nn)] = False
     if kept is not None:
         kept += keep.sum().to(kept.dtype)
+    if tf is not None:
+        q = nn - 2
+        tf.zero_()
+        if q >= start:
+            tf[0] = int(keep[q])
+            tf[1] = int(bool(m[q]) and int(run_start[q]) == start)
     return ids_out, live
 
 
 def merge_apply(ids, seg, n, pair=None, z: int = 0, kept=None, *, slot=None,
-                log=None):
+                log=None, carry=None, gate: bool = False, tf=None, out=None):
     if not ids.is_cuda:
         return merge_apply_plain(ids, seg, n, pair, z, kept, slot=slot,
-                                 log=log)
+                                 log=log, carry=carry, gate=gate, tf=tf,
+                                 out=out)
     dev = ids.device
     _check_stream(ids, seg, n)
     if slot is not None:
@@ -626,14 +667,25 @@ def merge_apply(ids, seg, n, pair=None, z: int = 0, kept=None, *, slot=None,
     _check("pair", pair, torch.int32, dev, 2)
     if kept is not None:
         _check("kept", kept, torch.int32, dev)
+    if carry is not None:
+        _check("carry", carry, torch.int32, dev)
+    if tf is not None:
+        _check("tf", tf, torch.int32, dev, 2)
+    if gate and (carry is None or out is None):
+        raise ValueError("merge_apply: gate needs carry and out")
     cap = ids.numel()
-    ids_out = torch.empty_like(ids)
-    live = torch.empty(cap, dtype=torch.bool, device=dev)
+    if out is None:
+        ids_out = torch.empty_like(ids)
+        live = torch.empty(cap, dtype=torch.bool, device=dev)
+    else:
+        ids_out, live = out
+        _check("ids_out", ids_out, torch.int32, dev, cap)
+        _check("live", live, torch.bool, dev, cap)
     lib = _load()
     state, gen = _lookback_state(dev, cap)
     _run(dev, lib.bpe_merge_apply, _ptr(ids), _ptr(seg), _ptr(n),
          _ptr(pair), z, _ptr(slot), cap, _ptr(ids_out), _ptr(live),
-         _ptr(kept), _ptr(state), gen)
+         _ptr(kept), _ptr(carry), int(gate), _ptr(tf), _ptr(state), gen)
     MERGE_APPLY.launches += 1
     return ids_out, live
 
@@ -1274,7 +1326,9 @@ class PairTable:
         """log2 of the least power of two >= 2 n_tokens (at least 128)."""
         return max(7, (2 * max(int(n_tokens), 1) - 1).bit_length())
 
-    def __init__(self, n_tokens: int, device):
+    def __init__(self, n_tokens: int, device, kernel: str = "pair_select"):
+        """``kernel``: the cooperative kernel whose grid and scratch the
+        table holds, "pair_select" (K13) or "pair_summaries" (K16)."""
         device = torch.device(device)
         self.log2 = self.slots_log2(n_tokens)
         if self.log2 > 30:
@@ -1291,11 +1345,14 @@ class PairTable:
         self.list = torch.zeros(cap, dtype=torch.int32, device=device)
         self.used = torch.zeros(1, dtype=torch.int32, device=device)
         self.grid = self.scratch = None
+        if kernel not in ("pair_select", "pair_summaries"):
+            raise ValueError(f"pair table: unknown kernel {kernel!r}")
+        self.kernel = kernel
         if device.type == "cuda":
             with torch.cuda.device(device):
-                self.grid = _load().bpe_pair_select_grid()
+                self.grid = getattr(_load(), f"bpe_{kernel}_grid")()
             if self.grid < 1:
-                raise RuntimeError(f"pair_select: no cooperative launch on "
+                raise RuntimeError(f"{kernel}: no cooperative launch on "
                                    f"{device} (CUDA error {-self.grid})")
             self.scratch = torch.zeros(2 * self.grid, dtype=torch.int64,
                                        device=device)
@@ -1411,3 +1468,137 @@ def pair_select(ids, seg, n, table: PairTable, sel, pairs, counts, fail,
          _ptr(sel), _ptr(pairs), _ptr(counts), _ptr(table.scratch),
          table.grid)
     PAIR_SELECT.launches += 1
+
+
+# ---------------------------------------------------------------------------
+# K16 pair_summaries: the distributed trainer's sparse and owner selections
+# on K13's table (kernel="pair_summaries"), one launch per count or merge
+# ---------------------------------------------------------------------------
+
+NO_CHAMPION = (-1, -1, 0, INT32_MAX)
+
+
+def _table_args(table: PairTable, dev):
+    if table.kernel != "pair_summaries":
+        raise ValueError("pair_summaries: the table holds K13's grid; make "
+                         "it with kernel='pair_summaries'")
+    _check("slots", table.slots, torch.int32, dev, 4 * table.capacity)
+    _check("list", table.list, torch.int32, dev, table.capacity)
+    _check("used", table.used, torch.int32, dev)
+    _check("scratch", table.scratch, torch.int64, dev, 2 * table.grid)
+    return (_ptr(table.slots), _ptr(table.list), _ptr(table.used),
+            table.log2)
+
+
+def _check_rows(name, rows, dev, n_rows):
+    _check(name, rows, torch.int32, dev, 4 * n_rows)
+    if rows.dim() != 2 or rows.shape[1] != 4:
+        raise ValueError(f"{name}: must be (rows, 4)")
+    if rows.data_ptr() % 16:
+        raise ValueError(f"{name}: must be 16-byte aligned")
+
+
+def pair_summaries_plain(ids, seg, n, table: PairTable, base: int, out,
+                         used, overflow):
+    """The count of K16: the distinct countable pairs of ids[:n] (p + 1 <
+    n, seg[p] == seg[p + 1], both ids >= 0) as rows (a, b, count, first +
+    base) of out (int32 (K, 4)), the first K of them in key order;
+    used[0] = the rows written; overflow[0] = 1 where there are more than
+    K (it is never cleared). The table is not touched."""
+    K = out.shape[0]
+    nn = int(n.item())
+    D = 0
+    if nn >= 2:
+        a, b = ids[:nn - 1].long(), ids[1:nn].long()
+        ok = (seg[:nn - 1] == seg[1:nn]) & (a >= 0) & (b >= 0)
+        pos = torch.arange(nn - 1, device=ids.device)[ok]
+        keys, inv, cnt = torch.unique((a[ok] << 32) | b[ok], sorted=True,
+                                      return_inverse=True,
+                                      return_counts=True)
+        D = keys.numel()
+        first = torch.full((D,), nn, dtype=torch.int64, device=ids.device)
+        first.scatter_reduce_(0, inv, pos, "amin")
+        w = min(D, K)
+        out[:w] = torch.stack([keys[:w] >> 32, keys[:w] & 0xFFFFFFFF,
+                               cnt[:w], first[:w] + base], 1).to(torch.int32)
+    used[0] = min(D, K)
+    if D > K:
+        overflow[0] = 1
+
+
+def pair_summaries(ids, seg, n, table: PairTable, base: int, out, used,
+                   overflow):
+    """The count of K16 on the card (pair_summaries_plain; the rows in the
+    table's list order, which the merge does not depend on), in one
+    cooperative launch that leaves the table empty. Raises where the launch
+    is refused."""
+    if not ids.is_cuda:
+        return pair_summaries_plain(ids, seg, n, table, base, out, used,
+                                    overflow)
+    dev = ids.device
+    _check_stream(ids, seg, n)
+    _check_rows("out", out, dev, 1)
+    _check("used", used, torch.int32, dev)
+    _check("overflow", overflow, torch.int32, dev)
+    if table.capacity < 2 * ids.numel():
+        raise ValueError(f"pair_summaries: {ids.numel()} tokens need at "
+                         f"least {2 * ids.numel()} slots, the table has "
+                         f"{table.capacity}")
+    if not 0 <= base <= INT32_MAX - ids.numel():
+        raise ValueError(f"pair_summaries: base {base} puts positions past "
+                         "2^31")
+    slots, lst, tused, log2 = _table_args(table, dev)
+    lib = _load()
+    _run(dev, lib.bpe_pair_summaries, _ptr(ids), _ptr(seg), _ptr(n), base,
+         slots, lst, tused, log2, _ptr(out), out.shape[0], _ptr(used),
+         _ptr(overflow), _ptr(table.scratch), table.grid)
+    PAIR_SUMMARIES.launches += 1
+
+
+def pair_summaries_merge_plain(rows, lens, table: PairTable, champ):
+    """The merge of K16: rows (int32 (nb * bs, 4)) in nb = lens.numel()
+    blocks of bs, the first lens[j] of block j valid, merged by pair
+    (counts add, firsts take the minimum); champ = the pair with the
+    largest count, and among equal counts the earliest first, as (a, b,
+    count, first), or NO_CHAMPION when no row is valid."""
+    nb = lens.numel()
+    bs = rows.shape[0] // nb
+    r = torch.arange(bs, device=rows.device)
+    valid = (r[None, :] < lens.long()[:, None]).reshape(-1)
+    v = rows[:nb * bs][valid].long()
+    if v.shape[0] == 0:
+        champ.copy_(torch.tensor(NO_CHAMPION, dtype=torch.int32))
+        return
+    keys, inv = torch.unique((v[:, 0] << 32) | v[:, 1], return_inverse=True)
+    cnt = torch.zeros(keys.numel(), dtype=torch.int64, device=rows.device)
+    cnt.scatter_add_(0, inv, v[:, 2])
+    first = torch.full((keys.numel(),), INT32_MAX, dtype=torch.int64,
+                       device=rows.device)
+    first.scatter_reduce_(0, inv, v[:, 3], "amin")
+    j = int(torch.argmax((cnt << 32) | (0xFFFFFFFF - first)))
+    k = int(keys[j])
+    champ.copy_(torch.tensor([k >> 32, k & 0xFFFFFFFF, int(cnt[j]),
+                              int(first[j])], dtype=torch.int32))
+
+
+def pair_summaries_merge(rows, lens, table: PairTable, champ):
+    """The merge of K16 on the card (pair_summaries_merge_plain), one
+    cooperative launch that leaves the table empty."""
+    if not rows.is_cuda:
+        return pair_summaries_merge_plain(rows, lens, table, champ)
+    dev = rows.device
+    _check("lens", lens, torch.int32, dev)
+    nb = lens.numel()
+    bs = rows.shape[0] // nb
+    _check_rows("rows", rows, dev, nb * bs)
+    _check("champ", champ, torch.int32, dev, 4)
+    if table.capacity < 2 * nb * bs:
+        raise ValueError(f"pair_summaries_merge: {nb * bs} rows need at "
+                         f"least {2 * nb * bs} slots, the table has "
+                         f"{table.capacity}")
+    slots, lst, tused, log2 = _table_args(table, dev)
+    lib = _load()
+    _run(dev, lib.bpe_pair_summaries_merge, _ptr(rows), _ptr(lens), nb, bs,
+         slots, lst, tused, log2, _ptr(champ), _ptr(table.scratch),
+         table.grid)
+    PAIR_SUMMARIES.launches += 1

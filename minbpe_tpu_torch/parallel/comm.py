@@ -1,0 +1,157 @@
+"""The collectives of the distributed layer over one torch.distributed group.
+
+The port's counterpart of the ``shard_map`` collectives that
+minbpe_tpu/parallel uses (``jax.lax.psum``, ``pmin``, ``all_gather``,
+``all_to_all``, ``axis_index``). A ``Comm`` wraps one process group: its
+rank, its world size, its backend and the device of this rank's tensors.
+Every collective takes and returns tensors on that device and enqueues on
+its stream; with NCCL none of them waits for the host.
+
+The backend is fixed when the wrapper is made, and the wrapper never
+switches backend or device when a call fails: the error propagates. NCCL
+takes CUDA tensors; gloo takes every collective used here on CUDA tensors
+too (PyTorch 2.11 on the H100: all-reduce sum and min, all-gather,
+all-to-all, broadcast) and copies them through host memory itself, which
+syncs the stream; so the wrapper stages nothing.
+
+The group must have been made with a ``timeout``
+(``init_process_group(..., timeout=...)`` or ``multihost.initialize``), so a
+peer that hangs raises instead of blocking.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+
+import torch
+import torch.distributed as dist
+
+def default_device(group=None) -> torch.device:
+    """cuda:<local rank % device count> (LOCAL_RANK, as torchrun sets it,
+    else the group rank); raises without CUDA."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the distributed layer runs on CUDA by default; "
+                           "pass device='cpu' for its plain versions")
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank(group)))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+class Comm:
+    """One process group's collectives on this rank's ``device``.
+
+    ``timing``: record the time each collective takes (CUDA events on the
+    device's stream, the host clock on the CPU); ``seconds()`` sums them."""
+
+    def __init__(self, group=None, device=None, timing: bool = False):
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError("no process group is initialised: call "
+                               "torch.distributed.init_process_group (or "
+                               "parallel.multihost.initialize) first")
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.backend = dist.get_backend(group)
+        self.device = (default_device(group) if device is None
+                       else torch.device(device))
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.timing = timing
+        self.calls = 0
+        self._spans = []
+
+    # -- bookkeeping --------------------------------------------------------
+    def _begin(self):
+        self.calls += 1
+        if not self.timing:
+            return None
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.device))
+            return ev
+        return time.perf_counter()
+
+    def _end(self, start):
+        if start is None:
+            return
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.device))
+            self._spans.append((start, ev))
+        else:
+            self._spans.append(time.perf_counter() - start)
+
+    def seconds(self) -> float:
+        """The time spent inside collectives since the last reset (syncs
+        the device)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+            return sum(a.elapsed_time(b) for a, b in self._spans) / 1e3
+        return float(sum(self._spans))
+
+    def reset(self):
+        self.calls = 0
+        self._spans = []
+
+    def _run(self, fn, *tensors):
+        t0 = self._begin()
+        fn(*tensors)
+        self._end(t0)
+
+    # -- collectives --------------------------------------------------------
+    def sum_(self, t):
+        """psum, in place."""
+        self._run(lambda x: dist.all_reduce(
+            x, dist.ReduceOp.SUM, group=self.group), t)
+        return t
+
+    def min_(self, t):
+        """pmin, in place."""
+        self._run(lambda x: dist.all_reduce(
+            x, dist.ReduceOp.MIN, group=self.group), t)
+        return t
+
+    def max_(self, t):
+        self._run(lambda x: dist.all_reduce(
+            x, dist.ReduceOp.MAX, group=self.group), t)
+        return t
+
+    def all_gather(self, t):
+        """(size, *t.shape): every rank's t in rank order."""
+        t = t.contiguous()
+        out = torch.empty((self.size, *t.shape), dtype=t.dtype,
+                          device=t.device)
+        self._run(lambda o, x: dist.all_gather(
+            list(o.unbind(0)), x, group=self.group), out, t)
+        return out
+
+    def all_to_all(self, t):
+        """t of shape (size, ...): row j goes to rank j; returns the rows
+        received, row j from rank j."""
+        t = t.contiguous()
+        out = torch.empty_like(t)
+        self._run(lambda o, x: dist.all_to_all_single(
+            o, x, group=self.group), out, t)
+        return out
+
+    def broadcast_(self, t, src: int):
+        """t from group rank src, in place."""
+        gsrc = src if self.group is None else dist.get_global_rank(
+            self.group, src)
+        self._run(lambda x: dist.broadcast(
+            x, gsrc, group=self.group), t)
+        return t
+
+    def gather_varlen(self, t):
+        """Every rank's 1-D t, of any length, concatenated in rank order
+        (on every rank): the lengths are gathered first (read on the host),
+        then every t padded to the longest."""
+        n = torch.tensor([t.numel()], dtype=torch.int64, device=t.device)
+        lens = self.all_gather(n).view(-1).tolist()
+        longest = max(lens)
+        if longest == 0:
+            return t[:0]
+        pad = torch.zeros(longest, dtype=t.dtype, device=t.device)
+        pad[:t.numel()] = t
+        rows = self.all_gather(pad)
+        return torch.cat([rows[j, :k] for j, k in enumerate(lens)])

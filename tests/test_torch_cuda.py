@@ -1518,3 +1518,203 @@ def test_device_split_encode_on_card(dev, case, monkeypatch):
     assert not calls
     assert launches == {**{k: 0 for k in launches}, "presplit_succ": 1,
                         "presplit_orbit": 1, "encode_sweep": 1}
+
+
+# ---------------------------------------------------------------------------
+# K3's carry-in and K16 pair_summaries (the distributed trainer)
+# ---------------------------------------------------------------------------
+
+CARRY_CASES = [(0, 0, 0), (1, 1, 0), (2, 2, 0), (3, 5, 0), (4, 2047, 0),
+               (5, 2048, 100), (6, 2049, 2040), (7, 70_000, 2047),
+               (8, 6000, 0)]
+
+
+@pytest.mark.parametrize("seed, n, run_at", CARRY_CASES)
+@pytest.mark.parametrize("start", [0, 1])
+def test_merge_apply_carry_in_matches_plain(dev, seed, n, run_at, start):
+    """K3 from a carry-in of 0 and 1, with its transfer bits: equal to
+    merge_apply_plain on a run pair (runs from token 0 and across tiles)
+    and on a heterogeneous pair, and the gated launch that redoes carry-in
+    1 over carry-in 0's output."""
+    run_len = min(3000, max(n - run_at, 0))
+    ids, seg = _stream(seed, max(n, 1), 6, run_at, run_len)
+    nt = np.array([n], np.int32)
+    (ci, cs, cn), (gi, gs, gn) = _both(dev, ids, seg, nt)
+    carry = torch.tensor([start], dtype=torch.int32)
+    for pair in ((3, 3), (0, 1)):
+        pc = torch.tensor(pair, dtype=torch.int32)
+        tc = torch.zeros(2, dtype=torch.int32)
+        tg = torch.full((2,), 7, dtype=torch.int32, device=dev)
+        want = kernels.merge_apply(ci, cs, cn, pc, 777, carry=carry, tf=tc)
+        got = kernels.merge_apply(gi, gs, gn, pc.to(dev), 777,
+                                  carry=carry.to(dev), tf=tg)
+        assert torch.equal(want[0][:n], got[0].cpu()[:n])
+        assert torch.equal(want[1][:n], got[1].cpu()[:n])
+        assert torch.equal(tc, tg.cpu())
+        # carry-in 0's output, then the gated launch at this carry-in
+        out = kernels.merge_apply(gi, gs, gn, pc.to(dev), 777)
+        kernels.merge_apply(gi, gs, gn, pc.to(dev), 777, carry=carry.to(dev),
+                            gate=True, out=out)
+        assert torch.equal(out[0].cpu()[:n], want[0][:n])
+        assert torch.equal(out[1].cpu()[:n], want[1][:n])
+
+
+def _summary_table(dev, n_rows):
+    return kernels.PairTable(n_rows, dev, kernel="pair_summaries")
+
+
+def _summaries(ids, seg, n, base, K):
+    """K16's count on ids' device: (rows sorted by key, used, overflow)."""
+    dev = ids.device
+    t = _summary_table(dev, ids.numel())
+    out = torch.zeros((K, 4), dtype=torch.int32, device=dev)
+    used = torch.zeros(1, dtype=torch.int32, device=dev)
+    over = torch.zeros(1, dtype=torch.int32, device=dev)
+    kernels.pair_summaries(ids, seg, n, t, base, out, used, over)
+    u = int(used)
+    rows = out[:u].cpu().long()
+    order = torch.argsort((rows[:, 0] << 32) | rows[:, 1])
+    return rows[order], u, int(over), t
+
+
+SUMMARY_CASES = dict(TABLE_CASES, empty=lambda rng: (np.zeros(1),
+                                                     np.zeros(1)))
+
+
+@pytest.mark.parametrize("case", sorted(SUMMARY_CASES))
+@pytest.mark.parametrize("K", [1 << 17, 4])
+def test_pair_summaries_match_plain(dev, case, K):
+    """K16's count: the rows (in key order), the rows written and the
+    overflow flag equal pair_summaries_plain's, the table is empty after
+    it; K = 2^17 overflows on the 2^20 and 2^22 distinct ids."""
+    a, s = SUMMARY_CASES[case](np.random.default_rng(11))
+    n_val = 0 if case == "empty" else len(a)
+    ids = torch.from_numpy(np.asarray(a, np.int32))
+    seg = torch.from_numpy(np.asarray(s, np.int32))
+    n = torch.full((1,), n_val, dtype=torch.int32)
+    base = 3 * ids.numel()
+    want, wu, wo, _ = _summaries(ids, seg, n, base, K)
+    got, gu, go, t = _summaries(ids.to(dev), seg.to(dev), n.to(dev), base, K)
+    assert (gu, go) == (wu, wo)
+    if not wo:
+        assert torch.equal(got, want)
+    assert _table_empty(t)
+
+
+@pytest.mark.parametrize("nb, bs, fill", [(1, 1, 0), (4, 100, 60),
+                                          (4, 1 << 17, 90_000),
+                                          (8, 3000, 3000)])
+def test_pair_summaries_merge_matches_plain(dev, nb, bs, fill):
+    """K16's merge of nb blocks of summary rows (pairs repeated across
+    blocks with counts that tie): the champion equals
+    pair_summaries_merge_plain's, and the table is empty after it."""
+    rng = np.random.default_rng(nb * bs)
+    rows = np.zeros((nb * bs, 4), np.int32)
+    lens = np.full(nb, fill, np.int32)
+    for j in range(nb):
+        k = rng.choice(max(4 * fill, 1), fill, replace=False)
+        r = rows[j * bs:j * bs + fill]
+        r[:, 0], r[:, 1] = k // 300, k % 300
+        r[:, 2] = rng.integers(1, 4, fill)
+        r[:, 3] = rng.permutation(10 * fill + 10)[:fill] + j * 10 * fill
+    rows_c = torch.from_numpy(rows)
+    lens_c = torch.from_numpy(lens)
+    want = torch.zeros(4, dtype=torch.int32)
+    kernels.pair_summaries_merge(rows_c, lens_c, None, want)
+    t = _summary_table(dev, nb * bs)
+    got = torch.zeros(4, dtype=torch.int32, device=dev)
+    kernels.pair_summaries_merge(rows_c.to(dev), lens_c.to(dev), t, got)
+    assert got.cpu().tolist() == want.tolist()
+    if fill == 0:
+        assert want.tolist() == list(kernels.NO_CHAMPION)
+    assert _table_empty(t)
+
+
+def test_pair_summaries_needs_its_own_table(dev):
+    ids = torch.zeros(8, dtype=torch.int32, device=dev)
+    n = torch.full((1,), 8, dtype=torch.int32, device=dev)
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="kernel='pair_summaries'"):
+        kernels.pair_summaries(ids, ids, n, kernels.PairTable(8, dev), 0,
+                               torch.zeros((4, 4), dtype=torch.int32,
+                                           device=dev), one, one.clone())
+
+
+@pytest.fixture
+def nccl_world1(dev, tmp_path):
+    """A world of one rank over NCCL on this card (a file store), with a
+    timeout; destroyed after the test."""
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "nccl", init_method=f"file://{tmp_path / 'store'}", rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=120),
+        device_id=torch.device("cuda", 0))
+    yield dev
+    dist.destroy_process_group()
+
+
+def test_distributed_world1_nccl_matches_single_device(nccl_world1):
+    """World 1 over NCCL: every selection, the Basic byte path and the
+    sharded encode equal the single-device route on the card, with the
+    distributed round's launches (K1 or K16 twice, K3 twice, K4)."""
+    from minbpe_tpu_torch.parallel import encode as pencode
+    from minbpe_tpu_torch.parallel import train as ptrain
+    from minbpe_tpu_torch.utils import golden
+
+    text = golden.smoke_corpus(ROOT)[:50_000]
+    single = RegexTokenizer(device="cuda")
+    single.train(text, 256 + 200)
+    data, ends = single._split_arrays(text)
+    per_round = {"dense": {"pair_stats": 1, "merge_apply": 2, "compact": 1},
+                 "sparse": {"pair_summaries": 2, "merge_apply": 2,
+                            "compact": 1},
+                 "owner": {"pair_summaries": 2, "merge_apply": 2,
+                           "compact": 1}}
+    for sel, each in per_round.items():
+        kernels.reset_launches()
+        got = ptrain.train_offsets_distributed(data, ends, 200,
+                                               selection=sel)[0]
+        assert got == single.merges, sel
+        launches = {k.name: k.launches for k in kernels.KERNELS}
+        assert launches == {**{k: 0 for k in launches},
+                            **{k: 200 * c for k, c in each.items()}}
+    raw = text.encode("utf-8")[:8000].decode("utf-8", "ignore")
+    basic = BasicTokenizer(device="cuda")
+    basic.train(raw, 256 + 60)
+    assert ptrain.train_bytes_distributed(raw.encode("utf-8"),
+                                          60)[0] == basic.merges
+    assert pencode.encode_text_distributed(single, text) == \
+        single.encode_ordinary(text)
+
+
+@pytest.mark.parametrize("selection", ["dense", "sparse", "owner"])
+def test_distributed_rounds_never_sync(nccl_world1, selection):
+    """A run's rounds read nothing back to the host (CUDA's sync debug mode
+    set to raise around them): the fail round and the overflow flag stay
+    on the device until the run's end, as the JAX program is one jit."""
+    from minbpe_tpu_torch.parallel import train as ptrain
+    from minbpe_tpu_torch.parallel.comm import Comm
+    from minbpe_tpu_torch.utils import golden
+
+    text = golden.smoke_corpus(ROOT)[:50_000]
+    data, ends = RegexTokenizer(device="cpu")._split_arrays(text)
+    ids, seg, lens = ptrain.shard_offsets(data, ends, 1)
+    M = 100
+    st = ptrain._Rank(Comm(), ids, seg, int(lens[0]), ids.shape[0], M,
+                      selection)
+    pairs = torch.zeros((M, 2), dtype=torch.int32, device="cuda")
+    counts = torch.zeros(M, dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(M):
+            st.round(i, pairs, counts, i)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    single = RegexTokenizer(device="cuda")
+    single.train(text, 256 + M)
+    got = {tuple(p): 256 + i for i, p in enumerate(pairs.tolist())}
+    assert int(st.fail) == M and got == single.merges

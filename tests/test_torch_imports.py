@@ -61,6 +61,14 @@ def test_ast_scan_finds_no_forbidden_import():
     assert len(_sources()) > 10
 
 
+def test_parallel_modules_are_scanned():
+    """The distributed layer's modules are among the scanned sources."""
+    names = {os.path.relpath(p, PKG) for p in _sources()
+             if p.startswith(PKG)}
+    assert {os.path.join("parallel", f) for f in
+            ("comm.py", "train.py", "encode.py", "multihost.py")} <= names
+
+
 def test_import_leaves_jax_minbpe_tpu_and_regex_out():
     code = (
         "import sys\n"
@@ -72,6 +80,10 @@ def test_import_leaves_jax_minbpe_tpu_and_regex_out():
         "    train_sortloop, train_sparse)\n"
         "from minbpe_tpu_torch.utils import (checkpoint, golden, native,\n"
         "    presplit, synthranks)\n"
+        "from minbpe_tpu_torch.parallel import comm, multihost\n"
+        "from minbpe_tpu_torch.parallel import encode as pencode\n"
+        "from minbpe_tpu_torch.parallel import train as ptrain\n"
+        "assert ptrain.shard_chunks([b'ab', b'c'], 2)[2].tolist() == [2, 1]\n"
         "t = minbpe_tpu_torch.RegexTokenizer(device='cpu')\n"
         "t.train('hello world, hello there', 260)\n"
         "for mode in ('sort', 'dense', 'pallas', 'stepped', 'sortloop',\n"
