@@ -93,10 +93,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    BasicTokenizer on the same 64 KB, the sharded encode),
    every path's launches held exactly and its wall, rounds a second and
    share of the wall inside collectives printed;
-6. print the kernels line (launches of each path in phases 3 and 5,
+6. the tools around the library, each path's launches held exactly: the
+   command line (train_torch.py) at vocab 1024 on the smoke corpus
+   in-process (the whole-run trainer's launches, phase 3's "train"), with
+   a checkpoint every 256 rounds (the stepped route: K9 once), resumed
+   from that checkpoint cut back to round 512 (K9 once, K3 and K4 512
+   times: the replay), distributed at world 1 over NCCL (a dense round
+   each) and with a profile (a trace left), each model equal to the
+   golden and its .model bytes to the first's, then as a script in a
+   process of its own (the same bytes); the first request (train
+   smoke-1024, encode it) of two fresh processes, cold and after
+   precompile (its bucket fused_capacity's), each equal to the goldens;
+   entry_torch.entry() (K10 once) against the CPU and
+   dryrun_multichip(device count) over NCCL; the bucketed chunk encoder
+   (plain PyTorch on the card) on the smoke corpus's GPT-4 split with
+   gpt4_100k and with smoke_plus_4353 (no kernel; ids equal to the encode
+   golden and to the flat encoder's, K11 once, each timed) and on the
+   first 65,536 bytes as one chunk (past its largest bucket:
+   encode_stream_sorted, K3 and K4 once a round, phase 2's K12 rounds
+   rounded up to a group of 8 past the last; ids equal to K12's);
+7. print the kernels line (launches of each path in phases 3, 5 and 6,
    errors and times of phase 2), the main path's timings, the busy times,
-   the distributed paths' timings, the card's name and power limit, and
-   last the result line.
+   the distributed paths' timings, phase 6's walls with phase 1's build
+   times, the card's name and power limit, and last the result line.
 
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
@@ -105,6 +124,7 @@ prints no result.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -154,6 +174,7 @@ def phase_build(kernels, native):
         raise RuntimeError("the native scanner did not load")
     print(f"build: kernels {ks:.2f} s ({os.path.basename(kpath)}), "
           f"native scanner {ns:.2f} s ({os.path.basename(npath)})")
+    return {"kernels_build_s": ks, "scanner_build_s": ns}
 
 
 # ---------------------------------------------------------------------------
@@ -891,7 +912,13 @@ def flat_case(torch, np, kernels, name, data, ends, table, long_only):
     k = int(want[1].sum())
     S = int(pick.sum())
     nbytes = 4 * N + 12 * S + 4 * k + 4 * S + 32 * distinct
+    # the output tokens in chunk order: each chunk's first lens[c] slots
+    # from its input offset
+    pos = torch.arange(N, device=dev)
+    kept = pos - bounds[:-1].long()[seg.long()] < got[1][seg.long()]
+    toks = got[0][:N][kept].cpu().numpy().astype("<i4")
     rec = dict(case=name, n=N, chunks=C, n_out=k, distinct_pairs=distinct,
+               sha256=hashlib.sha256(toks.tobytes()).hexdigest(),
                max_abs_err=err, ms=device_ms(torch, run, 20),
                plain_ms=host_ms(torch, plain, 1), bytes=nbytes,
                bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
@@ -1378,20 +1405,16 @@ TRAIN_KERNELS = ("pair_stats", "select_batch", "merge_apply", "batch_hist",
 ENCODE_KERNELS = ("encode_sweep",)
 
 
-def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
-    """Returns (timings, launches), launches = {path: {kernel: count}}."""
-    from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer
-    from minbpe_tpu_torch.ops import train as train_mod
-
-    timings = {}
-    launches = {}
+def counted_paths(kernels, launches: dict):
+    """A context manager path(name, must_launch, exact=None, some=None)
+    that counts one path's launches alone into launches[name]: each kernel
+    it must run has to have launched at least once (none at all where
+    must_launch is empty), with ``exact`` ({kernel: count}) every kernel
+    exactly so often (0 where it is not named), and with ``some`` the
+    kernels it names exactly so often."""
 
     @contextlib.contextmanager
     def path(name, must_launch, exact=None, some=None):
-        """Count this path's launches alone; each kernel it must run has to
-        have launched at least once, with ``exact`` ({kernel: count})
-        every kernel exactly so often (0 where it is not named), and with
-        ``some`` the kernels it names exactly so often."""
         kernels.reset_launches()
         yield
         counts = {k.name: k.launches for k in kernels.KERNELS}
@@ -1409,6 +1432,18 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
         if some is not None and any(counts[k] != c for k, c in some.items()):
             raise AssertionError(f"path {name} launched {counts}, expected "
                                  f"{some} of them")
+
+    return path
+
+
+def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
+    """Returns (timings, launches), launches = {path: {kernel: count}}."""
+    from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer
+    from minbpe_tpu_torch.ops import train as train_mod
+
+    timings = {}
+    launches = {}
+    path = counted_paths(kernels, launches)
 
     def sweeps(count):  # an encode path: K10 once per device stream
         return dict(must_launch=ENCODE_KERNELS,
@@ -2265,14 +2300,6 @@ def world4_worker(rank: int, port: int, inp, scratch, out_q):
                                 f"{traceback.format_exc()}"))
 
 
-def free_port() -> int:
-    import socket
-
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def phase_distributed(torch, np, golden_mod, scratch):
     """World 1 over NCCL in this process (a file store), then world 4 over
     gloo as four processes on the one card. Returns (timings, launches);
@@ -2284,6 +2311,7 @@ def phase_distributed(torch, np, golden_mod, scratch):
 
     from minbpe_tpu_torch import BasicTokenizer
     from minbpe_tpu_torch.parallel.comm import Comm
+    from minbpe_tpu_torch.parallel.multihost import free_port
 
     print(f"phase 5: {mps_status()}")
     t_phase = time.perf_counter()
@@ -2347,6 +2375,250 @@ def phase_distributed(torch, np, golden_mod, scratch):
     return timings, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the command line, the warm start, the entry checks and the
+# bucketed chunk encoder
+# ---------------------------------------------------------------------------
+
+FIRST_REQUEST_ARG = "--first-request"
+# the CLI's checkpoint step and the round its checkpoint is cut back to
+CLI_EVERY = 256
+CLI_CUT = 512
+
+
+def first_request_main(mode: str) -> int:
+    """One fresh process's first request, RegexTokenizer().train(smoke,
+    1024) and encode(smoke), timed: "cold" at once, "warm" after
+    precompile([len(smoke)], vocab_size=1024); then a second request for
+    reference. Prints its result as the last line."""
+    t_start = time.perf_counter()
+    import numpy as np
+    import torch
+
+    from minbpe_tpu_torch import RegexTokenizer, precompile
+    from minbpe_tpu_torch.utils import golden as golden_mod
+    from minbpe_tpu_torch.utils.precompile import fused_capacity
+
+    corpus = golden_mod.smoke_corpus(ROOT)
+    golden = golden_mod.load_golden()
+    out = {"mode": mode, "import_s": time.perf_counter() - t_start}
+    if mode == "warm":
+        n = len(corpus.encode("utf-8"))
+        t0 = time.perf_counter()
+        done = precompile([n], vocab_size=golden_mod.VOCAB_SIZE)
+        out["precompile_s"] = time.perf_counter() - t0
+        out["buckets"] = [b for b, _ in done]
+        if out["buckets"] != [fused_capacity(n)]:
+            raise AssertionError(f"precompile warmed {out['buckets']}, "
+                                 f"fused_capacity gives {fused_capacity(n)}")
+    for key in ("first_request_s", "second_request_s"):
+        t0 = time.perf_counter()
+        tok = RegexTokenizer()
+        tok.train(corpus, golden_mod.VOCAB_SIZE)
+        ids = tok.encode(corpus)
+        torch.cuda.synchronize()
+        out[key] = time.perf_counter() - t0
+        if not np.array_equal(merges_in_rank_order(np, tok.merges),
+                              golden["merges"]):
+            raise AssertionError(f"{mode}: merges differ from the golden")
+        if golden_mod.ids_digest(ids) != golden["encode_sha256"]:
+            raise AssertionError(f"{mode}: ids differ from the golden")
+    print(json.dumps(out))
+    return 0
+
+
+def first_request(mode: str) -> dict:
+    """first_request_main in a fresh process; its result and the process's
+    whole wall."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           FIRST_REQUEST_ARG, mode], capture_output=True,
+                          text=True, timeout=300, cwd=ROOT)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the {mode} first-request process exited "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    res["process_s"] = time.perf_counter() - t0
+    return res
+
+
+def phase_tools(torch, np, kernels, golden_mod, scratch, main_launches,
+                k12_cases, gpt4, plus):
+    """The command line (train_torch.py: in-process, checkpointed and
+    resumed, distributed at world 1 over NCCL, with a profile, and as a
+    script), the first request of a fresh process cold and after
+    precompile, the entry checks (entry_torch.py), and the bucketed chunk
+    encoder on the card against the encode golden, the flat encoder and
+    K12. main_launches: phase 3's launches; k12_cases: phase 2's K12
+    records. Returns (timings, launches)."""
+    import entry_torch
+    import train_torch
+    from minbpe_tpu_torch import RegexTokenizer
+    from minbpe_tpu_torch.convert import tokenizer_from_arrays
+    from minbpe_tpu_torch.engine import device_table
+    from minbpe_tpu_torch.ops import chunk_encode, flat_encode
+    from minbpe_tpu_torch.ops.ranktab import SortedPairTable
+    from minbpe_tpu_torch.utils import checkpoint as ckpt
+
+    timings, launches = {}, {}
+    path = counted_paths(kernels, launches)
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the fresh processes below share the card
+    golden = golden_mod.load_golden()
+    V, M = golden_mod.VOCAB_SIZE, golden_mod.VOCAB_SIZE - 256
+    corpus = golden_mod.smoke_corpus(ROOT)
+
+    def read(path_):
+        with open(path_, "rb") as f:
+            return f.read()
+
+    # the command line: each run's model equal to the golden, and its
+    # .model bytes to the first run's
+    base = ["--tokenizers", "regex", "--vocab-size", str(V), "--quiet"]
+    model = None
+
+    def cli(name, flags, exact, outdir=None):
+        nonlocal model
+        outdir = outdir or os.path.join(scratch, name)
+        with path(name, [k for k, c in exact.items() if c], exact):
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_torch.main([*base, "--outdir", outdir, *flags])
+            torch.cuda.synchronize()
+            timings[f"{name}_s"] = time.perf_counter() - t0
+        tok = RegexTokenizer(device="cuda")
+        tok.load(os.path.join(outdir, "regex.model"))
+        if not np.array_equal(merges_in_rank_order(np, tok.merges),
+                              golden["merges"]):
+            raise AssertionError(f"{name}: the model differs from the golden")
+        got = read(os.path.join(outdir, "regex.model"))
+        model = got if model is None else model
+        if got != model:
+            raise AssertionError(f"{name}: .model bytes differ")
+        print(f"{name}: {M} merges equal to the golden "
+              f"({timings[f'{name}_s']:.3f} s)")
+        return outdir
+
+    cli("cli_train", [], main_launches["train"])
+    ck_dir = cli("cli_checkpoint", ["--checkpoint-every", str(CLI_EVERY)],
+                 {"pair_count": 1})
+    ck = os.path.join(ck_dir, "regex.ckpt.npz")
+    st = ckpt.load(ck)
+    ckpt.save(ck, st["pairs"][:CLI_CUT], st["counts"][:CLI_CUT], CLI_CUT, M,
+              st["fingerprint"])
+    os.remove(os.path.join(ck_dir, "regex.model"))
+    cli("cli_resume", ["--resume"], {"pair_count": 1,
+                                     "merge_apply": CLI_CUT,
+                                     "compact": CLI_CUT}, ck_dir)
+    cli("cli_distributed", ["--distributed"], rounds_of(dense=M))
+    trace_dir = os.path.join(scratch, "cli_trace")
+    cli("cli_profile", ["--profile-dir", trace_dir], main_launches["train"])
+    traces = [f for _, _, fs in os.walk(trace_dir) for f in fs
+              if f.endswith(".json")]
+    if not traces:
+        raise AssertionError("cli_profile: no trace")
+    outdir = os.path.join(scratch, "cli_script")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "train_torch.py", *base,
+                           "--outdir", outdir], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    timings["cli_script_s"] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"train_torch.py exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    if read(os.path.join(outdir, "regex.model")) != model:
+        raise AssertionError("cli_script: .model bytes differ")
+    print(f"cli_script: python3 train_torch.py, the same .model bytes "
+          f"({timings['cli_script_s']:.3f} s with the process)")
+
+    # the first request of a fresh process, cold and after precompile
+    for mode in ("cold", "warm"):
+        res = first_request(mode)
+        timings[f"first_request_{mode}"] = res
+        print(f"first request, {mode}: {res['first_request_s']:.3f} s "
+              + (f"after precompile {res['precompile_s']:.3f} s (buckets "
+                 f"{res['buckets']}) " if mode == "warm" else "")
+              + f"(second request {res['second_request_s']:.3f} s, imports "
+              f"{res['import_s']:.3f} s, process {res['process_s']:.3f} s)")
+
+    # the entry checks
+    fn, args = entry_torch.entry()
+    with path("entry", ENCODE_KERNELS, exact={"encode_sweep": 1}):
+        ids, n = fn(*args)
+        got = ids[:int(n)].tolist()
+    cfn, cargs = entry_torch.entry(device="cpu")
+    cids, cn = cfn(*cargs)
+    if got != cids[:int(cn)].tolist():
+        raise AssertionError("entry() on the card differs from the CPU")
+    with path("dryrun_multichip", ()):  # its ranks launch in their own
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            entry_torch.dryrun_multichip(torch.cuda.device_count())
+        timings["dryrun_multichip_s"] = time.perf_counter() - t0
+    print(f"entry: {len(got)} tokens equal to the CPU's; "
+          f"{said.getvalue().strip()} ({timings['dryrun_multichip_s']:.3f} s)")
+
+    # the bucketed chunk encoder (plain PyTorch on the card) against the
+    # encode golden and the flat encoder (K11, K12)
+    encode_golden = golden_mod.load_encode_golden()
+    plus_tok = tokenizer_from_arrays(RegexTokenizer, *plus, device="cuda")
+    for case, tok in (("gpt4_100k", gpt4), ("smoke_plus_4353", plus_tok)):
+        data, ends = tok._split_arrays(corpus)
+        table = SortedPairTable(*tok._merge_arrays(), device="cuda")
+        with path(f"chunk_encoder_{case}", ()):
+            t0 = time.perf_counter()
+            flat, _ = chunk_encode.encode_offsets_arrays(data, ends, table)
+            timings[f"chunk_encoder_{case}_s"] = time.perf_counter() - t0
+        if (golden_mod.ids_digest(flat), len(flat)) != encode_golden[case]:
+            raise AssertionError(f"chunk_encoder_{case}: ids differ from the "
+                                 "encode golden")
+        cuckoo = device_table(tok).cuckoo
+        walls = []
+        for _ in range(3):
+            with path(f"flat_encoder_{case}", ("chunk_encode",),
+                      exact={"chunk_encode": 1}):
+                t0 = time.perf_counter()
+                toks = flat_encode.encode_offsets_arrays(data, ends,
+                                                         cuckoo)[0]
+                walls.append(time.perf_counter() - t0)
+        timings[f"flat_encoder_{case}_s"] = sorted(walls)[1]
+        if not np.array_equal(toks, flat):
+            raise AssertionError(f"chunk_encoder_{case}: differs from the "
+                                 "flat encoder")
+        print(f"chunk_encoder_{case}: {len(flat)} ids equal to the encode "
+              f"golden and the flat encoder; "
+              f"{timings[f'chunk_encoder_{case}_s']:.3f} s against the flat "
+              f"encoder's {timings[f'flat_encoder_{case}_s']:.4f} s")
+
+    # one chunk past the largest bucket: encode_stream_sorted, K3 and K4
+    # once a round (each applied round, then the rest of the last group of
+    # 8), the output equal to K12's in phase 2
+    k12 = next(r for r in k12_cases
+               if r["case"] == "head64k_smoke_plus_4353")
+    raw = np.frombuffer(corpus.encode("utf-8")[:golden_mod.HEAD_BYTES],
+                        np.uint8)
+    table = SortedPairTable(*plus, device="cuda")
+    each = 8 * (k12["rounds_max"] // 8 + 1)
+    with path("chunk_encoder_head64k", ("merge_apply", "compact"),
+              exact={"merge_apply": each, "compact": each}):
+        t0 = time.perf_counter()
+        flat, _ = chunk_encode.encode_offsets_arrays(
+            raw, np.array([len(raw)]), table)
+        timings["chunk_encoder_head64k_s"] = time.perf_counter() - t0
+    if golden_mod.ids_digest(flat) != k12["sha256"] or \
+            len(flat) != k12["n_out"]:
+        raise AssertionError("chunk_encoder_head64k: ids differ from K12's")
+    timings["chunk_encoder_head64k_rounds"] = k12["rounds_max"]
+    timings["k12_head64k_ms"] = k12["ms"]
+    print(f"chunk_encoder_head64k: {len(flat)} ids equal to K12's, "
+          f"{k12['rounds_max']} rounds, {each} launches of K3 and of K4; "
+          f"{timings['chunk_encoder_head64k_s']:.3f} s against K12's "
+          f"{k12['ms']:.4f} ms")
+    timings["phase6_s"] = time.perf_counter() - t_phase
+    print(f"phase 6: {timings['phase6_s']:.1f} s")
+    return timings, launches
+
+
 def main() -> int:
     import torch
 
@@ -2367,7 +2639,7 @@ def main() -> int:
     shutil.rmtree(scratch, ignore_errors=True)
     os.makedirs(scratch)
     try:
-        phase_build(kernels, native)
+        build_s = phase_build(kernels, native)
         texts = text_streams(torch, np, kernels, golden_mod)
         rows = phase_kernels(torch, np, kernels, XL_MAX_N,
                              STEPPED_AUTO_MAX_N, texts)
@@ -2391,6 +2663,13 @@ def main() -> int:
         dist_timings, dist_launches = phase_distributed(torch, np,
                                                         golden_mod, scratch)
         launches.update(dist_launches)
+        k12_cases = next(r for r in rows
+                         if r["k"] is kernels.ENCODE_MIN_SWEEP)["shapes"]
+        tool_timings, tool_launches = phase_tools(
+            torch, np, kernels, golden_mod, scratch, launches, k12_cases,
+            gpt4, plus)
+        tool_timings.update(build_s)
+        launches.update(tool_launches)
     except Exception as e:  # report the failing phase, exit non-zero
         import traceback
 
@@ -2419,6 +2698,7 @@ def main() -> int:
     print(json.dumps({"main_path": timings}))
     print(json.dumps({"device_time": device_time}))
     print(json.dumps({"distributed": dist_timings}))
+    print(json.dumps({"tools": tool_timings}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2427,5 +2707,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(device_time_main() if sys.argv[1:] == [DEVICE_TIME_ARG]
-             else main())
+    if sys.argv[1:] == [DEVICE_TIME_ARG]:
+        sys.exit(device_time_main())
+    if sys.argv[1:2] == [FIRST_REQUEST_ARG]:
+        sys.exit(first_request_main(sys.argv[2]))
+    sys.exit(main())

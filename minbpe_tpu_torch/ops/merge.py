@@ -5,7 +5,8 @@ reference's ``merge(ids, pair, idx)`` (minbpe/base.py:25-41), every
 left-to-right non-overlapping occurrence of the pair replaced by the new
 id, and a run of (a, a) matches resolved left first (keep the even offsets
 of each run). On the card ``apply_merge`` is K3 ``merge_apply`` (the pair
-read from a device tensor, the new id by value) and K4 ``compact``; on the
+read from a device tensor, the new id by value or from a device slot
+record) and K4 ``compact``; on the
 CPU their plain versions.
 """
 
@@ -37,11 +38,26 @@ def compact(ids, seg, live, n):
     return kernels.compact(ids, seg, live, n)
 
 
-def apply_merge(ids, seg, n, pair, new_id: int):
+def apply_merge(ids, seg, n, pair, new_id):
     """Apply one merge everywhere and compact. ``pair`` is an int32[2]
     tensor on the stream's device (a pair of ids absent from the stream,
-    such as (-1, -1), merges nothing). Returns (ids, seg, n, n_merged),
-    n_merged an int32[1] tensor."""
+    such as (-1, -1), merges nothing); ``new_id`` an int, or an int32[1]
+    tensor on that device, which K3 then reads there from a slot record
+    (``kernels.new_slot``: the pair, one candidate, the new id), so that
+    nothing waits for the host. Returns (ids, seg, n, n_merged), n_merged
+    an int32[1] tensor."""
+    if isinstance(new_id, torch.Tensor):
+        dev = ids.device
+        slot = torch.cat([pair, torch.zeros(kernels.SLOT_BSEL - 2,
+                                            dtype=torch.int32, device=dev),
+                          torch.ones(1, dtype=torch.int32, device=dev),
+                          new_id,
+                          torch.zeros(kernels.SLOT_SIZE - kernels.SLOT_ZBASE
+                                      - 1, dtype=torch.int32, device=dev)])
+        log = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+        merged, live = kernels.merge_apply(ids, seg, n, slot=slot, log=log)
+        ids, seg, n = kernels.compact(merged, seg, live, n, slot=slot)
+        return ids, seg, n, log[0, 3:]
     n_merged = torch.zeros(1, dtype=torch.int32, device=ids.device)
     merged, live = kernels.merge_apply(ids, seg, n, pair, new_id, n_merged)
     ids, seg, n = compact(merged, seg, live, n)

@@ -1,5 +1,13 @@
-"""Pair -> (rank, new id) lookup for tables above the dense route's vocab.
+"""Pair -> rank lookup tables on the device.
 
+``SortedPairTable`` is the counterpart of minbpe_tpu/ops/ranktab.py:30-67:
+the merge pairs sorted lexicographically, looked up by a fixed-depth
+binary search in plain PyTorch. It serves the bucketed chunk encoder
+(ops/chunk_encode.py) and ``ops/encode.encode_stream_sorted``, which keep
+an encoder independent of K11 and K12.
+
+``CuckooPairTable`` maps a pair to (rank, new id) for tables above the
+dense route's vocab.
 The port's counterpart of ``CuckooPairTable`` and ``cuckoo_lookup``
 (minbpe_tpu/ops/ranktab.py:74-179). Two hash tables of (H, 4) int32 rows
 ``[a, b, rank, new_id]`` (a = -1 marks an empty row); every pair lives at
@@ -29,6 +37,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..base import resolve_device
 
 RANK_INF = 2**31 - 1
 M32 = 0xFFFFFFFF
@@ -61,6 +71,63 @@ def table_size(num_merges: int) -> int:
     while H * 2 < max(num_merges, 1) * 3:
         H *= 2
     return H
+
+
+class SortedPairTable:
+    """The merge pairs (int32 (M, 2), rank order) sorted by (a, b) on
+    ``device`` (None: cuda; raises without CUDA unless "cpu"): ``ka``, ``kb``
+    and each one's ``rank``, with the rank-order ``merge_pairs`` and
+    ``merge_ids`` a found rank is applied with. With M = 0 each array holds
+    one stand-in row (rank RANK_INF), as minbpe_tpu's does."""
+
+    def __init__(self, pairs, new_ids, device=None):
+        pairs = np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
+        new_ids = np.asarray(new_ids, dtype=np.int32).reshape(-1)
+        M = len(pairs)
+        self.num_merges = M
+        self.device = resolve_device(device)
+        if M:
+            order = np.lexsort((pairs[:, 1], pairs[:, 0]))
+            ka, kb = pairs[order, 0], pairs[order, 1]
+            rank = order.astype(np.int32)
+        else:
+            ka = kb = np.zeros(1, np.int32)
+            rank = np.full(1, RANK_INF, np.int32)
+            pairs = np.zeros((1, 2), np.int32)
+            new_ids = np.zeros(1, np.int32)
+        self.depth = max(1, int(np.ceil(np.log2(max(M, 2)))))
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        self.ka, self.kb, self.rank = put(ka), put(kb), put(rank)
+        self.merge_pairs, self.merge_ids = put(pairs), put(new_ids)
+        self.keys = _pair_key(self.ka, self.kb)
+
+    def lookup(self, a, b, valid):
+        """The rank of each pair (a, b) (int32 tensors of one shape on the
+        table's device), RANK_INF where the pair is absent or ``valid`` is
+        False: depth + 1 halvings of [0, M - 1] towards the first key >=
+        (a, b), each one gather of the 64-bit keys."""
+        keys = self.keys
+        last = keys.shape[0] - 1
+        q = _pair_key(a, b)
+        lo = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+        hi = torch.full_like(lo, last)
+        for _ in range(self.depth + 1):
+            mid = (lo + hi) >> 1
+            less = keys[mid] < q
+            lo = torch.where(less, (mid + 1).clamp_(max=last), lo)
+            hi = torch.where(less, hi, mid)
+        hit = (keys[lo] == q) & valid
+        return torch.where(hit, self.rank[lo],
+                           torch.full_like(a, RANK_INF, dtype=torch.int32))
+
+
+def _pair_key(a, b):
+    """a * 2^32 + b + 2^31 as int64: ordered as (a, b) lexicographically,
+    for any int32 a and b."""
+    return (a.long() << 32) + (b.long() + (1 << 31))
 
 
 def _place(h1: list, h2: list, H: int, max_kicks: int):

@@ -6,8 +6,8 @@ seg[i] == seg[i + 1]: the array form of the reference's per-chunk id lists
 (minbpe/regex.py:44), so merges never cross chunk boundaries.
 BasicTokenizer's stream is one chunk.
 
-``pack_offsets``/``unpack_ids`` are the host forms of minbpe_tpu's
-ops/stream.py:74-96 (same arrays, same padding). ``build_stream`` builds the
+``pack_bytes``/``pack_chunks``/``pack_offsets``/``unpack_ids`` are the host
+forms of minbpe_tpu's ops/stream.py:38-96 (same arrays, same padding). ``build_stream`` builds the
 device stream from corpus bytes and chunk-end offsets, the counterpart of
 the plane build ``_prep_from_bytes``/``_prep_from_bits``
 (fused_train.py:1201-1255): seg[i] = the number of chunk ends <= i. The
@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 PAD = -1
-PAD_SEG = -1  # host packing (pack_offsets), as in minbpe_tpu
+PAD_SEG = -1  # host packing (pack_*), as in minbpe_tpu
 
 _MIN_CAPACITY = 128
 
@@ -33,6 +33,35 @@ def bucket_capacity(n: int) -> int:
     while cap < n:
         cap *= 2
     return cap
+
+
+def pack_bytes(data: bytes, capacity: int | None = None):
+    """Pack raw bytes into host (ids, seg, n): one segment, the reference's
+    ``list(text.encode("utf-8"))`` (minbpe/basic.py:25-26) as a padded
+    int32 array."""
+    n = len(data)
+    cap = bucket_capacity(n) if capacity is None else capacity
+    ids = np.full(cap, PAD, dtype=np.int32)
+    ids[:n] = np.frombuffer(data, dtype=np.uint8)
+    seg = np.full(cap, PAD_SEG, dtype=np.int32)
+    seg[:n] = 0
+    return ids, seg, np.int32(n)
+
+
+def pack_chunks(chunks: list[bytes], capacity: int | None = None):
+    """Pack byte chunks into host (ids, seg, n), one segment per chunk, in
+    corpus order (the reference's per-chunk id lists, minbpe/regex.py:44)."""
+    n = sum(len(c) for c in chunks)
+    cap = bucket_capacity(n) if capacity is None else capacity
+    ids = np.full(cap, PAD, dtype=np.int32)
+    seg = np.full(cap, PAD_SEG, dtype=np.int32)
+    pos = 0
+    for s, c in enumerate(chunks):
+        ln = len(c)
+        ids[pos:pos + ln] = np.frombuffer(c, dtype=np.uint8)
+        seg[pos:pos + ln] = s
+        pos += ln
+    return ids, seg, np.int32(n)
 
 
 def pack_offsets(data: np.ndarray, ends: np.ndarray,

@@ -64,6 +64,16 @@ def initialize(backend: str | None = None,
         raise
 
 
+def free_port() -> int:
+    """A free TCP port on localhost, for the init_method of a group whose
+    ranks all run on this host."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def global_group():
     """The default group, every rank of the job (JAX's global_mesh);
     raises where none is initialised."""

@@ -1718,3 +1718,79 @@ def test_distributed_rounds_never_sync(nccl_world1, selection):
     single.train(text, 256 + M)
     got = {tuple(p): 256 + i for i, p in enumerate(pairs.tolist())}
     assert int(st.fail) == M and got == single.merges
+
+
+def test_precompile_launches_train_and_encode(dev):
+    """precompile on the card builds and loads both libraries, then trains
+    (K1 among the whole-run trainer's kernels) and encodes (K10)."""
+    from minbpe_tpu_torch import precompile
+    from minbpe_tpu_torch.utils.precompile import fused_capacity
+
+    kernels.reset_launches()
+    done = precompile([5000], vocab_size=300)
+    assert [b for b, _ in done] == [fused_capacity(5000)]
+    assert kernels.PAIR_STATS.launches > 0
+    assert kernels.ENCODE_SWEEP.launches > 0
+
+
+def _sorted_tables(dev):
+    from minbpe_tpu_torch.ops.ranktab import SortedPairTable
+    from minbpe_tpu_torch.utils import golden
+
+    m = golden.load_golden()["merges"]
+    new_ids = 256 + np.arange(len(m))
+    return (SortedPairTable(m, new_ids, device="cpu"),
+            SortedPairTable(m, new_ids, device=dev))
+
+
+def test_chunk_encoder_on_card_matches_cpu(dev):
+    """Every bucket, empty chunks and one chunk past the largest bucket."""
+    from minbpe_tpu_torch.ops import chunk_encode
+    from minbpe_tpu_torch.utils import golden
+
+    corpus = golden.smoke_corpus(ROOT).encode("utf-8")
+    lengths = [0, 1, 16, 17, 40, 100, 200, 400, 900, 2000, 4000, 8000, 9000]
+    rng = np.random.default_rng(3)
+    chunks = []
+    for ln in lengths:
+        at = int(rng.integers(0, len(corpus) - ln))
+        chunks.append(corpus[at:at + ln])
+    data = np.frombuffer(b"".join(chunks), np.uint8)
+    ends = np.cumsum(lengths)
+    cpu, gpu = _sorted_tables(dev)
+    kernels.reset_launches()
+    got = chunk_encode.encode_offsets_arrays(data, ends, gpu)
+    want = chunk_encode.encode_offsets_arrays(data, ends, cpu)
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    # the oversized chunk went through K3 and K4, one launch a round each
+    assert kernels.MERGE_APPLY.launches == kernels.COMPACT.launches > 0
+    assert chunk_encode.encode_chunk_list(chunks, gpu) == want[0].tolist()
+
+
+@pytest.mark.parametrize("nbytes", [1, 2, 9000, 20_000])
+def test_encode_stream_sorted_launches(dev, nbytes):
+    """K3 and K4 once a round: every applied round, then the rest of the
+    last group of 8 (the first round that finds no pair among them)."""
+    from minbpe_tpu_torch.ops.encode import encode_stream_sorted
+    from minbpe_tpu_torch.ops.ranktab import CuckooPairTable
+    from minbpe_tpu_torch.ops.stream import pack_bytes
+    from minbpe_tpu_torch.utils import golden
+
+    data = golden.smoke_corpus(ROOT).encode("utf-8")[:nbytes]
+    cpu, gpu = _sorted_tables(dev)
+    ids, seg, n = pack_bytes(data)
+    want_ids, want_n = encode_stream_sorted(ids, seg, n, cpu)
+    kernels.reset_launches()
+    got_ids, got_n = encode_stream_sorted(ids, seg, n, gpu)
+    launches = {k.name: k.launches for k in kernels.KERNELS}
+    k = int(want_n)
+    assert int(got_n) == k
+    assert torch.equal(got_ids[:k].cpu(), want_ids[:k])
+    m = golden.load_golden()["merges"]
+    table = CuckooPairTable(m, 256 + np.arange(len(m)), "cpu")
+    t = torch.from_numpy(ids[:nbytes].astype(np.int32))
+    rounds = int(kernels.sweep_rounds(t, torch.zeros_like(t), table)[0][0])
+    each = 8 * (rounds // 8 + 1)
+    assert launches == {**{name: 0 for name in launches},
+                        "merge_apply": each,
+                        "compact": each}

@@ -21,8 +21,13 @@ FORBIDDEN = ("jax", "minbpe_tpu", "regex")
 ALLOWED = {("regex.py", "_compile_custom", "regex")}
 
 
+# the port's files outside the package
+ROOT_FILES = ("chip_smoke.py", "train_torch.py", "entry_torch.py",
+              os.path.join("scripts", "dist_nccl_check.py"))
+
+
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, f) for f in ROOT_FILES]
     for d, dirs, files in os.walk(PKG):
         dirs[:] = [x for x in dirs if x != "_build"]  # build output
         out += [os.path.join(d, f) for f in files if f.endswith(".py")]
@@ -69,17 +74,26 @@ def test_parallel_modules_are_scanned():
             ("comm.py", "train.py", "encode.py", "multihost.py")} <= names
 
 
+def test_root_port_files_are_scanned():
+    """The port's command line, its entry checks and its NCCL check are
+    among the scanned sources, and each exists."""
+    names = {os.path.relpath(p, ROOT) for p in _sources()}
+    assert set(ROOT_FILES) <= names
+    assert all(os.path.isfile(os.path.join(ROOT, f)) for f in ROOT_FILES)
+
+
 def test_import_leaves_jax_minbpe_tpu_and_regex_out():
     code = (
         "import sys\n"
         "import minbpe_tpu_torch\n"
         "from minbpe_tpu_torch import convert, engine, gpt4, kernels\n"
-        "from minbpe_tpu_torch.ops import (device_presplit, encode,\n"
-        "    flat_encode, merge,\n"
+        "from minbpe_tpu_torch.ops import (chunk_encode, device_presplit,\n"
+        "    encode, flat_encode, merge,\n"
         "    ranktab, select, stream, train, train_inc, train_select,\n"
         "    train_sortloop, train_sparse)\n"
         "from minbpe_tpu_torch.utils import (checkpoint, golden, native,\n"
-        "    presplit, synthranks)\n"
+        "    precompile, presplit, synthranks)\n"
+        "import entry_torch, train_torch\n"
         "from minbpe_tpu_torch.parallel import comm, multihost\n"
         "from minbpe_tpu_torch.parallel import encode as pencode\n"
         "from minbpe_tpu_torch.parallel import train as ptrain\n"
@@ -97,6 +111,10 @@ def test_import_leaves_jax_minbpe_tpu_and_regex_out():
         "    ranks, sp, device='cpu')\n"
         "assert engine.device_table(g).kind == 'sorted'\n"
         "assert g.decode(g.encode('hello  world')) == 'hello  world'\n"
+        "st = ranktab.SortedPairTable([[104, 101]], [256], device='cpu')\n"
+        "assert chunk_encode.encode_chunk_list([b'hehe'], st) == [256, 256]\n"
+        "fn, args = entry_torch.entry(device='cpu')\n"
+        "assert int(fn(*args)[1]) > 0\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'minbpe_tpu', 'regex')]\n"
         "assert not bad, bad\n"

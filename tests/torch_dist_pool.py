@@ -223,3 +223,11 @@ def collectives(group):
                                   + 10 * r).tolist(),
     }
     return dict(out, calls=c.calls, seconds=c.seconds() >= 0)
+
+
+def dryrun(group):
+    """entry_torch's dryrun checks on this rank (the repository's root on
+    the path)."""
+    import entry_torch
+
+    return entry_torch.dryrun_rank(group, "cpu")
