@@ -92,7 +92,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    256 merges, the Basic byte path against the single-device
    BasicTokenizer on the same 64 KB, the sharded encode),
    every path's launches held exactly and its wall, rounds a second and
-   share of the wall inside collectives printed;
+   collectives called printed;
 6. the tools around the library, each path's launches held exactly: the
    command line (train_torch.py) at vocab 1024 on the smoke corpus
    in-process (the whole-run trainer's launches, phase 3's "train"), with
@@ -1438,7 +1438,7 @@ def counted_paths(kernels, launches: dict):
 
 def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
     """Returns (timings, launches), launches = {path: {kernel: count}}."""
-    from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer
+    from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer, trace
     from minbpe_tpu_torch.ops import train as train_mod
 
     timings = {}
@@ -1458,6 +1458,7 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
     tok = RegexTokenizer(device="cuda")
     out = io.StringIO()
     torch.cuda.synchronize()
+    trace.reset()
     with path("train", TRAIN_KERNELS):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -1607,6 +1608,7 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
     xl_tok = RegexTokenizer(device="cuda")
     out = io.StringIO()
     torch.cuda.synchronize()
+    trace.reset()
     with path("train_xl", TRAIN_KERNELS):
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
@@ -1839,6 +1841,9 @@ def selection_paths(torch, np, golden_mod, corpus, path, timings, head, gb,
     if not traces or traced.merges != gb.merges:
         raise AssertionError(f"profile_dir: traces {traces}, merges equal "
                              f"{traced.merges == gb.merges}")
+    with open(os.path.join(trace_dir, traces[0])) as f:
+        if '"minbpe.train.enqueue"' not in f.read():
+            raise AssertionError("profile_dir: no span of the program's")
     print(f"profile_dir: {traces[0]} "
           f"({os.path.getsize(os.path.join(trace_dir, traces[0]))} bytes)")
 
@@ -1971,11 +1976,16 @@ def large_vocab_paths(torch, np, golden_mod, corpus, path, timings,
 
 
 def note_batching(train_mod, timings, name: str, merges: int):
-    """Rebuilds, slots and syncs of the run just made; batching must have
-    taken fewer rebuilds than merges."""
+    """Rebuilds, slots and the trainer's syncs of the run just made (the
+    counters were reset before it); batching must have taken fewer
+    rebuilds than merges."""
+    from minbpe_tpu_torch import trace
+
+    c = trace.COUNTERS
     timings[f"{name}_rebuilds"] = train_mod.LAST_REBUILDS
-    timings[f"{name}_slots"] = train_mod.LAST_SLOTS
-    timings[f"{name}_syncs"] = train_mod.LAST_SYNCS
+    timings[f"{name}_slots"] = c.get("train.slots", 0)
+    timings[f"{name}_syncs"] = (c.get("sync.train.ctl", 0)
+                                + c.get("sync.train.readback", 0))
     timings[f"{name}_merges_per_rebuild"] = merges / train_mod.LAST_REBUILDS
     if not 0 < train_mod.LAST_REBUILDS < merges:
         raise AssertionError(f"{name}: {train_mod.LAST_REBUILDS} rebuilds "
@@ -2170,8 +2180,8 @@ def dist_paths(torch, np, comm, inp, golden_mod, world: int, scratch,
     cut at round 512 and resumed; at world 4 the Basic byte path; the
     sharded encode of the smoke corpus. launches[path] gets this rank's
     launch counts, timings[path] the wall time, the rounds a second and
-    the share of the wall inside collectives."""
-    from minbpe_tpu_torch import RegexTokenizer, kernels
+    the collectives called (the ``comm.calls`` counter)."""
+    from minbpe_tpu_torch import RegexTokenizer, kernels, trace
     from minbpe_tpu_torch.convert import tokenizer_from_arrays
     from minbpe_tpu_torch.parallel import encode as pencode
     from minbpe_tpu_torch.parallel import train as ptrain
@@ -2183,7 +2193,7 @@ def dist_paths(torch, np, comm, inp, golden_mod, world: int, scratch,
     @contextlib.contextmanager
     def path(name, exact, rounds=0):
         kernels.reset_launches()
-        comm.reset()
+        calls = trace.COUNTERS.get("comm.calls", 0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         yield
@@ -2194,14 +2204,11 @@ def dist_paths(torch, np, comm, inp, golden_mod, world: int, scratch,
         if any(counts[k] != exact.get(k, 0) for k in counts):
             raise AssertionError(f"path {name} launched {counts}, expected "
                                  f"{exact}")
-        inside = comm.seconds()
-        timings[name] = dict(wall_s=wall, collective_s=inside,
-                             collective_share=inside / wall,
-                             collectives=comm.calls)
+        calls = trace.COUNTERS.get("comm.calls", 0) - calls
+        timings[name] = dict(wall_s=wall, collectives=calls)
         if rounds:
             timings[name]["rounds_per_s"] = rounds / wall
-        print(f"{name}: {wall:.3f} s, {comm.calls} collectives "
-              f"({inside / wall:.3f} of the wall)"
+        print(f"{name}: {wall:.3f} s, {calls} collectives"
               + (f", {rounds / wall:.1f} rounds/s" if rounds else ""))
 
     def held(name, pairs, counts, fail, oflow, M, g=golden):
@@ -2287,7 +2294,7 @@ def world4_worker(rank: int, port: int, inp, scratch, out_q):
             "gloo", init_method=f"tcp://localhost:{port}", rank=rank,
             world_size=4,
             timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
-        comm = Comm(device="cuda:0", timing=True)
+        comm = Comm(device="cuda:0")
         launches, timings = {}, {}
         dist_paths(torch, np, comm, inp, golden_mod, 4, scratch, launches,
                    timings)
@@ -2323,7 +2330,7 @@ def phase_distributed(torch, np, golden_mod, scratch):
         timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S),
         device_id=torch.device("cuda", 0))
     try:
-        comm = Comm(device="cuda:0", timing=True)
+        comm = Comm(device="cuda:0")
         dist_paths(torch, np, comm, inp, golden_mod, 1, scratch, launches,
                    timings)
     finally:

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import engine
+from . import engine, trace
 from .base import Tokenizer, id_array
 
 
@@ -26,28 +26,37 @@ class BasicTokenizer(Tokenizer):
         (select_mode, checkpoint_path, ...) raise NotImplementedError."""
         assert vocab_size >= 256
         num_merges = vocab_size - 256
-        self.merges, self.vocab = engine.train_bytes(
-            text.encode("utf-8"), num_merges, verbose, device=self.device,
-            **train_opts
-        )
-        self._invalidate_device_state()
+        with trace.span("api.train"):
+            with trace.span("api.text_encode"):
+                data = text.encode("utf-8")
+            self.merges, self.vocab = engine.train_bytes(
+                data, num_merges, verbose, device=self.device, **train_opts
+            )
+            self._invalidate_device_state()
 
     def encode(self, text: str) -> list[int]:
         """Greedy lowest-rank-first merging of the whole byte stream
         (minbpe/basic.py:57-74)."""
-        return engine.encode_bytes(self, text.encode("utf-8"))
+        with trace.span("api.encode"):
+            with trace.span("api.text_encode"):
+                data = text.encode("utf-8")
+            return engine.encode_bytes(self, data)
 
     def encode_batch(self, texts: list[str]) -> list[list[int]]:
         """Encode many independent documents as one device stream. Each
         document is its own segment, so the result is exactly
         ``[self.encode(t) for t in texts]``."""
-        batch = []
-        for t in texts:
-            data = np.frombuffer(t.encode("utf-8"), dtype=np.uint8)
-            ends = (np.array([len(data)], dtype=np.int64) if len(data)
-                    else np.zeros(0, dtype=np.int64))
-            batch.append((data, ends))
-        return [ids.tolist() for ids in engine.encode_parts(self, batch)]
+        with trace.span("api.encode_batch"):
+            batch = []
+            with trace.span("api.text_encode"):
+                for t in texts:
+                    data = np.frombuffer(t.encode("utf-8"), dtype=np.uint8)
+                    ends = (np.array([len(data)], dtype=np.int64) if len(data)
+                            else np.zeros(0, dtype=np.int64))
+                    batch.append((data, ends))
+            encoded = engine.encode_parts(self, batch)
+            with trace.span("api.to_list"):
+                return [ids.tolist() for ids in encoded]
 
     def decode(self, ids) -> str:
         """Concatenate vocab bytes; invalid UTF-8 becomes U+FFFD

@@ -19,6 +19,7 @@ import contextlib
 import numpy as np
 import torch
 
+from . import trace
 from .ops import stream as stream_ops
 from .ops import device_presplit, flat_encode
 from .ops.encode import check_memory, encode_stream
@@ -59,6 +60,7 @@ class DeviceMergeTable:
         self.vocab_size = (256 if len(new_ids) == 0
                            else max(256, int(np.max(new_ids)) + 1))
         self.kind = "dense" if self.vocab_size <= DENSE_VOCAB_MAX else "sorted"
+        trace.count("sync.engine.table", 2)
         self.pairs = torch.as_tensor(
             np.ascontiguousarray(pairs, dtype=np.int32)).to(device)
         self.new_ids = torch.as_tensor(
@@ -107,19 +109,24 @@ def train_route(select_mode: str, n_tokens: int, num_merges: int,
     return route
 
 
+@contextlib.contextmanager
 def _trace(profile_dir: str | None, device):
     """torch.profiler over the run, written into profile_dir by
-    tensorboard_trace_handler: the counterpart of jax.profiler.trace."""
+    tensorboard_trace_handler, with the program's spans on: the
+    counterpart of jax.profiler.trace."""
     if profile_dir is None:
-        return contextlib.nullcontext()
+        yield
+        return
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
 
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    return profile(activities=acts,
-                   on_trace_ready=tensorboard_trace_handler(profile_dir))
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(profile_dir)), \
+            trace.enabled():
+        yield
 
 
 def run_train(ids, seg, num_merges: int, verbose: bool = False,
@@ -163,18 +170,19 @@ def run_train(ids, seg, num_merges: int, verbose: bool = False,
             f"(requested {num_merges} merges); corpus is too small"
         )
 
-    merges: dict[tuple[int, int], int] = {}
-    vocab = {idx: bytes([idx]) for idx in range(256)}
-    for i in range(num_merges):
-        pair = (int(pairs[i, 0]), int(pairs[i, 1]))
-        idx = 256 + i
-        merges[pair] = idx
-        vocab[idx] = vocab[pair[0]] + vocab[pair[1]]
-        if verbose:
-            print(
-                f"merge {i+1}/{num_merges}: {pair} -> {idx} ({vocab[idx]}) "
-                f"had {int(counts[i])} occurrences"
-            )
+    with trace.span("train.merges"):
+        merges: dict[tuple[int, int], int] = {}
+        vocab = {idx: bytes([idx]) for idx in range(256)}
+        for i in range(num_merges):
+            pair = (int(pairs[i, 0]), int(pairs[i, 1]))
+            idx = 256 + i
+            merges[pair] = idx
+            vocab[idx] = vocab[pair[0]] + vocab[pair[1]]
+            if verbose:
+                print(
+                    f"merge {i+1}/{num_merges}: {pair} -> {idx} "
+                    f"({vocab[idx]}) had {int(counts[i])} occurrences"
+                )
     return merges, vocab
 
 
@@ -216,8 +224,11 @@ def _encode_arrays(tokenizer, data, ends):
     check_memory(tokenizer.device, int(data.shape[0]))
     ids, seg = stream_ops.build_stream(data, ends, tokenizer.device)
     ids, seg, n = encode_stream(ids, seg, dev.pairs, dev.new_ids)
-    k = int(n.item())
-    out = torch.stack([ids[:k], seg[:k]]).cpu().numpy()
+    with trace.span("encode.readback"):
+        trace.count("sync.encode.count")
+        k = int(n.item())
+        trace.count("sync.encode.readback")
+        out = torch.stack([ids[:k], seg[:k]]).cpu().numpy()
     return out[0], out[1]
 
 
@@ -250,7 +261,8 @@ def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
     dev = device_table(tokenizer)
     if dev.kind != "dense":
         return None
-    raw = text.encode("utf-8")
+    with trace.span("api.text_encode"):
+        raw = text.encode("utf-8")
     n = len(raw)
     if n == 0:
         return []
@@ -259,14 +271,26 @@ def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
                          f"{device_presplit.MAX_N}")
     device = tokenizer.device
     check_memory(device, n, device_presplit.BYTES_PER_BYTE)
-    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
-    _, seg = device_presplit.presplit_seg_ids(data, n, mode)
-    # the ids: the bytes through the byte transform (GPT4Tokenizer's
-    # shuffle, the identity elsewhere) as a 256-entry table
-    perm = tokenizer._transform_bytes_array(np.arange(256, dtype=np.uint8))
-    ids = torch.from_numpy(perm.astype(np.int32)).to(device)[data.long()]
+    with trace.span("engine.upload"):
+        trace.count("sync.engine.upload")
+        data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
+    with trace.span("presplit.device"):
+        _, seg = device_presplit.presplit_seg_ids(data, n, mode)
+    with trace.span("engine.upload"):
+        # the ids: the bytes through the byte transform (GPT4Tokenizer's
+        # shuffle, the identity elsewhere) as a 256-entry table
+        perm = tokenizer._transform_bytes_array(
+            np.arange(256, dtype=np.uint8))
+        trace.count("sync.engine.upload")
+        ids = torch.from_numpy(perm.astype(np.int32)).to(device)[data.long()]
     ids, _, k = encode_stream(ids, seg, dev.pairs, dev.new_ids)
-    return ids[:int(k.item())].tolist()
+    with trace.span("encode.readback"):
+        trace.count("sync.encode.count")
+        k = int(k.item())
+        trace.count("sync.encode.readback")
+        out = ids[:k].cpu()
+    with trace.span("api.to_list"):
+        return out.tolist()
 
 
 def encode_bytes(tokenizer, data: bytes) -> list[int]:
@@ -282,7 +306,9 @@ def encode_offsets(tokenizer, data, ends) -> list[int]:
     """Encode a (byte array, chunk-end offsets) pair."""
     if data.shape[0] == 0:
         return []
-    return _encode_arrays(tokenizer, data, ends)[0].tolist()
+    ids = _encode_arrays(tokenizer, data, ends)[0]
+    with trace.span("api.to_list"):
+        return ids.tolist()
 
 
 def encode_parts(tokenizer, parts: list) -> list:

@@ -35,7 +35,7 @@ import bisect
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from ..utils.presplit import (
     FLAG_C1, FLAG_CI_E, FLAG_CI_L, FLAG_CI_R, FLAG_CI_V, FLAG_L, FLAG_N,
     FLAG_WS, _load,
@@ -61,6 +61,7 @@ def _device_tables(device):
     tabs = _TABLES.get(key)
     if tabs is None:
         starts, flags, dense = _load()
+        trace.count("sync.presplit.tables", 3)
         tabs = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
                      for a in (dense.astype(np.uint8),
                                starts.astype(np.int32),

@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from .merge import apply_merge
 from .ranktab import RANK_INF
 from .select import pair_validity
@@ -64,8 +64,9 @@ def encode_stream(ids, seg, pairs, new_ids):
     in rank order, merge r creating ``new_ids[r]`` (int32 (M,) on that
     device). Returns the compacted (ids, seg, n) with n an int32[1] tensor;
     nothing is synced."""
-    return kernels.encode_sweep(ids.contiguous(), seg.contiguous(), pairs,
-                                new_ids)
+    with trace.span("encode.sweep"):
+        return kernels.encode_sweep(ids.contiguous(), seg.contiguous(),
+                                    pairs, new_ids)
 
 
 def encode_stream_sorted(ids, seg, n, table):
@@ -95,5 +96,6 @@ def encode_stream_sorted(ids, seg, n, table):
             ids, seg, n, _ = apply_merge(ids, seg, n, pair,
                                          table.merge_ids[rr])
             done = done | ~found
+        trace.count("sync.encode.done")
         if bool(done):
             return ids, n

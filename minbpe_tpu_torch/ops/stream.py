@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
+
 PAD = -1
 PAD_SEG = -1  # host packing (pack_*), as in minbpe_tpu
 
@@ -87,11 +89,13 @@ def build_stream(data: np.ndarray, ends: np.ndarray, device):
     """Device (ids, seg) int32 tensors of length len(data) from uint8 corpus
     bytes and int chunk ends (the last equal to len(data)). Only the bytes
     and the ends cross to the device."""
-    n = int(data.shape[0])
-    d = torch.from_numpy(np.array(data, dtype=np.uint8))
-    e = torch.from_numpy(np.array(ends, dtype=np.int32))
-    d, e = d.to(device), e.to(device)
-    ids = d.to(torch.int32)
-    pos = torch.arange(n, dtype=torch.int32, device=device)
-    seg = torch.searchsorted(e, pos, right=True, out_int32=True)
-    return ids, seg
+    with trace.span("stream.build"):
+        n = int(data.shape[0])
+        d = torch.from_numpy(np.array(data, dtype=np.uint8))
+        e = torch.from_numpy(np.array(ends, dtype=np.int32))
+        trace.count("sync.stream.upload", 2)
+        d, e = d.to(device), e.to(device)
+        ids = d.to(torch.int32)
+        pos = torch.arange(n, dtype=torch.int32, device=device)
+        seg = torch.searchsorted(e, pos, right=True, out_int32=True)
+        return ids, seg

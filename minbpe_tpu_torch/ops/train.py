@@ -27,7 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 
 # the trainer's limits: the XL Pallas trainer's token bound
 # (minbpe_tpu/ops/pallas/fused_train_xl.py:51 XL_MAX_N) and the fused
@@ -44,11 +44,9 @@ SLOTS_PER_SYNC = 16
 # exist (5)
 BYTES_PER_TOKEN = 38
 
-# the most recent run: count rebuilds (every active slot, the one that found
-# no pair included), slots enqueued, and host syncs
+# the most recent run's count rebuilds (every active slot, the one that
+# found no pair included)
 LAST_REBUILDS = 0
-LAST_SLOTS = 0
-LAST_SYNCS = 0
 
 
 def device_bytes(n_tokens: int, num_merges: int) -> int:
@@ -61,10 +59,12 @@ def device_bytes(n_tokens: int, num_merges: int) -> int:
 def check_device_memory(device, need: int, what: str):
     """Raise MemoryError, before any work, when ``need`` bytes do not fit in
     the device's free memory."""
-    free, _ = torch.cuda.mem_get_info(device)
-    # blocks the caching allocator holds but no tensor uses are free too
-    free += (torch.cuda.memory_reserved(device)
-             - torch.cuda.memory_allocated(device))
+    with trace.span("engine.check_memory"):
+        trace.count("sync.check_memory")
+        free, _ = torch.cuda.mem_get_info(device)
+        # blocks the caching allocator holds but no tensor uses are free too
+        free += (torch.cuda.memory_reserved(device)
+                 - torch.cuda.memory_allocated(device))
     if need > free:
         raise MemoryError(
             f"{what} needs ~{need / 2**30:.2f} GiB of device memory; "
@@ -94,47 +94,49 @@ def train_merges(ids, seg, num_merges: int):
     equal length on the device the run uses. Returns numpy (pairs[M, 2],
     counts[M]) and the fail round (M when every round found a pair); rows
     from the fail round on are zero."""
-    global LAST_REBUILDS, LAST_SLOTS, LAST_SYNCS
+    global LAST_REBUILDS
     M = num_merges
-    LAST_REBUILDS = LAST_SLOTS = LAST_SYNCS = 0
+    LAST_REBUILDS = 0
     if M == 0:
         return np.zeros((0, 2), np.int32), np.zeros((0,), np.int32), 0
     dev = ids.device
     V = 256 + M
     if dev.type == "cuda":
         _check_memory(dev, ids.numel(), M)
-    ids = ids.contiguous()
-    seg = seg.contiguous()
-    # filled on the device: a host tensor copied here would sync
-    n = torch.full((1,), ids.numel(), dtype=torch.int32, device=dev)
-    st = {
-        "M": M, "V": V,
-        "ctl": kernels.new_ctl(M, dev),
-        "slot": kernels.new_slot(dev),
-        # log row i: (pa, pb, count, kept)
-        "log": torch.zeros((M, 4), dtype=torch.int32, device=dev),
-        "stats": (torch.zeros((V, V), dtype=torch.int32, device=dev),
-                  torch.full((V, V), -1, dtype=torch.int32, device=dev)),
-        "acc": kernels.new_hist(dev),
-        # K6's sites, for every position of the stream's capacity
-        "cand": torch.empty_like(ids),
-        "scratch": kernels.select_scratch(V, dev),
-        "apply_scratch": kernels.batch_scratch(dev),
-    }
-    slots = syncs = 0
+    with trace.span("train.setup"):
+        ids = ids.contiguous()
+        seg = seg.contiguous()
+        # filled on the device: a host tensor copied here would sync
+        n = torch.full((1,), ids.numel(), dtype=torch.int32, device=dev)
+        st = {
+            "M": M, "V": V,
+            "ctl": kernels.new_ctl(M, dev),
+            "slot": kernels.new_slot(dev),
+            # log row i: (pa, pb, count, kept)
+            "log": torch.zeros((M, 4), dtype=torch.int32, device=dev),
+            "stats": (torch.zeros((V, V), dtype=torch.int32, device=dev),
+                      torch.full((V, V), -1, dtype=torch.int32, device=dev)),
+            "acc": kernels.new_hist(dev),
+            # K6's sites, for every position of the stream's capacity
+            "cand": torch.empty_like(ids),
+            "scratch": kernels.select_scratch(V, dev),
+            "apply_scratch": kernels.batch_scratch(dev),
+        }
     while True:
-        for _ in range(SLOTS_PER_SYNC):
-            ids, seg, n = _slot(ids, seg, n, st)
-        slots += SLOTS_PER_SYNC
-        i, fail = st["ctl"][:2].tolist()  # the group's one sync
-        syncs += 1
+        with trace.span("train.enqueue"):
+            for _ in range(SLOTS_PER_SYNC):
+                ids, seg, n = _slot(ids, seg, n, st)
+            trace.count("train.slots", SLOTS_PER_SYNC)
+        with trace.span("train.sync"):
+            trace.count("sync.train.ctl")
+            i, fail = st["ctl"][:2].tolist()  # the group's one sync
         if i >= M or fail < M:
             break
-    out = torch.cat([st["log"].view(-1), st["ctl"]]).cpu().numpy()
-    syncs += 1
+    with trace.span("train.readback"):
+        trace.count("sync.train.readback")
+        out = torch.cat([st["log"].view(-1), st["ctl"]]).cpu().numpy()
     log_h = out[:4 * M].reshape(M, 4)
     ctl_h = out[4 * M:]
     LAST_REBUILDS = int(ctl_h[kernels.CTL_REBUILDS])
-    LAST_SLOTS, LAST_SYNCS = slots, syncs
     return (log_h[:, 0:2].copy(), log_h[:, 2].copy(),
             min(int(ctl_h[kernels.CTL_FAIL]), M))

@@ -17,15 +17,19 @@ syncs the stream; so the wrapper stages nothing.
 The group must have been made with a ``timeout``
 (``init_process_group(..., timeout=...)`` or ``multihost.initialize``), so a
 peer that hangs raises instead of blocking.
+
+Each collective is a span ``comm.<collective>`` and counts ``comm.calls``
+(trace.py).
 """
 
 from __future__ import annotations
 
 import os
-import time
 
 import torch
 import torch.distributed as dist
+
+from .. import trace
 
 def default_device(group=None) -> torch.device:
     """cuda:<local rank % device count> (LOCAL_RANK, as torchrun sets it,
@@ -38,12 +42,9 @@ def default_device(group=None) -> torch.device:
 
 
 class Comm:
-    """One process group's collectives on this rank's ``device``.
+    """One process group's collectives on this rank's ``device``."""
 
-    ``timing``: record the time each collective takes (CUDA events on the
-    device's stream, the host clock on the CPU); ``seconds()`` sums them."""
-
-    def __init__(self, group=None, device=None, timing: bool = False):
+    def __init__(self, group=None, device=None):
         if not dist.is_available() or not dist.is_initialized():
             raise RuntimeError("no process group is initialised: call "
                                "torch.distributed.init_process_group (or "
@@ -56,63 +57,28 @@ class Comm:
                        else torch.device(device))
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        self.timing = timing
-        self.calls = 0
-        self._spans = []
 
-    # -- bookkeeping --------------------------------------------------------
-    def _begin(self):
-        self.calls += 1
-        if not self.timing:
-            return None
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record(torch.cuda.current_stream(self.device))
-            return ev
-        return time.perf_counter()
-
-    def _end(self, start):
-        if start is None:
-            return
-        if self.device.type == "cuda":
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record(torch.cuda.current_stream(self.device))
-            self._spans.append((start, ev))
-        else:
-            self._spans.append(time.perf_counter() - start)
-
-    def seconds(self) -> float:
-        """The time spent inside collectives since the last reset (syncs
-        the device)."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-            return sum(a.elapsed_time(b) for a, b in self._spans) / 1e3
-        return float(sum(self._spans))
-
-    def reset(self):
-        self.calls = 0
-        self._spans = []
-
-    def _run(self, fn, *tensors):
-        t0 = self._begin()
-        fn(*tensors)
-        self._end(t0)
+    @staticmethod
+    def _run(name, fn, *tensors):
+        trace.count("comm.calls")
+        with trace.span(name):
+            fn(*tensors)
 
     # -- collectives --------------------------------------------------------
     def sum_(self, t):
         """psum, in place."""
-        self._run(lambda x: dist.all_reduce(
+        self._run("comm.sum", lambda x: dist.all_reduce(
             x, dist.ReduceOp.SUM, group=self.group), t)
         return t
 
     def min_(self, t):
         """pmin, in place."""
-        self._run(lambda x: dist.all_reduce(
+        self._run("comm.min", lambda x: dist.all_reduce(
             x, dist.ReduceOp.MIN, group=self.group), t)
         return t
 
     def max_(self, t):
-        self._run(lambda x: dist.all_reduce(
+        self._run("comm.max", lambda x: dist.all_reduce(
             x, dist.ReduceOp.MAX, group=self.group), t)
         return t
 
@@ -121,7 +87,7 @@ class Comm:
         t = t.contiguous()
         out = torch.empty((self.size, *t.shape), dtype=t.dtype,
                           device=t.device)
-        self._run(lambda o, x: dist.all_gather(
+        self._run("comm.all_gather", lambda o, x: dist.all_gather(
             list(o.unbind(0)), x, group=self.group), out, t)
         return out
 
@@ -130,7 +96,7 @@ class Comm:
         received, row j from rank j."""
         t = t.contiguous()
         out = torch.empty_like(t)
-        self._run(lambda o, x: dist.all_to_all_single(
+        self._run("comm.all_to_all", lambda o, x: dist.all_to_all_single(
             o, x, group=self.group), out, t)
         return out
 
@@ -138,7 +104,7 @@ class Comm:
         """t from group rank src, in place."""
         gsrc = src if self.group is None else dist.get_global_rank(
             self.group, src)
-        self._run(lambda x: dist.broadcast(
+        self._run("comm.broadcast", lambda x: dist.broadcast(
             x, gsrc, group=self.group), t)
         return t
 

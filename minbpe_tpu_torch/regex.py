@@ -18,7 +18,7 @@ import re
 
 import numpy as np
 
-from . import engine
+from . import engine, trace
 from .base import DecodeTable, Tokenizer, id_array
 from .utils import native, presplit
 
@@ -71,18 +71,20 @@ class RegexTokenizer(Tokenizer):
         constructor's split. The scanners equal findall with the GPT
         patterns. The chunk ends are found on the raw bytes; the bytes
         then pass through ``_transform_bytes_array``."""
-        data = text.encode("utf-8")
-        mode = self._split_mode
-        if mode is not None:
-            ends = native.split_offsets(data, mode)
-            if ends is None:
-                ends = presplit.split_offsets(text, mode)
-        else:
-            lengths = [len(c.encode("utf-8"))
-                       for c in self.compiled_pattern.findall(text)]
-            ends = np.cumsum(np.asarray(lengths, dtype=np.int64))
-        return self._transform_bytes_array(
-            np.frombuffer(data, dtype=np.uint8)), ends
+        with trace.span("presplit.host"):
+            with trace.span("api.text_encode"):
+                data = text.encode("utf-8")
+            mode = self._split_mode
+            if mode is not None:
+                ends = native.split_offsets(data, mode)
+                if ends is None:
+                    ends = presplit.split_offsets(text, mode)
+            else:
+                lengths = [len(c.encode("utf-8"))
+                           for c in self.compiled_pattern.findall(text)]
+                ends = np.cumsum(np.asarray(lengths, dtype=np.int64))
+            return self._transform_bytes_array(
+                np.frombuffer(data, dtype=np.uint8)), ends
 
     def _transform_bytes_array(self, arr):
         """Byte-level preprocessing before BPE, on the uint8 array of a
@@ -98,11 +100,13 @@ class RegexTokenizer(Tokenizer):
         stream in corpus order, so counts and tie-breaks match exactly."""
         assert vocab_size >= 256
         num_merges = vocab_size - 256
-        data, ends = self._split_arrays(text)
-        self.merges, self.vocab = engine.train_offsets(
-            data, ends, num_merges, verbose, device=self.device, **train_opts
-        )
-        self._invalidate_device_state()
+        with trace.span("api.train"):
+            data, ends = self._split_arrays(text)
+            self.merges, self.vocab = engine.train_offsets(
+                data, ends, num_merges, verbose, device=self.device,
+                **train_opts
+            )
+            self._invalidate_device_state()
 
     # -- special tokens -----------------------------------------------------
     def register_special_tokens(self, special_tokens: dict[str, int]):
@@ -136,6 +140,10 @@ class RegexTokenizer(Tokenizer):
         set (False by default), a GPT-2 or GPT-4 split with a dense table
         runs on the device too, and only the raw bytes cross
         (engine.encode_text_device_split)."""
+        with trace.span("api.encode"):
+            return self._encode_ordinary(text)
+
+    def _encode_ordinary(self, text: str) -> list[int]:
         out = engine.encode_text_device_split(self, text)
         if out is not None:
             return out
@@ -184,35 +192,38 @@ class RegexTokenizer(Tokenizer):
     @staticmethod
     def _assemble(plan, encoded) -> list[int]:
         ids: list[int] = []
-        for kind, v in plan:
-            if kind == "s":
-                ids.append(v)
-            else:
-                ids.extend(encoded[v].tolist())
+        with trace.span("api.to_list"):
+            for kind, v in plan:
+                if kind == "s":
+                    ids.append(v)
+                else:
+                    ids.extend(encoded[v].tolist())
         return ids
 
     def encode(self, text: str, allowed_special="none_raise") -> list[int]:
         """Special-token-aware encode; allowed_special semantics per
         minbpe/regex.py:123-164 ("all" | "none" | "none_raise" | set). All
         text parts between specials go through one device stream."""
-        special = self._resolve_special(text, allowed_special)
-        if not special:
-            return self.encode_ordinary(text)
-        batch: list = []
-        plan = self._special_plan(text, special, batch)
-        encoded = engine.encode_parts(self, batch)
-        return self._assemble(plan, encoded)
+        with trace.span("api.encode"):
+            special = self._resolve_special(text, allowed_special)
+            if not special:
+                return self._encode_ordinary(text)
+            batch: list = []
+            plan = self._special_plan(text, special, batch)
+            encoded = engine.encode_parts(self, batch)
+            return self._assemble(plan, encoded)
 
     def encode_batch(self, texts: list[str],
                      allowed_special="none_raise") -> list[list[int]]:
         """Encode many independent documents as one device stream. Result
         ids are exactly ``[self.encode(t, allowed_special) for t in
         texts]``."""
-        batch: list = []
-        plans = [
-            self._special_plan(t, self._resolve_special(t, allowed_special),
-                               batch)
-            for t in texts
-        ]
-        encoded = engine.encode_parts(self, batch)
-        return [self._assemble(plan, encoded) for plan in plans]
+        with trace.span("api.encode_batch"):
+            batch: list = []
+            plans = [
+                self._special_plan(
+                    t, self._resolve_special(t, allowed_special), batch)
+                for t in texts
+            ]
+            encoded = engine.encode_parts(self, batch)
+            return [self._assemble(plan, encoded) for plan in plans]

@@ -11,8 +11,8 @@ against the golden's merges, counts and fail round; the Basic byte path
 on the smoke corpus's first 64 KB; the sharded encode against the
 golden's ids; every path's launches held exactly. Rank 0 also holds the
 Basic path to the single-device BasicTokenizer and prints one JSON object
-{"nccl_world4": {path: {wall_s, collective_s, collective_share,
-collectives, rounds_per_s}}, "devices": [...]}, then the first card's
+{"nccl_world4": {path: {wall_s, collectives, rounds_per_s}},
+"devices": [...]}, then the first card's
 name and power limit. Exits non-zero on any failure.
 """
 
@@ -49,7 +49,7 @@ def main() -> int:
     if rank == 0:
         kernels.build()  # once, before the other ranks load it
     dist.barrier()
-    comm = Comm(device=dev, timing=True)
+    comm = Comm(device=dev)
     inp = chip_smoke.dist_inputs(np, golden_mod)
     scratch = os.path.join(kernels.BUILD_DIR, f"nccl_check_{rank}")
     os.makedirs(scratch, exist_ok=True)

@@ -203,26 +203,38 @@ def train_global(group, chunks, num_merges):
 
 
 def collectives(group):
-    """Each collective of Comm on small tensors, as seen by this rank."""
-    import torch
+    """Each collective of Comm on small tensors, as seen by this rank, with
+    the collectives counted (comm.calls) and their spans as a CPU profiler
+    records them."""
+    import collections
 
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from minbpe_tpu_torch import trace
     from minbpe_tpu_torch.parallel.comm import Comm
 
-    c = Comm(group, "cpu", timing=True)
+    c = Comm(group, "cpu")
     r, D = c.rank, c.size
     x = torch.tensor([r + 1, 10 - r], dtype=torch.int32)
-    out = {
-        "sum": c.sum_(x.clone()).tolist(),
-        "min": c.min_(x.clone()).tolist(),
-        "max": c.max_(x.clone()).tolist(),
-        "gather": c.all_gather(x).tolist(),
-        "to_all": c.all_to_all(torch.arange(D * 2, dtype=torch.int32).view(
-            D, 2) + 100 * r).tolist(),
-        "bcast": c.broadcast_(x.clone(), D - 1).tolist(),
-        "varlen": c.gather_varlen(torch.arange(r, dtype=torch.int64)
-                                  + 10 * r).tolist(),
-    }
-    return dict(out, calls=c.calls, seconds=c.seconds() >= 0)
+    before = trace.COUNTERS.get("comm.calls", 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof, trace.enabled():
+        out = {
+            "sum": c.sum_(x.clone()).tolist(),
+            "min": c.min_(x.clone()).tolist(),
+            "max": c.max_(x.clone()).tolist(),
+            "gather": c.all_gather(x).tolist(),
+            "to_all": c.all_to_all(torch.arange(
+                D * 2, dtype=torch.int32).view(D, 2) + 100 * r).tolist(),
+            "bcast": c.broadcast_(x.clone(), D - 1).tolist(),
+            "varlen": c.gather_varlen(torch.arange(r, dtype=torch.int64)
+                                      + 10 * r).tolist(),
+        }
+    spans = collections.Counter(
+        e.name for e in prof.events()
+        if e.name.startswith(trace.PREFIX + "comm."))
+    return dict(out, calls=trace.COUNTERS["comm.calls"] - before,
+                spans=dict(spans))
 
 
 def dryrun(group):
