@@ -20,7 +20,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    smoke corpus's stream with the golden's 768 merges, over 2^20 copies of
    "a", over the first of phase 3's 256 documents (one block), over the
    smoke stream with the 3,840 merges of smoke_plus_4096 and over the XL
-   corpus's stream; K11 and K12 (the sorted route) over the smoke corpus's
+   corpus's stream; K17 (the dense route's per-segment loop) against its
+   plain twin and K10 over the smoke corpus's stream with the golden's 768
+   merges, over three of the regex512-encode-docs cell's documents (the
+   median, one of the mean length, the longest) as the device split cuts
+   them, with the cell's table, and over a text whose split holds chunks
+   of 300 to 70,000 tokens (the block's loop in device memory); K11 and
+   K12 (the sorted route) over the smoke corpus's
    GPT-4 split with the GPT-4 table at 100,256 ranks and with
    smoke_plus_4353, over its first 65,536 bytes as one chunk with both,
    over the whole corpus as one chunk with the vocab-8192 golden's merges
@@ -52,12 +58,13 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    the frozen in-repo smoke corpus (merges and counts equal to the golden
    that minbpe_tpu produced, in fewer rebuilds than merges), encode (ids'
    sha256 equal to the golden's), the same encode with the device
-   pre-split (K15 once each, K10 once, every other kernel and the host
+   pre-split (K15 once each, K17 once, every other kernel and the host
    scanner never), decode, encode_batch and the same
    documents encoded one by one, special tokens, save/load, a
    BasicTokenizer at vocab 512 and one on 2^20 copies of "a", both equal to
-   the plain path on the CPU (every encode path launching K10 once per
-   device stream and K3/K4 never), and the large-corpus route: vocab 1024
+   the plain path on the CPU (every encode path launching one kernel per
+   device stream, K17 for a split text and K10 for a BasicTokenizer's one
+   segment, and K3/K4 never), and the large-corpus route: vocab 1024
    on the 12,588,338-byte XL corpus, equal to the XL golden. Then the selection
    and stepped routes on the smoke corpus: select_mode "pallas", "sort",
    "dense" and "stepped" at vocab 1024 (each equal to the golden, with the
@@ -788,6 +795,126 @@ def phase_sweep(torch, np, kernels, golden_mod):
                 ms_per_rank=main["ms"] / main["ranks"])
 
 
+CELL_MODEL = os.path.join("bpebench", "data", "minbpe-regex-v512.model")
+CELL_TRAFFIC = os.path.join("bpebench", "traffic", "encode-docs.json")
+CELL_SEED = 2**31 + 20  # the documents' starts
+
+
+def cell_documents(np, seed: int):
+    """The regex512-encode-docs cell's documents: (the corpus bytes, the
+    traffic's 4,096 lengths in its order, their starts that ``seed``
+    picks), as the benchmark draws them."""
+    from bpebench import inputs
+
+    with open(os.path.join(ROOT, CELL_TRAFFIC)) as f:
+        t = json.load(f)
+    data = inputs.corpus_bytes(os.path.join(ROOT, t["corpus"]),
+                               t["corpus_sha256"])
+    lengths = inputs.document_lengths(
+        t["documents"], t["median_bytes"], t["sigma"], t["min_bytes"],
+        t["max_bytes"], t["length_seed"])
+    lengths = inputs.stratified(lengths, t["strata"], t["length_seed"])
+    return data, lengths, inputs.document_starts(data, lengths, seed)
+
+
+def cell_shapes(np, data, lengths, starts):
+    """[(name, document bytes)]: the cell's median document, one of the
+    mean length and the longest."""
+    order = np.argsort(lengths, kind="stable")
+    at_mean = int(np.argmin(np.abs(lengths - float(np.mean(lengths)))))
+    return [(name, data[starts[i]:starts[i] + lengths[i]])
+            for name, i in (("median", int(order[len(order) // 2])),
+                            ("mean", at_mean), ("longest", int(order[-1])))]
+
+
+# a text whose GPT-4 split holds chunks past CHUNK_MAX: runs of spaces and
+# of punctuation, 300 to 70,000 tokens, between words
+LONG_CHUNKS = ("x" + " " * 300 + "y" + "!" * 2100 + " and " + " " * 20_000
+               + "z" + "-" * 70_000 + " end")
+
+
+def phase_segment(torch, np, kernels, golden_mod):
+    """K17 against its plain twin (on the CPU) and K10 on the card: the
+    smoke corpus's stream (the host split) with the golden's 768 merges,
+    the same stream K10's row times; the regex512-encode-docs cell's
+    median, mean-length and longest document, each cut by the device split
+    (K15) and through the cell's table's byte order, with the cell's 256
+    merges; and the first 5,000 characters of the smoke corpus followed by
+    LONG_CHUNKS, split on the host, with the 768 merges. Its bound: it
+    reads the stream's n tokens and writes the n_out tokens left (ids and
+    seg, 8 B a token each way) and n. The row's time is the mean-length
+    document's: one request of the cell."""
+    from minbpe_tpu_torch import RegexTokenizer
+    from minbpe_tpu_torch.convert import tokenizer_from_arrays
+    from minbpe_tpu_torch.engine import device_table
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+    from minbpe_tpu_torch.ops.ranktab import CuckooPairTable
+    from minbpe_tpu_torch.ops.stream import build_stream
+
+    golden = golden_mod.load_golden()
+    M = len(golden["merges"])
+    smoke_tok = tokenizer_from_arrays(RegexTokenizer, golden["merges"],
+                                      256 + np.arange(M), device="cuda")
+    cell_tok = RegexTokenizer(device="cuda")
+    cell_tok.load(os.path.join(ROOT, CELL_MODEL))
+    perm = torch.from_numpy(cell_tok._transform_bytes_array(
+        np.arange(256, dtype=np.uint8)).astype(np.int32)).cuda()
+
+    def device_split(raw: bytes):
+        d = torch.frombuffer(bytearray(raw), dtype=torch.uint8).cuda()
+        _, seg = pdp.presplit_seg_ids(d, len(raw), 4)
+        return perm[d.long()], seg
+
+    corpus = golden_mod.smoke_corpus(ROOT)
+    cases = [("smoke", smoke_tok, *build_stream(
+        *smoke_tok._split_arrays(corpus), "cuda"))]
+    cases += [(f"cell_{name}", cell_tok, *device_split(raw)) for name, raw in
+              cell_shapes(np, *cell_documents(np, CELL_SEED))]
+    cases.append(("long_chunks", smoke_tok, *build_stream(
+        *smoke_tok._split_arrays(corpus[:5000] + LONG_CHUNKS), "cuda")))
+    out = []
+    for name, tok, ids, seg in cases:
+        table = device_table(tok)
+        cpu = CuckooPairTable(*tok._merge_arrays(), "cpu")
+        n = ids.numel()
+        firsts = torch.ones(n, dtype=torch.bool, device=ids.device)
+        firsts[1:] = seg[1:n] != seg[:n - 1]
+        starts = torch.nonzero(firsts).flatten()
+        runs = torch.diff(starts, append=torch.tensor([n], device=ids.device))
+        want = kernels.segment_encode_plain(ids.cpu(), seg.cpu(), cpu)
+        got = kernels.segment_encode(ids, seg, table.cuckoo)
+        sweep = kernels.encode_sweep(ids, seg, table.pairs, table.new_ids)
+        k = int(want[2])
+        err = max_err(torch, [(got[2].cpu(), want[2]),
+                              (got[0][:k].cpu(), want[0][:k]),
+                              (got[1][:k].cpu(), want[1][:k])])
+        err_k10 = max_err(torch, [(got[2], sweep[2]),
+                                  (got[0][:k], sweep[0][:k]),
+                                  (got[1][:k], sweep[1][:k])])
+        nbytes = 8 * n + 8 * k + 4
+        out.append(dict(
+            case=name, n=n, segments=int(starts.numel()),
+            longest=int(runs.max()), ranks=int(table.pairs.shape[0]),
+            n_out=k, max_abs_err=max(err, err_k10), max_abs_err_k10=err_k10,
+            ms=device_ms(torch, lambda: kernels.segment_encode(
+                ids, seg, table.cuckoo), 20),
+            k10_ms=device_ms(torch, lambda: kernels.encode_sweep(
+                ids, seg, table.pairs, table.new_ids), 20),
+            plain_ms=host_ms(torch, lambda: kernels.segment_encode_plain(
+                ids.cpu(), seg.cpu(), cpu), 1),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
+        r = out[-1]
+        print(f"segment_encode {name}: {n} tokens in {r['segments']} "
+              f"segments (longest {r['longest']}), {r['ranks']} ranks -> "
+              f"{k}, max_abs_err {err} (K10 {err_k10}), {r['ms']:.4f} ms "
+              f"(K10 {r['k10_ms']:.4f}), bound {r['bound_ms']:.6f} ms, "
+              f"plain {r['plain_ms']:.2f} ms")
+    main = next(r for r in out if r["case"] == "cell_mean")
+    return dict(k=kernels.SEGMENT_ENCODE, err=main["max_abs_err"],
+                ms=main["ms"], plain_ms=main["plain_ms"], bytes=main["bytes"],
+                library_ms=None, shapes=[r for r in out if r is not main])
+
+
 def sorted_tables(golden_mod):
     """The sorted route's tables: GPT-4's width (synthetic_ranks(100_256,
     seed=7), through GPT4Tokenizer.from_mergeable_ranks on the card) and
@@ -1376,8 +1503,8 @@ def merges_in_rank_order(np, merges):
     return np.array([list(p) for p, _ in items], dtype=np.int32)
 
 
-# the device pre-split encode: K15's two kernels and K10, once each
-DEVICE_SPLIT = {"presplit_succ": 1, "presplit_orbit": 1, "encode_sweep": 1}
+# the device pre-split encode: K15's two kernels and K17, once each
+DEVICE_SPLIT = {"presplit_succ": 1, "presplit_orbit": 1, "segment_encode": 1}
 
 
 @contextlib.contextmanager
@@ -1445,9 +1572,9 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
     launches = {}
     path = counted_paths(kernels, launches)
 
-    def sweeps(count):  # an encode path: K10 once per device stream
-        return dict(must_launch=ENCODE_KERNELS,
-                    exact={"encode_sweep": count})
+    def sweeps(count):  # a split text's encode: K17 once per device stream
+        return dict(must_launch=("segment_encode",),
+                    exact={"segment_encode": count})
 
     golden = golden_mod.load_golden()
     corpus = golden_mod.smoke_corpus(ROOT)
@@ -1643,10 +1770,10 @@ def encode_paths(np, golden_mod, corpus, path, timings, gpt4, plus):
     """The two encode routes past the fused Pallas encoder's bounds, each
     held to the encode golden minbpe_tpu wrote (ids' sha256 and count): the
     GPT-4 tokenizer at 100,256 ranks (encode, decode, the 256 documents as
-    one batch, specials), smoke_plus_4096 (dense: K10 once), smoke_plus_4353
+    one batch, specials), smoke_plus_4096 (dense: K17 once), smoke_plus_4353
     (sorted: K11 once; no chunk of the corpus's split passes 256 tokens, so
     no K12) and its BasicTokenizer on the first 64 KB (one chunk: K12
-    once), and the XL corpus through the dense route (K10 once)."""
+    once), and the XL corpus through the dense route (K17 once)."""
     from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer
 
     goldens = golden_mod.load_encode_golden()
@@ -1699,7 +1826,7 @@ def encode_paths(np, golden_mod, corpus, path, timings, gpt4, plus):
     head = corpus[:golden_mod.HEAD_BYTES]
     for case, tok, text, kernel in (
             ("smoke_plus_4096", table(RegexTokenizer, golden_mod.DENSE_VOCAB),
-             corpus, "encode_sweep"),
+             corpus, "segment_encode"),
             ("smoke_plus_4353", table(RegexTokenizer,
                                       golden_mod.SORTED_VOCAB),
              corpus, "chunk_encode"),
@@ -1719,7 +1846,7 @@ def encode_paths(np, golden_mod, corpus, path, timings, gpt4, plus):
     xl_tok.merges = {(int(a), int(b)): 256 + r for r, (a, b) in
                      enumerate(golden_mod.load_golden()["merges"])}
     xl_tok.vocab = xl_tok._build_vocab()
-    with path("encode_xl_dense", **only("encode_sweep")):
+    with path("encode_xl_dense", **only("segment_encode")):
         ids = timed("encode_xl_dense", lambda: xl_tok.encode(xl_text))
     held("xl_dense_1024", ids)
     if xl_tok.decode(ids) != xl_text:
@@ -2044,8 +2171,7 @@ def phase_device_time(torch, golden_mod):
     # records no device activity for a later run of a few, such as the
     # encode run's one launch and one copy.
     runs = {
-        "encode": lambda: encode_stream(ids, seg, table.pairs,
-                                        table.new_ids)[2].item(),
+        "encode": lambda: encode_stream(ids, seg, table)[2].item(),
         # the whole encode from the text, host split against device split
         "encode_host_split": lambda: tok.encode(corpus),
         "encode_device_split": lambda: split_tok.encode(corpus),
@@ -2124,7 +2250,7 @@ def device_time_main() -> int:
 DIST_TIMEOUT_S = 120
 # the kernels of the distributed paths, and a round's launches on one rank
 DIST_KERNELS = ("pair_stats", "merge_apply", "compact", "encode_sweep",
-                "pair_summaries")
+                "segment_encode", "pair_summaries")
 ROUND_LAUNCHES = {
     "dense": {"pair_stats": 1, "merge_apply": 2, "compact": 1},
     "sparse": {"pair_summaries": 2, "merge_apply": 2, "compact": 1},
@@ -2272,7 +2398,7 @@ def dist_paths(torch, np, comm, inp, golden_mod, world: int, scratch,
                                 256 + np.arange(len(inp["merges"])),
                                 device=comm.device)
     mine = int(lens[comm.rank]) > 0
-    with path(f"{tag}_encode", {"encode_sweep": int(mine)}):
+    with path(f"{tag}_encode", {"segment_encode": int(mine)}):
         enc = pencode.encode_text_distributed(tok, inp["corpus"], comm=comm)
     if golden_mod.ids_digest(enc) != golden["encode_sha256"]:
         raise AssertionError(f"{tag}_encode: ids differ from the golden")
@@ -2651,6 +2777,7 @@ def main() -> int:
         rows = phase_kernels(torch, np, kernels, XL_MAX_N,
                              STEPPED_AUTO_MAX_N, texts)
         rows.append(phase_sweep(torch, np, kernels, golden_mod))
+        rows.append(phase_segment(torch, np, kernels, golden_mod))
         rows += phase_table(torch, np, kernels, golden_mod, texts)
         del texts
         torch.cuda.empty_cache()

@@ -43,12 +43,13 @@ def _toy_merge_table():
     return pairs, new_ids
 
 
-def _encode(ids, seg, n, pairs, new_ids):
-    """The stream encode of ids[:n] (segments seg): (ids, n)."""
+def _encode(ids, seg, n, table):
+    """The stream encode of ids[:n] (segments seg) by the rank sweep
+    through ``table`` (engine.DeviceMergeTable): (ids, n)."""
     from minbpe_tpu_torch.ops.encode import encode_stream
 
     k = int(n)
-    out, _, m = encode_stream(ids[:k], seg[:k], pairs, new_ids)
+    out, _, m = encode_stream(ids[:k], seg[:k], table)
     return out, m
 
 
@@ -56,15 +57,14 @@ def entry(device=None):
     import torch
 
     from minbpe_tpu_torch.base import resolve_device
+    from minbpe_tpu_torch.engine import DeviceMergeTable
     from minbpe_tpu_torch.ops import stream as st
 
     dev = resolve_device(device)
-    pairs, new_ids = _toy_merge_table()
-    mp = torch.from_numpy(pairs).to(dev)
-    mi = torch.from_numpy(new_ids).to(dev)
+    table = DeviceMergeTable(*_toy_merge_table(), dev)
 
     def fn(ids, seg, n):
-        return _encode(ids, seg, n, mp, mi)
+        return _encode(ids, seg, n, table)
 
     ids, seg, n = st.pack_bytes(TEXT)
     example_args = (torch.from_numpy(ids).to(dev),
@@ -85,6 +85,7 @@ def dryrun_rank(group, device) -> dict:
     import torch
     import torch.distributed as dist
 
+    from minbpe_tpu_torch.engine import DeviceMergeTable
     from minbpe_tpu_torch.ops import stream as st
     from minbpe_tpu_torch.parallel import encode as pencode
     from minbpe_tpu_torch.parallel import train as ptrain
@@ -127,8 +128,7 @@ def dryrun_rank(group, device) -> dict:
     eids, eseg, en = st.pack_chunks(chunks)
     ref_ids, ref_n = _encode(torch.from_numpy(eids).to(dev),
                              torch.from_numpy(eseg).to(dev), en,
-                             torch.from_numpy(mp).to(dev),
-                             torch.from_numpy(mi).to(dev))
+                             DeviceMergeTable(mp, mi, dev))
     ref = ref_ids[:int(ref_n)].cpu().numpy()
     assert np.array_equal(enc, ref), \
         "sharded encode disagrees with single-device"

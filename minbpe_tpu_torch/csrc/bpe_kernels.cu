@@ -49,6 +49,15 @@
 //                        warp a longer one
 //   K12 encode_min_sweep <- the same, on longer chunks: each chunk's own
 //                        lowest-rank loop in one block or one cluster
+//   K17 segment_encode <- no Pallas site of its own: the dense route's use
+//                        of fused_encode.py::_kernel (K10) on a stream cut
+//                        into many segments. Bound by latency (each
+//                        segment's rounds wait on probes of the cuckoo
+//                        table), so each segment runs its own lowest-rank
+//                        loop with K11's lane and warp bodies (a block's
+//                        loop in device memory for one past CHUNK_MAX
+//                        tokens), a block's output placed by K4's
+//                        look-back, in one launch from K10's input
 //   K13 pair_select   <- no Pallas site: ops/train_sortloop.py::_round
 //                        (:49-83), the sort-round trainer's stable sort,
 //                        run scans and selection: every pair's count and
@@ -3446,6 +3455,250 @@ __global__ void __launch_bounds__(K12_TPB)
                           lens + c, rd, &sh, rank, cs);
 }
 
+// ---------------------------------------------------------------------------
+// K17 segment_encode: the dense route's encode of a stream cut into many
+// segments (a pre-split text's chunks: no pair crosses one), each segment by
+// minbpe's own loop (minbpe/regex.py:96-108): merge every occurrence of the
+// segment's lowest-rank pair, left first, until it has none. It takes K10's
+// input as it lies on the card (ids, seg and n, a segment being a maximal
+// run of equal seg), so the host needs no chunk ends, and gives K10's
+// output: the compacted (ids, seg) and their count, in one launch.
+//
+// No Pallas site: it replaces the dense route's use of
+// fused_encode.py::_kernel (K10) on segmented streams. K10 applies every
+// one of the table's M ranks to the whole stream in turn, each an
+// apply-and-compact pass with block scans and, past one tile, grid
+// barriers; a chunk of L tokens needs at most L - 1 rounds, and a GPT-4
+// split's chunks are a few bytes (94% of the smoke corpus's at most 8).
+//
+// Bound: latency. Its bytes are few (8 B read a token, 8 B written an
+// output token, a token's 4 B through the scratch), but a block's path is
+// its segments' rounds, each a wait on the cuckoo probes (L2 hits; the
+// dense table's few KB stay there) of the pairs it changed, then the
+// decoupled look-back that places its output. So the work is spread as
+// thin as the stream allows: a block owns SE_TILE positions, a warp 32 of
+// them, and a segment belongs to the warp whose window holds its first
+// token. From the start flags of its window and the next CHUNK_MAX
+// positions, staged once, a lane takes its own segment of at most LANE_MAX
+// tokens in registers (K11's encode_lane), the warp each segment of at most
+// CHUNK_MAX in turn (K11's warp body, sweep_chunk at warp scope); a longer
+// one, at most one a block (it outlasts the block's window), takes the
+// whole block, K12's unit of a long chunk, round by round over its tokens
+// in device memory (seg_sweep_long).
+// Each segment's tokens go to tmp at its input offset; the block's count
+// chains with those of the blocks before it by K4's look-back (blocks take
+// their tiles in launch order by ticket, so a block waits only on blocks
+// that run), and the block copies its tokens to their place.
+// ---------------------------------------------------------------------------
+constexpr int SE_TILE = TPB;                 // positions a K17 block owns
+constexpr int SE_STAGE = SE_TILE + CHUNK_MAX;  // start flags staged a block
+constexpr int SE_WORDS = SE_STAGE / 32;
+static_assert(SE_STAGE % TPB == 0, "the flags are staged TPB at a time");
+
+struct SegShared {
+  unsigned starts[SE_WORDS];  // bit q - t0: a segment starts at q (q >= n too)
+  int len[SE_TILE];  // the tokens of the segment starting at t0 + k, encoded
+  int off[SE_TILE];  // their exclusive sums
+  int lk, ll;        // the block's long segment: its lane (-1: none), tokens
+  int prefix;
+};
+
+// q >= n counts as a segment start, so every segment ends at one
+__device__ __forceinline__ bool seg_start(const int* __restrict__ seg, int q,
+                                          int n) {
+  return q >= n || q == 0 || __ldg(seg + q) != __ldg(seg + q - 1);
+}
+
+// The least of v over the block, in every thread.
+__device__ int block_least(int v) {
+  __shared__ int w[TPB / 32];
+  v = __reduce_min_sync(FULL, v);
+  __syncthreads();  // the previous call's readers are done
+  if ((threadIdx.x & 31) == 0) w[threadIdx.x >> 5] = v;
+  __syncthreads();
+  int m = w[0];
+#pragma unroll
+  for (int i = 1; i < TPB / 32; ++i) m = min(m, w[i]);
+  return m;
+}
+
+// The end of the segment that starts at lo and runs past q0: the first
+// position from q0 on that is n or holds another seg. Block-wide.
+__device__ int seg_end(const int* __restrict__ seg, int lo, int q0, int n) {
+  const int v = __ldg(seg + lo);
+  for (int base = q0;; base += TPB * IPT) {
+    int f = INT32_MAX;
+#pragma unroll
+    for (int k = IPT - 1; k >= 0; --k) {
+      const int q = base + k * TPB + (int)threadIdx.x;
+      if (q >= n || __ldg(seg + q) != v) f = q;
+    }
+    f = block_least(f);
+    if (f != INT32_MAX) return f;
+  }
+}
+
+// A segment of L > CHUNK_MAX tokens, src[0 .. L) (sg[0 .. L) its seg, one
+// value), by the whole block, its tokens in device memory: each round
+// the least rank of its pairs, tile by tile, then that rank's merge
+// applied left first and compacted into the other of a and b, tile by tile
+// (K10's apply and compaction by one block over every tile in turn, the
+// latest run start carried from tile to tile). The result is left in a;
+// returns its count.
+__device__ int seg_sweep_long(const int* src, const int* sg, int L,
+                              const Cuckoo& ck,
+                              const int* __restrict__ pairs,
+                              const int* __restrict__ new_ids, int* a, int* b,
+                              Stage& sh, int* o_ids) {
+  int* dst = a;
+  const int l0 = threadIdx.x * IPT;
+  for (;;) {
+    int m = RANK_INF;
+    for (int t0 = 0; t0 < L; t0 += TILE) {
+      stage_tile<true>(src, sg, t0, L, sh);
+      int id[IPT + 1];
+#pragma unroll
+      for (int k = 0; k <= IPT; ++k) id[k] = staged_at(sh.ids, sh.halo_id, l0 + k);
+#pragma unroll
+      for (int k = 0; k < IPT; ++k)
+        if (t0 + l0 + k + 1 < L) m = min(m, ck_find(ck, id[k], id[k + 1]).x);
+    }
+    m = block_least(m);
+    if (m == RANK_INF) break;
+    const int pa = pairs[2 * m], pb = pairs[2 * m + 1], z = new_ids[m];
+    const bool homog = pa == pb;
+    int rc = -1, off = 0;
+    for (int t0 = 0; t0 < L; t0 += TILE) {
+      stage_tile<true>(src, sg, t0, L, sh);
+      const Lane x = lane_matches(sh, t0, L, pa, pb);
+      int s[IPT];
+#pragma unroll
+      for (int k = 0; k < IPT; ++k) s[k] = -1;
+      int tmax = -1;
+      if (homog) run_starts(x, t0, s, &tmax);
+      const unsigned kp = keep_mask(x, s, t0, homog, rc);
+      const unsigned lv =
+          valid_mask(t0, L) & ~dead_mask(sh, x, kp, t0, homog, rc);
+      rc = max(rc, tmax);
+      int tile_total;
+      int o = block_exclusive_scan<true, TPB>(__popc(lv), &tile_total);
+#pragma unroll
+      for (int k = 0; k < IPT; ++k)
+        if ((lv >> k) & 1u) o_ids[o++] = ((kp >> k) & 1u) ? z : x.id[k];
+      __syncthreads();
+      for (int q = threadIdx.x; q < tile_total; q += TPB) dst[off + q] = o_ids[q];
+      off += tile_total;
+      __syncthreads();  // o_ids is reused by the next tile
+    }
+    src = dst;
+    dst = dst == a ? b : a;
+    L = off;
+  }
+  if (src != a)
+    for (int i = threadIdx.x; i < L; i += TPB) a[i] = __ldcg(src + i);
+  __syncthreads();
+  return L;
+}
+
+// K17: ids[0 .. n), seg[0 .. n) (n >= 1), a segment a maximal run of equal
+// seg, each segment encoded by its own lowest-rank loop through the cuckoo
+// table ck (pairs and new_ids: its merges by rank); the tokens, compacted in
+// order, to ids_out and their segments' seg to seg_out, their count to
+// *n_out. tmp: int32[n], each segment's tokens at its input offset before
+// they are placed; ids_out also serves a long segment as the other half of
+// its ping-pong (its output lies left of it, and the blocks after it write
+// only once it is done). One block a tile of SE_TILE positions, taken by
+// ticket; st and counter: the look-back state of K3 and K4.
+__global__ void __launch_bounds__(TPB)
+    segment_encode_kernel(const int* __restrict__ ids,
+                          const int* __restrict__ seg, int n, Cuckoo ck,
+                          const int* __restrict__ pairs,
+                          const int* __restrict__ new_ids, int* tmp,
+                          int* ids_out, int* __restrict__ seg_out,
+                          int* __restrict__ n_out, unsigned long long* st,
+                          unsigned* counter, unsigned gen) {
+  __shared__ SegShared ss;
+  __shared__ Stage stage;
+  __shared__ int o_ids[TILE];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = tile_ticket(counter);
+  const int t0 = t * SE_TILE;
+#pragma unroll
+  for (int h = 0; h < SE_STAGE / TPB; ++h) {
+    const unsigned b =
+        __ballot_sync(FULL, seg_start(seg, t0 + h * TPB + threadIdx.x, n));
+    if (lane == 0) ss.starts[h * (TPB / 32) + warp] = b;
+  }
+  ss.len[threadIdx.x] = 0;
+  if (threadIdx.x == 0) ss.lk = -1;
+  __syncthreads();
+  const int p = t0 + threadIdx.x;
+  const bool own = p < n && (ss.starts[warp] >> lane & 1u);
+  int L = 0;  // own: the segment's tokens, -1 past the staged flags
+  if (own) {
+    L = -1;
+    for (int w = warp; w < SE_WORDS; ++w) {
+      unsigned m = ss.starts[w];
+      if (w == warp) m = lane == 31 ? 0u : m & (0xfffffffeu << lane);
+      if (m) {
+        L = 32 * w + __ffs(m) - 1 - (int)threadIdx.x;
+        break;
+      }
+    }
+  }
+  if (own && L <= LANE_MAX && L >= 1)
+    encode_lane(ids + p, L, ck, tmp + p, &ss.len[threadIdx.x]);
+  for (unsigned big = __ballot_sync(FULL, own && L > LANE_MAX &&
+                                              L <= CHUNK_MAX);
+       big; big &= big - 1) {
+    const int src = __ffs(big) - 1;
+    RegRun<CHUNK_MAX / 32> r;
+    sweep_chunk<LV_WARP>(r, ids, t0 + 32 * warp + src,
+                         __shfl_sync(FULL, L, src), lane * (CHUNK_MAX / 32),
+                         CHUNK_MAX / 32, ck, new_ids, tmp,
+                         &ss.len[32 * warp + src], nullptr, nullptr, 0, 1);
+  }
+  if (own && (L < 0 || L > CHUNK_MAX)) {  // the tile's last start
+    ss.lk = threadIdx.x;
+    ss.ll = L;
+  }
+  __syncthreads();
+  if (ss.lk >= 0) {
+    const int lo = t0 + ss.lk;
+    const int len =
+        ss.ll > 0 ? ss.ll : seg_end(seg, lo, t0 + SE_STAGE, n) - lo;
+    const int k = seg_sweep_long(ids + lo, seg + lo, len, ck, pairs, new_ids,
+                                 tmp + lo, ids_out + lo, stage, o_ids);
+    if (threadIdx.x == 0) ss.len[ss.lk] = k;
+    __syncthreads();
+  }
+  int total;
+  ss.off[threadIdx.x] =
+      block_exclusive_scan<true, TPB>(ss.len[threadIdx.x], &total);
+  if (threadIdx.x == 0)
+    st_publish(st, t, gen, t == 0 ? ST_P : ST_A, total);
+  if (threadIdx.x < 32) {
+    const int pre = look_back<true>(st, t, gen);
+    if (threadIdx.x == 0) {
+      ss.prefix = pre;
+      if (t > 0) st_publish(st, t, gen, ST_P, pre + total);
+      if (t == (int)gridDim.x - 1) *n_out = pre + total;
+    }
+  }
+  __syncthreads();
+  const int pre = ss.prefix;
+  for (int j = threadIdx.x; j < total; j += TPB) {
+    int a = 0, b = SE_TILE - 1;  // the last segment whose tokens start <= j
+    while (a < b) {
+      const int mid = (a + b + 1) >> 1;
+      if (ss.off[mid] <= j) a = mid;
+      else b = mid - 1;
+    }
+    ids_out[pre + j] = tmp[t0 + a + j - ss.off[a]];
+    seg_out[pre + j] = __ldg(seg + t0 + a);
+  }
+}
+
 inline int tiles_for(int cap) { return cap > 0 ? (cap + TILE - 1) / TILE : 1; }
 
 // K6's grid over a stream of cap positions on the current device: the
@@ -3586,6 +3839,8 @@ cudaError_t launch_summaries(int mode, const SummaryArgs& a, void* slots,
 extern "C" {
 
 int bpe_tile_size() { return TILE; }
+
+int bpe_segment_tile() { return SE_TILE; }
 
 // K5's grid for V x V matrices: a warp per row; 0 for V outside 1 .. 1024
 int bpe_select_blocks(int V) {
@@ -3908,6 +4163,25 @@ int bpe_encode_min_sweep(const int* ids, const int* bounds, const int* which,
     cudaGetLastError();  // the refusal is returned, not left for the next
     return e;
   }
+  return cudaGetLastError();
+}
+
+// K17 over ids[0 .. n), seg[0 .. n), 1 <= n <= INT32_MAX - TILE. rows, H
+// and the seeds as for K11; pairs: int32[M][2] and new_ids: int32[M], the
+// merges by rank. tmp, ids_out, seg_out: int32[n]; n_out: int32[1]; state:
+// word 0 the ticket counter, then a look-back word a tile of SE_TILE
+// positions (K3's and K4's state). One launch, a block a tile.
+int bpe_segment_encode(const int* ids, const int* seg, int n, const int* rows,
+                       int H, unsigned s1, unsigned s2, unsigned s3,
+                       unsigned s4, const int* pairs, const int* new_ids,
+                       int* tmp, int* ids_out, int* seg_out, int* n_out,
+                       unsigned long long* state, int gen, void* stream) {
+  if (n < 1 || n > INT32_MAX - TILE) return cudaErrorInvalidValue;
+  const Cuckoo ck{reinterpret_cast<const int4*>(rows), H, s1, s2, s3, s4};
+  segment_encode_kernel<<<(n + SE_TILE - 1) / SE_TILE, TPB, 0,
+                          (cudaStream_t)stream>>>(
+      ids, seg, n, ck, pairs, new_ids, tmp, ids_out, seg_out, n_out,
+      state + 1, reinterpret_cast<unsigned*>(state), (unsigned)gen);
   return cudaGetLastError();
 }
 

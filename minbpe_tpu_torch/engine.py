@@ -15,6 +15,7 @@ that fails raises: there is no fallback route.
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -22,7 +23,7 @@ import torch
 from . import trace
 from .ops import stream as stream_ops
 from .ops import device_presplit, flat_encode
-from .ops.encode import check_memory, encode_stream
+from .ops.encode import check_memory, encode_stream, short_segments
 from .ops.ranktab import CuckooPairTable
 from .ops.train import TRAIN_MAX_N, TRAIN_MAX_V, train_merges
 from .ops.train_inc import train_merges_incremental, train_merges_stepped
@@ -50,11 +51,13 @@ DENSE_VOCAB_MAX = 4096
 
 
 class DeviceMergeTable:
-    """Frozen merge table on the tokenizer's device: pairs (int32 (M, 2))
-    and new_ids (int32 (M,)) in rank order. ``vocab_size`` covers every id
-    an encode can make; up to DENSE_VOCAB_MAX the table is "dense" (K10
-    reads it rank by rank), above it "sorted": a cuckoo pair table for the
-    flat encoder (minbpe_tpu/engine.py:20-47)."""
+    """Frozen merge table on a device: pairs (int32 (M, 2)) and new_ids
+    (int32 (M,)) in rank order, and ``cuckoo``, their cuckoo pair table
+    (ops/ranktab.py) on the same tensors, built on its first use.
+    ``vocab_size`` covers every id an encode can make; up to
+    DENSE_VOCAB_MAX the table is "dense" (K10 reads it rank by rank, K17
+    looks pairs up in the cuckoo table), above it "sorted": the flat
+    encoder's (minbpe_tpu/engine.py:20-47)."""
 
     def __init__(self, pairs: np.ndarray, new_ids: np.ndarray, device):
         self.vocab_size = (256 if len(new_ids) == 0
@@ -65,8 +68,13 @@ class DeviceMergeTable:
             np.ascontiguousarray(pairs, dtype=np.int32)).to(device)
         self.new_ids = torch.as_tensor(
             np.ascontiguousarray(new_ids, dtype=np.int32)).to(device)
-        self.cuckoo = (CuckooPairTable(pairs, new_ids, device)
-                       if self.kind == "sorted" else None)
+        self._host = (pairs, new_ids)
+
+    @functools.cached_property
+    def cuckoo(self) -> CuckooPairTable:
+        trace.count("sync.engine.table")  # its rows
+        return CuckooPairTable(*self._host, self.pairs.device,
+                               uploaded=(self.pairs, self.new_ids))
 
 
 def device_table(tokenizer) -> DeviceMergeTable:
@@ -221,9 +229,10 @@ def _encode_arrays(tokenizer, data, ends):
         toks, _, seg = flat_encode.encode_offsets_arrays(data, ends,
                                                          dev.cuckoo)
         return toks, seg
-    check_memory(tokenizer.device, int(data.shape[0]))
+    per = short_segments(np.diff(ends, prepend=0))
+    check_memory(tokenizer.device, int(data.shape[0]), per_segment=per)
     ids, seg = stream_ops.build_stream(data, ends, tokenizer.device)
-    ids, seg, n = encode_stream(ids, seg, dev.pairs, dev.new_ids)
+    ids, seg, n = encode_stream(ids, seg, dev, per_segment=per)
     with trace.span("encode.readback"):
         trace.count("sync.encode.count")
         k = int(n.item())
@@ -243,8 +252,8 @@ def _device_split_mode(tokenizer) -> int | None:
 def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
     """The whole front half on the device: only the text's raw UTF-8 bytes
     cross to it; the pre-split (K15, ops/device_presplit.py), the ids (the
-    bytes through the tokenizer's byte transform) and the rank sweep (K10)
-    run there, and only the output ids come back. None where the
+    bytes through the tokenizer's byte transform) and the encode of each
+    chunk (K17) run there, and only the output ids come back. None where the
     configuration does not qualify, as minbpe_tpu/engine.py:278-319
     declines: ``device_presplit`` not set, a split other than GPT-2's or
     GPT-4's, or a sorted table; the caller then splits on the host. Raises
@@ -270,7 +279,7 @@ def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
         raise ValueError(f"{n} bytes: the device pre-split takes at most "
                          f"{device_presplit.MAX_N}")
     device = tokenizer.device
-    check_memory(device, n, device_presplit.BYTES_PER_BYTE)
+    check_memory(device, n, device_presplit.BYTES_PER_BYTE, per_segment=True)
     with trace.span("engine.upload"):
         trace.count("sync.engine.upload")
         data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
@@ -283,7 +292,8 @@ def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
             np.arange(256, dtype=np.uint8))
         trace.count("sync.engine.upload")
         ids = torch.from_numpy(perm.astype(np.int32)).to(device)[data.long()]
-    ids, _, k = encode_stream(ids, seg, dev.pairs, dev.new_ids)
+    # a GPT split's chunks: K17, each chunk by its own loop
+    ids, _, k = encode_stream(ids, seg, dev, per_segment=True)
     with trace.span("encode.readback"):
         trace.count("sync.encode.count")
         k = int(k.item())

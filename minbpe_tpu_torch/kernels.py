@@ -1,6 +1,6 @@
 """The CUDA kernels of the main path, their build, bindings and plain twins.
 
-Fourteen kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
+Fifteen kernels (csrc/bpe_kernels.cu) carry training and encode over a dense
 token stream (ids, seg) whose live length n is an int32[1] tensor on the
 same device, so a whole run launches without a host sync per merge:
 
@@ -25,6 +25,10 @@ same device, so a whole run launches without a host sync per merge:
 - ``encode_min_sweep`` K12: the same for longer chunks, each chunk's own
   lowest-rank loop in one block or one thread-block cluster (``k12_plan``),
   all in one launch;
+- ``segment_encode`` K17: the dense route's encode of a stream cut into
+  many segments (a pre-split text), each segment by its own lowest-rank
+  loop through the table's cuckoo pairs (K11's lane and warp bodies), the
+  output compacted in place of K10's, in one launch;
 - ``pair_select``    K13: one round of the sort-round trainer: every pair's
   count and first position into a device hash table (``PairTable``), then
   the round's pair and record, leaving the table empty, in one cooperative
@@ -54,9 +58,9 @@ once per run (``select_scratch``, ``batch_scratch``); that block leaves it
 zero again, so no launch clears it first. K13's blocks hand theirs to
 block 0 across a grid barrier, through the ``PairTable``'s scratch.
 
-K3 and K4 chain their tiles with a decoupled look-back over status words
-that persist per stream (``_lookback_state``); each call tags them with a
-new generation, so no call clears them first.
+K3, K4 and K17 chain their tiles with a decoupled look-back over status
+words that persist per stream (``_lookback_state``); each call tags them
+with a new generation, so no call clears them first.
 
 Training state lives in two small device tensors: ``ctl`` (merges done,
 fail round, rebuilds; see ``new_ctl``) and the slot record ``slot`` that K5
@@ -95,6 +99,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # positions per tile of K3, K4 and K10 (bpe_tile_size() on the card)
 TILE = 2048
+# positions a K17 block owns (a window of 32 a warp): its look-back tile
+# (bpe_segment_tile() on the card)
+SEGMENT_TILE = 256
 INT32_MAX = 2**31 - 1
 # the longest chunk K11 takes (CHUNK_MAX on the card), and the longest one
 # lane of it takes (LANE_MAX)
@@ -183,6 +190,12 @@ ENCODE_MIN_SWEEP = KernelInfo(
     "minbpe_tpu/ops/flat_encode.py:61 (_encode_flat, a jitted "
     "lax.while_loop over scan2d; no Pallas site): its chunks of more than "
     "256 tokens")
+SEGMENT_ENCODE = KernelInfo(
+    "segment_encode",
+    "no Pallas site of its own: the dense route's use of "
+    "minbpe_tpu/ops/pallas/fused_encode.py:45 (_kernel) on a stream cut "
+    "into many segments; each segment takes minbpe_tpu/ops/flat_encode.py"
+    ":61's per-chunk rule (_encode_flat)")
 PAIR_SELECT = KernelInfo(
     "pair_select",
     "minbpe_tpu/ops/train_sortloop.py:49 (_round, a jitted lax.fori_loop "
@@ -206,7 +219,8 @@ PAIR_SUMMARIES = KernelInfo(
     "_sparse_global_select :272-301 and _owner_global_select :355-374")
 KERNELS = (PAIR_STATS, SELECT_BATCH, MERGE_APPLY, BATCH_HIST, BATCH_APPLY,
            COMPACT, PAIR_COUNT, ENCODE_SWEEP, CHUNK_ENCODE, ENCODE_MIN_SWEEP,
-           PAIR_SELECT, PRESPLIT_SUCC, PRESPLIT_ORBIT, PAIR_SUMMARIES)
+           PAIR_SELECT, PRESPLIT_SUCC, PRESPLIT_ORBIT, PAIR_SUMMARIES,
+           SEGMENT_ENCODE)
 
 
 def reset_launches():
@@ -224,6 +238,7 @@ def reset_launches():
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 SIGNATURES = {
     "bpe_tile_size": [],
+    "bpe_segment_tile": [],
     "bpe_select_blocks": [_I],
     "bpe_pair_stats": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bpe_select_batch": [_P, _P, _I, _P, _P, _P, _P, _P],
@@ -239,6 +254,8 @@ SIGNATURES = {
                          _P, _P],
     "bpe_encode_min_sweep": [_P, _P, _P, _P, _I, _I, _P, _I, _U, _U, _U, _U,
                              _P, _P, _P, _P, _P, _I, _P],
+    "bpe_segment_encode": [_P, _P, _I, _P, _I, _U, _U, _U, _U, _P, _P, _P,
+                           _P, _P, _P, _P, _I, _P],
     "bpe_pair_count": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "bpe_pair_hist_grid": [_I, _I, _I],
     "bpe_pair_select_grid": [],
@@ -311,6 +328,7 @@ def _load():
             fn.restype = ctypes.c_int
         for name, got, want in (
                 ("tile", lib.bpe_tile_size(), TILE),
+                ("segment tile", lib.bpe_segment_tile(), SEGMENT_TILE),
                 ("pre-split tile", lib.bpe_presplit_tile_size(),
                  PRESPLIT_TILE),
                 ("pre-split scratch", lib.bpe_presplit_scratch_ints(),
@@ -367,26 +385,26 @@ def _check_state(ctl=None, slot=None, log=None, device=None):
             raise ValueError("log: must be (M, 4)")
 
 
-def _tiles(cap: int) -> int:
-    return max(1, -(-cap // TILE))
+def _tiles(cap: int, tile: int = TILE) -> int:
+    return max(1, -(-cap // tile))
 
 
-# K3's and K4's look-back state, per (device, stream): [tensor, last
-# generation]
+# K3's, K4's and K17's look-back state, per (device, stream): [tensor,
+# last generation]
 _LOOKBACK: dict = {}
 _LOOKBACK_LOCK = threading.Lock()
 _GEN_MAX = (1 << 30) - 1
 
 
-def _lookback_state(device, cap: int):
-    """(state, gen) for one K3 or K4 launch over cap positions on
-    ``device``'s current stream: state is int64[1 + tiles], word 0 the tile
-    counter (each launch leaves it 0), then a status word per tile, zeroed
-    once when it is allocated or grown; gen is this call's generation
-    (1 .. 2^30 - 1), which tells the launch's status words from those left
-    by earlier ones. Each stream has its own state, and launches on one
+def _lookback_state(device, cap: int, tile: int = TILE):
+    """(state, gen) for one K3, K4 or K17 launch over cap positions, in
+    tiles of ``tile``, on ``device``'s current stream: state is
+    int64[1 + tiles], word 0 the tile counter (each launch leaves it 0),
+    then a status word per tile, zeroed once when it is allocated or
+    grown; gen is this call's generation (1 .. 2^30 - 1), which tells the
+    launch's status words from those left by earlier ones. Each stream has its own state, and launches on one
     stream run in order, so no two launches in flight share it."""
-    tiles = _tiles(cap)
+    tiles = _tiles(cap, tile)
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     with _LOOKBACK_LOCK:
         ent = _LOOKBACK.get(key)
@@ -1294,6 +1312,56 @@ def encode_min_sweep(ids, bounds, which, table, out, lens, *, lengths,
          _ptr(which), _ptr(jt), len(jobs), cs, *args, _ptr(table.new_ids),
          _ptr(out), _ptr(lens), _ptr(rounds), _ptr(scratch), ns)
     ENCODE_MIN_SWEEP.launches += 1
+
+
+# ---------------------------------------------------------------------------
+# K17 segment_encode: the dense route over a stream cut into many segments,
+# through the table's cuckoo pairs (``table``: ops/ranktab.CuckooPairTable)
+# ---------------------------------------------------------------------------
+
+def segment_encode_plain(ids, seg, table):
+    """(ids, seg, n): every segment of the stream (a maximal run of equal
+    seg) encoded by its own lowest-rank loop (encode_min_sweep_plain over
+    the runs), compacted in order, each token with its segment's seg; n is
+    an int32[1] tensor. K10's output for K10's input."""
+    cap = ids.numel()
+    seg = seg[:cap]
+    if cap == 0:
+        return ids.clone(), seg.clone(), torch.zeros(1, dtype=torch.int32)
+    first = torch.ones(cap, dtype=torch.bool, device=ids.device)
+    first[1:] = seg[1:] != seg[:-1]
+    run = (torch.cumsum(first, 0) - 1).to(torch.int32)
+    out, out_run, n = encode_min_sweep_plain(ids, run, table)
+    return out, seg[first][out_run.long()], n
+
+
+def segment_encode(ids, seg, table):
+    """One launch on the card: ids (int32) and seg (int32, at least as
+    long) on one device, ``table`` the merges' CuckooPairTable there. The
+    result's ids and seg are views of one new allocation; the inputs are
+    not written."""
+    if not ids.is_cuda:
+        return segment_encode_plain(ids, seg, table)
+    dev = ids.device
+    cap = ids.numel()
+    _check("ids", ids, torch.int32, dev, 0)
+    _check("seg", seg, torch.int32, dev, cap)
+    args = _cuckoo_args(table, dev)
+    if cap > INT32_MAX - TILE:
+        raise ValueError(f"segment_encode: {cap} tokens; the kernel takes "
+                         f"at most 2^31 - 1 - {TILE}")
+    w = torch.empty((3, max(cap, 1)), dtype=torch.int32, device=dev)
+    if cap == 0:
+        return w[0, :0], w[1, :0], torch.zeros(1, dtype=torch.int32,
+                                                device=dev)
+    n_out = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = _load()
+    state, gen = _lookback_state(dev, cap, SEGMENT_TILE)
+    _run(dev, lib.bpe_segment_encode, _ptr(ids), _ptr(seg), cap, *args,
+         _ptr(table.pairs), _ptr(table.new_ids), _ptr(w[2]), _ptr(w[0]),
+         _ptr(w[1]), _ptr(n_out), _ptr(state), gen)
+    SEGMENT_ENCODE.launches += 1
+    return w[0, :cap], w[1, :cap], n_out
 
 
 # ---------------------------------------------------------------------------

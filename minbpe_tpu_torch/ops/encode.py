@@ -1,18 +1,37 @@
-"""Rank-sweep encoder over a dense device stream.
+"""The dense route's encoders over a device stream.
 
 Counterpart of ``encode_fused_bytes`` / ``encode_fused_bytes_vals``
-(minbpe_tpu/ops/pallas/fused_encode.py:169-299). For r = 0 .. M-1 the
-merge of rank r is applied at every occurrence, left first, and the stream
-is compacted. minbpe_tpu/ops/encode.py proves this equal to the reference's
+(minbpe_tpu/ops/pallas/fused_encode.py:169-299). Two kernels compute the
+same function; ``encode_stream`` takes the one whose parallel shape fits
+what the caller knows of the stream.
+
+The rank sweep, K10 ``encode_sweep``: for r = 0 .. M-1 the merge of rank r
+is applied at every occurrence, left first, and the stream is compacted.
+minbpe_tpu/ops/encode.py proves this equal to the reference's
 lowest-rank-first loop (minbpe/basic.py:61-73), because a merge table is
 well-founded: a pair of rank r can only be created by merges of lower rank.
+On the card the whole sweep is one launch of K10, as the Pallas encoder is
+one ``pallas_call`` for all M ranks; on the CPU it is the rank loop of K3's
+and K4's plain versions. Each rank reads its pair from the device table row
+itself, so no rank table is padded (the Pallas table pads with -2, not -1,
+so that padding never matches its -1 "no pair" marks; here there is no
+padding to match). K10 spreads one long segment over the whole card: a
+BasicTokenizer's text, a stream of one segment, takes it.
 
-On the card the whole sweep is one launch of K10 ``encode_sweep``, as the
-Pallas encoder is one ``pallas_call`` for all M ranks; on the CPU it is the
-rank loop of K3's and K4's plain versions. Each rank reads its pair from
-the device table row itself, so no rank table is padded (the Pallas table
-pads with -2, not -1, so that padding never matches its -1 "no pair" marks;
-here there is no padding to match).
+The per-segment loop, K17 ``segment_encode``: each segment runs the
+reference's loop itself (minbpe/regex.py:96-108), merging every occurrence
+of its own lowest-rank pair until it has none, with pairs looked up in the
+table's cuckoo hash (ops/ranktab.py). A segment of L tokens takes at most
+L - 1 rounds, where K10 takes all M ranks for every segment; a pre-split
+text's chunks are a few bytes. But K17 gives a segment past CHUNK_MAX
+(256) tokens to one block, round after round over its tokens in device
+memory, where K10 spreads a long segment over the whole card. So the route
+goes by what the caller knows of the segments: the device pre-split's
+stream (a GPT split by construction, its chunk ends on the card) takes
+K17; a stream whose segment lengths the host holds (the host split,
+``encode_parts``, the distributed encode's shards) takes K17 where
+``short_segments`` says so, else K10. On the CPU both are plain PyTorch
+twins.
 
 ``encode_stream_sorted`` (minbpe_tpu/ops/encode.py:140-180) is the other
 encoder over a stream: the lowest-rank loop itself, each round's ranks
@@ -22,7 +41,7 @@ host-stepped in groups of UNROLL rounds between reads of a done flag.
 It serves the bucketed chunk encoder's chunks past its largest bucket
 (ops/chunk_encode.py). minbpe_tpu's ``encode_stream`` and
 ``encode_stream_stepped`` (:43-137), which it reaches only off the TPU,
-have no counterpart: K10 is the dense route on every device.
+have no counterpart: K10 and K17 are the dense route on every device.
 
 This is the dense route (table vocab <= engine.DENSE_VOCAB_MAX, any number
 of tokens that fits in device memory); tables above it go to
@@ -43,30 +62,57 @@ from .train import check_device_memory
 # rounds of encode_stream_sorted (and of the chunk encoder's rows) enqueued
 # between reads of the done flag
 UNROLL = 8
-# device bytes per token of an encode: the stream's ids and seg (8) and
-# K10's four work rows (16)
+# device bytes per token of an encode: the stream's ids and seg (8), then
+# K10's four work rows (16), or K17's output ids and seg and its scratch
+# row (12)
 BYTES_PER_TOKEN = 24
+SEGMENT_BYTES_PER_TOKEN = 20
 
 
-def check_memory(device, n_tokens: int, split_bytes: int = 0):
+def check_memory(device, n_tokens: int, split_bytes: int = 0,
+                 per_segment: bool = False):
     """Raise MemoryError, before any work, where an encode of n_tokens does
     not fit in the card's free memory (nothing to check on the CPU);
     ``split_bytes``: the device pre-split's own bytes per token
-    (ops/device_presplit.BYTES_PER_BYTE), where the split runs there."""
+    (ops/device_presplit.BYTES_PER_BYTE), where the split runs there;
+    ``per_segment``: the stream takes K17, as in encode_stream."""
     if device.type == "cuda":
-        per = BYTES_PER_TOKEN + split_bytes
+        per = (SEGMENT_BYTES_PER_TOKEN if per_segment else BYTES_PER_TOKEN) \
+            + split_bytes
         check_device_memory(device, per * n_tokens,
                             f"encoding {n_tokens} tokens ({per} B/token)")
 
 
-def encode_stream(ids, seg, pairs, new_ids):
-    """Apply the merges of ``pairs`` (int32 (M, 2) on the stream's device)
-    in rank order, merge r creating ``new_ids[r]`` (int32 (M,) on that
-    device). Returns the compacted (ids, seg, n) with n an int32[1] tensor;
-    nothing is synced."""
+def short_segments(lengths) -> bool:
+    """The route of a stream whose segment lengths (numpy) the host holds:
+    K17 where it has more than one segment and none past kernels.TILE
+    (2,048) tokens, else K10. Up to one tile K17's block loop over a long
+    segment stays at or below K10 (on an H100, one segment of 257-2,048
+    tokens after 20 KB of short ones: 0.23-0.67 ms against 1.57-1.58;
+    4,096 tokens: 1.50 against 1.58); past it K10 wins, 3.5x at 16,384
+    tokens and 127x on two 1 MB documents (scripts/time_segment_encode.py).
+    """
+    return len(lengths) > 1 and int(lengths.max()) <= kernels.TILE
+
+
+def encode_stream(ids, seg, table, *, per_segment: bool = False):
+    """Apply the merges of ``table`` (engine.DeviceMergeTable on the
+    stream's device: pairs, new_ids and their cuckoo table) as the
+    reference's loop does in each segment. ``per_segment``: the stream
+    takes K17, each segment by its own loop through ``table.cuckoo``;
+    otherwise K10, the rank sweep through ``table.pairs`` and
+    ``table.new_ids``. Counts the route in ``trace.COUNTERS``
+    (``encode.route.segments`` or ``encode.route.sweep``); the span
+    ``encode.sweep`` holds either kernel's enqueue. Returns the compacted
+    (ids, seg, n) with n an int32[1] tensor; nothing is synced."""
+    cuckoo = table.cuckoo if per_segment else None  # built before the span
     with trace.span("encode.sweep"):
-        return kernels.encode_sweep(ids.contiguous(), seg.contiguous(),
-                                    pairs, new_ids)
+        ids, seg = ids.contiguous(), seg.contiguous()
+        if per_segment:
+            trace.count("encode.route.segments")
+            return kernels.segment_encode(ids, seg, cuckoo)
+        trace.count("encode.route.sweep")
+        return kernels.encode_sweep(ids, seg, table.pairs, table.new_ids)
 
 
 def encode_stream_sorted(ids, seg, n, table):

@@ -153,9 +153,10 @@ class CuckooPairTable:
     """Pair -> (rank, new id) for merges in rank order (pairs (M, 2), new_ids
     (M,)), built on the host and held on ``device``: ``rows`` (2, H, 4)
     int32, the seeds and H, and the rank-order ``pairs`` and ``new_ids``
-    the encoder applies a found rank with."""
+    the encoder applies a found rank with. ``uploaded``: those two already
+    on ``device``, held in place of a second upload."""
 
-    def __init__(self, pairs, new_ids, device):
+    def __init__(self, pairs, new_ids, device, *, uploaded=None):
         pairs = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
         new_ids = np.asarray(new_ids, dtype=np.int64).reshape(-1)
         M = len(pairs)
@@ -184,6 +185,9 @@ class CuckooPairTable:
         self.seeds = seeds
         self.device = torch.device(device)
         self.rows = torch.from_numpy(rows).to(self.device)
+        if uploaded is not None:
+            self.pairs, self.new_ids = uploaded
+            return
         self.pairs = torch.from_numpy(pairs.astype(np.int32)).to(self.device)
         self.new_ids = torch.from_numpy(new_ids.astype(np.int32)).to(
             self.device)

@@ -2,10 +2,13 @@
 
 The port of minbpe_tpu/parallel/encode.py. Regex chunks are independent
 (merges never cross chunk ends), so each rank encodes its chunk-aligned
-shard of the corpus (``train.shard_offsets``: JAX's layout) with no halo:
-K10 ``encode_sweep``, the whole rank sweep in one launch, against the
-replicated dense merge table. The ranks' outputs, gathered in rank order,
-concatenate to exactly ``tokenizer.encode_ordinary(text)``.
+shard of the corpus (``train.shard_offsets``: JAX's layout) with no halo,
+in one launch against the replicated dense merge table
+(``ops/encode.encode_stream``): K17 ``segment_encode``, each chunk by its
+own lowest-rank loop, where the shard holds more than one chunk and none
+past TILE (2,048) tokens, else K10 ``encode_sweep``, the whole rank sweep.
+The ranks' outputs, gathered in rank order, concatenate to exactly
+``tokenizer.encode_ordinary(text)``.
 
 Only the dense table (vocab <= engine.DENSE_VOCAB_MAX) is taken; a larger
 one raises, as no V x V table is built here. ``encode_text_distributed``
@@ -19,8 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..engine import DENSE_VOCAB_MAX
-from ..ops.encode import check_memory, encode_stream
+from ..engine import DENSE_VOCAB_MAX, DeviceMergeTable
+from ..ops.encode import check_memory, encode_stream, short_segments
 from .comm import Comm
 from .train import shard_chunks, shard_offsets
 
@@ -30,8 +33,9 @@ def _table_vocab(merge_ids) -> int:
 
 
 def _encode_sharded(comm: Comm, ids, seg, lens, merge_pairs, merge_ids):
-    """This rank's shard through K10, the outputs of all ranks gathered in
-    rank order (numpy int32)."""
+    """This rank's shard through K17 (more than one chunk, none past TILE
+    tokens) or K10, the outputs of all ranks gathered in rank order (numpy
+    int32)."""
     merge_pairs = np.asarray(merge_pairs, np.int32).reshape(-1, 2)
     merge_ids = np.asarray(merge_ids, np.int32)
     V = _table_vocab(merge_ids)
@@ -42,13 +46,15 @@ def _encode_sharded(comm: Comm, ids, seg, lens, merge_pairs, merge_ids):
     Nl = ids.shape[0] // D
     n = int(lens[r])
     dev = comm.device
-    check_memory(dev, n)
+    mine = seg[r * Nl:r * Nl + n]
+    cuts = np.flatnonzero(mine[1:] != mine[:-1]) + 1
+    per = short_segments(np.diff(cuts, prepend=0, append=n))
+    check_memory(dev, n, per_segment=per)
     mine_ids = torch.from_numpy(ids[r * Nl:r * Nl + n]).to(dev)
-    mine_seg = torch.from_numpy(seg[r * Nl:r * Nl + n]).to(dev)
-    pairs = torch.from_numpy(merge_pairs).to(dev)
-    new_ids = torch.from_numpy(merge_ids).to(dev)
+    mine_seg = torch.from_numpy(mine).to(dev)
     if n:
-        out, _, k = encode_stream(mine_ids, mine_seg, pairs, new_ids)
+        table = DeviceMergeTable(merge_pairs, merge_ids, dev)
+        out, _, k = encode_stream(mine_ids, mine_seg, table, per_segment=per)
         out = out[:int(k.item())]
     else:
         out = mine_ids

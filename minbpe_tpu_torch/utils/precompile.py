@@ -120,6 +120,7 @@ def precompile(sizes, vocab_size: int = 512, tokenizer=None, train=True,
             tok = tokenizer
         tok.encode_ordinary(text)
         tok.encode(text[:512], allowed_special="all")
+        tok.encode_ordinary("a" * 64)  # one chunk: the rank sweep
         dt = time.time() - t0
         done.append((bucket, round(dt, 2)))
         if verbose:

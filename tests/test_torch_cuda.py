@@ -571,19 +571,22 @@ def test_encode_sweep_one_block(dev):
 
 
 def test_encode_launches_once(dev):
-    """encode, encode_batch and encode with specials: one K10 launch per
-    device stream, no K3 or K4."""
+    """encode, encode_batch and encode with specials: one launch per device
+    stream, K17 for a split text, K10 for a text of one chunk, no K3 or
+    K4."""
     tok = RegexTokenizer(device="cuda")
     text = _words(10, 2000)
     tok.train(text, 270)
     tok.register_special_tokens({"<|x|>": 270})
-    for fn, want in ((lambda: tok.encode(text), 1),
-                     (lambda: tok.encode_batch([text[:50], text]), 1),
-                     (lambda: tok.encode(text + "<|x|>" + text,
-                                         allowed_special="all"), 1)):
+    for fn, k17, k10 in ((lambda: tok.encode(text), 1, 0),
+                         (lambda: tok.encode_batch([text[:50], text]), 1, 0),
+                         (lambda: tok.encode(text + "<|x|>" + text,
+                                             allowed_special="all"), 1, 0),
+                         (lambda: tok.encode("hello"), 0, 1)):
         kernels.reset_launches()
         fn()
-        assert kernels.ENCODE_SWEEP.launches == want
+        assert kernels.SEGMENT_ENCODE.launches == k17
+        assert kernels.ENCODE_SWEEP.launches == k10
         assert kernels.MERGE_APPLY.launches == kernels.COMPACT.launches == 0
 
 
@@ -1487,7 +1490,7 @@ def test_split_spans_host_on_card(dev, presplit_texts, mode):
 @pytest.mark.parametrize("case", ["gpt4", "gpt2", "gpt4_dense_synthetic"])
 def test_device_split_encode_on_card(dev, case, monkeypatch):
     """The opted-in encode on the card equals the host-split encode: K15
-    once each, K10 once, no host scanner."""
+    once each, K17 once, no host scanner."""
     from minbpe_tpu_torch import GPT4Tokenizer
     from minbpe_tpu_torch.convert import tokenizer_from_arrays
     from minbpe_tpu_torch.regex import GPT2_SPLIT_PATTERN
@@ -1517,7 +1520,7 @@ def test_device_split_encode_on_card(dev, case, monkeypatch):
     assert got == want
     assert not calls
     assert launches == {**{k: 0 for k in launches}, "presplit_succ": 1,
-                        "presplit_orbit": 1, "encode_sweep": 1}
+                        "presplit_orbit": 1, "segment_encode": 1}
 
 
 # ---------------------------------------------------------------------------
@@ -1722,7 +1725,8 @@ def test_distributed_rounds_never_sync(nccl_world1, selection):
 
 def test_precompile_launches_train_and_encode(dev):
     """precompile on the card builds and loads both libraries, then trains
-    (K1 among the whole-run trainer's kernels) and encodes (K10)."""
+    (K1 among the whole-run trainer's kernels) and encodes (K17 a split
+    text, K10 a text of one chunk)."""
     from minbpe_tpu_torch import precompile
     from minbpe_tpu_torch.utils.precompile import fused_capacity
 
@@ -1731,6 +1735,7 @@ def test_precompile_launches_train_and_encode(dev):
     assert [b for b, _ in done] == [fused_capacity(5000)]
     assert kernels.PAIR_STATS.launches > 0
     assert kernels.ENCODE_SWEEP.launches > 0
+    assert kernels.SEGMENT_ENCODE.launches > 0
 
 
 def _sorted_tables(dev):
@@ -1794,3 +1799,229 @@ def test_encode_stream_sorted_launches(dev, nbytes):
     assert launches == {**{name: 0 for name in launches},
                         "merge_apply": each,
                         "compact": each}
+
+
+# ---------------------------------------------------------------------------
+# K17 segment_encode: each segment's own loop, against its plain twin and K10
+# ---------------------------------------------------------------------------
+
+def _smoke_tables(dev, pairs=None, new_ids=None):
+    from minbpe_tpu_torch.ops.ranktab import CuckooPairTable
+    from minbpe_tpu_torch.utils import golden
+
+    if pairs is None:
+        pairs = golden.load_golden()["merges"]
+        new_ids = 256 + np.arange(len(pairs))
+    return (CuckooPairTable(pairs, new_ids, "cpu"),
+            CuckooPairTable(pairs, new_ids, dev))
+
+
+def _segments(lengths, text=None):
+    """(ids, seg) of consecutive text bytes cut into segments of these
+    lengths (the smoke corpus over and over where text is None)."""
+    from minbpe_tpu_torch.utils import golden
+
+    n = int(np.sum(lengths))
+    data = (text or golden.smoke_corpus(ROOT)).encode("utf-8")
+    data = (data * (n // len(data) + 1))[:n]
+    ids = np.frombuffer(data, np.uint8).astype(np.int32)
+    seg = np.repeat(np.arange(len(lengths), dtype=np.int32),
+                    np.asarray(lengths, np.int64))
+    return ids, seg
+
+
+def _k17_both(dev, ids, seg, tables):
+    """K17 on the card against its plain twin on the CPU and K10 on the
+    card, bit for bit: ids, seg and the count."""
+    cpu, gpu = tables
+    ci, cs = torch.from_numpy(ids), torch.from_numpy(seg)
+    wi, ws, wn = kernels.segment_encode_plain(ci, cs, cpu)
+    kernels.reset_launches()
+    gi, gs, gn = kernels.segment_encode(ci.to(dev), cs.to(dev), gpu)
+    si, ss, sn = kernels.encode_sweep(ci.to(dev), cs.to(dev), gpu.pairs,
+                                      gpu.new_ids)
+    assert kernels.SEGMENT_ENCODE.launches == 1
+    k = int(wn)
+    assert int(gn) == int(sn) == k
+    for got in ((gi, gs), (si, ss)):
+        assert torch.equal(got[0][:k].cpu(), wi[:k])
+        assert torch.equal(got[1][:k].cpu(), ws[:k])
+    return k
+
+
+@pytest.mark.parametrize("n", [1, 2, 255, 256, 257, 511, 512, 513, 3000,
+                               70_000, 400_000])
+@pytest.mark.parametrize("mean", [4, 40])
+def test_segment_encode_matches_plain(dev, n, mean):
+    """Streams of short segments (a lane's and a warp's) of every tile
+    edge: K17 equals its plain twin and K10."""
+    rng = np.random.default_rng(n + mean)
+    lengths = []
+    while sum(lengths) < n:
+        lengths.append(int(min(rng.geometric(1 / mean), 256)))
+    lengths[-1] -= sum(lengths) - n
+    _k17_both(dev, *_segments(lengths), _smoke_tables(dev))
+
+
+@pytest.mark.parametrize("long", [257, 300, 2048, 2049, 5000, 20_000,
+                                  70_000])
+@pytest.mark.parametrize("at", [0, 100, 255, 256])
+def test_segment_encode_long_segments(dev, long, at):
+    """A segment past CHUNK_MAX (the block's loop in device memory, one
+    tile of 2,048 tokens or more) starting at each place of a block's tile,
+    between short ones, twice, and one at the stream's end."""
+    rng = np.random.default_rng(long + at)
+    head = []
+    while sum(head) < at:
+        head.append(int(min(rng.integers(1, 6), at - sum(head))))
+    lengths = head + [long, 3, 1, 7, long, 2] + [5] * 60 + [long]
+    _k17_both(dev, *_segments(lengths), _smoke_tables(dev))
+
+
+def test_segment_encode_runs_of_one_byte(dev):
+    """Runs of "a" of every length 1 .. 600 and one of 100,000, with (a, a)
+    and its doublings ranked: the even-offset rule in a lane, a warp and
+    the block's loop in device memory, one tile and many; and a table of
+    no merge."""
+    pairs = [(97, 97), (256, 256), (257, 257), (258, 258), (256, 97),
+             (120, 97)]
+    tables = _smoke_tables(dev, pairs, 256 + np.arange(len(pairs)))
+    lengths = list(range(1, 601)) + [100_000, 1, 2]
+    n = sum(lengths)
+    ids = np.full(n, 97, np.int32)
+    seg = np.repeat(np.arange(len(lengths), dtype=np.int32), lengths)
+    assert _k17_both(dev, ids, seg, tables) < n // 2
+    empty = _smoke_tables(dev, np.zeros((0, 2), np.int32),
+                          np.zeros(0, np.int32))
+    assert _k17_both(dev, *_segments([3, 1, 300, 5]), empty) == 309
+
+
+def test_segment_encode_seg_values_repeat(dev):
+    """A segment is a run of equal seg: values spaced apart and repeated
+    further on cut the same segments."""
+    rng = np.random.default_rng(5)
+    lengths = [int(x) for x in rng.integers(1, 40, 2000)]
+    ids, seg = _segments(lengths)
+    _k17_both(dev, ids, (seg % 3) * 1000 + 7, _smoke_tables(dev))
+
+
+def _split_stream(tok, text, dev):
+    """The device split's stream of text: K15's segment ids and the bytes
+    through the tokenizer's byte transform, as encode_text_device_split
+    makes them."""
+    from minbpe_tpu_torch.ops import device_presplit
+
+    raw = text.encode("utf-8")
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
+    _, seg = device_presplit.presplit_seg_ids(data, len(raw), 4)
+    perm = tok._transform_bytes_array(np.arange(256, dtype=np.uint8))
+    ids = torch.from_numpy(perm.astype(np.int32)).to(dev)[data.long()]
+    return ids, seg
+
+
+def _k17_equals_k10(tok, text, dev):
+    from minbpe_tpu_torch import engine
+
+    table = engine.device_table(tok)
+    ids, seg = _split_stream(tok, text, dev)
+    gi, gs, gn = kernels.segment_encode(ids, seg, table.cuckoo)
+    si, ss, sn = kernels.encode_sweep(ids, seg, table.pairs, table.new_ids)
+    k = int(sn)
+    assert int(gn) == k
+    assert torch.equal(gi[:k], si[:k]) and torch.equal(gs[:k], ss[:k])
+
+
+def test_segment_encode_device_split_smoke_corpus(dev):
+    """Through the device split, the smoke corpus and texts whose GPT-4
+    split has chunks past 256 tokens (runs of spaces, of punctuation):
+    K17 equals K10 bit for bit, and the tokenizer's encode equals the
+    CPU's."""
+    from minbpe_tpu_torch.utils import golden
+
+    text = golden.smoke_corpus(ROOT)
+    tok = RegexTokenizer(device="cuda")
+    tok.load(os.path.join(ROOT, "bpebench", "data",
+                          "minbpe-regex-v512.model"))
+    tok.device_presplit = True
+    cpu = RegexTokenizer(device="cpu")
+    cpu.load(os.path.join(ROOT, "bpebench", "data",
+                          "minbpe-regex-v512.model"))
+    longs = ("x" + " " * 300 + "y" + "!" * 2100 + " and "
+             + " " * 20_000 + "z" + "-" * 70_000 + " end")
+    for t in (text, longs, text[:5000] + longs + text[:5000]):
+        _k17_equals_k10(tok, t, dev)
+        kernels.reset_launches()
+        assert tok.encode(t) == cpu.encode(t)
+        assert kernels.SEGMENT_ENCODE.launches == 1
+        assert kernels.ENCODE_SWEEP.launches == 0
+
+
+def test_segment_encode_cell_documents(dev):
+    """The regex512-encode-docs cell's 4,096 document lengths, each from a
+    start a seed picks: K17 equals K10 bit for bit through the device
+    split, with the cell's table; a warm request passes its five sync
+    sites and no more, one route count each."""
+    from bpebench import inputs
+    from minbpe_tpu_torch import trace
+    import json
+
+    with open(os.path.join(ROOT, "bpebench", "traffic",
+                           "encode-docs.json")) as f:
+        t = json.load(f)
+    data = inputs.corpus_bytes(os.path.join(ROOT, t["corpus"]),
+                               t["corpus_sha256"])
+    lengths = inputs.document_lengths(
+        t["documents"], t["median_bytes"], t["sigma"], t["min_bytes"],
+        t["max_bytes"], t["length_seed"])
+    starts = inputs.document_starts(data, lengths, 2**31 + 12345)
+    tok = RegexTokenizer(device="cuda")
+    tok.load(os.path.join(ROOT, "bpebench", "data",
+                          "minbpe-regex-v512.model"))
+    tok.device_presplit = True
+    docs = [data[s:s + n].decode("utf-8")
+            for s, n in zip(starts.tolist(), lengths.tolist())]
+    for d in docs:
+        _k17_equals_k10(tok, d, dev)
+    tok.encode(docs[0])
+    trace.reset()
+    for d in docs[:64]:
+        tok.encode(d)
+    syncs = sum(v for k, v in trace.COUNTERS.items() if k.startswith("sync."))
+    assert syncs == 5 * 64
+    assert trace.COUNTERS["encode.route.segments"] == 64
+    assert "encode.route.sweep" not in trace.COUNTERS
+
+
+@pytest.mark.parametrize("case, route", [
+    ("basic_short", "segment_encode"), ("basic_64k", "encode_sweep"),
+    ("regex_chunk_70000", "encode_sweep"), ("regex_short", "segment_encode")])
+def test_host_split_route_by_longest_chunk(dev, case, route):
+    """Where the host holds the chunk lengths, a chunk past TILE keeps
+    the whole stream on K10 (BasicTokenizer.encode_batch of 64 KB
+    documents, a regex text with a 70,000-token chunk), else K17; one
+    launch, equal to the CPU's."""
+    from minbpe_tpu_torch.utils import golden
+
+    text = golden.smoke_corpus(ROOT)
+    data = os.path.join(ROOT, "bpebench", "data")
+    kind, _, size = case.partition("_")
+    cls, model = ((BasicTokenizer, "minbpe-basic-v512.model")
+                  if kind == "basic" else
+                  (RegexTokenizer, "minbpe-regex-v512.model"))
+    tok, cpu = cls(device="cuda"), cls(device="cpu")
+    tok.load(os.path.join(data, model))
+    cpu.load(os.path.join(data, model))
+    if kind == "basic":
+        n = 65_536 if size == "64k" else 2000
+        docs = [text[k * 997:k * 997 + n] for k in range(2)]
+        fn = (lambda t: t.encode_batch(docs))
+    else:
+        body = text[:20_000] + ("-" * 70_000 if size == "chunk_70000"
+                                else "") + text[:20_000]
+        fn = (lambda t: t.encode(body))
+    want = fn(cpu)
+    kernels.reset_launches()
+    assert fn(tok) == want
+    other = ({"segment_encode", "encode_sweep"} - {route}).pop()
+    assert getattr(kernels, route.upper()).launches == 1
+    assert getattr(kernels, other.upper()).launches == 0

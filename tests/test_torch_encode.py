@@ -29,8 +29,9 @@ def _port_encode(ids, seg, n, pairs, nids):
     n = int(n)
     out, _, k = encode_stream(
         torch.from_numpy(ids[:n].copy()), torch.from_numpy(seg[:n].copy()),
-        torch.from_numpy(np.asarray(pairs, np.int32).reshape(-1, 2)),
-        torch.tensor(np.asarray(nids, np.int32).reshape(-1)))
+        engine.DeviceMergeTable(np.asarray(pairs, np.int32).reshape(-1, 2),
+                                np.asarray(nids, np.int32).reshape(-1),
+                                "cpu"))
     return out[:int(k)].tolist()
 
 
