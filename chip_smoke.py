@@ -798,15 +798,38 @@ def phase_sweep(torch, np, kernels, golden_mod):
 CELL_MODEL = os.path.join("bpebench", "data", "minbpe-regex-v512.model")
 CELL_TRAFFIC = os.path.join("bpebench", "traffic", "encode-docs.json")
 CELL_SEED = 2**31 + 20  # the documents' starts
+# the cl100k-encode-docs cell: its configuration (the 100,256-rank
+# stand-in) and its traffic
+CL100K_CONFIG = os.path.join("bpebench", "configs-ranks", "gpt4-cl100k.json")
+CL100K_TRAFFIC = os.path.join("bpebench", "traffic", "gpt4-encode-docs.json")
 
 
-def cell_documents(np, seed: int):
-    """The regex512-encode-docs cell's documents: (the corpus bytes, the
-    traffic's 4,096 lengths in its order, their starts that ``seed``
-    picks), as the benchmark draws them."""
+def cl100k_standin():
+    """(GPT4Tokenizer on the card at the cl100k-encode-docs cell's
+    100,256-rank stand-in with cl100k's five specials, seconds its build
+    took on the host)."""
+    from minbpe_tpu_torch import GPT4Tokenizer
+    from minbpe_tpu_torch.gpt4 import GPT4_SPECIAL_TOKENS, load_cl100k_ranks
+
+    with open(os.path.join(ROOT, CL100K_CONFIG)) as f:
+        config = json.load(f)
+    t0 = time.perf_counter()
+    tok = GPT4Tokenizer.from_mergeable_ranks(
+        load_cl100k_ranks(os.path.join(ROOT, config["ranks"])),
+        GPT4_SPECIAL_TOKENS, device="cuda")
+    build_s = time.perf_counter() - t0
+    print(f"cl100k stand-in: {len(tok.merges)} merges, built in "
+          f"{build_s:.2f} s")
+    return tok, build_s
+
+
+def cell_documents(np, seed: int, traffic: str = CELL_TRAFFIC):
+    """An encode cell's documents (regex512-encode-docs' by default):
+    (the corpus bytes, the traffic's 4,096 lengths in its order, their
+    starts that ``seed`` picks), as the benchmark draws them."""
     from bpebench import inputs
 
-    with open(os.path.join(ROOT, CELL_TRAFFIC)) as f:
+    with open(os.path.join(ROOT, traffic)) as f:
         t = json.load(f)
     data = inputs.corpus_bytes(os.path.join(ROOT, t["corpus"]),
                                t["corpus_sha256"])
@@ -833,17 +856,21 @@ LONG_CHUNKS = ("x" + " " * 300 + "y" + "!" * 2100 + " and " + " " * 20_000
                + "z" + "-" * 70_000 + " end")
 
 
-def phase_segment(torch, np, kernels, golden_mod):
+def phase_segment(torch, np, kernels, golden_mod, cl100k):
     """K17 against its plain twin (on the CPU) and K10 on the card: the
     smoke corpus's stream (the host split) with the golden's 768 merges,
     the same stream K10's row times; the regex512-encode-docs cell's
     median, mean-length and longest document, each cut by the device split
     (K15) and through the cell's table's byte order, with the cell's 256
-    merges; and the first 5,000 characters of the smoke corpus followed by
-    LONG_CHUNKS, split on the host, with the 768 merges. Its bound: it
-    reads the stream's n tokens and writes the n_out tokens left (ids and
-    seg, 8 B a token each way) and n. The row's time is the mean-length
-    document's: one request of the cell."""
+    merges; the same three of the cl100k-encode-docs cell's documents with
+    ``cl100k`` (its 100,256-rank stand-in: 100,000 merges, ids up to
+    100,255, 2^18 cuckoo rows a table), through its byte shuffle, against
+    the plain twin alone (K10 would sweep all 100,000 ranks); and the first
+    5,000 characters of the smoke corpus followed by LONG_CHUNKS, split on
+    the host, with the 768 merges. Its bound: it reads the stream's n
+    tokens and writes the n_out tokens left (ids and seg, 8 B a token each
+    way) and n. The row's time is the regex cell's mean-length document's:
+    one request of that cell."""
     from minbpe_tpu_torch import RegexTokenizer
     from minbpe_tpu_torch.convert import tokenizer_from_arrays
     from minbpe_tpu_torch.engine import device_table
@@ -860,16 +887,21 @@ def phase_segment(torch, np, kernels, golden_mod):
     perm = torch.from_numpy(cell_tok._transform_bytes_array(
         np.arange(256, dtype=np.uint8)).astype(np.int32)).cuda()
 
-    def device_split(raw: bytes):
+    shuffle = torch.from_numpy(cl100k.byte_shuffle.astype(np.int32)).cuda()
+
+    def device_split(raw: bytes, order=perm):
         d = torch.frombuffer(bytearray(raw), dtype=torch.uint8).cuda()
         _, seg = pdp.presplit_seg_ids(d, len(raw), 4)
-        return perm[d.long()], seg
+        return order[d.long()], seg
 
     corpus = golden_mod.smoke_corpus(ROOT)
     cases = [("smoke", smoke_tok, *build_stream(
         *smoke_tok._split_arrays(corpus), "cuda"))]
     cases += [(f"cell_{name}", cell_tok, *device_split(raw)) for name, raw in
               cell_shapes(np, *cell_documents(np, CELL_SEED))]
+    cases += [(f"cl100k_{name}", cl100k, *device_split(raw, shuffle))
+              for name, raw in cell_shapes(np, *cell_documents(
+                  np, CELL_SEED, CL100K_TRAFFIC))]
     cases.append(("long_chunks", smoke_tok, *build_stream(
         *smoke_tok._split_arrays(corpus[:5000] + LONG_CHUNKS), "cuda")))
     out = []
@@ -883,31 +915,38 @@ def phase_segment(torch, np, kernels, golden_mod):
         runs = torch.diff(starts, append=torch.tensor([n], device=ids.device))
         want = kernels.segment_encode_plain(ids.cpu(), seg.cpu(), cpu)
         got = kernels.segment_encode(ids, seg, table.cuckoo)
-        sweep = kernels.encode_sweep(ids, seg, table.pairs, table.new_ids)
         k = int(want[2])
         err = max_err(torch, [(got[2].cpu(), want[2]),
                               (got[0][:k].cpu(), want[0][:k]),
                               (got[1][:k].cpu(), want[1][:k])])
-        err_k10 = max_err(torch, [(got[2], sweep[2]),
-                                  (got[0][:k], sweep[0][:k]),
-                                  (got[1][:k], sweep[1][:k])])
+        err_k10 = k10_ms = None
+        if table.kind == "dense":
+            sweep = kernels.encode_sweep(ids, seg, table.pairs,
+                                         table.new_ids)
+            err_k10 = max_err(torch, [(got[2], sweep[2]),
+                                      (got[0][:k], sweep[0][:k]),
+                                      (got[1][:k], sweep[1][:k])])
+            k10_ms = device_ms(torch, lambda: kernels.encode_sweep(
+                ids, seg, table.pairs, table.new_ids), 20)
         nbytes = 8 * n + 8 * k + 4
         out.append(dict(
             case=name, n=n, segments=int(starts.numel()),
             longest=int(runs.max()), ranks=int(table.pairs.shape[0]),
-            n_out=k, max_abs_err=max(err, err_k10), max_abs_err_k10=err_k10,
+            cuckoo_rows=table.cuckoo.H, n_out=k,
+            max_abs_err=max(err, err_k10 or 0), max_abs_err_k10=err_k10,
             ms=device_ms(torch, lambda: kernels.segment_encode(
                 ids, seg, table.cuckoo), 20),
-            k10_ms=device_ms(torch, lambda: kernels.encode_sweep(
-                ids, seg, table.pairs, table.new_ids), 20),
+            k10_ms=k10_ms,
             plain_ms=host_ms(torch, lambda: kernels.segment_encode_plain(
                 ids.cpu(), seg.cpu(), cpu), 1),
             bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3))
         r = out[-1]
+        k10 = ("" if k10_ms is None
+               else f" (K10 {err_k10}, {k10_ms:.4f} ms)")
         print(f"segment_encode {name}: {n} tokens in {r['segments']} "
-              f"segments (longest {r['longest']}), {r['ranks']} ranks -> "
-              f"{k}, max_abs_err {err} (K10 {err_k10}), {r['ms']:.4f} ms "
-              f"(K10 {r['k10_ms']:.4f}), bound {r['bound_ms']:.6f} ms, "
+              f"segments (longest {r['longest']}), {r['ranks']} ranks, "
+              f"{r['cuckoo_rows']} cuckoo rows -> {k}, max_abs_err {err}, "
+              f"{r['ms']:.4f} ms{k10}, bound {r['bound_ms']:.6f} ms, "
               f"plain {r['plain_ms']:.2f} ms")
     main = next(r for r in out if r["case"] == "cell_mean")
     return dict(k=kernels.SEGMENT_ENCODE, err=main["max_abs_err"],
@@ -1563,7 +1602,8 @@ def counted_paths(kernels, launches: dict):
     return path
 
 
-def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
+def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus,
+                    cl100k):
     """Returns (timings, launches), launches = {path: {kernel: count}}."""
     from minbpe_tpu_torch import BasicTokenizer, RegexTokenizer, trace
     from minbpe_tpu_torch.ops import train as train_mod
@@ -1760,6 +1800,7 @@ def phase_main_path(torch, np, kernels, golden_mod, scratch, gpt4, plus):
           f"{timings['train_xl_syncs']} syncs)")
 
     encode_paths(np, golden_mod, corpus, path, timings, gpt4, plus)
+    cl100k_device_split(np, cl100k, path, timings)
     selection_paths(torch, np, golden_mod, corpus, path, timings, head, gb,
                     scratch)
     large_vocab_paths(torch, np, golden_mod, corpus, path, timings, scratch)
@@ -1866,6 +1907,43 @@ def encode_paths(np, golden_mod, corpus, path, timings, gpt4, plus):
     held("xl_dense_1024", split_ids)
     print(f"encode_device_split_xl: {len(split_ids)} ids equal to the golden "
           f"({timings['encode_device_split_xl_s']:.3f} s)")
+
+
+def cl100k_device_split(np, cl100k, path, timings):
+    """The cl100k-encode-docs cell's path: GPT4Tokenizer at its
+    100,256-rank stand-in with the device split, the request as the cell
+    sends it (``allowed_special="none"``) on the cell's median, mean-length
+    and longest documents: K15 1 + 1 and K17 1 a document, no call of the
+    host scanner, the counter ``encode.route.device_split`` once a
+    document, and ids equal to the host split's (K11/K12)."""
+    from minbpe_tpu_torch import trace
+
+    docs = [raw.decode("utf-8") for _, raw in cell_shapes(
+        np, *cell_documents(np, CELL_SEED, CL100K_TRAFFIC))]
+    want = [cl100k.encode(d, allowed_special="none") for d in docs]
+    cl100k.device_presplit = True
+    before = trace.COUNTERS.get("encode.route.device_split", 0)
+    try:
+        with scanner_calls() as calls, path(
+                "encode_device_split_cl100k", tuple(DEVICE_SPLIT),
+                exact={k: c * len(docs) for k, c in DEVICE_SPLIT.items()}):
+            t0 = time.perf_counter()
+            got = [cl100k.encode(d, allowed_special="none") for d in docs]
+            timings["encode_device_split_cl100k_s"] = (
+                time.perf_counter() - t0)
+    finally:
+        cl100k.device_presplit = False
+    took = trace.COUNTERS.get("encode.route.device_split", 0) - before
+    if calls or took != len(docs):
+        raise AssertionError(f"encode_device_split_cl100k: {len(calls)} "
+                             f"host scanner calls, {took} of {len(docs)} "
+                             "texts split on the device")
+    if got != want:
+        raise AssertionError("encode_device_split_cl100k differs from the "
+                             "host split")
+    print(f"encode_device_split_cl100k: {sum(map(len, got))} ids of "
+          f"{len(docs)} documents equal to the host split's "
+          f"({timings['encode_device_split_cl100k_s']:.3f} s)")
 
 
 def selection_paths(torch, np, golden_mod, corpus, path, timings, head, gb,
@@ -2777,7 +2855,8 @@ def main() -> int:
         rows = phase_kernels(torch, np, kernels, XL_MAX_N,
                              STEPPED_AUTO_MAX_N, texts)
         rows.append(phase_sweep(torch, np, kernels, golden_mod))
-        rows.append(phase_segment(torch, np, kernels, golden_mod))
+        cl100k, cl100k_build_s = cl100k_standin()
+        rows.append(phase_segment(torch, np, kernels, golden_mod, cl100k))
         rows += phase_table(torch, np, kernels, golden_mod, texts)
         del texts
         torch.cuda.empty_cache()
@@ -2791,8 +2870,9 @@ def main() -> int:
               f"reading(s) from the profiler (function, ms, counts): "
               f"{PROFILED_READINGS}")
         timings, launches = phase_main_path(torch, np, kernels, golden_mod,
-                                            scratch, gpt4, plus)
+                                            scratch, gpt4, plus, cl100k)
         timings["gpt4_table_build_s"] = gpt4_build_s
+        timings["cl100k_standin_build_s"] = cl100k_build_s
         device_time = phase_device_time_fresh(torch)
         dist_timings, dist_launches = phase_distributed(torch, np,
                                                         golden_mod, scratch)

@@ -3473,9 +3473,10 @@ __global__ void __launch_bounds__(K12_TPB)
 //
 // Bound: latency. Its bytes are few (8 B read a token, 8 B written an
 // output token, a token's 4 B through the scratch), but a block's path is
-// its segments' rounds, each a wait on the cuckoo probes (L2 hits; the
-// dense table's few KB stay there) of the pairs it changed, then the
-// decoupled look-back that places its output. So the work is spread as
+// its segments' rounds, each a wait on the cuckoo probes (L2 hits: the
+// rows of 256 merges take 16 KB, cl100k's 100,000 take 8 MB of the 50 MB
+// L2) of the pairs it changed, then the decoupled look-back that places
+// its output. So the work is spread as
 // thin as the stream allows: a block owns SE_TILE positions, a warp 32 of
 // them, and a segment belongs to the warp whose window holds its first
 // token. From the start flags of its window and the next CHUNK_MAX

@@ -55,9 +55,9 @@ class DeviceMergeTable:
     (int32 (M,)) in rank order, and ``cuckoo``, their cuckoo pair table
     (ops/ranktab.py) on the same tensors, built on its first use.
     ``vocab_size`` covers every id an encode can make; up to
-    DENSE_VOCAB_MAX the table is "dense" (K10 reads it rank by rank, K17
-    looks pairs up in the cuckoo table), above it "sorted": the flat
-    encoder's (minbpe_tpu/engine.py:20-47)."""
+    DENSE_VOCAB_MAX the table is "dense" (K10 reads it rank by rank), above
+    it "sorted": the flat encoder's (minbpe_tpu/engine.py:20-47); K17, the
+    device split's encoder, looks pairs up in the cuckoo table of either."""
 
     def __init__(self, pairs: np.ndarray, new_ids: np.ndarray, device):
         self.vocab_size = (256 if len(new_ids) == 0
@@ -69,6 +69,12 @@ class DeviceMergeTable:
         self.new_ids = torch.as_tensor(
             np.ascontiguousarray(new_ids, dtype=np.int32)).to(device)
         self._host = (pairs, new_ids)
+
+    def cuckoo_bytes(self) -> int:
+        """The device bytes the cuckoo rows will take: 0 once built."""
+        if "cuckoo" in self.__dict__:
+            return 0
+        return CuckooPairTable.device_bytes(len(self._host[1]))
 
     @functools.cached_property
     def cuckoo(self) -> CuckooPairTable:
@@ -253,12 +259,15 @@ def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
     """The whole front half on the device: only the text's raw UTF-8 bytes
     cross to it; the pre-split (K15, ops/device_presplit.py), the ids (the
     bytes through the tokenizer's byte transform) and the encode of each
-    chunk (K17) run there, and only the output ids come back. None where the
-    configuration does not qualify, as minbpe_tpu/engine.py:278-319
-    declines: ``device_presplit`` not set, a split other than GPT-2's or
-    GPT-4's, or a sorted table; the caller then splits on the host. Raises
-    ValueError for a text past the kernels' int32 range and MemoryError
-    where the encode does not fit, before any work.
+    chunk (K17, through the table's cuckoo rows, dense or sorted alike) run
+    there, and only the output ids come back. None where the configuration
+    does not qualify: ``device_presplit`` not set, or a split other than
+    GPT-2's or GPT-4's; the caller then splits on the host. (minbpe_tpu
+    declines a sorted table too, engine.py:278-319, as only its dense
+    encoder ran on the device's split.) Counts ``encode.route.device_split``
+    for each text it takes. Raises ValueError for a text past the kernels'
+    int32 range and MemoryError where the encode does not fit, the cuckoo
+    rows of a table's first encode counted, before any work.
 
     Opt-in (``tokenizer.device_presplit = True``), as in minbpe_tpu. On the
     CPU it runs the kernels' plain twins."""
@@ -268,8 +277,7 @@ def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
     if mode is None:
         return None
     dev = device_table(tokenizer)
-    if dev.kind != "dense":
-        return None
+    trace.count("encode.route.device_split")
     with trace.span("api.text_encode"):
         raw = text.encode("utf-8")
     n = len(raw)
@@ -279,7 +287,8 @@ def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
         raise ValueError(f"{n} bytes: the device pre-split takes at most "
                          f"{device_presplit.MAX_N}")
     device = tokenizer.device
-    check_memory(device, n, device_presplit.BYTES_PER_BYTE, per_segment=True)
+    check_memory(device, n, device_presplit.BYTES_PER_BYTE, per_segment=True,
+                 table_bytes=dev.cuckoo_bytes())
     with trace.span("engine.upload"):
         trace.count("sync.engine.upload")
         data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)

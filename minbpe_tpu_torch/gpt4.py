@@ -7,14 +7,16 @@ byte sequences (minbpe/gpt4.py:11-46); the historical byte shuffle is
 applied to a text's bytes after the split and before BPE, and undone after
 decode (minbpe/gpt4.py:76-92); the five GPT-4 special tokens are
 registered. Ids are tiktoken's ranks, up to 100,276, so the table takes the
-sorted route of engine.DeviceMergeTable (ops/flat_encode.py).
+sorted route of engine.DeviceMergeTable (ops/flat_encode.py) after the host
+split, and K17 after the device split (``device_presplit``).
 
 The ranks load from a file only: the ``MINBPE_TPU_CL100K`` path, a
 vendored ``data/cl100k_base.tiktoken``, or tiktoken's own cache files
 (``TIKTOKEN_CACHE_DIR``, ``DATA_GYM_CACHE_DIR``, ``$TMPDIR/data-gym-cache``).
 minbpe_tpu falls back to fetching them with tiktoken; the port raises
 instead, so no constructor reaches the network. The recovered forest is
-cached as an npz under ``$XDG_CACHE_HOME/minbpe_tpu_torch``.
+cached as an npz under ``$XDG_CACHE_HOME/minbpe_tpu_torch``; the span
+``gpt4.recover`` holds the recovery or the cache's load.
 """
 
 from __future__ import annotations
@@ -22,9 +24,11 @@ from __future__ import annotations
 import base64
 import hashlib
 import os
+import tempfile
 
 import numpy as np
 
+from . import trace
 from .base import id_array, render_token
 from .regex import GPT4_SPLIT_PATTERN, RegexTokenizer
 
@@ -155,11 +159,16 @@ def _load_recovered(path: str):
         z = np.load(cache)
         return z["pairs"], z["new_ids"], z["byte_shuffle"]
     pairs, new_ids, byte_shuffle = _forest_arrays(load_cl100k_ranks(path))
-    try:
-        np.savez(cache, pairs=pairs, new_ids=new_ids,
-                 byte_shuffle=byte_shuffle)
+    tmp = None
+    try:  # written whole, then renamed: a reader never sees half a file
+        fd, tmp = tempfile.mkstemp(suffix=".npz", dir=cache_dir)
+        with os.fdopen(fd, "wb") as f:
+            np.savez(f, pairs=pairs, new_ids=new_ids,
+                     byte_shuffle=byte_shuffle)
+        os.replace(tmp, cache)
     except OSError:
-        pass
+        if tmp is not None and os.path.exists(tmp):
+            os.remove(tmp)
     return pairs, new_ids, byte_shuffle
 
 
@@ -171,8 +180,9 @@ class GPT4Tokenizer(RegexTokenizer):
         """The ranks of the first rank file found (raises RuntimeError
         where there is none); device as in RegexTokenizer."""
         super().__init__(pattern=GPT4_SPLIT_PATTERN, device=device)
-        self._init_pretrained(*_load_recovered(_rank_file()),
-                              GPT4_SPECIAL_TOKENS)
+        with trace.span("gpt4.recover"):
+            arrays = _load_recovered(_rank_file())
+        self._init_pretrained(*arrays, GPT4_SPECIAL_TOKENS)
 
     @classmethod
     def from_mergeable_ranks(cls, mergeable_ranks: dict[bytes, int],
@@ -184,8 +194,9 @@ class GPT4Tokenizer(RegexTokenizer):
         self = cls.__new__(cls)
         RegexTokenizer.__init__(self, pattern=GPT4_SPLIT_PATTERN,
                                 device=device)
-        self._init_pretrained(*_forest_arrays(mergeable_ranks),
-                              special_tokens or {})
+        with trace.span("gpt4.recover"):
+            arrays = _forest_arrays(mergeable_ranks)
+        self._init_pretrained(*arrays, special_tokens or {})
         return self
 
     def _init_pretrained(self, pairs, new_ids, byte_shuffle, special_tokens):

@@ -25,10 +25,10 @@ same device, so a whole run launches without a host sync per merge:
 - ``encode_min_sweep`` K12: the same for longer chunks, each chunk's own
   lowest-rank loop in one block or one thread-block cluster (``k12_plan``),
   all in one launch;
-- ``segment_encode`` K17: the dense route's encode of a stream cut into
-  many segments (a pre-split text), each segment by its own lowest-rank
-  loop through the table's cuckoo pairs (K11's lane and warp bodies), the
-  output compacted in place of K10's, in one launch;
+- ``segment_encode`` K17: the encode of a stream cut into many segments
+  (a pre-split text), each segment by its own lowest-rank loop through the
+  table's cuckoo pairs (K11's lane and warp bodies), the output compacted
+  in place of K10's, in one launch; any table, dense or sorted;
 - ``pair_select``    K13: one round of the sort-round trainer: every pair's
   count and first position into a device hash table (``PairTable``), then
   the round's pair and record, leaving the table empty, in one cooperative
@@ -1315,8 +1315,8 @@ def encode_min_sweep(ids, bounds, which, table, out, lens, *, lengths,
 
 
 # ---------------------------------------------------------------------------
-# K17 segment_encode: the dense route over a stream cut into many segments,
-# through the table's cuckoo pairs (``table``: ops/ranktab.CuckooPairTable)
+# K17 segment_encode: a stream cut into many segments, through the table's
+# cuckoo pairs (``table``: ops/ranktab.CuckooPairTable, of any size)
 # ---------------------------------------------------------------------------
 
 def segment_encode_plain(ids, seg, table):

@@ -45,7 +45,9 @@ have no counterpart: K10 and K17 are the dense route on every device.
 
 This is the dense route (table vocab <= engine.DENSE_VOCAB_MAX, any number
 of tokens that fits in device memory); tables above it go to
-ops/flat_encode.py. K10's loop has no bound of its own, so the Pallas
+ops/flat_encode.py after the host split, and to K17 here after the device
+split, whose cuckoo table serves any vocab (2^18 rows a table at
+cl100k's 100,000 merges, against 512 at 256). K10's loop has no bound of its own, so the Pallas
 encoder's limits (4·2^20 tokens, 2048 ranks: VMEM) do not carry over.
 """
 
@@ -70,17 +72,20 @@ SEGMENT_BYTES_PER_TOKEN = 20
 
 
 def check_memory(device, n_tokens: int, split_bytes: int = 0,
-                 per_segment: bool = False):
+                 per_segment: bool = False, table_bytes: int = 0):
     """Raise MemoryError, before any work, where an encode of n_tokens does
     not fit in the card's free memory (nothing to check on the CPU);
     ``split_bytes``: the device pre-split's own bytes per token
     (ops/device_presplit.BYTES_PER_BYTE), where the split runs there;
-    ``per_segment``: the stream takes K17, as in encode_stream."""
+    ``per_segment``: the stream takes K17, as in encode_stream;
+    ``table_bytes``: what the merge table has still to put on the device
+    (a cuckoo table's rows on its first use: 8 MB at 100,000 merges)."""
     if device.type == "cuda":
         per = (SEGMENT_BYTES_PER_TOKEN if per_segment else BYTES_PER_TOKEN) \
             + split_bytes
-        check_device_memory(device, per * n_tokens,
-                            f"encoding {n_tokens} tokens ({per} B/token)")
+        check_device_memory(device, per * n_tokens + table_bytes,
+                            f"encoding {n_tokens} tokens ({per} B/token, "
+                            f"{table_bytes} B of table)")
 
 
 def short_segments(lengths) -> bool:

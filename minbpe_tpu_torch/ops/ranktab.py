@@ -192,6 +192,12 @@ class CuckooPairTable:
         self.new_ids = torch.from_numpy(new_ids.astype(np.int32)).to(
             self.device)
 
+    @staticmethod
+    def device_bytes(num_merges: int) -> int:
+        """The rows' bytes of a table of ``num_merges`` merges before any
+        cycle doubles it: two tables of table_size rows of 16 B."""
+        return 2 * table_size(num_merges) * 16
+
     def slots(self, a, b):
         """(h1, h2) of int tensors a, b: the rows a pair may occupy."""
         a, b = a.long(), b.long()

@@ -137,9 +137,10 @@ class RegexTokenizer(Tokenizer):
     def encode_ordinary(self, text: str) -> list[int]:
         """Encode ignoring special tokens (minbpe/regex.py:111-121): the
         whole chunked text is one device stream. With ``device_presplit``
-        set (False by default), a GPT-2 or GPT-4 split with a dense table
-        runs on the device too, and only the raw bytes cross
-        (engine.encode_text_device_split)."""
+        set (False by default), a GPT-2 or GPT-4 split runs on the device
+        too, and only the raw bytes cross (engine.encode_text_device_split).
+        Either route counts the text once: ``encode.route.device_split`` or
+        ``encode.route.host_split``."""
         with trace.span("api.encode"):
             return self._encode_ordinary(text)
 
@@ -147,8 +148,16 @@ class RegexTokenizer(Tokenizer):
         out = engine.encode_text_device_split(self, text)
         if out is not None:
             return out
-        data, ends = self._split_arrays(text)
+        data, ends = self._host_split(text)
         return engine.encode_offsets(self, data, ends)
+
+    def _host_split(self, text: str):
+        """_split_arrays for an encode, counted in
+        ``encode.route.host_split`` (the device split counts its own texts
+        in ``encode.route.device_split``), so that a text which falls back
+        to the host shows."""
+        trace.count("encode.route.host_split")
+        return self._split_arrays(text)
 
     def _resolve_special(self, text: str, allowed_special) -> dict[str, int]:
         """allowed_special semantics per minbpe/regex.py:131-143
@@ -173,7 +182,7 @@ class RegexTokenizer(Tokenizer):
         reassembly plan [("s", id) | ("t", batch index)]."""
         plan: list[tuple[str, int]] = []
         if not special:
-            data, ends = self._split_arrays(text)
+            data, ends = self._host_split(text)
             if len(ends):
                 plan.append(("t", len(batch)))
                 batch.append((data, ends))
@@ -183,7 +192,7 @@ class RegexTokenizer(Tokenizer):
             if part in special:
                 plan.append(("s", special[part]))
             elif part:
-                data, ends = self._split_arrays(part)
+                data, ends = self._host_split(part)
                 if len(ends):
                     plan.append(("t", len(batch)))
                     batch.append((data, ends))

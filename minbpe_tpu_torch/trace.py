@@ -23,7 +23,10 @@ launch counters are. ``sync.<site>`` counts each pass through a site
 where the host waits for the card (a ``.item()``, ``.tolist()`` or
 ``.cpu()`` of a device tensor, a blocking copy from pageable host memory,
 ``mem_get_info``); ``train.slots`` the whole-run trainer's rebuild slots;
-``comm.calls`` the distributed layer's collectives. Read them as the
+``comm.calls`` the distributed layer's collectives; ``encode.route.*`` an
+encode's routes: ``device_split`` or ``host_split`` a text (or a text part
+between special tokens) by where it was split, ``segments`` (K17) or
+``sweep`` (K10) an ``encode_stream`` call. Read them as the
 difference of two snapshots, or ``reset`` them first.
 """
 

@@ -2025,3 +2025,53 @@ def test_host_split_route_by_longest_chunk(dev, case, route):
     other = ({"segment_encode", "encode_sweep"} - {route}).pop()
     assert getattr(kernels, route.upper()).launches == 1
     assert getattr(kernels, other.upper()).launches == 0
+
+
+def test_device_split_cl100k_cell_documents(dev):
+    """The cl100k-encode-docs cell at full width: GPT4Tokenizer on the
+    committed 100,256-rank stand-in (a sorted table, the cuckoo table at
+    2^18 rows a table), each of the cell's 4,096 documents from starts a
+    seed picks, encoded with the device split (K15, then K17) and with the
+    host split (K11): equal ids for every one, one K17 launch and one
+    device-split count a request, no K11 or K12 launch on that route."""
+    import json
+
+    from bpebench import inputs
+    from minbpe_tpu_torch import GPT4Tokenizer, trace
+    from minbpe_tpu_torch.engine import device_table
+    from minbpe_tpu_torch.gpt4 import GPT4_SPECIAL_TOKENS, load_cl100k_ranks
+
+    with open(os.path.join(ROOT, "bpebench", "configs-ranks",
+                           "gpt4-cl100k.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(ROOT, "bpebench", "traffic",
+                           "gpt4-encode-docs.json")) as f:
+        t = json.load(f)
+    data = inputs.corpus_bytes(os.path.join(ROOT, t["corpus"]),
+                               t["corpus_sha256"])
+    lengths = inputs.document_lengths(
+        t["documents"], t["median_bytes"], t["sigma"], t["min_bytes"],
+        t["max_bytes"], t["length_seed"])
+    starts = inputs.document_starts(data, lengths, 2**31 + 777)
+    docs = [data[s:s + n].decode("utf-8")
+            for s, n in zip(starts.tolist(), lengths.tolist())]
+    ranks = load_cl100k_ranks(os.path.join(ROOT, config["ranks"]))
+    split_tok, host_tok = (
+        GPT4Tokenizer.from_mergeable_ranks(ranks, GPT4_SPECIAL_TOKENS,
+                                           device="cuda") for _ in range(2))
+    split_tok.device_presplit = True
+    split_tok.encode(docs[0], allowed_special="none")
+    table = device_table(split_tok)
+    assert table.kind == "sorted" and table.cuckoo.H == 1 << 18
+    kernels.reset_launches()
+    trace.reset()
+    got = [split_tok.encode(d, allowed_special="none") for d in docs]
+    assert kernels.SEGMENT_ENCODE.launches == len(docs)
+    assert kernels.CHUNK_ENCODE.launches == 0
+    assert kernels.ENCODE_MIN_SWEEP.launches == 0
+    assert trace.COUNTERS["encode.route.device_split"] == len(docs)
+    assert "encode.route.host_split" not in trace.COUNTERS
+    want = [host_tok.encode(d, allowed_special="none") for d in docs]
+    differing = [k for k, (a, b) in enumerate(zip(got, want)) if a != b]
+    assert not differing, differing[:10]
+    assert sum(map(len, got)) * 3 < sum(lengths.tolist())

@@ -428,8 +428,10 @@ def test_gpt4_dense_synthetic_device_split(monkeypatch):
 
 
 def test_declines(tmp_path, monkeypatch):
-    """None (the host split) for a custom pattern, a BasicTokenizer, a
-    sorted table and a GPT-4 model loaded into RegexTokenizer(custom)."""
+    """None (the host split) for a custom pattern, a BasicTokenizer and a
+    GPT-4 model loaded into RegexTokenizer(custom); a sorted table is
+    taken (K17 reads its cuckoo rows as a dense table's) and gives the
+    host split's ids."""
     custom = r"\w+|\s+|[^\w\s]+"
     merges = golden.load_golden()["merges"][:100]
     c = tokenizer_from_arrays(port.RegexTokenizer, merges,
@@ -445,9 +447,13 @@ def test_declines(tmp_path, monkeypatch):
     loaded = port.RegexTokenizer(custom, device="cpu")
     loaded.load(str(tmp_path / "g.model"))
     assert loaded.pattern == GPT4_SPLIT_PATTERN
-    for tok in (c, b, s, loaded):
+    for tok in (c, b, loaded):
         tok.device_presplit = True
         assert engine.encode_text_device_split(tok, "hello world") is None
+    want = s.encode_ordinary("abc ab ba")
+    s.device_presplit = True
+    assert engine.encode_text_device_split(s, "abc ab ba") == want
+    assert 5000 in want
     g.device_presplit = False
     assert engine.encode_text_device_split(g, "hello world") is None
     # the loaded tokenizer keeps its constructor's split

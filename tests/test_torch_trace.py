@@ -132,20 +132,24 @@ def test_encode_counts_its_sync_sites():
     trace.reset()
     first = tok.encode(TEXT[:2_000])
     # the first request sends the merge table too (its cuckoo rows, pairs
-    # and new ids); each request counts its route, the per-segment loop
+    # and new ids); each request counts its routes: where the text was
+    # split, then the per-segment loop
     assert trace.COUNTERS == {"sync.engine.table": 3, "sync.engine.upload": 2,
+                              "encode.route.device_split": 1,
                               "encode.route.segments": 1,
                               "sync.encode.count": 1,
                               "sync.encode.readback": 1}
     trace.reset()
     assert tok.encode(TEXT[:2_000]) == first
     assert trace.COUNTERS == {"sync.engine.upload": 2, "sync.encode.count": 1,
+                              "encode.route.device_split": 1,
                               "encode.route.segments": 1,
                               "sync.encode.readback": 1}
     tok.device_presplit = False
     trace.reset()
     assert tok.encode(TEXT[:2_000]) == first
     assert trace.COUNTERS == {"sync.stream.upload": 2, "sync.encode.count": 1,
+                              "encode.route.host_split": 1,
                               "encode.route.segments": 1,
                               "sync.encode.readback": 1}
 
