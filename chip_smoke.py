@@ -50,8 +50,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
    split's boundaries and segment ids and each kernel's own step, on the
    smoke and the XL corpus in both modes, the XL corpus four times over
    and 2^20 spaces, letters and digits, each with its bytes bound (the
-   whole split's time at the main shape also from the profiler); the
-   outputs are integers and must be exactly equal;
+   whole split's time at the main shape also from the profiler); K15
+   presplit_cluster against the same twin and the pair on the encode
+   cell's median, mean-length and longest documents and the smoke
+   corpus's first 1, 2, 4 and 8 tiles, in both modes, with the pair's time
+   on the same bytes; the outputs are integers and must be exactly equal;
 3. drive the main path through the user's entry points, one path at a
    time, with every launch count set to 0 just before each path and read
    just after it: RegexTokenizer (GPT-4 pattern) training at vocab 1024 on
@@ -1199,13 +1202,16 @@ def presplit_case(torch, pdp, name, text, mode, profiled=False):
     return rec
 
 
-def phase_presplit(torch, golden_mod):
+def phase_presplit(torch, np, golden_mod):
     """K15 against its plain twin at the device split's shapes: the smoke
     corpus and the XL corpus in both modes, the XL corpus four times over
-    (50,353,352 bytes, GPT-4) and 2^20 spaces, letters and digits (GPT-4).
-    Returns the rows of presplit_succ and presplit_orbit; the main shape
-    is the smoke corpus with GPT-4's split (the encode_device_split
-    path)."""
+    (50,353,352 bytes, GPT-4) and 2^20 spaces, letters and digits (GPT-4);
+    then its cluster tier at cluster_shapes in both modes, each against
+    the plain twin and the cooperative pair. Returns the rows of
+    presplit_cluster (its time on the cell's mean-length document, GPT-4:
+    one request of that cell), presplit_succ and presplit_orbit; the
+    pair's main shape is the smoke corpus with GPT-4's split (the
+    encode_device_split path)."""
     from minbpe_tpu_torch import kernels
     from minbpe_tpu_torch.ops import device_presplit as pdp
 
@@ -1220,8 +1226,15 @@ def phase_presplit(torch, golden_mod):
     recs = [presplit_case(torch, pdp, *c, profiled=not i)
             for i, c in enumerate(cases)]
     torch.cuda.empty_cache()
+    short = [cluster_case(torch, pdp, name, raw, mode)
+             for name, raw in cluster_shapes(np, golden_mod)
+             for mode in ("gpt4", "gpt2")]
+    mean = next(r for r in short if r["case"] == "cell_mean_gpt4")
     main = recs[0]
-    rows = []
+    rows = [dict(k=kernels.PRESPLIT_CLUSTER,
+                 err=max(r["max_abs_err"] for r in short), ms=mean["ms"],
+                 plain_ms=mean["plain_ms"], bytes=mean["bytes"],
+                 library_ms=None, pair_ms=mean["pair_ms"], shapes=short)]
     for info, key in ((kernels.PRESPLIT_SUCC, "succ_"),
                       (kernels.PRESPLIT_ORBIT, "orbit_")):
         rows.append(dict(
@@ -1232,6 +1245,51 @@ def phase_presplit(torch, golden_mod):
             k15_plain_ms=main["plain_ms"],
             k15_bound_ms=main["bound_ms"], shapes=recs))
     return rows
+
+
+def cluster_shapes(np, golden_mod):
+    """[(name, text bytes)] of K15's cluster tier: the regex512-encode-docs
+    cell's median, mean-length and longest documents, and the smoke
+    corpus's first 1, 2, 4 and 8 tiles (cut back to a char boundary)."""
+    docs = cell_shapes(np, *cell_documents(np, CELL_SEED))
+    raw = golden_mod.smoke_corpus(ROOT).encode("utf-8")
+    out = [(f"cell_{name}", bytes(doc)) for name, doc in docs]
+    for tiles in (1, 2, 4, 8):
+        cut = raw[:4096 * tiles].decode("utf-8", errors="ignore")
+        out.append((f"smoke_{tiles}_tiles", cut.encode("utf-8")))
+    return out
+
+
+def cluster_case(torch, pdp, name, raw: bytes, mode):
+    """K15's cluster tier on one text of at most 32 KB: presplit_cluster
+    against presplit_plain and against the cooperative pair on the same
+    bytes, boundaries and segment ids exact, each one's device time, and
+    the bound of the whole split (n bytes and the 64 KB class table read,
+    n boundaries and 4 n of segment ids written)."""
+    n = len(raw)
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to("cuda")
+    table = 0x10000 + 5 * pdp._device_tables(data.device)[1].numel()
+    got = pdp.presplit_cluster(data, n, mode)
+    want = pdp.presplit_plain(data, n, mode)
+
+    def pair():
+        return pdp.presplit_orbit(pdp.presplit_succ(data, n, mode), n)
+
+    err = max_err(torch, [(got[0].int(), want[0].int()), (got[1], want[1])]
+                  + [(a.int(), b.int()) for a, b in zip(pair(), want)])
+    rec = dict(
+        case=f"{name}_{mode}", n=n, tiles=-(-n // 4096),
+        chunks=int(got[1][-1]) + 1, max_abs_err=err,
+        ms=device_ms(torch, lambda: pdp.presplit_cluster(data, n, mode), 50),
+        pair_ms=device_ms(torch, pair, 50),
+        plain_ms=host_ms(torch, lambda: pdp.presplit_plain(data, n, mode), 1),
+        bytes=n + table + 5 * n)
+    rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"presplit_cluster {rec['case']}: {n} bytes -> {rec['chunks']} "
+          f"chunks, max_abs_err {err}, {rec['ms']:.4f} ms (the pair "
+          f"{rec['pair_ms']:.4f}; bound {rec['bound_ms']:.6f}), plain "
+          f"{rec['plain_ms']:.2f} ms")
+    return rec
 
 
 def split_ms(torch, fns, reps: int):
@@ -1542,8 +1600,11 @@ def merges_in_rank_order(np, merges):
     return np.array([list(p) for p, _ in items], dtype=np.int32)
 
 
-# the device pre-split encode: K15's two kernels and K17, once each
+# the device pre-split encode: K15's two kernels and K17, once each; of a
+# text of at most 32 KB (ops/device_presplit.CLUSTER_MAX_N), K15's
+# presplit_cluster and K17
 DEVICE_SPLIT = {"presplit_succ": 1, "presplit_orbit": 1, "segment_encode": 1}
+DEVICE_SPLIT_SHORT = {"presplit_cluster": 1, "segment_encode": 1}
 
 
 @contextlib.contextmanager
@@ -1913,7 +1974,8 @@ def cl100k_device_split(np, cl100k, path, timings):
     """The cl100k-encode-docs cell's path: GPT4Tokenizer at its
     100,256-rank stand-in with the device split, the request as the cell
     sends it (``allowed_special="none"``) on the cell's median, mean-length
-    and longest documents: K15 1 + 1 and K17 1 a document, no call of the
+    and longest documents: K15's presplit_cluster and K17 1 a document
+    (each at most 32 KB), no call of the
     host scanner, the counter ``encode.route.device_split`` once a
     document, and ids equal to the host split's (K11/K12)."""
     from minbpe_tpu_torch import trace
@@ -1925,8 +1987,9 @@ def cl100k_device_split(np, cl100k, path, timings):
     before = trace.COUNTERS.get("encode.route.device_split", 0)
     try:
         with scanner_calls() as calls, path(
-                "encode_device_split_cl100k", tuple(DEVICE_SPLIT),
-                exact={k: c * len(docs) for k, c in DEVICE_SPLIT.items()}):
+                "encode_device_split_cl100k", tuple(DEVICE_SPLIT_SHORT),
+                exact={k: c * len(docs)
+                       for k, c in DEVICE_SPLIT_SHORT.items()}):
             t0 = time.perf_counter()
             got = [cl100k.encode(d, allowed_special="none") for d in docs]
             timings["encode_device_split_cl100k_s"] = (
@@ -2862,7 +2925,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         gpt4, plus, gpt4_build_s = sorted_tables(golden_mod)
         rows += phase_flat(torch, np, kernels, golden_mod, gpt4, plus)
-        rows += phase_presplit(torch, golden_mod)
+        rows += phase_presplit(torch, np, golden_mod)
         check_rows(rows)
         print(f"timing: the host outran the sleep {len(RETAKEN_READINGS)} "
               f"time(s) (function, sleep cycles a call, the reading set "

@@ -74,7 +74,8 @@
 //                        ops/device_presplit.py::_presplit_device (:208),
 //                        the GPT-2 / GPT-4 pre-split of raw UTF-8 bytes,
 //                        two cooperative launches (the last section of
-//                        this file)
+//                        this file); K15 presplit_cluster, the same for a
+//                        stream of at most 32 KB in one cluster launch
 //
 // Training runs in rebuild SLOTS. The host enqueues slots without knowing
 // what a slot does: that lives in device memory.
@@ -100,6 +101,7 @@
 //        -Xcompiler -fPIC -o libbpe_kernels.so bpe_kernels.cu
 
 #include <atomic>
+#include <type_traits>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -4197,6 +4199,10 @@ int bpe_segment_encode(const int* ids, const int* seg, int n, const int* rows,
 //   K15 presplit_orbit  the chunk starts {0, f(0), f(f(0)), ...}, as
 //                       per-byte boundary flags and segment ids
 //
+// or, for a stream of at most C_MAX tiles (32 KB), as one:
+//
+//   K15 presplit_cluster both, in one launch of one thread-block cluster
+//
 // They replace minbpe_tpu/ops/device_presplit.py::_presplit_device (:208),
 // a jitted jnp program with no Pallas site: its UTF-8 decode (_decode_utf8,
 // :74-90), class lookup (_char_flags, :93-98), successor (_successor,
@@ -4275,6 +4281,26 @@ int bpe_segment_encode(const int* ids, const int* seg, int n, const int* rows,
 // A tile may list any number of exits up to its bytes, so there is no cap
 // and no slow case but the doubling of step 4: a general forward f gives
 // more nodes and more rounds.
+//
+// K15 presplit_cluster. On one document of a few KB the pair is bound by
+// latency, not bytes (PERF.md §5): one SM runs each tile's serial work
+// (a thread's 16 successors, 12 doubling rounds, the path's chains of
+// device-memory loads) twice staged, behind two launches and four grid
+// barriers. The cluster tier runs one cluster of up to C_MAX CTAs, CTA r
+// the tile of T bytes at r * T, T the least of 512 to 4,096 whose C_MAX
+// tiles hold the stream (ops/device_presplit.cluster_geometry), 4 bytes a
+// thread up to 512 threads; so a 2 KB document spreads over 4 SMs. Each
+// CTA stages and classifies its tile once and scans it; after a cluster
+// barrier it combines the later CTAs' tile aggregates, read from their
+// shared memory, into its carry and computes its successors into shared
+// memory (presplit_succ's phase 3); it resolves its walks there by
+// doubling (presplit_orbit's step 1, without the node lists); after a
+// second barrier CTA 0 follows the path from byte 0 over the tiles, one
+// distributed-shared-memory load a hop (at most C_MAX), and writes each
+// CTA's entry and chunk starts before it into that CTA's shared memory;
+// after a third each CTA marks the walk from its entry (presplit_orbit's
+// step 4) and writes its boundaries and segment ids, the only writes to
+// device memory. No scratch in device memory, no grid barrier.
 // ===========================================================================
 
 namespace {
@@ -4324,6 +4350,35 @@ static_assert(O_PER == 8, "step 4 moves a thread's bytes as 8 and 2 x 16");
 constexpr int O_SMEM = 3 * O_BLOCK_NODES * (int)sizeof(int) + O_BLOCK_NODES;
 static_assert(O_SMEM >= 3 * TILE * (int)sizeof(int) + TILE,
               "step 1 fits the shared memory of step 2");
+
+constexpr int C_MAX = 8;               // K15 presplit_cluster: CTAs, tiles
+constexpr int C_MIN_TILE = 512;        // its least tile
+// presplit_cluster's threads a CTA on tiles of T bytes: 4 bytes a thread,
+// at most 512 threads
+__host__ __device__ constexpr int c_tpb(int T) {
+  return T / 4 < 512 ? T / 4 : 512;
+}
+
+// Phase stamps for scripts/profile_presplit.py: built with
+// -DPRESPLIT_STAMPS, thread 0 of block 0 of each K15 kernel (kind 0
+// presplit_succ, 1 presplit_orbit, 2 presplit_cluster) writes the SM clock
+// and the global timer (ns) at the end of its phase k into
+// presplit_stamps[kind][k]; built without, the stamps are no code.
+constexpr int STAMPS = 16;
+__device__ long long presplit_stamps[3][STAMPS][2];
+#ifdef PRESPLIT_STAMPS
+#define PRESPLIT_STAMP(kind, k)                                          \
+  do {                                                                   \
+    if (blockIdx.x == 0 && threadIdx.x == 0) {                           \
+      long long g_;                                                      \
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(g_));             \
+      presplit_stamps[kind][k][0] = clock64();                           \
+      presplit_stamps[kind][k][1] = g_;                                  \
+    }                                                                    \
+  } while (0)
+#else
+#define PRESPLIT_STAMP(kind, k) ((void)0)
+#endif
 
 struct Tables {
   const uint8_t* dense;  // flags of each BMP code point
@@ -4469,22 +4524,20 @@ struct SuccSmem {
   int flag;
 };
 
-// Stage the tile at s and its halo (bytes outside [0, n) read as 0) and
-// classify every byte once: a thread takes 16 bytes, by table where all
-// are ASCII; a continuation byte takes its char's class, its lead decoded
-// again where it lies before the thread's bytes.
-// a thread's 16-byte chunks of the staged window of the tile at s: chunk
-// threadIdx.x, and chunk S_TPB + threadIdx.x where the window has it
+// a thread's 16-byte chunks of the staged window (WIN bytes) of the tile
+// at s, in a block of TPB threads: chunk threadIdx.x, then chunk TPB +
+// threadIdx.x, ... where the window has it (bytes outside [0, n) read as 0)
 constexpr int S_CHUNKS = (S_WIN / 16 + S_TPB - 1) / S_TPB;
 
-__device__ __forceinline__ void fetch(uint4 (&v)[S_CHUNKS],
+template <int TPB, int WIN, int CH>
+__device__ __forceinline__ void fetch(uint4 (&v)[CH],
                                       const uint8_t* __restrict__ d, int n,
                                       long long s, bool vec) {
 #pragma unroll
-  for (int c = 0; c < S_CHUNKS; ++c) {
-    const int i = threadIdx.x + c * S_TPB;
+  for (int c = 0; c < CH; ++c) {
+    const int i = threadIdx.x + c * TPB;
     const long long q = s - S_HALO + 16 * i;
-    if (i >= S_WIN / 16) continue;
+    if (i >= WIN / 16) continue;
     if (vec && q >= 0 && q + 16 <= n) {
       v[c] = __ldg(reinterpret_cast<const uint4*>(d + q));
     } else {
@@ -4496,20 +4549,32 @@ __device__ __forceinline__ void fetch(uint4 (&v)[S_CHUNKS],
   }
 }
 
-__device__ void stage(SuccSmem& S, const uint4 (&v)[S_CHUNKS],
-                      const Tables& t) {
+// Stage the fetched window into S.buf and classify every byte once: a
+// thread takes U (16 or 4) bytes at a time, by table where all are ASCII;
+// a continuation byte takes its char's class, its lead decoded again where
+// it lies before the thread's bytes.
+template <int TPB, int U, class Smem, int CH>
+__device__ void stage(Smem& S, const uint4 (&v)[CH], const Tables& t) {
+  constexpr int WIN = (int)sizeof(Smem::buf);
+  static_assert(U == 16 || U == 4, "a unit of 16 or 4 bytes");
 #pragma unroll
-  for (int c = 0; c < S_CHUNKS; ++c) {
-    const int i = threadIdx.x + c * S_TPB;
-    if (i < S_WIN / 16) *reinterpret_cast<uint4*>(S.buf + 16 * i) = v[c];
+  for (int c = 0; c < CH; ++c) {
+    const int i = threadIdx.x + c * TPB;
+    if (i < WIN / 16) *reinterpret_cast<uint4*>(S.buf + 16 * i) = v[c];
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < S_WIN / 16; i += S_TPB) {
-    const uint4 v = *reinterpret_cast<const uint4*>(S.buf + 16 * i);
-    const int w0 = 16 * i;
-    if (((v.x | v.y | v.z | v.w) & 0x80808080u) == 0) {
+  for (int i = threadIdx.x; i < WIN / U; i += TPB) {
+    const int w0 = U * i;
+    unsigned high;
+    if constexpr (U == 16) {
+      const uint4 v = *reinterpret_cast<const uint4*>(S.buf + w0);
+      high = (v.x | v.y | v.z | v.w) & 0x80808080u;
+    } else {
+      high = *reinterpret_cast<const unsigned*>(S.buf + w0) & 0x80808080u;
+    }
+    if (high == 0) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j) S.info[w0 + j] = S.ascii[S.buf[w0 + j]];
+      for (int j = 0; j < U; ++j) S.info[w0 + j] = S.ascii[S.buf[w0 + j]];
       continue;
     }
     // the class of the char that holds the byte before this run
@@ -4521,10 +4586,10 @@ __device__ void stage(SuccSmem& S, const uint4 (&v)[S_CHUNKS],
       const int len = utf8_len(b);
       int cp = len == 1 ? b : b & (0x7F >> len);
       for (int k = 1; k < len; ++k)
-        cp = (cp << 6) | (q + k < S_WIN ? S.buf[q + k] & 0x3F : 0);
+        cp = (cp << 6) | (q + k < WIN ? S.buf[q + k] & 0x3F : 0);
       cls = class_of(flags_of(t, cp), cp);
     }
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < U; ++j) {
       const int w = w0 + j;
       const int b = S.buf[w];
       int word;
@@ -4534,7 +4599,7 @@ __device__ void stage(SuccSmem& S, const uint4 (&v)[S_CHUNKS],
         const int len = utf8_len(b);
         int cp = b & (0x7F >> len);
         for (int k = 1; k < len; ++k)
-          cp = (cp << 6) | (w + k < S_WIN ? S.buf[w + k] & 0x3F : 0);
+          cp = (cp << 6) | (w + k < WIN ? S.buf[w + k] & 0x3F : 0);
         word = info_word(cp, len, t);
       } else {
         word = cls;
@@ -4554,8 +4619,9 @@ struct Seg {
   unsigned starts, brk_c, brk_o;
 };
 
-__device__ __forceinline__ Seg seg_of(const SuccSmem& S, long long a,
-                                      int w0, int cnt) {
+template <class Smem>
+__device__ __forceinline__ Seg seg_of(const Smem& S, long long a, int w0,
+                                      int cnt) {
   Seg s{0ull, 0u, 0u, 0u};
   int prev = a > 0 ? i_cls(S.info[w0 - 1]) : -1;
   for (int j = 0; j < cnt; ++j) {
@@ -4613,9 +4679,10 @@ __device__ __forceinline__ Agg agg_shfl_down(const Agg& a, int d) {
           __shfl_down_sync(0xFFFFFFFFu, a.lc, d)};
 }
 
-// Scan from the right over the block's threads, by warp shuffles and one
-// exchange of the warps' aggregates: returns the aggregate of the threads
-// after this one, and the block's in total.
+// Scan from the right over the block's TPB threads, by warp shuffles and
+// one exchange of the warps' aggregates: returns the aggregate of the
+// threads after this one, and the block's in total.
+template <int TPB>
 __device__ Agg block_rscan(Agg* wagg, const Agg& g, Agg& total) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   Agg v = g;
@@ -4630,7 +4697,7 @@ __device__ Agg block_rscan(Agg* wagg, const Agg& g, Agg& total) {
   if (lane == 0) wagg[warp] = v;
   __syncthreads();
   Agg later = agg_identity();
-  for (int w = S_TPB / 32 - 1; w > warp; --w)
+  for (int w = TPB / 32 - 1; w > warp; --w)
     later = agg_combine(wagg[w], later);
   total = later;
   for (int w = warp; w >= 0; --w) total = agg_combine(wagg[w], total);
@@ -4641,7 +4708,8 @@ __device__ Agg block_rscan(Agg* wagg, const Agg& g, Agg& total) {
 // cls, the breaks after p and LCR(p) given (utils/presplit.py's
 // alternatives in order). The staged window starts at byte wb; every
 // look-ahead but the last whitespace char's start lies in it.
-__device__ int successor(const SuccSmem& S, long long wb,
+template <class Smem>
+__device__ int successor(const Smem& S, long long wb,
                          const uint8_t* __restrict__ d, int n, int mode,
                          int p, int cls, int c1, int c2, int o1, int o2,
                          int lcr) {
@@ -4704,7 +4772,7 @@ __device__ int successor(const SuccSmem& S, long long wb,
   if (p1 < c1) {
     int q = c1 - 1;
     const long long wq = q - wb;
-    if (wq >= 3 && wq < S_WIN) {
+    if (wq >= 3 && wq < (long long)sizeof(Smem::buf)) {
       while (!i_start(S.info[q - wb])) --q;
       return q;
     }
@@ -4722,6 +4790,7 @@ presplit_succ_kernel(const uint8_t* __restrict__ d, int n, int mode,
                      Tables t, int* __restrict__ f, int* agg) {
   cg::grid_group grid = cg::this_grid();
   __shared__ SuccSmem S;
+  PRESPLIT_STAMP(0, 0);
   const int tiles = (int)(((long long)n + TILE - 1) / TILE);
   const bool vec = (reinterpret_cast<uintptr_t>(d) & 15) == 0;
   int lo, hi;
@@ -4729,6 +4798,7 @@ presplit_succ_kernel(const uint8_t* __restrict__ d, int n, int mode,
   if (threadIdx.x < 128) S.ascii[threadIdx.x] = (unsigned short)info_word(
       threadIdx.x, 1, t);
   __syncthreads();
+  PRESPLIT_STAMP(0, 1);
 
   // 1. the block's aggregate, from the left up to the first saturated one
   const int tb = threadIdx.x * S_BPT;
@@ -4738,17 +4808,20 @@ presplit_succ_kernel(const uint8_t* __restrict__ d, int n, int mode,
     const long long a = s + tb;
     const int cnt = (int)max(0ll, min((long long)S_BPT, n - a));
     uint4 v[S_CHUNKS];
-    fetch(v, d, n, s, vec);
-    stage(S, v, t);
+    fetch<S_TPB, S_WIN>(v, d, n, s, vec);
+    stage<S_TPB, 16>(S, v, t);
+    PRESPLIT_STAMP(0, 2);
     Agg mine = agg_identity();
     if (cnt > 0) mine = seg_agg(seg_of(S, a, S_HALO + tb, cnt), a, cnt);
     Agg total;
-    block_rscan(S.wagg, mine, total);
+    block_rscan<S_TPB>(S.wagg, mine, total);
     g = agg_combine(g, total);
     if (agg_saturated(g)) break;
   }
   if (threadIdx.x == 0) agg_store(agg + (long long)S_AGG * blockIdx.x, g);
+  PRESPLIT_STAMP(0, 3);
   grid.sync();
+  PRESPLIT_STAMP(0, 4);
 
   // 2. the carry at the block's end: the later blocks' aggregates, a warp
   // at a time, up to the first saturated prefix, else the text's end
@@ -4777,12 +4850,13 @@ presplit_succ_kernel(const uint8_t* __restrict__ d, int n, int mode,
   }
   __syncthreads();
   Agg carry = S.carry;
+  PRESPLIT_STAMP(0, 5);
 
   // 3. the block's tiles from the right: each byte's state from its
   // thread's and its tile's carry, and the successor at every char start;
   // the next tile's bytes load meanwhile
   uint4 vnext[S_CHUNKS];
-  fetch(vnext, d, n, (long long)(hi - 1) * TILE, vec);
+  fetch<S_TPB, S_WIN>(vnext, d, n, (long long)(hi - 1) * TILE, vec);
   for (int tile = hi - 1; tile >= lo; --tile) {
     const long long s = (long long)tile * TILE;
     const long long a = s + tb;
@@ -4790,8 +4864,9 @@ presplit_succ_kernel(const uint8_t* __restrict__ d, int n, int mode,
     uint4 v[S_CHUNKS];
 #pragma unroll
     for (int c = 0; c < S_CHUNKS; ++c) v[c] = vnext[c];
-    if (tile > lo) fetch(vnext, d, n, s - TILE, vec);
-    stage(S, v, t);
+    if (tile > lo) fetch<S_TPB, S_WIN>(vnext, d, n, s - TILE, vec);
+    stage<S_TPB, 16>(S, v, t);
+    PRESPLIT_STAMP(0, 6);
     Seg sg{0ull, 0u, 0u, 0u};
     Agg mine = agg_identity();
     if (cnt > 0) {
@@ -4799,7 +4874,7 @@ presplit_succ_kernel(const uint8_t* __restrict__ d, int n, int mode,
       mine = seg_agg(sg, a, cnt);
     }
     Agg total;
-    const Agg excl = block_rscan(S.wagg, mine, total);
+    const Agg excl = block_rscan<S_TPB>(S.wagg, mine, total);
     const Agg st = agg_combine(excl, carry);
     int c1 = st.c1, c2 = st.c2, o1 = st.o1, o2 = st.o2, lcr = st.lc;
     for (int j = cnt - 1; j >= 0; --j) {
@@ -4822,6 +4897,7 @@ presplit_succ_kernel(const uint8_t* __restrict__ d, int n, int mode,
     }
     carry = agg_combine(total, carry);
     __syncthreads();
+    PRESPLIT_STAMP(0, 7);
     const int len = (int)min((long long)TILE, n - s);
     for (int i = threadIdx.x; i < TILE / 4; i += S_TPB) {
       if (4 * i + 4 <= len) {
@@ -4832,11 +4908,119 @@ presplit_succ_kernel(const uint8_t* __restrict__ d, int n, int mode,
       }
     }
   }
+  PRESPLIT_STAMP(0, 8);
 }
 
 // ---------------------------------------------------------------------------
 // K15 presplit_orbit
 // ---------------------------------------------------------------------------
+
+// Step 1's pointer doubling over the walk words of a tile of T bytes (at
+// most TILE) in Wa (a byte's next byte on its walk in bits 0-11, the hops
+// to it in bits 16-27, bit 31 kept), Wb the other buffer, TPB threads:
+// each round every word jumps to its next byte's next, adding the hops,
+// and each byte marked in vis marks its next byte, until no word moves (at
+// most O_ROUNDS). Returns the buffer of the last words: each byte's walk's
+// last byte in the tile and the hops to it; vis then holds the walks from
+// the bytes first marked.
+template <int TPB, int T>
+__device__ unsigned* walk_rounds(unsigned* Wa, unsigned* Wb, uint8_t* vis) {
+  constexpr int PER = T / TPB;  // a thread's bytes, TPB apart
+  for (int r = 0; r < O_ROUNDS; ++r) {
+    // every load of the round before any store, so that the loads of a
+    // thread's bytes overlap
+    unsigned w[PER], wj[PER];
+    int vp[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) w[k] = Wa[threadIdx.x + k * TPB];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int p = threadIdx.x + k * TPB;
+      const int j = (int)(w[k] & 0xFFFu);
+      wj[k] = Wa[j];
+      vp[k] = j != p ? vis[p] : 0;
+    }
+    int more = 0;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) {
+      const int p = threadIdx.x + k * TPB;
+      const int j = (int)(w[k] & 0xFFFu);
+      if (vp[k]) vis[j] = 1;
+      Wb[p] = ((w[k] & 0xFFFF0000u) + (wj[k] & 0x0FFF0000u)) |
+              (wj[k] & 0xFFFu);
+      more |= (int)(wj[k] & 0xFFFu) != j;
+    }
+    unsigned* tw = Wa; Wa = Wb; Wb = tw;
+    if (!__syncthreads_or(more)) break;
+  }
+  return Wa;
+}
+
+// The boundaries (vis, len bytes) and segment ids from base, the chunk
+// starts before it, of the tile of T bytes at s, to device memory: a block
+// scan of the boundary counts, T / TPB consecutive bytes a thread. wsum:
+// TPB / 32 ints. Returns the tile's chunk starts.
+template <int TPB, int T>
+__device__ int write_segments(const uint8_t* vis, long long s, int len,
+                              int base, uint8_t* boundary, int* seg,
+                              int* wsum) {
+  constexpr int PER = T / TPB;
+  static_assert(PER == 4 || PER == 8, "a thread's bytes as one word");
+  using Word = typename std::conditional<PER == 8, uint2, unsigned>::type;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p0 = threadIdx.x * PER;
+  Word bv = *reinterpret_cast<const Word*>(vis + p0);
+  const uint8_t* const bb = reinterpret_cast<const uint8_t*>(&bv);
+  int mine = 0;
+#pragma unroll
+  for (int k = 0; k < PER; ++k) mine += bb[k];
+  int incl = mine;
+#pragma unroll
+  for (int dist = 1; dist < 32; dist <<= 1) {
+    const int v = __shfl_up_sync(0xFFFFFFFFu, incl, dist);
+    if (lane >= dist) incl += v;
+  }
+  if (lane == 31) wsum[warp] = incl;
+  __syncthreads();
+  int before = 0, in_tile = 0;
+  for (int w = 0; w < TPB / 32; ++w) {
+    if (w < warp) before += wsum[w];
+    in_tile += wsum[w];
+  }
+  int running = base + before + incl - mine;
+  int4 sv[PER / 4];
+  int* const ss = reinterpret_cast<int*>(sv);
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    running += bb[k];
+    ss[k] = running - 1;
+  }
+  if (p0 + PER <= len) {
+    *reinterpret_cast<Word*>(boundary + s + p0) = bv;
+#pragma unroll
+    for (int c = 0; c < PER / 4; ++c)
+      reinterpret_cast<int4*>(seg + s + p0)[c] = sv[c];
+  } else {
+    for (int k = 0; k < len - p0; ++k) {
+      boundary[s + p0 + k] = bb[k];
+      seg[s + p0 + k] = ss[k];
+    }
+  }
+  return in_tile;
+}
+
+// The walk word of byte p of the tile at s (len bytes), its successor fp
+// (-1 off a char start): the next byte in the tile and one hop, else
+// itself (a root); bit 31 at a char start. ex: a root's exit, the byte
+// where its walk goes on past the tile (n past the text).
+__device__ __forceinline__ unsigned walk_word(int fp, long long s, int p,
+                                              int len, int n, int& ex) {
+  ex = n;
+  if (fp < 0) return (unsigned)p;
+  if (fp > s + p && fp < s + len) return 0x80010000u | (unsigned)(fp - s);
+  if (fp > s + p) ex = min(fp, n);
+  return 0x80000000u | (unsigned)p;
+}
 
 // sum of v over the block (every thread gets it); red: O_TPB / 32 ints
 __device__ __forceinline__ long long block_sum(long long v, long long* red) {
@@ -5056,6 +5240,7 @@ presplit_orbit_kernel(const int* __restrict__ f, int n,
                       int* nj2, int* tl, int* bl, unsigned* trunk) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int4 o_smem[];
+  PRESPLIT_STAMP(1, 0);
   __shared__ long long red[O_TPB / 32];
   __shared__ int first, tile_min, tile_max, walk_end, walk_len,
       walked[O_WALK], wsum[O_TPB / 32];
@@ -5104,55 +5289,22 @@ presplit_orbit_kernel(const int* __restrict__ f, int n,
     for (int k = 0; k < O_PER; ++k) {
       const int p = threadIdx.x + k * O_TPB;
       const int fp = p < len ? fcur[k] : -1;
-      unsigned w = (unsigned)p;  // a root: its own byte, no hops
-      int ex = n;
-      if (fp >= 0) {
-        lead = min(lead, p);
-        w |= 0x80000000u;
-        if (fp > s + p && fp < s + len) w = 0x80010000u | (unsigned)(fp - s);
-        else if (fp > s + p) ex = min(fp, n);
-      }
-      W0[p] = w;
-      EX[p] = ex;
+      if (fp >= 0) lead = min(lead, p);
+      W0[p] = walk_word(fp, s, p, len, n, EX[p]);
     }
     lead = __reduce_min_sync(0xFFFFFFFFu, lead);
     if (lane == 0 && lead < TILE) atomicMin(&first, lead);
     __syncthreads();
+    PRESPLIT_STAMP(1, 1);
 #pragma unroll
     for (int k = 0; k < O_PER; ++k) {
       const int p = threadIdx.x + k * O_TPB;
       vis[p] = p == first;
     }
     __syncthreads();
-    unsigned* Wa = W0;
-    unsigned* Wb = W1;
-    for (int r = 0; r < O_ROUNDS; ++r) {
-      // every load of the round before any store, so that the loads of a
-      // thread's bytes overlap
-      unsigned w[O_PER], wj[O_PER];
-      int vp[O_PER];
-#pragma unroll
-      for (int k = 0; k < O_PER; ++k) w[k] = Wa[threadIdx.x + k * O_TPB];
-#pragma unroll
-      for (int k = 0; k < O_PER; ++k) {
-        const int p = threadIdx.x + k * O_TPB;
-        const int j = (int)(w[k] & 0xFFFu);
-        wj[k] = Wa[j];
-        vp[k] = j != p ? vis[p] : 0;
-      }
-      int more = 0;
-#pragma unroll
-      for (int k = 0; k < O_PER; ++k) {
-        const int p = threadIdx.x + k * O_TPB;
-        const int j = (int)(w[k] & 0xFFFu);
-        if (vp[k]) vis[j] = 1;
-        Wb[p] = ((w[k] & 0xFFFF0000u) + (wj[k] & 0x0FFF0000u)) |
-                (wj[k] & 0xFFFu);
-        more |= (int)(wj[k] & 0xFFFu) != j;
-      }
-      unsigned* tw = Wa; Wa = Wb; Wb = tw;
-      if (!__syncthreads_or(more)) break;
-    }
+    unsigned* const Wa = walk_rounds<O_TPB, TILE>(W0, W1, vis);
+    unsigned* const Wb = Wa == W0 ? W1 : W0;
+    PRESPLIT_STAMP(1, 2);
     // each byte's exit (-1 off a char start) and count, the trunk's bits,
     // the tile's least and greatest exit
     int ex[O_PER], cnt[O_PER];
@@ -5280,11 +5432,13 @@ presplit_orbit_kernel(const int* __restrict__ f, int n,
       tile_max = -1;
     }
   }
+  PRESPLIT_STAMP(1, 3);
   if (threadIdx.x == 0) {
     bl[blockIdx.x] = (int)nodes;
     bl[G + blockIdx.x] = 0;
   }
   grid.sync();
+  PRESPLIT_STAMP(1, 4);
 
   // 2. the path from byte 0's exit over the node graph: each node on it
   // is its tile's entry
@@ -5299,6 +5453,7 @@ presplit_orbit_kernel(const int* __restrict__ f, int n,
     path_in_grid(grid, n, tiles, lists, seg, tl, bl, G, nj, nj2, boundary,
                  M);
   }
+  PRESPLIT_STAMP(1, 5);
   grid.sync();
 
   // 3. the chunk starts before this block's tiles
@@ -5306,6 +5461,7 @@ presplit_orbit_kernel(const int* __restrict__ f, int n,
   for (int b = threadIdx.x; b < (int)blockIdx.x; b += O_TPB)
     total += __ldcg(bl + G + b);
   int base = (int)block_sum(total, red);
+  PRESPLIT_STAMP(1, 6);
 
   // 4. each tile's walk from its entry: up to O_WALK hops until it meets
   // the trunk, then the trunk from there; by doubling where it does not
@@ -5343,6 +5499,7 @@ presplit_orbit_kernel(const int* __restrict__ f, int n,
       }
       __syncthreads();
       const int end = walk_end;
+      PRESPLIT_STAMP(1, 7);
       if (end == -2) {
         // H: each char start's tile-relative successor, TILE if it leaves
 #pragma unroll
@@ -5392,48 +5549,277 @@ presplit_orbit_kernel(const int* __restrict__ f, int n,
         if (threadIdx.x < walk_len) vis[walked[threadIdx.x]] = 1;
         __syncthreads();
       }
-      // segment ids: a block scan of the boundary counts, 8 bytes a thread
-      const int p0 = threadIdx.x * O_PER;
-      uint2 bv = *reinterpret_cast<const uint2*>(vis + p0);
-      uint8_t* const bb = reinterpret_cast<uint8_t*>(&bv);
-      int mine = 0;
-#pragma unroll
-      for (int k = 0; k < O_PER; ++k) mine += bb[k];
-      int incl = mine;
-#pragma unroll
-      for (int dist = 1; dist < 32; dist <<= 1) {
-        const int v = __shfl_up_sync(0xFFFFFFFFu, incl, dist);
-        if (lane >= dist) incl += v;
-      }
-      if (lane == 31) wsum[warp] = incl;
-      __syncthreads();
-      int before = 0, in_tile = 0;
-      for (int w = 0; w < O_TPB / 32; ++w) {
-        if (w < warp) before += wsum[w];
-        in_tile += wsum[w];
-      }
-      int running = base + before + incl - mine;
-      int4 sv[2];
-      int* const ss = reinterpret_cast<int*>(sv);
-#pragma unroll
-      for (int k = 0; k < O_PER; ++k) {
-        running += bb[k];
-        ss[k] = running - 1;
-      }
-      if (p0 + O_PER <= len) {
-        *reinterpret_cast<uint2*>(boundary + s + p0) = bv;
-        reinterpret_cast<int4*>(seg + s + p0)[0] = sv[0];
-        reinterpret_cast<int4*>(seg + s + p0)[1] = sv[1];
-      } else {
-        for (int k = 0; k < len - p0; ++k) {
-          boundary[s + p0 + k] = bb[k];
-          seg[s + p0 + k] = ss[k];
-        }
-      }
-      base += in_tile;
+      base += write_segments<O_TPB, TILE>(vis, s, len, base, boundary, seg,
+                                     wsum);
       __syncthreads();
     }
   }
+  PRESPLIT_STAMP(1, 8);
+}
+
+// ---------------------------------------------------------------------------
+// K15 presplit_cluster: a stream of at most C_MAX tiles in one launch
+// ---------------------------------------------------------------------------
+
+// a CTA's shared memory on a tile of T bytes
+template <int T>
+struct ClusterSmem {
+  static constexpr int TPB = c_tpb(T);
+  alignas(16) uint8_t buf[T + 2 * S_HALO];  // the tile, 16 bytes either side
+  unsigned short info[T + 2 * S_HALO];      // their info words
+  unsigned short ascii[128];        // the info word of each ASCII char
+  alignas(16) int fbuf[T];          // the tile's successors
+  unsigned W[2][T];                 // the walk words, two buffers
+  int EX[T];                        // each root's exit
+  unsigned xc[T];                   // a char start's exit | its count << 16
+  alignas(8) uint8_t vis[T];        // the trunk, then the chunk starts
+  Agg wagg[TPB / 32];
+  Agg tagg;                         // the tile's aggregate
+  Agg carry;                        // the later tiles' and the text's end
+  int first, entry, base, walk_end, walk_len;
+  int walked[O_WALK];
+  int wsum[TPB / 32];
+};
+
+// One cluster of gridDim.x <= C_MAX CTAs of c_tpb(T) threads, CTA r the
+// tile of T bytes at r * T (none past the text). boundary: uint8[n]; seg:
+// int32[n], each written once.
+template <int T>
+__global__ void __launch_bounds__(c_tpb(T), 1)
+presplit_cluster_kernel(const uint8_t* __restrict__ d, int n, int mode,
+                        Tables t, uint8_t* __restrict__ boundary,
+                        int* __restrict__ seg) {
+  constexpr int TPB = c_tpb(T);
+  constexpr int BPT = T / TPB;  // a thread's bytes
+  constexpr int WIN = T + 2 * S_HALO;
+  cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ int4 c_smem[];
+  ClusterSmem<T>& S = *reinterpret_cast<ClusterSmem<T>*>(c_smem);
+  PRESPLIT_STAMP(2, 0);
+  const int rank = (int)cluster.block_rank();
+  const int C = (int)cluster.num_blocks();
+  const long long s = (long long)rank * T;
+  const int len = (int)max(0ll, min((long long)T, n - s));
+
+  // 1. the tile and its halo staged and classified once, 4 bytes a unit
+  if (threadIdx.x < 128) S.ascii[threadIdx.x] = (unsigned short)info_word(
+      threadIdx.x, 1, t);
+  if (threadIdx.x == 0) S.first = T;
+  uint4 v[(WIN / 16 + TPB - 1) / TPB];
+  fetch<TPB, WIN>(v, d, n, s, (reinterpret_cast<uintptr_t>(d) & 15) == 0);
+  stage<TPB, 4>(S, v, t);
+  PRESPLIT_STAMP(2, 1);
+
+  // 2. the aggregate of the thread's bytes, of the threads after it in the
+  // tile, and the tile's, which the CTAs before it read
+  const int tb = threadIdx.x * BPT;
+  const long long a = s + tb;
+  const int cnt = (int)max(0ll, min((long long)BPT, n - a));
+  Seg sg{0ull, 0u, 0u, 0u};
+  Agg mine = agg_identity();
+  if (cnt > 0) {
+    sg = seg_of(S, a, S_HALO + tb, cnt);
+    mine = seg_agg(sg, a, cnt);
+  }
+  Agg total;
+  const Agg excl = block_rscan<TPB>(S.wagg, mine, total);
+  if (threadIdx.x == 0) S.tagg = total;
+  PRESPLIT_STAMP(2, 2);
+  cluster.sync();
+  PRESPLIT_STAMP(2, 3);
+
+  // 3. the carry at the tile's end: the later tiles' aggregates from their
+  // CTAs' shared memory, a lane each, then the text's end
+  if (threadIdx.x < 32) {
+    const int k = rank + 1 + (int)threadIdx.x;
+    Agg g = agg_identity();
+    if (k < C) g = *cluster.map_shared_rank(&S.tagg, k);
+    else if (k == C) g = Agg{n, BIG, n, BIG, 1, -1};
+#pragma unroll
+    for (int dist = 1; dist < C_MAX; dist <<= 1) {
+      const Agg o = agg_shfl_down(g, dist);
+      if ((int)threadIdx.x + dist < 32) g = agg_combine(g, o);
+    }
+    if (threadIdx.x == 0) S.carry = g;
+  }
+  __syncthreads();
+
+  // 4. the successor at each char start of the thread's bytes, from the
+  // right (presplit_succ's phase 3)
+  const Agg st = agg_combine(excl, S.carry);
+  int c1 = st.c1, c2 = st.c2, o1 = st.o1, o2 = st.o2, lcr = st.lc;
+  int4 fv[BPT / 4];
+  int* const fq = reinterpret_cast<int*>(fv);
+#pragma unroll
+  for (int j = BPT - 1; j >= 0; --j) {
+    fq[j] = -1;
+    if (j < cnt) {
+      const int q = (int)(a + j);
+      const int c = cls_of(sg, j);
+      if (coarse(c) != CL_WS) lcr = -1;
+      else if (lcr < 0 && c == CL_CR) lcr = q;
+      if ((sg.starts >> j) & 1u)
+        fq[j] = successor(S, s - S_HALO, d, n, mode, q, c, c1, c2, o1, o2,
+                          lcr);
+      if ((sg.brk_c >> j) & 1u) {
+        c2 = c1;
+        c1 = q;
+      }
+      if ((sg.brk_o >> j) & 1u) {
+        o2 = o1;
+        o1 = q;
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < BPT / 4; ++c)
+    reinterpret_cast<int4*>(S.fbuf + tb)[c] = fv[c];
+  __syncthreads();
+  PRESPLIT_STAMP(2, 4);
+
+  // 5. each byte's walk in the tile by doubling (presplit_orbit's step 1):
+  // its exit and count; the walk from the tile's first char start, its
+  // trunk, marked in vis
+  int lead = T;
+#pragma unroll
+  for (int k = 0; k < BPT; ++k) {
+    const int p = threadIdx.x + k * TPB;
+    const int fp = p < len ? S.fbuf[p] : -1;
+    if (fp >= 0) lead = min(lead, p);
+    S.W[0][p] = walk_word(fp, s, p, len, n, S.EX[p]);
+  }
+  lead = __reduce_min_sync(0xFFFFFFFFu, lead);
+  if ((threadIdx.x & 31) == 0 && lead < T) atomicMin(&S.first, lead);
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < BPT; ++k) {
+    const int p = threadIdx.x + k * TPB;
+    S.vis[p] = p == S.first;
+  }
+  __syncthreads();
+  const unsigned* const Wf =
+      walk_rounds<TPB, T>(S.W[0], S.W[1], S.vis);
+#pragma unroll
+  for (int k = 0; k < BPT; ++k) {
+    const int p = threadIdx.x + k * TPB;
+    const unsigned w = Wf[p];
+    S.xc[p] = p < len && (w >> 31)
+                  ? (unsigned)S.EX[w & 0xFFFu] |
+                        ((((w >> 16) & 0xFFFu) + 1u) << 16)
+                  : 0xFFFFFFFFu;
+  }
+  PRESPLIT_STAMP(2, 5);
+  cluster.sync();
+  PRESPLIT_STAMP(2, 6);
+
+  // 6. the path from byte 0 over the tiles, in CTA 0: each tile's entry
+  // (where the path enters it) and the chunk starts before it, written
+  // into each CTA's shared memory
+  if (rank == 0 && threadIdx.x == 0) {
+    int ent[C_MAX], starts[C_MAX];
+#pragma unroll
+    for (int k = 0; k < C_MAX; ++k) {
+      ent[k] = -1;
+      starts[k] = 0;
+    }
+    for (int x = 0; x < n;) {
+      const int w = x / T;
+      const unsigned e = *cluster.map_shared_rank(&S.xc[x - w * T], w);
+      ent[w] = x - w * T;
+      starts[w] = (int)(e >> 16);
+      x = (int)(e & 0xFFFFu);
+    }
+    int before = 0;
+    for (int k = 0; k < C; ++k) {
+      *cluster.map_shared_rank(&S.entry, k) = ent[k];
+      *cluster.map_shared_rank(&S.base, k) = before;
+      before += starts[k];
+    }
+  }
+  PRESPLIT_STAMP(2, 7);
+  cluster.sync();  // after it no CTA touches another's shared memory
+  PRESPLIT_STAMP(2, 8);
+
+  // 7. the walk from the entry (presplit_orbit's step 4): up to O_WALK
+  // hops until it meets the trunk, then the trunk; by doubling from the
+  // entry where it does not meet it in those hops
+  const int entry = S.entry;
+  if (threadIdx.x == 0) {
+    int x = entry, k = 0;
+    while (x >= 0 && k < O_WALK && !S.vis[x]) {
+      S.walked[k++] = x;
+      const int fx = S.fbuf[x];
+      x = fx > s + x && fx < s + len ? (int)(fx - s) : T;
+      if (x == T) break;
+    }
+    S.walk_len = k;
+    S.walk_end = x < 0 || x == T || S.vis[x] ? x : -2;
+  }
+  __syncthreads();
+  const int end = S.walk_end;
+  if (end == -2) {
+#pragma unroll
+    for (int k = 0; k < BPT; ++k) {
+      const int p = threadIdx.x + k * TPB;
+      S.W[0][p] = walk_word(p < len ? S.fbuf[p] : -1, s, p, len, n, S.EX[p]);
+      S.vis[p] = p == entry;
+    }
+    __syncthreads();
+    walk_rounds<TPB, T>(S.W[0], S.W[1], S.vis);
+  } else {
+#pragma unroll
+    for (int k = 0; k < BPT; ++k) {
+      const int p = threadIdx.x + k * TPB;
+      S.vis[p] = end >= 0 && p >= end && S.vis[p];
+    }
+    __syncthreads();
+    if ((int)threadIdx.x < S.walk_len) S.vis[S.walked[threadIdx.x]] = 1;
+    __syncthreads();
+  }
+  PRESPLIT_STAMP(2, 9);
+
+  // 8. the boundaries and segment ids
+  write_segments<TPB, T>(S.vis, s, len, S.base, boundary, seg, S.wsum);
+  PRESPLIT_STAMP(2, 10);
+}
+
+// One launch of presplit_cluster_kernel<T>: the cluster-size and
+// shared-memory checks once per device and size.
+template <int T>
+cudaError_t cluster_launch(const uint8_t* data, int n, int mode,
+                           const Tables& t, uint8_t* boundary, int* seg,
+                           int cluster, cudaStream_t stream) {
+  static std::atomic<int> allowed[64][C_MAX + 1];
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(c_tpb(T));
+  cfg.dynamicSmemBytes = sizeof(ClusterSmem<T>);
+  cfg.stream = stream;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  if (allowed[dev][cluster] == 0) {
+    e = cudaFuncSetAttribute((const void*)presplit_cluster_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)sizeof(ClusterSmem<T>));
+    int fit = 0;
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveClusters(
+          &fit, (const void*)presplit_cluster_kernel<T>, &cfg);
+    if (e == cudaSuccess && fit < 1) e = cudaErrorInvalidConfiguration;
+    if (e != cudaSuccess) return e;
+    allowed[dev][cluster] = 1;
+  }
+  return cudaLaunchKernelEx(&cfg, presplit_cluster_kernel<T>, data, n, mode,
+                            t, boundary, seg);
 }
 
 // the cooperative grid of a kernel (0 presplit_succ, 1 presplit_orbit) on
@@ -5496,6 +5882,13 @@ extern "C" {
 // bytes a tile of either K15 kernel
 int bpe_presplit_tile_size() { return presplit::TILE; }
 
+// the K15 phase stamps (long long[3][16][2]) into host memory at out:
+// zero unless the library was built with -DPRESPLIT_STAMPS
+int bpe_presplit_stamps(long long* out) {
+  return cudaMemcpyFromSymbol(out, presplit::presplit_stamps,
+                              sizeof(presplit::presplit_stamps));
+}
+
 // ints of bpe_presplit_succ's scratch a block of its grid
 int bpe_presplit_scratch_ints() { return presplit::S_AGG; }
 
@@ -5528,6 +5921,54 @@ int bpe_presplit_succ(const unsigned char* data, int n, int mode,
   void* args[] = {&data, &n, &mode, &t, &f, &scratch};
   return launch(0, (const void*)presplit_succ_kernel, grid, S_TPB, args, 0,
                 stream);
+}
+
+// the most tiles (and CTAs) of bpe_presplit_cluster's one cluster, and
+// its least tile
+int bpe_presplit_cluster_max() { return presplit::C_MAX; }
+int bpe_presplit_cluster_min_tile() { return presplit::C_MIN_TILE; }
+
+// K15 presplit_cluster over data[0 .. n), 1 <= n <= cluster * tile, mode
+// and the class tables as for bpe_presplit_succ: one launch of one cluster
+// of `cluster` CTAs (at most bpe_presplit_cluster_max()), a CTA a tile of
+// `tile` bytes (512, 1024, 2048 or the tile size). boundary: uint8[n];
+// seg: int32[n]. A cluster that cannot be resident returns its error (the
+// shared-memory allowance is set, and the cluster size checked, once per
+// device, tile and size).
+int bpe_presplit_cluster(const unsigned char* data, int n, int mode,
+                         const unsigned char* dense, const int* starts,
+                         const unsigned char* flags, int nstarts,
+                         unsigned char* boundary, int* seg, int tile,
+                         int cluster, void* stream) {
+  using namespace presplit;
+  if (n < 1 || (mode != 4 && mode != 2) || nstarts < 1 || cluster < 1 ||
+      cluster > C_MAX || (long long)cluster * tile < n)
+    return cudaErrorInvalidValue;
+  const Tables t{dense, starts, flags, nstarts};
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t e;
+  switch (tile) {
+    case 512:
+      e = cluster_launch<512>(data, n, mode, t, boundary, seg, cluster, st);
+      break;
+    case 1024:
+      e = cluster_launch<1024>(data, n, mode, t, boundary, seg, cluster, st);
+      break;
+    case 2048:
+      e = cluster_launch<2048>(data, n, mode, t, boundary, seg, cluster, st);
+      break;
+    case presplit::TILE:
+      e = cluster_launch<presplit::TILE>(data, n, mode, t, boundary, seg,
+                                         cluster, st);
+      break;
+    default:
+      return cudaErrorInvalidValue;
+  }
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // the refusal is returned, not left for the next
+    return e;
+  }
+  return cudaGetLastError();
 }
 
 // K15 presplit_orbit over the successors f[0 .. n), n >= 1 (f[p] > p or

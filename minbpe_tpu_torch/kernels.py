@@ -40,7 +40,9 @@ same device, so a whole run launches without a host sync per merge:
 - ``presplit_succ`` and ``presplit_orbit`` K15: the GPT-2 / GPT-4
   pre-split of raw UTF-8 bytes, every char start's chunk end, then the
   chunk starts as segment ids (ops/device_presplit.py holds their
-  wrappers and plain twins).
+  wrappers and plain twins); ``presplit_cluster``, both in one launch of
+  one thread-block cluster, a CTA a tile of 512 to 4,096 bytes, for a
+  stream of at most ``PRESPLIT_CLUSTER_MAX`` tiles of 4,096.
 
 K1 and K9 share one counting core: each block of a persistent grid counts
 one contiguous range of the stream into a hash table of pairs in shared
@@ -130,6 +132,12 @@ PRESPLIT_SCRATCH_INTS = 6
 # this many nodes (every distinct exit of every tile), else grid-wide
 # (bpe_presplit_block_nodes() on the card)
 PRESPLIT_BLOCK_NODES = 4096
+# presplit_cluster takes a stream of at most this many tiles, one CTA a
+# tile in one cluster, its tiles of this many bytes up to PRESPLIT_TILE
+# (bpe_presplit_cluster_max() and bpe_presplit_cluster_min_tile() on the
+# card)
+PRESPLIT_CLUSTER_MAX = 8
+PRESPLIT_CLUSTER_MIN_TILE = 512
 
 
 class KernelInfo:
@@ -212,6 +220,10 @@ PRESPLIT_ORBIT = KernelInfo(
     "presplit_orbit",
     _PRESPLIT + "_orbit :101-114 and the boundaries and segment ids "
     ":221-233")
+PRESPLIT_CLUSTER = KernelInfo(
+    "presplit_cluster",
+    _PRESPLIT + "the whole program, :74-233, on a stream of at most "
+    "PRESPLIT_CLUSTER_MAX tiles")
 PAIR_SUMMARIES = KernelInfo(
     "pair_summaries",
     "minbpe_tpu/parallel/train.py:229 (_local_run_summaries, a jitted "
@@ -220,7 +232,7 @@ PAIR_SUMMARIES = KernelInfo(
 KERNELS = (PAIR_STATS, SELECT_BATCH, MERGE_APPLY, BATCH_HIST, BATCH_APPLY,
            COMPACT, PAIR_COUNT, ENCODE_SWEEP, CHUNK_ENCODE, ENCODE_MIN_SWEEP,
            PAIR_SELECT, PRESPLIT_SUCC, PRESPLIT_ORBIT, PAIR_SUMMARIES,
-           SEGMENT_ENCODE)
+           SEGMENT_ENCODE, PRESPLIT_CLUSTER)
 
 
 def reset_launches():
@@ -267,11 +279,16 @@ SIGNATURES = {
     "bpe_pair_summaries_merge": [_P, _P, _I, _I, _P, _P, _P, _I, _P, _P, _I,
                                  _P],
     "bpe_presplit_tile_size": [],
+    "bpe_presplit_stamps": [_P],
     "bpe_presplit_scratch_ints": [],
     "bpe_presplit_block_nodes": [],
     "bpe_presplit_grid": [_I],
     "bpe_presplit_succ": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
     "bpe_presplit_orbit": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "bpe_presplit_cluster_max": [],
+    "bpe_presplit_cluster_min_tile": [],
+    "bpe_presplit_cluster": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I,
+                             _P],
 }
 
 _lib = None
@@ -334,7 +351,12 @@ def _load():
                 ("pre-split scratch", lib.bpe_presplit_scratch_ints(),
                  PRESPLIT_SCRATCH_INTS),
                 ("pre-split block nodes", lib.bpe_presplit_block_nodes(),
-                 PRESPLIT_BLOCK_NODES)):
+                 PRESPLIT_BLOCK_NODES),
+                ("pre-split cluster", lib.bpe_presplit_cluster_max(),
+                 PRESPLIT_CLUSTER_MAX),
+                ("pre-split cluster tile",
+                 lib.bpe_presplit_cluster_min_tile(),
+                 PRESPLIT_CLUSTER_MIN_TILE)):
             if got != want:
                 raise RuntimeError(f"the kernels' {name} is {got}, "
                                    f"kernels.py's {want}")

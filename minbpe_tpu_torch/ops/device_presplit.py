@@ -14,14 +14,20 @@ On a CUDA tensor the split is K15, two hand-written kernels
 where the chunk that would start there ends, working in bytes with scans
 over class runs chained across tiles; ``presplit_orbit`` follows those ends
 from byte 0 (each tile's exits, then the path over the tiles' exits by
-doubling) and writes the boundaries and segment ids. On a CPU tensor it is
+doubling) and writes the boundaries and segment ids. A stream of at most
+``CLUSTER_MAX_N`` (32 KB) bytes takes ``presplit_cluster`` instead: both
+steps in one launch of one thread-block cluster, a CTA a tile, the
+successors and walks in shared memory (``route(n)`` chooses, by n alone,
+and counts each call in ``presplit.route.cluster`` or
+``presplit.route.grid``). On a CPU tensor it is
 ``presplit_plain``, the plain PyTorch twin: minbpe_tpu's array program
 (UTF-8 decode, class lookup, every char's successor from cummin/cummax
 scans, the orbit by pointer doubling) carried over op by op. Each kernel
 also has a plain version of its own step, in bytes: ``successor_plain``
-and ``orbit_plain``; and ``succ_tiles_model`` and ``orbit_tiles_model``
-carry out the kernels' tile steps in plain PyTorch at any tile size and
-grid, so the CPU tests hold the design itself to the plain steps.
+and ``orbit_plain``; and ``succ_tiles_model``, ``orbit_tiles_model`` and
+``cluster_tiles_model`` carry out the kernels' tile steps in plain PyTorch
+at any tile size and grid or cluster, so the CPU tests hold the design
+itself to the plain steps.
 
 The class tables (dense BMP flags, 64 KB; the range starts and flags for
 the astral planes) come from the port's own utils/presplit tables and go to
@@ -45,6 +51,8 @@ from ..utils.presplit import (
 MODES = {"gpt4": 4, "gpt2": 2}
 # the kernels index bytes with int32 (two tiles of slack)
 MAX_N = 2**31 - 2**13
+# presplit_cluster's most bytes: a tile each of its cluster's CTAs
+CLUSTER_MAX_N = kernels.PRESPLIT_CLUSTER_MAX * kernels.PRESPLIT_TILE
 # device bytes a text byte takes in the split: the bytes, the successors,
 # the orbit's scratch (each tile's exits, the node graph's two buffers), the
 # boundaries, the segment ids
@@ -467,28 +475,9 @@ def block_ranges(tiles: int, blocks: int):
             for b in range(blocks)]
 
 
-def succ_tiles_model(data, n: int, mode, tile: int, blocks: int,
-                     stats=None):
-    """presplit_succ's tile steps in plain PyTorch: ``successor_plain``
-    with the breaks chained across tiles of ``tile`` bytes as the kernel
-    chains them. Each of ``blocks`` blocks owns a contiguous range of
-    tiles; before the grid barrier it combines its tiles' aggregates from
-    the left and stops at the first saturated one; after it, it combines
-    the later blocks' aggregates a warp (32) at a time until one saturates
-    (else the text's end), then walks its own tiles from the right, each
-    tile's carry its right neighbour's aggregate combined with that one's
-    carry. ``stats`` (a dict) gets the tiles that phase 1 read and the
-    most look-right rounds of a block."""
-    code = _check_args(data, n, mode)
-    f = torch.full((data.numel(),), -1, dtype=torch.int32,
-                   device=data.device)
-    if n == 0:
-        return f
-    st = _byte_state(data, n)
-    pos = st["pos"]
-    tiles = -(-n // tile)
-    tid = pos // tile
-    tend = torch.clamp((tid + 1) * tile, max=n)
+def _tile_aggs(st, n: int, tile: int):
+    """Each tile's aggregate (c1, c2, o1, o2, lr, lc) of the byte state
+    ``st`` of data[:n], as a block's scan of the tile makes it."""
     cr = (st["cls"] == _CL_CR).tolist()
     nonws = (st["coarse"] != _CL_WS).tolist()
     bc = torch.nonzero(st["brk_c"]).flatten().tolist()
@@ -507,7 +496,68 @@ def succ_tiles_model(data, n: int, mode, tile: int, blocks: int,
         lc = max((q for q in range(lo, top) if cr[q]), default=-1)
         return (c[0], c[1], o[0], o[1], int(first is not None), lc)
 
-    aggs = [tile_agg(t) for t in range(tiles)]
+    return [tile_agg(t) for t in range(-(-n // tile))]
+
+
+def _succ_from_carries(st, n: int, code: int, tile: int, carry):
+    """f of data[:n] from each tile's carry (the aggregate of everything
+    after the tile, the text's end included): each byte's state is its
+    tile's breaks after it, then its tile's carry."""
+    pos = st["pos"]
+    tid = pos // tile
+    tend = torch.clamp((tid + 1) * tile, max=n)
+    cy = torch.tensor(carry, dtype=torch.int64, device=pos.device)[tid]
+    big = torch.full_like(pos, _AGG_BIG)
+
+    def in_tile(brk):
+        nxt = torch.cat([_rev_cummin(torch.where(brk, pos, _AGG_BIG))[1:],
+                         big[:1]])
+        one = torch.where(nxt < tend, nxt, _AGG_BIG)
+        two = torch.where(one < _AGG_BIG, nxt[one.clamp(max=n - 1)],
+                          _AGG_BIG)
+        return one, torch.where(two < tend, two, _AGG_BIG)
+
+    def chain(one, two, c1, c2):
+        return (torch.minimum(one, c1),
+                torch.minimum(torch.maximum(one, c1), torch.minimum(two, c2)))
+
+    C1, C2 = chain(*in_tile(st["brk_c"]), cy[:, 0], cy[:, 1])
+    O1, O2 = chain(*in_tile(st["brk_o"]), cy[:, 2], cy[:, 3])
+    # LCR: the tile's own [q, first non-space) if it has one, else the
+    # carry's, else the tile's last CR/LF at or after q
+    ns = _rev_cummin(torch.where(st["coarse"] != _CL_WS, pos, _AGG_BIG))
+    ns_in = ns < tend
+    top = torch.where(ns_in, ns, tend)
+    last_cr = torch.cummax(torch.where(st["cls"] == _CL_CR, pos, -1),
+                           0).values
+    own = last_cr[(top - 1).clamp(min=0)]
+    own = torch.where(own >= pos, own, -1)
+    lcr = torch.where(ns_in | (cy[:, 5] < 0), own, cy[:, 5])
+    lcr = torch.where(st["coarse"] == _CL_WS, lcr, -1)
+    C1, C2, O1, O2 = (x.clamp(max=n) for x in (C1, C2, O1, O2))
+    return _succ_rules(st, n, code, C1, C2, O1, O2, lcr)
+
+
+def succ_tiles_model(data, n: int, mode, tile: int, blocks: int,
+                     stats=None):
+    """presplit_succ's tile steps in plain PyTorch: ``successor_plain``
+    with the breaks chained across tiles of ``tile`` bytes as the kernel
+    chains them. Each of ``blocks`` blocks owns a contiguous range of
+    tiles; before the grid barrier it combines its tiles' aggregates from
+    the left and stops at the first saturated one; after it, it combines
+    the later blocks' aggregates a warp (32) at a time until one saturates
+    (else the text's end), then walks its own tiles from the right, each
+    tile's carry its right neighbour's aggregate combined with that one's
+    carry. ``stats`` (a dict) gets the tiles that phase 1 read and the
+    most look-right rounds of a block."""
+    code = _check_args(data, n, mode)
+    f = torch.full((data.numel(),), -1, dtype=torch.int32,
+                   device=data.device)
+    if n == 0:
+        return f
+    st = _byte_state(data, n)
+    aggs = _tile_aggs(st, n, tile)
+    tiles = len(aggs)
     ranges = block_ranges(tiles, min(blocks, tiles))
     end = (n, _AGG_BIG, n, _AGG_BIG, 1, -1)
     # phase 1: each block's aggregate, stopped where it saturates
@@ -543,37 +593,7 @@ def succ_tiles_model(data, n: int, mode, tile: int, blocks: int,
     if stats is not None:
         stats.update(tiles=tiles, phase1_tiles_read=read,
                      lookright_rounds=most_rounds)
-    # each byte's state: its tile's breaks after it, then its tile's carry
-    cy = torch.tensor(carry, dtype=torch.int64, device=pos.device)[tid]
-    big = torch.full_like(pos, _AGG_BIG)
-
-    def in_tile(brk):
-        nxt = torch.cat([_rev_cummin(torch.where(brk, pos, _AGG_BIG))[1:],
-                         big[:1]])
-        one = torch.where(nxt < tend, nxt, _AGG_BIG)
-        two = torch.where(one < _AGG_BIG, nxt[one.clamp(max=n - 1)],
-                          _AGG_BIG)
-        return one, torch.where(two < tend, two, _AGG_BIG)
-
-    def chain(one, two, c1, c2):
-        return (torch.minimum(one, c1),
-                torch.minimum(torch.maximum(one, c1), torch.minimum(two, c2)))
-
-    C1, C2 = chain(*in_tile(st["brk_c"]), cy[:, 0], cy[:, 1])
-    O1, O2 = chain(*in_tile(st["brk_o"]), cy[:, 2], cy[:, 3])
-    # LCR: the tile's own [q, first non-space) if it has one, else the
-    # carry's, else the tile's last CR/LF at or after q
-    ns = _rev_cummin(torch.where(st["coarse"] != _CL_WS, pos, _AGG_BIG))
-    ns_in = ns < tend
-    top = torch.where(ns_in, ns, tend)
-    last_cr = torch.cummax(torch.where(st["cls"] == _CL_CR, pos, -1),
-                           0).values
-    own = last_cr[(top - 1).clamp(min=0)]
-    own = torch.where(own >= pos, own, -1)
-    lcr = torch.where(ns_in | (cy[:, 5] < 0), own, cy[:, 5])
-    lcr = torch.where(st["coarse"] == _CL_WS, lcr, -1)
-    C1, C2, O1, O2 = (x.clamp(max=n) for x in (C1, C2, O1, O2))
-    f[:n] = _succ_rules(st, n, code, C1, C2, O1, O2, lcr)
+    f[:n] = _succ_from_carries(st, n, code, tile, carry)
     return f
 
 
@@ -618,6 +638,52 @@ def orbit_nodes(f, n: int, tile: int = kernels.PRESPLIT_TILE) -> int:
     ok = exit_ >= 0
     key = (pos[ok] // tile) * (n + 1) + exit_[ok]
     return int(torch.unique(key).numel())
+
+
+def _entry_marks(f, n: int, tile: int, entry):
+    """The chunk starts of data[:n] from each tile's entry (entry[t]: the
+    byte where the path enters tile t, None where it skips the tile), and
+    how the walks ended: each tile's walk from its entry, up to WALK_HOPS
+    hops, until it meets the tile's trunk (the walk from its first char
+    start) or leaves the tile; then the trunk from there on. A walk that
+    does neither is marked by doubling from the entry, as the trunk is."""
+    dev = f.device
+    tiles = -(-n // tile)
+    fv = f[:n].to(torch.int64)
+    first = torch.zeros(n, dtype=torch.bool, device=dev)
+    for t in range(tiles):
+        got = torch.nonzero(fv[t * tile:(t + 1) * tile] >= 0)
+        if got.numel():
+            first[t * tile + int(got[0])] = True
+    trunk = _in_tile_walk(fv, tile, first)
+    marks = torch.zeros(n, dtype=torch.bool, device=dev)
+    doubled = torch.zeros(n, dtype=torch.bool, device=dev)
+    outcome = {"trunk": 0, "left": 0, "doubled": 0}
+    fl, tr = fv.tolist(), trunk.tolist()
+    for t, e in enumerate(entry):
+        if e is None:
+            continue
+        end = min((t + 1) * tile, n)
+        x, walked = e, []
+        while len(walked) < WALK_HOPS and not tr[x]:
+            walked.append(x)
+            if not x < fl[x] < end:
+                x = None
+                break
+            x = fl[x]
+        for q in walked:
+            marks[q] = True
+        if x is None:
+            outcome["left"] += 1
+        elif tr[x]:
+            marks[x:end] |= trunk[x:end]
+            outcome["trunk"] += 1
+        else:
+            doubled[e] = True
+            outcome["doubled"] += 1
+    if outcome["doubled"]:
+        marks |= _in_tile_walk(fv, tile, doubled)
+    return marks, outcome
 
 
 def orbit_tiles_model(f, n: int, tile: int, blocks: int, stats=None):
@@ -707,45 +773,8 @@ def orbit_tiles_model(f, n: int, tile: int, blocks: int, stats=None):
         stats.update(tiles=tiles, nodes=M, most_nodes=max(m),
                      tier="block" if one else "grid", rounds=rounds)
 
-    # 3. each tile's walk from its entry: up to WALK_HOPS hops until it
-    # meets the tile's trunk (the walk from its first char start, marked in
-    # step 1) or leaves the tile; then the trunk from there on. A walk that
-    # does neither is marked by doubling from the entry, as step 1 marks
-    # the trunk.
-    fv = f[:n].to(torch.int64)
-    first = torch.zeros(n, dtype=torch.bool, device=dev)
-    for t in range(tiles):
-        got = torch.nonzero(fv[t * tile:(t + 1) * tile] >= 0)
-        if got.numel():
-            first[t * tile + int(got[0])] = True
-    trunk = _in_tile_walk(fv, tile, first)
-    marks = torch.zeros(n, dtype=torch.bool, device=dev)
-    doubled = torch.zeros(n, dtype=torch.bool, device=dev)
-    outcome = {"trunk": 0, "left": 0, "doubled": 0}
-    fl, tr = fv.tolist(), trunk.tolist()
-    for t, e in enumerate(entry):
-        if e is None:
-            continue
-        end = min((t + 1) * tile, n)
-        x, walked = e, []
-        while len(walked) < WALK_HOPS and not tr[x]:
-            walked.append(x)
-            if not x < fl[x] < end:
-                x = None
-                break
-            x = fl[x]
-        for q in walked:
-            marks[q] = True
-        if x is None:
-            outcome["left"] += 1
-        elif tr[x]:
-            marks[x:end] |= trunk[x:end]
-            outcome["trunk"] += 1
-        else:
-            doubled[e] = True
-            outcome["doubled"] += 1
-    if outcome["doubled"]:
-        marks |= _in_tile_walk(fv, tile, doubled)
+    # 3. each tile's walk from its entry
+    marks, outcome = _entry_marks(f, n, tile, entry)
     if stats is not None:
         stats.update(walks=outcome)
     for b, (lo, hi) in enumerate(ranges):
@@ -756,6 +785,79 @@ def orbit_tiles_model(f, n: int, tile: int, blocks: int, stats=None):
         seg[a:z] = base + torch.cumsum(marks[a:z].to(torch.int32), 0,
                                        dtype=torch.int32) - 1
     boundary[:n] = marks
+    return boundary, seg
+
+
+def cluster_tiles_model(data, n: int, mode, tile: int, cluster: int,
+                        stats=None):
+    """presplit_cluster's steps in plain PyTorch at any tile size:
+    ``presplit_plain`` as one cluster of ``cluster`` CTAs computes it, CTA
+    r the tile of ``tile`` bytes at r * tile (none past the text; the
+    tiles at most ``cluster``, at most ``kernels.PRESPLIT_CLUSTER_MAX``).
+
+    1. Each CTA stages its tile and scans it for the tile's aggregate;
+       after a cluster barrier it reads the later CTAs' aggregates from
+       their shared memory and combines them, then the text's end, into
+       the carry at its tile's end, and computes its tile's successors
+       from it (as ``succ_tiles_model`` from its carries).
+    2. Each CTA resolves by doubling inside its tile where the walk from
+       each byte leaves it (its exit) and the chunk starts it makes there,
+       and marks the tile's trunk (as ``orbit_tiles_model``'s step 1).
+    3. After a second barrier CTA 0 follows the path from byte 0, a load
+       a hop from the CTA of the tile it enters: that byte is the tile's
+       entry, and its count the tile's chunk starts. A tile's chunk starts
+       before it are those of the tiles the path entered before it.
+    4. After a third, each CTA marks the walk from its entry (as
+       ``orbit_tiles_model``'s step 3) and writes its boundaries and
+       segment ids.
+
+    ``stats`` (a dict) gets the tiles, the successors of step 1 (``f``),
+    the path's hops and how step 4's walks ended."""
+    code = _check_args(data, n, mode)
+    tiles = -(-n // tile)
+    if not tiles <= cluster <= kernels.PRESPLIT_CLUSTER_MAX:
+        raise ValueError(f"{tiles} tiles of {tile} bytes on a cluster of "
+                         f"{cluster} CTAs")
+    NB = data.numel()
+    dev = data.device
+    boundary = torch.zeros(NB, dtype=torch.bool, device=dev)
+    seg = torch.full((NB,), -1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return boundary, seg
+    # 1. the carries from the later CTAs' aggregates, the successors
+    st = _byte_state(data, n)
+    aggs = _tile_aggs(st, n, tile)
+    aggs += [(_AGG_BIG, _AGG_BIG, _AGG_BIG, _AGG_BIG, 0, -1)] * (cluster
+                                                                 - tiles)
+    carry = []
+    for r in range(tiles):
+        g = (n, _AGG_BIG, n, _AGG_BIG, 1, -1)
+        for k in range(cluster - 1, r, -1):
+            g = _agg_combine(aggs[k], g)
+        carry.append(g)
+    f = torch.full((NB,), -1, dtype=torch.int32, device=dev)
+    f[:n] = _succ_from_carries(st, n, code, tile, carry)
+    # 2. each byte's exit and count in its tile
+    exit_, cnt = _tile_exits(f, n, tile)
+    # 3. the path over the tiles in CTA 0
+    entry, starts, x, hops = [None] * tiles, [0] * tiles, 0, 0
+    while x < n:
+        w = x // tile
+        entry[w], starts[w] = x, int(cnt[x])
+        x = int(exit_[x])
+        hops += 1
+    # 4. each tile's chunk starts from its entry, its segment ids from the
+    # chunk starts before it
+    marks, outcome = _entry_marks(f, n, tile, entry)
+    before = 0
+    for w in range(tiles):
+        a, z = w * tile, min((w + 1) * tile, n)
+        seg[a:z] = before + torch.cumsum(marks[a:z].to(torch.int32), 0,
+                                         dtype=torch.int32) - 1
+        before += starts[w]
+    boundary[:n] = marks
+    if stats is not None:
+        stats.update(tiles=tiles, f=f, path_hops=hops, walks=outcome)
     return boundary, seg
 
 
@@ -834,14 +936,66 @@ def presplit_orbit(f, n: int):
     return boundary, seg
 
 
+def cluster_geometry(n: int) -> tuple[int, int]:
+    """(tile, CTAs) of presplit_cluster on n bytes: the least tile of
+    512, 1,024, 2,048 or 4,096 bytes of which the cluster's 8 CTAs hold n,
+    and as many CTAs as n fills, so that a short text spreads over up to
+    8 SMs."""
+    tile = kernels.PRESPLIT_CLUSTER_MIN_TILE
+    while kernels.PRESPLIT_CLUSTER_MAX * tile < n:
+        tile *= 2
+    if tile > kernels.PRESPLIT_TILE:
+        raise ValueError(f"{n} bytes: presplit_cluster takes at most "
+                         f"{CLUSTER_MAX_N}")
+    return tile, -(-n // tile)
+
+
+def presplit_cluster(data, n: int, mode):
+    """K15 presplit_cluster: ``presplit_plain`` on the card for a stream of
+    at most ``CLUSTER_MAX_N`` bytes, in one launch of one cluster, a CTA a
+    tile (``cluster_geometry``; the successors and the walks stay in shared
+    memory). Values past n are unspecified there."""
+    code = _check_args(data, n, mode)
+    tile, ctas = cluster_geometry(n)
+    if not data.is_cuda:
+        return presplit_plain(data, n, code)
+    dev = data.device
+    kernels._check("data", data, torch.uint8, dev, 0)
+    if n == 0:
+        return (torch.zeros(data.numel(), dtype=torch.bool, device=dev),
+                torch.full((data.numel(),), -1, dtype=torch.int32,
+                           device=dev))
+    boundary = torch.empty(data.numel(), dtype=torch.bool, device=dev)
+    seg = torch.empty(data.numel(), dtype=torch.int32, device=dev)
+    dense, starts, flags = _device_tables(dev)
+    kernels._run(dev, kernels._load().bpe_presplit_cluster, data.data_ptr(),
+                 n, code, dense.data_ptr(), starts.data_ptr(),
+                 flags.data_ptr(), starts.numel(), boundary.data_ptr(),
+                 seg.data_ptr(), tile, ctas)
+    kernels.PRESPLIT_CLUSTER.launches += 1
+    return boundary, seg
+
+
+def route(n: int) -> str:
+    """K15's route for a stream of n bytes: "cluster" (presplit_cluster,
+    one launch) up to CLUSTER_MAX_N bytes, else "grid" (presplit_succ then
+    presplit_orbit, two cooperative launches)."""
+    return "cluster" if n <= CLUSTER_MAX_N else "grid"
+
+
 def presplit_seg_ids(data, n: int, mode):
     """Per-byte (boundary, seg) of uint8 ``data`` (valid UTF-8 in [:n],
-    possibly padded past n), on data's device: K15 on the card, the plain
-    twin on the CPU. mode: "gpt4" | "gpt2" (or 4 | 2). Values past n are
+    possibly padded past n), on data's device: K15 on the card (by
+    ``route(n)``, counted in ``presplit.route.<route>``), the plain twin on
+    the CPU. mode: "gpt4" | "gpt2" (or 4 | 2). Values past n are
     unspecified."""
     code = _check_args(data, n, mode)
     if not data.is_cuda:
         return presplit_plain(data, n, code)
+    way = route(n)
+    trace.count(f"presplit.route.{way}")
+    if way == "cluster":
+        return presplit_cluster(data, n, code)
     return presplit_orbit(presplit_succ(data, n, code), n)
 
 

@@ -1,28 +1,35 @@
 #!/usr/bin/env python3
 """Device time of the device pre-split, K15 ``presplit_succ`` and
-``presplit_orbit``, on one NVIDIA GPU.
+``presplit_orbit`` (the cooperative pair) and ``presplit_cluster`` (the
+tier of streams up to 32 KB), on one NVIDIA GPU.
 
     python3 scripts/time_presplit.py [--ptxas]
 
-Times the whole split (``presplit_seg_ids``) and each kernel alone
-(``presplit_succ`` on the bytes, ``presplit_orbit`` on its successors)
-through the Python wrappers, with CUDA events behind a sleeping kernel
-(chip_smoke.device_ms), at chip_smoke.py's phase-2 shapes: the smoke corpus
-(397,366 bytes) and the XL corpus (12,588,338) in both modes, the XL
-corpus four times over (50,353,352; GPT-4) and 2^20 spaces, letters and
-digits (GPT-4). Each shape also gets the sha256 of the split (boundaries,
-then segment ids, below n) and its bytes bound (n read, 5 n written, the
-64 KB class table; 3.35 TB/s). With ``--ptxas`` it first compiles the
-kernel source once more with ``-Xptxas -v`` and prints what ptxas reports
-for the K15 kernels (registers, shared memory, spills).
+Times the whole split (``presplit_seg_ids``, by its route) and each kernel
+alone (``presplit_succ`` on the bytes, ``presplit_orbit`` on its
+successors, ``presplit_cluster`` on the bytes where the package has it and
+the stream fits it) through the Python wrappers, with CUDA events behind
+a sleeping kernel (chip_smoke.device_ms), at chip_smoke.py's phase-2
+shapes: the smoke corpus (397,366 bytes) and the XL corpus (12,588,338)
+in both modes, the XL corpus four times over (50,353,352; GPT-4) and 2^20
+spaces, letters and digits (GPT-4); then at chip_smoke.cluster_shapes
+(the regex512-encode-docs cell's median, mean-length and longest
+documents, the smoke corpus's first 1, 2, 4 and 8 tiles; GPT-4), where
+``pair_ms`` is the pair's time on the same bytes. Each shape also gets the
+sha256 of the split (boundaries, then segment ids, below n) and its bytes
+bound (n read, 5 n written, the 64 KB class table; 3.35 TB/s). With
+``--ptxas`` it first compiles the kernel source once more with ``-Xptxas
+-v`` and prints what ptxas reports for the K15 kernels (registers, shared
+memory, spills).
 
 It goes through the wrappers alone, so it also times an earlier commit's
 package: unpack that commit with git archive into _archive/ (git-ignored),
 copy this script and chip_smoke.py into it, and run both trees in turns in
 one call (parent, this, this, parent); equal hashes show equal outputs. It
 prints one JSON object, {"root", "ptxas", "shapes": [{"case", "n",
-"chunks", "ms", "succ_ms", "orbit_ms", "bound_ms", "sha256"}]}, then the
-card's name and power limit.
+"chunks", "ms", "succ_ms", "orbit_ms", "pair_ms", "cluster_ms",
+"bound_ms", "sha256"}]} (cluster_ms None where the package has no cluster
+tier or the stream is past it), then the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -39,16 +46,18 @@ sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
 
 
-def shapes(golden_mod):
-    """(name, text, mode) of chip_smoke.py phase 2's K15 shapes."""
-    corpus = golden_mod.smoke_corpus(ROOT)
-    xl = golden_mod.xl_corpus(ROOT)
+def shapes(np, golden_mod):
+    """(name, text bytes, mode) of chip_smoke.py phase 2's K15 shapes."""
+    corpus = golden_mod.smoke_corpus(ROOT).encode("utf-8")
+    xl = golden_mod.xl_corpus(ROOT).encode("utf-8")
     k = 1 << 20
     return [("smoke", corpus, "gpt4"), ("smoke", corpus, "gpt2"),
             ("xl", xl, "gpt4"), ("xl", xl, "gpt2"), ("xl4", xl * 4, "gpt4"),
-            ("spaces_2e20", " " * k + "x", "gpt4"),
-            ("letters_2e20", " " + "a" * k + "!", "gpt4"),
-            ("digits_2e20", "1" * k + " 22", "gpt4")]
+            ("spaces_2e20", b" " * k + b"x", "gpt4"),
+            ("letters_2e20", b" " + b"a" * k + b"!", "gpt4"),
+            ("digits_2e20", b"1" * k + b" 22", "gpt4")] + [
+                (name, raw, "gpt4")
+                for name, raw in chip_smoke.cluster_shapes(np, golden_mod)]
 
 
 def ptxas_report(kernels) -> list[str]:
@@ -66,11 +75,12 @@ def ptxas_report(kernels) -> list[str]:
     for i, line in enumerate(lines):
         if "presplit" in line and "Compiling entry function" in line:
             keep += [line.strip()] + [x.strip() for x in lines[i + 1:i + 4]
-                                      if "ptxas info" in x]
+                                      if "ptxas info" in x or "spill" in x]
     return keep
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -85,8 +95,8 @@ def main() -> int:
         print(line, file=sys.stderr)
     table = 0x10000 + 5 * pdp._device_tables(torch.device("cuda"))[1].numel()
     out = []
-    for name, text, mode in shapes(golden_mod):
-        raw = text.encode("utf-8")
+    cluster = getattr(pdp, "presplit_cluster", None)
+    for name, raw, mode in shapes(np, golden_mod):
         n = len(raw)
         data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).cuda()
         del raw
@@ -95,6 +105,7 @@ def main() -> int:
         h.update(seg[:n].cpu().numpy().tobytes())
         f = pdp.presplit_succ(data, n, mode)
         reps = 5 if n > 1 << 22 else 20
+        short = cluster is not None and n <= pdp.CLUSTER_MAX_N
         rec = dict(
             case=f"{name}_{mode}", n=n, chunks=int(seg[n - 1]) + 1,
             ms=chip_smoke.device_ms(
@@ -103,6 +114,12 @@ def main() -> int:
                 torch, lambda: pdp.presplit_succ(data, n, mode), reps),
             orbit_ms=chip_smoke.device_ms(
                 torch, lambda: pdp.presplit_orbit(f, n), reps),
+            pair_ms=chip_smoke.device_ms(
+                torch, lambda: pdp.presplit_orbit(
+                    pdp.presplit_succ(data, n, mode), n), reps),
+            cluster_ms=chip_smoke.device_ms(
+                torch, lambda: cluster(data, n, mode), reps) if short
+            else None,
             bound_ms=(6 * n + table) / chip_smoke.HBM_BYTES_PER_S * 1e3,
             sha256=h.hexdigest())
         out.append(rec)

@@ -1322,7 +1322,8 @@ def test_large_vocab_modes_match_cpu(dev, mode, basic_3000_cpu):
 
 
 # ---------------------------------------------------------------------------
-# K15 presplit_succ and presplit_orbit (ops/device_presplit.py)
+# K15 presplit_succ and presplit_orbit, and presplit_cluster
+# (ops/device_presplit.py)
 # ---------------------------------------------------------------------------
 
 def _presplit_texts():
@@ -1375,7 +1376,9 @@ def presplit_texts():
 def test_presplit_matches_plain(dev, presplit_texts, mode, name):
     """K15 against its plain twin (presplit_plain, on the CPU), each kernel
     against its own step's plain version on the same inputs, and the ends
-    against the host scanner's: exact. The input is padded past n."""
+    against the host scanner's: exact. The input is padded past n. A text
+    of at most 8 tiles takes presplit_cluster, a longer one the pair;
+    the pair also splits a short one, equal to the cluster's."""
     from minbpe_tpu_torch.ops import device_presplit as pdp
     from minbpe_tpu_torch.utils import native
 
@@ -1386,11 +1389,15 @@ def test_presplit_matches_plain(dev, presplit_texts, mode, name):
     kernels.reset_launches()
     gb, gs = pdp.presplit_seg_ids(gdata, n, mode)
     torch.cuda.synchronize()
+    short = n <= pdp.CLUSTER_MAX_N
+    assert kernels.PRESPLIT_CLUSTER.launches == int(short)
     assert kernels.PRESPLIT_SUCC.launches == kernels.PRESPLIT_ORBIT.launches \
-        == 1
+        == int(not short)
     cb, cs = pdp.presplit_plain(data, n, mode)
     assert torch.equal(gb[:n].cpu(), cb[:n])
     assert torch.equal(gs[:n].cpu(), cs[:n])
+    pb, ps = pdp.presplit_orbit(pdp.presplit_succ(gdata, n, mode), n)
+    assert torch.equal(pb[:n], gb[:n]) and torch.equal(ps[:n], gs[:n])
     f = pdp.presplit_succ(gdata, n, mode)
     cf = pdp.successor_plain(gdata, n, mode)
     assert torch.equal(f[:n], cf[:n])
@@ -1452,8 +1459,10 @@ def test_presplit_orbit_forward_jumps(dev, seed, n):
 
 
 def test_presplit_cuda_never_takes_plain(dev, monkeypatch):
-    """A CUDA tensor goes to the kernels, never to a plain version."""
+    """A CUDA tensor goes to the kernels, never to a plain version: a
+    short text to presplit_cluster, a long one to the pair."""
     from minbpe_tpu_torch.ops import device_presplit as pdp
+    from minbpe_tpu_torch.utils import native
 
     def refuse(*a, **k):
         raise AssertionError("a plain version ran on a CUDA tensor")
@@ -1465,8 +1474,80 @@ def test_presplit_cuda_never_takes_plain(dev, monkeypatch):
     kernels.reset_launches()
     b, s = pdp.presplit_seg_ids(data, len(raw), "gpt4")
     assert int(s[-1]) == 8 and bool(b[0])
+    assert kernels.PRESPLIT_CLUSTER.launches == 1
+    long = torch.frombuffer(bytearray(raw * 2000), dtype=torch.uint8).to(dev)
+    b, s = pdp.presplit_seg_ids(long, long.numel(), "gpt4")
+    chunks = len(native.split_offsets(raw * 2000, 4))
+    assert int(s[-1]) == chunks - 1 and bool(b[0])
     assert kernels.PRESPLIT_SUCC.launches == kernels.PRESPLIT_ORBIT.launches \
         == 1
+
+
+@pytest.mark.parametrize("mode", ["gpt4", "gpt2"])
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 32767, 32768])
+def test_presplit_cluster_edges(dev, presplit_texts, mode, n):
+    """presplit_cluster at the tile and cluster edges equals presplit_plain
+    and the cooperative pair, on the fuzz text (astral chars, CR/LF, digit
+    runs) and on a text of 4-byte chars that straddle every tile edge."""
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+
+    fuzz = presplit_texts["fuzz"].encode("utf-8")
+    astral = ("a" * (4096 - (n % 4) - 1) + "😊" * 9000).encode("utf-8")
+    for raw in (fuzz, astral):
+        raw = raw[:n].decode("utf-8", errors="ignore").encode("utf-8")
+        raw += b"x" * (n - len(raw))
+        data = torch.frombuffer(bytearray(raw + b"\n 7"), dtype=torch.uint8)
+        gdata = data.to(dev)
+        kernels.reset_launches()
+        gb, gs = pdp.presplit_cluster(gdata, n, mode)
+        assert kernels.PRESPLIT_CLUSTER.launches == 1
+        cb, cs = pdp.presplit_plain(data, n, mode)
+        assert torch.equal(gb[:n].cpu(), cb[:n])
+        assert torch.equal(gs[:n].cpu(), cs[:n])
+        pb, ps = pdp.presplit_orbit(pdp.presplit_succ(gdata, n, mode), n)
+        assert torch.equal(pb[:n], gb[:n]) and torch.equal(ps[:n], gs[:n])
+
+
+@pytest.mark.parametrize("mode", ["gpt4", "gpt2"])
+def test_presplit_cluster_cell_documents(dev, mode):
+    """presplit_cluster on the regex512-encode-docs cell's documents, every
+    eighth by length (128 to 32,768 bytes, every length band), equals
+    presplit_plain and the cooperative pair."""
+    import chip_smoke
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+
+    data, lengths, starts = chip_smoke.cell_documents(np, 2**31 + 99)
+    for i in np.argsort(lengths, kind="stable")[::8].tolist() + [
+            int(np.argmax(lengths))]:
+        raw = bytes(data[starts[i]:starts[i] + lengths[i]])
+        n = len(raw)
+        cpu = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+        gdata = cpu.to(dev)
+        gb, gs = pdp.presplit_cluster(gdata, n, mode)
+        cb, cs = pdp.presplit_plain(cpu, n, mode)
+        assert torch.equal(gb.cpu(), cb) and torch.equal(gs.cpu(), cs), n
+        pb, ps = pdp.presplit_orbit(pdp.presplit_succ(gdata, n, mode), n)
+        assert torch.equal(pb, gb) and torch.equal(ps, gs), n
+
+
+def test_presplit_route_launches(dev):
+    """32,768 bytes launch presplit_cluster once and neither cooperative
+    kernel; 32,769 launch the pair once each and no cluster; each call
+    counts its route."""
+    from minbpe_tpu_torch import trace
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+
+    text = ("Hello's world 123 \r\n" * 2000).encode()
+    for n, route in ((32768, "cluster"), (32769, "grid")):
+        data = torch.frombuffer(bytearray(text[:n]), dtype=torch.uint8).to(dev)
+        kernels.reset_launches()
+        trace.reset()
+        pdp.presplit_seg_ids(data, n, "gpt4")
+        cluster = route == "cluster"
+        assert kernels.PRESPLIT_CLUSTER.launches == int(cluster)
+        assert kernels.PRESPLIT_SUCC.launches == int(not cluster)
+        assert kernels.PRESPLIT_ORBIT.launches == int(not cluster)
+        assert trace.COUNTERS == {f"presplit.route.{route}": 1}
 
 
 @pytest.mark.parametrize("mode", ["gpt4", "gpt2"])
@@ -1481,7 +1562,7 @@ def test_split_spans_host_on_card(dev, presplit_texts, mode):
     kernels.reset_launches()
     spans = pdp.split_spans_host(text, mode)
     assert kernels.PRESPLIT_SUCC.launches == kernels.PRESPLIT_ORBIT.launches \
-        == 1
+        == 1 - kernels.PRESPLIT_CLUSTER.launches
     ends = native.split_offsets(raw, 4 if mode == "gpt4" else 2).tolist()
     assert spans == list(zip([0] + ends[:-1], ends))
     assert pdp.split_spans_host("", mode) == []
@@ -2067,6 +2148,9 @@ def test_device_split_cl100k_cell_documents(dev):
     trace.reset()
     got = [split_tok.encode(d, allowed_special="none") for d in docs]
     assert kernels.SEGMENT_ENCODE.launches == len(docs)
+    assert kernels.PRESPLIT_CLUSTER.launches == len(docs)
+    assert kernels.PRESPLIT_SUCC.launches == 0
+    assert trace.COUNTERS["presplit.route.cluster"] == len(docs)
     assert kernels.CHUNK_ENCODE.launches == 0
     assert kernels.ENCODE_MIN_SWEEP.launches == 0
     assert trace.COUNTERS["encode.route.device_split"] == len(docs)

@@ -198,8 +198,12 @@ def test_cpu_wrappers_take_the_plain_steps():
     for got, want in zip(pdp.presplit_orbit(f, len(raw)),
                          pdp.orbit_plain(f, len(raw))):
         assert torch.equal(got, want)
+    for got, want in zip(pdp.presplit_cluster(data, len(raw), "gpt4"),
+                         pdp.presplit_plain(data, len(raw), "gpt4")):
+        assert torch.equal(got, want)
     assert kernels.PRESPLIT_SUCC.launches == 0
     assert kernels.PRESPLIT_ORBIT.launches == 0
+    assert kernels.PRESPLIT_CLUSTER.launches == 0
 
 
 @pytest.mark.parametrize("mode", MODES)
@@ -333,6 +337,141 @@ def test_tile_model_stats():
         assert o_stats["tiles"] <= o_stats["nodes"] <= 2 * o_stats["tiles"]
         assert o_stats["tier"] == "block"
         assert o_stats["nodes"] == pdp.orbit_nodes(f, n, 256)
+
+
+# ---------------------------------------------------------------------------
+# the CPU model of presplit_cluster (cluster_tiles_model): one cluster of up
+# to 8 CTAs, a tile each, at tiles of 8-64 bytes
+# ---------------------------------------------------------------------------
+
+CLUSTER_TILES = (8, 16, 64)
+
+
+def _check_cluster_model(text: str, mode: str, tile: int,
+                         clusters=None) -> int:
+    """The cluster model's successors equal successor_plain's, and its
+    split equals orbit_plain's and minbpe_tpu's, on every cluster from the
+    text's tiles to 8 (or ``clusters``); returns the path's hops."""
+    raw = text.encode("utf-8")
+    n = len(raw)
+    tiles = -(-n // tile)
+    assert tiles <= kernels.PRESPLIT_CLUSTER_MAX, (n, tile)
+    arr = _padded(raw)
+    data = torch.from_numpy(arr)
+    f = pdp.successor_plain(data, n, mode)
+    pb, ps = pdp.orbit_plain(f, n)
+    jb, js = (np.asarray(a)[:n] for a in jdp.presplit_seg_ids(arr, n, mode))
+    hops = 0
+    for cluster in clusters or range(max(tiles, 1),
+                                     kernels.PRESPLIT_CLUSTER_MAX + 1):
+        stats = {}
+        mb, ms = pdp.cluster_tiles_model(data, n, mode, tile, cluster, stats)
+        if n:
+            assert torch.equal(stats["f"], f), (tile, cluster)
+            hops = stats["path_hops"]
+        assert torch.equal(mb[:n], pb[:n]) and torch.equal(ms[:n], ps[:n])
+        assert np.array_equal(mb.numpy()[:n], jb)
+        assert np.array_equal(ms.numpy()[:n], js)
+    return hops
+
+
+def _fitting_tile(n: int) -> int:
+    """The least of CLUSTER_TILES whose 8 tiles hold n bytes."""
+    return next(t for t in CLUSTER_TILES
+                if n <= kernels.PRESPLIT_CLUSTER_MAX * t)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("tile", CLUSTER_TILES)
+def test_cluster_model_cases(mode, tile):
+    for text in CASES:
+        if len(text.encode()) <= kernels.PRESPLIT_CLUSTER_MAX * tile:
+            _check_cluster_model(text, mode, tile)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("seed", range(4))
+def test_cluster_model_fuzz(mode, seed):
+    rng = random.Random(200 + seed)
+    alpha = ALPHA if seed < 2 else ALPHA_WIDE
+    for length in (30, 60, 250):
+        text = "".join(rng.choice(alpha) for _ in range(length))
+        _check_cluster_model(text, mode, _fitting_tile(len(text.encode())))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("kind", sorted(RUNS) + [
+    f"long_{k}" for k in sorted(LONG_RUNS)])
+def test_cluster_model_runs(mode, kind):
+    """Runs across every tile of the cluster: 100 bytes over 16-byte tiles
+    and 480 over 64-byte ones."""
+    make = (LONG_RUNS[kind[5:]] if kind.startswith("long_")
+            else RUNS[kind])
+    for k, tile in ((100, 16), (480, 64)):
+        _check_cluster_model(make(k), mode, tile, clusters=(8,))
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_cluster_model_astral(mode):
+    """4-byte chars across the edges of 8- and 16-byte tiles."""
+    text = "𝕏𝐀 x🚀y '𐐀 1𝟙2 \U0001F600 😊😊"
+    for tile in (8, 16):
+        _check_cluster_model(text, mode, tile)
+        _check_cluster_model("a" * (tile - 1) + "😊" * 10, mode, tile)
+
+
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_cluster_model_sizes(cluster):
+    """Each cluster size on as many 64-byte tiles of the smoke corpus, in
+    both modes: the path enters every tile that a chunk starts in."""
+    raw = golden.smoke_corpus(ROOT).encode("utf-8")[:cluster * 64 - 3]
+    text = raw.decode("utf-8", errors="ignore")
+    for mode in MODES:
+        hops = _check_cluster_model(text, mode, 64, clusters=(cluster,))
+        assert hops == -(-len(text.encode()) // 64)
+
+
+def test_cluster_model_limits():
+    data = torch.zeros(100, dtype=torch.uint8)
+    with pytest.raises(ValueError):
+        pdp.cluster_tiles_model(data, 100, "gpt4", 8, 8)
+    with pytest.raises(ValueError):
+        pdp.cluster_tiles_model(data, 10, "gpt4", 8, 1)
+    with pytest.raises(ValueError):
+        pdp.cluster_tiles_model(data, 10, "gpt4", 8, 9)
+    b, s = pdp.cluster_tiles_model(data, 0, "gpt4", 8, 1)
+    assert not b.any() and (s == -1).all()
+
+
+@pytest.mark.parametrize("n, tile, ctas", [
+    (1, 512, 1), (512, 512, 1), (513, 512, 2), (1977, 512, 4),
+    (4096, 512, 8), (4097, 1024, 5), (8192, 1024, 8), (8193, 2048, 5),
+    (16384, 2048, 8), (16385, 4096, 5), (32768, 4096, 8)])
+def test_cluster_geometry(n, tile, ctas):
+    """presplit_cluster's tile is the least of 512-4,096 bytes whose 8 CTAs
+    hold the text, and the text fills as many CTAs."""
+    assert pdp.cluster_geometry(n) == (tile, ctas)
+    with pytest.raises(ValueError):
+        pdp.cluster_geometry(pdp.CLUSTER_MAX_N + 1)
+
+
+def test_route_by_length():
+    """K15's route is chosen by the stream's length alone: the cluster up
+    to 8 tiles, the cooperative pair past them; on a CPU tensor
+    presplit_cluster is the plain twin and refuses what the cluster
+    cannot hold."""
+    cap = kernels.PRESPLIT_CLUSTER_MAX * kernels.PRESPLIT_TILE
+    assert pdp.CLUSTER_MAX_N == cap == 32768
+    assert [pdp.route(n) for n in (0, 1, 4096, cap, cap + 1, 1 << 20)] == [
+        "cluster"] * 4 + ["grid"] * 2
+    raw = " | ".join(CASES).encode()
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    for got, want in zip(pdp.presplit_cluster(data, len(raw), "gpt4"),
+                         pdp.presplit_plain(data, len(raw), "gpt4")):
+        assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="at most 32768"):
+        pdp.presplit_cluster(torch.zeros(cap + 1, dtype=torch.uint8),
+                             cap + 1, "gpt4")
 
 
 # ---------------------------------------------------------------------------
