@@ -23,7 +23,7 @@ import torch
 from . import trace
 from .ops import stream as stream_ops
 from .ops import device_presplit, flat_encode
-from .ops.encode import check_memory, encode_stream, short_segments
+from .ops.encode import DEVICE_SPLIT, check_memory, encode_stream, readback
 from .ops.ranktab import CuckooPairTable
 from .ops.train import TRAIN_MAX_N, TRAIN_MAX_V, train_merges
 from .ops.train_inc import train_merges_incremental, train_merges_stepped
@@ -50,6 +50,12 @@ _ROUTES = {
 DENSE_VOCAB_MAX = 4096
 
 
+def table_vocab(new_ids) -> int:
+    """The vocab a merge table covers: every id an encode can make (its
+    largest new id + 1, at least 256)."""
+    return 256 if len(new_ids) == 0 else max(256, int(np.max(new_ids)) + 1)
+
+
 class DeviceMergeTable:
     """Frozen merge table on a device: pairs (int32 (M, 2)) and new_ids
     (int32 (M,)) in rank order, and ``cuckoo``, their cuckoo pair table
@@ -60,8 +66,7 @@ class DeviceMergeTable:
     device split's encoder, looks pairs up in the cuckoo table of either."""
 
     def __init__(self, pairs: np.ndarray, new_ids: np.ndarray, device):
-        self.vocab_size = (256 if len(new_ids) == 0
-                           else max(256, int(np.max(new_ids)) + 1))
+        self.vocab_size = table_vocab(new_ids)
         self.kind = "dense" if self.vocab_size <= DENSE_VOCAB_MAX else "sorted"
         trace.count("sync.engine.table", 2)
         self.pairs = torch.as_tensor(
@@ -235,16 +240,11 @@ def _encode_arrays(tokenizer, data, ends):
         toks, _, seg = flat_encode.encode_offsets_arrays(data, ends,
                                                          dev.cuckoo)
         return toks, seg
-    per = short_segments(np.diff(ends, prepend=0))
-    check_memory(tokenizer.device, int(data.shape[0]), per_segment=per)
+    lengths = np.diff(ends, prepend=0)
+    check_memory(tokenizer.device, int(data.shape[0]), dev, lengths=lengths)
     ids, seg = stream_ops.build_stream(data, ends, tokenizer.device)
-    ids, seg, n = encode_stream(ids, seg, dev, per_segment=per)
-    with trace.span("encode.readback"):
-        trace.count("sync.encode.count")
-        k = int(n.item())
-        trace.count("sync.encode.readback")
-        out = torch.stack([ids[:k], seg[:k]]).cpu().numpy()
-    return out[0], out[1]
+    ids, seg, n = encode_stream(ids, seg, dev, lengths=lengths)
+    return readback(ids, n, seg)
 
 
 def _device_split_mode(tokenizer) -> int | None:
@@ -287,8 +287,8 @@ def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
         raise ValueError(f"{n} bytes: the device pre-split takes at most "
                          f"{device_presplit.MAX_N}")
     device = tokenizer.device
-    check_memory(device, n, device_presplit.BYTES_PER_BYTE, per_segment=True,
-                 table_bytes=dev.cuckoo_bytes())
+    check_memory(device, n, dev, lengths=DEVICE_SPLIT,
+                 split_bytes=device_presplit.BYTES_PER_BYTE)
     with trace.span("engine.upload"):
         trace.count("sync.engine.upload")
         data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
@@ -301,13 +301,8 @@ def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
             np.arange(256, dtype=np.uint8))
         trace.count("sync.engine.upload")
         ids = torch.from_numpy(perm.astype(np.int32)).to(device)[data.long()]
-    # a GPT split's chunks: K17, each chunk by its own loop
-    ids, _, k = encode_stream(ids, seg, dev, per_segment=True)
-    with trace.span("encode.readback"):
-        trace.count("sync.encode.count")
-        k = int(k.item())
-        trace.count("sync.encode.readback")
-        out = ids[:k].cpu()
+    ids, _, k = encode_stream(ids, seg, dev, lengths=DEVICE_SPLIT)
+    out = readback(ids, k)
     with trace.span("api.to_list"):
         return out.tolist()
 

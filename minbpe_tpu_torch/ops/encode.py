@@ -26,12 +26,12 @@ L - 1 rounds, where K10 takes all M ranks for every segment; a pre-split
 text's chunks are a few bytes. But K17 gives a segment past CHUNK_MAX
 (256) tokens to one block, round after round over its tokens in device
 memory, where K10 spreads a long segment over the whole card. So the route
-goes by what the caller knows of the segments: the device pre-split's
-stream (a GPT split by construction, its chunk ends on the card) takes
-K17; a stream whose segment lengths the host holds (the host split,
-``encode_parts``, the distributed encode's shards) takes K17 where
-``short_segments`` says so, else K10. On the CPU both are plain PyTorch
-twins.
+goes by what the caller knows of the segments (``short_segments``, the
+one place that names either kernel's route): the device pre-split's
+stream (``DEVICE_SPLIT``: a GPT split by construction, its chunk ends on
+the card) takes K17; a stream whose segment lengths the host holds (the
+host split, ``encode_parts``, the distributed encode's shards) takes K17
+where they are short, else K10. On the CPU both are plain PyTorch twins.
 
 ``encode_stream_sorted`` (minbpe_tpu/ops/encode.py:140-180) is the other
 encoder over a stream: the lowest-rank loop itself, each round's ranks
@@ -57,7 +57,7 @@ import torch
 
 from .. import kernels, trace
 from .merge import apply_merge
-from .ranktab import RANK_INF
+from .ranktab import RANK_INF, CuckooPairTable
 from .select import pair_validity
 from .train import check_device_memory
 
@@ -71,53 +71,82 @@ BYTES_PER_TOKEN = 24
 SEGMENT_BYTES_PER_TOKEN = 20
 
 
-def check_memory(device, n_tokens: int, split_bytes: int = 0,
-                 per_segment: bool = False, table_bytes: int = 0):
+# what encode_stream and check_memory are told of the device pre-split's
+# stream in place of its segment lengths, which stay on the card
+DEVICE_SPLIT = "device split"
+
+
+def short_segments(lengths) -> bool:
+    """The route of a stream by what its caller knows of its segments:
+    ``DEVICE_SPLIT`` takes K17, and so do segment lengths the host holds
+    (numpy) where there is more than one segment and none past
+    kernels.TILE (2,048) tokens; anything else (None: one text, say) takes
+    K10. Up to one tile K17's block loop over a long segment stays at or
+    below K10 (on an H100, one segment of 257-2,048 tokens after 20 KB of
+    short ones: 0.23-0.67 ms against 1.57-1.58; 4,096 tokens: 1.50 against
+    1.58); past it K10 wins, 3.5x at 16,384 tokens and 127x on two 1 MB
+    documents (scripts/time_segment_encode.py)."""
+    if lengths is DEVICE_SPLIT:
+        return True
+    return (lengths is not None and len(lengths) > 1
+            and int(lengths.max()) <= kernels.TILE)
+
+
+def check_memory(device, n_tokens: int, table, *, lengths=None,
+                 split_bytes: int = 0):
     """Raise MemoryError, before any work, where an encode of n_tokens does
-    not fit in the card's free memory (nothing to check on the CPU);
-    ``split_bytes``: the device pre-split's own bytes per token
-    (ops/device_presplit.BYTES_PER_BYTE), where the split runs there;
-    ``per_segment``: the stream takes K17, as in encode_stream;
-    ``table_bytes``: what the merge table has still to put on the device
-    (a cuckoo table's rows on its first use: 8 MB at 100,000 merges)."""
+    not fit in the card's free memory (nothing to check on the CPU).
+    ``table``: the engine.DeviceMergeTable, or its merge count where none
+    exists yet; where the stream takes K17 (``lengths`` as in
+    encode_stream), the cuckoo rows it has still to build count too (8 MB
+    at 100,000 merges). ``split_bytes``: the device pre-split's own bytes
+    per token (ops/device_presplit.BYTES_PER_BYTE), where the split runs
+    there."""
     if device.type == "cuda":
-        per = (SEGMENT_BYTES_PER_TOKEN if per_segment else BYTES_PER_TOKEN) \
-            + split_bytes
+        per, table_bytes = BYTES_PER_TOKEN, 0
+        if short_segments(lengths):
+            per = SEGMENT_BYTES_PER_TOKEN
+            table_bytes = (CuckooPairTable.device_bytes(table)
+                           if isinstance(table, int) else table.cuckoo_bytes())
+        per += split_bytes
         check_device_memory(device, per * n_tokens + table_bytes,
                             f"encoding {n_tokens} tokens ({per} B/token, "
                             f"{table_bytes} B of table)")
 
 
-def short_segments(lengths) -> bool:
-    """The route of a stream whose segment lengths (numpy) the host holds:
-    K17 where it has more than one segment and none past kernels.TILE
-    (2,048) tokens, else K10. Up to one tile K17's block loop over a long
-    segment stays at or below K10 (on an H100, one segment of 257-2,048
-    tokens after 20 KB of short ones: 0.23-0.67 ms against 1.57-1.58;
-    4,096 tokens: 1.50 against 1.58); past it K10 wins, 3.5x at 16,384
-    tokens and 127x on two 1 MB documents (scripts/time_segment_encode.py).
-    """
-    return len(lengths) > 1 and int(lengths.max()) <= kernels.TILE
-
-
-def encode_stream(ids, seg, table, *, per_segment: bool = False):
+def encode_stream(ids, seg, table, *, lengths=None):
     """Apply the merges of ``table`` (engine.DeviceMergeTable on the
     stream's device: pairs, new_ids and their cuckoo table) as the
-    reference's loop does in each segment. ``per_segment``: the stream
-    takes K17, each segment by its own loop through ``table.cuckoo``;
-    otherwise K10, the rank sweep through ``table.pairs`` and
-    ``table.new_ids``. Counts the route in ``trace.COUNTERS``
-    (``encode.route.segments`` or ``encode.route.sweep``); the span
-    ``encode.sweep`` holds either kernel's enqueue. Returns the compacted
-    (ids, seg, n) with n an int32[1] tensor; nothing is synced."""
-    cuckoo = table.cuckoo if per_segment else None  # built before the span
+    reference's loop does in each segment. ``lengths``: what the caller
+    knows of the segments, as ``short_segments`` reads it; K17 takes each
+    segment by its own loop through ``table.cuckoo``, K10 sweeps the
+    ranks through ``table.pairs`` and ``table.new_ids``. Counts the route
+    in ``trace.COUNTERS`` (``encode.route.segments`` or
+    ``encode.route.sweep``); the span ``encode.sweep`` holds either
+    kernel's enqueue. Returns the compacted (ids, seg, n) with n an
+    int32[1] tensor; nothing is synced."""
+    k17 = short_segments(lengths)
+    cuckoo = table.cuckoo if k17 else None  # built before the span
     with trace.span("encode.sweep"):
         ids, seg = ids.contiguous(), seg.contiguous()
-        if per_segment:
+        if k17:
             trace.count("encode.route.segments")
             return kernels.segment_encode(ids, seg, cuckoo)
         trace.count("encode.route.sweep")
         return kernels.encode_sweep(ids, seg, table.pairs, table.new_ids)
+
+
+def readback(ids, n, seg=None):
+    """The encoded tokens ids[:k] (with their segments seg[:k], where
+    given) as numpy, k = n, the count encode_stream returns: two syncs."""
+    with trace.span("encode.readback"):
+        trace.count("sync.encode.count")
+        k = int(n.item())
+        trace.count("sync.encode.readback")
+        if seg is None:
+            return ids[:k].cpu().numpy()
+        out = torch.stack([ids[:k], seg[:k]]).cpu().numpy()
+    return out[0], out[1]
 
 
 def encode_stream_sorted(ids, seg, n, table):

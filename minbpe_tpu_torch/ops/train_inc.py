@@ -18,29 +18,28 @@ JAX runs ``_round`` under ``lax.cond`` inside one program. Here the host
 enqueues the rounds and nothing is read back per round: both picks are
 computed and ``torch.where`` chooses, a round that finds no pair works on
 the pair (-1, -1), which matches nothing, and the fail round, pairs and
-counts stay on the device. The host reads the fail round once per
-STEPS_PER_SYNC steps, so a run that fails stops enqueueing soon after,
-while the progress calls and checkpoints go on as in minbpe_tpu. The count
+counts stay on the device (ops/rounds.py drives the rounds). The count
 matrix is updated in place (JAX makes a new one each round); the chain
 arrays are replaced.
 
-Two loops share the rounds: ``train_merges_incremental`` (the whole run)
-and ``train_merges_stepped`` (steps of ``unroll`` rounds, with progress
-calls and resumable checkpoints at the same rounds as minbpe_tpu's).
+Two loops share the rounds: ``train_merges_incremental`` (the whole run,
+the fail round read once per ROUNDS_PER_SYNC rounds) and
+``train_merges_stepped`` (steps of ``unroll`` rounds, the fail round read
+once per STEPS_PER_SYNC steps, with progress calls and resumable
+checkpoints at the same rounds as minbpe_tpu's).
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from .. import kernels
-from ..utils import checkpoint as ckpt
-from .merge import apply_merge
+from .rounds import RunLog, resume, run_rounds, stream
 from .train import check_device_memory
 
 UNROLL = 8
 STEPS_PER_SYNC = 8
+ROUNDS_PER_SYNC = UNROLL * STEPS_PER_SYNC
 # device bytes at a round's peak: the chain (ids, seg, live, nxt, prv) and
 # a round's ~25 temporaries of 1-8 bytes per token; the count matrix, its
 # tie mask and the reductions over it per entry
@@ -52,25 +51,21 @@ def device_bytes(n_tokens: int, V: int) -> int:
     return BYTES_PER_TOKEN * n_tokens + BYTES_PER_ENTRY * V * V
 
 
-class Chain:
+class Chain(RunLog):
     """A tombstone chain over the stream and a run's log, on the stream's
     device: ids, live, nxt[p] (N past the last live token), prv[p] (-1
-    before the first); pairs, cnts and the fail round of M merges. The
-    stepped trainer's and the sparse trainer's (ops/train_sparse.py)
-    state."""
+    before the first). The stepped trainer's and the sparse trainer's
+    (ops/train_sparse.py) state."""
 
     def __init__(self, ids, seg, n, M: int):
+        super().__init__(M, ids.device)
         N = ids.numel()
-        dev = ids.device
-        self.N, self.M = N, M
-        self.idx = torch.arange(N, dtype=torch.int32, device=dev)
+        self.N = N
+        self.idx = torch.arange(N, dtype=torch.int32, device=ids.device)
         self.ids, self.seg = ids, seg
         self.live = self.idx < n
         self.nxt = torch.where(self.idx + 1 < n, self.idx + 1, N)
         self.prv = self.idx - 1
-        self.pairs = torch.zeros((M, 2), dtype=torch.int32, device=dev)
-        self.cnts = torch.zeros((M,), dtype=torch.int32, device=dev)
-        self.fail = torch.full((1,), M, dtype=torch.int32, device=dev)
 
     def next_of(self, x, j, fill):
         """x[j] where j < N, else fill."""
@@ -84,13 +79,6 @@ class Chain:
         valid = live & (nxt < self.N) & (self.seg == self.next_of(
             self.seg, nxt, -2))
         return b, valid
-
-    def result(self):
-        M = self.M
-        out = torch.cat([self.pairs.view(-1), self.cnts,
-                         self.fail]).cpu().numpy()
-        return (out[:2 * M].reshape(M, 2).copy(), out[2 * M:3 * M].copy(),
-                min(int(out[-1]), M))
 
 
 class _State(Chain):
@@ -203,15 +191,8 @@ def train_merges_incremental(ids, seg, num_merges: int):
     ops.train.train_merges: numpy (pairs[M, 2], counts[M]) and the fail
     round."""
     _check(ids, num_merges)
-    M = num_merges
-    n = torch.full((1,), ids.numel(), dtype=torch.int32, device=ids.device)
-    st = _State(ids.contiguous(), seg.contiguous(), n, 256 + M, M)
-    for g in range(0, M, UNROLL * STEPS_PER_SYNC):
-        for i in range(g, min(g + UNROLL * STEPS_PER_SYNC, M)):
-            _round(st, i)
-        if int(st.fail) < M:  # the group's one sync
-            break
-    return st.result()
+    st = _State(*stream(ids, seg), 256 + num_merges, num_merges)
+    return run_rounds(st, _round, unroll=ROUNDS_PER_SYNC, steps_per_sync=1)
 
 
 def train_merges_stepped(ids, seg, num_merges: int, unroll: int = UNROLL,
@@ -220,57 +201,15 @@ def train_merges_stepped(ids, seg, num_merges: int, unroll: int = UNROLL,
                          resume_from: str | None = None,
                          progress=None, fingerprint: str | None = None):
     """Steps of ``unroll`` rounds; bit-identical to
-    train_merges_incremental. After each step it calls
-    ``progress(done_rounds, total)`` and, every ``checkpoint_every``
-    rounds before the last, writes a checkpoint to ``checkpoint_path``;
-    ``resume_from`` replays a checkpoint's merges onto the stream (K3 and
-    K4 on the card) and goes on from its round. Checkpoints carry
-    ``fingerprint``, the corpus's (utils/checkpoint.py), which a caller
-    that checkpoints or resumes must give."""
-    if (checkpoint_path is not None or resume_from is not None) \
-            and fingerprint is None:
-        raise ValueError("checkpoint_path and resume_from need the corpus "
-                         "fingerprint")
+    train_merges_incremental, with progress calls, checkpoints and resume
+    as ops/rounds.run_rounds and resume make them (minbpe_tpu's rounds and
+    format)."""
     _check(ids, num_merges)
-    M = num_merges
-    dev = ids.device
-    ids, seg = ids.contiguous(), seg.contiguous()
-    n = torch.full((1,), ids.numel(), dtype=torch.int32, device=dev)
-
-    start = 0
-    prefill = None
-    if resume_from is not None:
-        c = ckpt.load(resume_from)
-        if c["fingerprint"] != fingerprint:
-            raise ValueError("checkpoint does not match this corpus")
-        if c["num_merges"] != M:
-            raise ValueError(
-                f"checkpoint trained toward {c['num_merges']} merges, "
-                f"requested {M}")
-        start = c["round_idx"]
-        prefill = [torch.from_numpy(np.ascontiguousarray(c[k], np.int32)).to(
-            dev) for k in ("pairs", "counts")]
-        # deterministic replay of the merge prefix onto the stream
-        for i in range(start):
-            ids, seg, n, _ = apply_merge(ids, seg, n, prefill[0][i], 256 + i)
-
-    st = _State(ids, seg, n, 256 + M, M)
-    if prefill is not None:
-        st.pairs[:start] = prefill[0]
-        st.cnts[:start] = prefill[1]
-
-    stopped = False
-    for step, i0 in enumerate(range(start, M, unroll)):
-        if not stopped:
-            for i in range(i0, min(i0 + unroll, M)):
-                _round(st, i)
-        done = min(i0 + unroll, M)
-        if progress is not None:
-            progress(done, M)
-        if (checkpoint_path is not None and checkpoint_every
-                and (done % checkpoint_every == 0 or done >= M) and done < M):
-            ckpt.save(checkpoint_path, st.pairs.cpu().numpy(),
-                      st.cnts.cpu().numpy(), done, M, fingerprint)
-        if not stopped and (step + 1) % STEPS_PER_SYNC == 0:
-            stopped = int(st.fail) < M  # one sync per STEPS_PER_SYNC steps
-    return st.result()
+    ids, seg, n, prefix = resume(ids, seg, num_merges, resume_from,
+                                 checkpoint_path, fingerprint)
+    st = _State(ids, seg, n, 256 + num_merges, num_merges)
+    return run_rounds(st, _round, unroll=unroll,
+                      steps_per_sync=STEPS_PER_SYNC, prefix=prefix,
+                      progress=progress, checkpoint_path=checkpoint_path,
+                      checkpoint_every=checkpoint_every,
+                      fingerprint=fingerprint)

@@ -7,8 +7,8 @@ runs the loop as one program with ``lax.cond``; here the host enqueues the
 rounds, and the fail round, the pairs and the counts stay on the device:
 each round's branch is a ``torch.where``, and a round that finds no pair
 applies the pair (-1, -1), which merges nothing. The host reads the fail
-round once per ROUNDS_PER_SYNC rounds, so a run stops soon after it, and
-fetches the log once at the end.
+round once per ROUNDS_PER_SYNC rounds (ops/rounds.py), so a run stops soon
+after it, and fetches the log once at the end.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .merge import apply_merge
+from .rounds import RunLog, run_rounds, stream
 from .select import (_ONE_HOT_ENTRIES, select_max_pair,
                      select_max_pair_dense, select_max_pair_pallas)
 from .train import check_device_memory
@@ -48,6 +49,25 @@ def device_bytes(select_mode: str, n_tokens: int, V: int) -> int:
     return need
 
 
+class _State(RunLog):
+    """The compacted stream, the selection path and the run's log."""
+
+    def __init__(self, ids, seg, n, M: int, select):
+        super().__init__(M, ids.device)
+        self.ids, self.seg, self.n, self.select = ids, seg, n, select
+
+
+def _round(st: _State, i: int):
+    pa, pb, cnt, ok = st.select(st.ids, st.seg, st.n, 256 + st.M)
+    ok &= st.fail >= i
+    pair = torch.where(ok, torch.cat([pa, pb]), -1)
+    st.ids, st.seg, st.n, _ = apply_merge(st.ids, st.seg, st.n, pair,
+                                          256 + i)
+    st.pairs[i] = torch.where(ok, pair, 0)
+    st.cnts[i:i + 1] = torch.where(ok, cnt, 0)
+    st.fail = torch.where(ok, st.fail, st.fail.clamp(max=i))
+
+
 def train_merges_select(ids, seg, num_merges: int, select_mode: str = "sort"):
     """Learn num_merges merges from the stream (ids, seg), int32 tensors of
     equal length on the device the run uses, selecting each round's pair
@@ -56,35 +76,14 @@ def train_merges_select(ids, seg, num_merges: int, select_mode: str = "sort"):
     are zero."""
     if select_mode not in _SELECT:
         raise ValueError(f"unknown select_mode {select_mode!r}")
-    select = _SELECT[select_mode]
     M = num_merges
     V = 256 + M
     N = ids.numel()
     if M == 0 or N < 2:  # nothing to learn, or no pair at all
         return np.zeros((M, 2), np.int32), np.zeros((M,), np.int32), 0
-    dev = ids.device
-    if dev.type == "cuda":
-        check_device_memory(dev, device_bytes(select_mode, N, V),
+    if ids.is_cuda:
+        check_device_memory(ids.device, device_bytes(select_mode, N, V),
                             f"select_mode={select_mode!r} on {N} tokens at "
                             f"vocab {V}")
-    ids = ids.contiguous()
-    seg = seg.contiguous()
-    # filled on the device: a host tensor copied there would sync
-    n = torch.full((1,), N, dtype=torch.int32, device=dev)
-    fail = torch.full((1,), M, dtype=torch.int32, device=dev)
-    pairs = torch.zeros((M, 2), dtype=torch.int32, device=dev)
-    counts = torch.zeros((M,), dtype=torch.int32, device=dev)
-    for g in range(0, M, ROUNDS_PER_SYNC):
-        for i in range(g, min(g + ROUNDS_PER_SYNC, M)):
-            pa, pb, cnt, ok = select(ids, seg, n, V)
-            ok &= fail >= i
-            pair = torch.where(ok, torch.cat([pa, pb]), -1)
-            ids, seg, n, _ = apply_merge(ids, seg, n, pair, 256 + i)
-            pairs[i] = torch.where(ok, pair, 0)
-            counts[i:i + 1] = torch.where(ok, cnt, 0)
-            fail = torch.where(ok, fail, fail.clamp(max=i))
-        if int(fail) < M:  # the group's one sync
-            break
-    out = torch.cat([pairs.view(-1), counts, fail]).cpu().numpy()
-    return (out[:2 * M].reshape(M, 2).copy(), out[2 * M:3 * M].copy(),
-            int(out[-1]))
+    st = _State(*stream(ids, seg), M, _SELECT[select_mode])
+    return run_rounds(st, _round, unroll=ROUNDS_PER_SYNC, steps_per_sync=1)

@@ -25,20 +25,19 @@ The chain and the merge on it are the stepped trainer's
 (ops/train_inc.py ``Chain``, ``chain_merge``), and so is the structure:
 JAX's ``lax.cond`` becomes ``torch.where``, a round that finds no pair
 works on (-1, -1), which matches nothing, and nothing is read back per
-round. The host reads the fail round once per ROUNDS_PER_SYNC rounds (the
-whole run, select_mode "sparse_inc") or once per STEPS_PER_SYNC steps of
-``unroll`` rounds ("sparse", with progress calls and checkpoints at
-minbpe_tpu's rounds). A run whose appends pass ``capacity`` raises at its
-end, where minbpe_tpu drops the writes and returns what follows from that.
+round. The host reads the fail round (ops/rounds.py) once per
+ROUNDS_PER_SYNC rounds (the whole run, select_mode "sparse_inc") or once
+per STEPS_PER_SYNC steps of ``unroll`` rounds ("sparse", with progress
+calls and checkpoints at minbpe_tpu's rounds). A run whose appends pass
+``capacity`` raises at its end, where minbpe_tpu drops the writes and
+returns what follows from that.
 """
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
-from ..utils import checkpoint as ckpt
-from .merge import apply_merge
+from .rounds import resume, run_rounds, stream
 from .select import INF_KEY, pair_runs
 from .train import check_device_memory
 from .train_inc import Chain, chain_merge
@@ -187,12 +186,6 @@ def _capacity(ids, capacity) -> int:
     return P
 
 
-def _n(ids):
-    # filled on the device: a host tensor copied there would sync
-    return torch.full((1,), ids.numel(), dtype=torch.int32,
-                      device=ids.device)
-
-
 def train_merges_sparse(ids, seg, num_merges: int,
                         capacity: int | None = None):
     """The whole run. Same contract as ops.train.train_merges: numpy
@@ -200,14 +193,8 @@ def train_merges_sparse(ids, seg, num_merges: int,
     table's size (``table_capacity`` by default)."""
     M = num_merges
     P = _capacity(ids, capacity)
-    ids, seg = ids.contiguous(), seg.contiguous()
-    st = _State(ids, seg, _n(ids), 256 + M, M, P)
-    for g in range(0, M, ROUNDS_PER_SYNC):
-        for i in range(g, min(g + ROUNDS_PER_SYNC, M)):
-            _round(st, i)
-        if int(st.fail) < M:  # the group's one sync
-            break
-    return st.result()
+    return run_rounds(_State(*stream(ids, seg), 256 + M, M, P), _round,
+                      unroll=ROUNDS_PER_SYNC, steps_per_sync=1)
 
 
 def train_merges_sparse_stepped(ids, seg, num_merges: int,
@@ -219,53 +206,15 @@ def train_merges_sparse_stepped(ids, seg, num_merges: int,
                                 progress=None,
                                 fingerprint: str | None = None):
     """Steps of ``unroll`` rounds; bit-identical to train_merges_sparse,
-    with progress calls, checkpoints and resume as
-    ops/train_inc.train_merges_stepped (the same rounds and format as
-    minbpe_tpu's, :270-310)."""
-    if (checkpoint_path is not None or resume_from is not None) \
-            and fingerprint is None:
-        raise ValueError("checkpoint_path and resume_from need the corpus "
-                         "fingerprint")
+    with progress calls, checkpoints and resume as ops/rounds.run_rounds
+    and resume make them (minbpe_tpu's rounds and format, :270-310)."""
     M = num_merges
     P = _capacity(ids, capacity)
-    dev = ids.device
-    ids, seg = ids.contiguous(), seg.contiguous()
-    n = _n(ids)
-
-    start = 0
-    prefill = None
-    if resume_from is not None:
-        c = ckpt.load(resume_from)
-        if c["fingerprint"] != fingerprint:
-            raise ValueError("checkpoint does not match this corpus")
-        if c["num_merges"] != M:
-            raise ValueError(
-                f"checkpoint trained toward {c['num_merges']} merges, "
-                f"requested {M}")
-        start = c["round_idx"]
-        prefill = [torch.from_numpy(np.ascontiguousarray(c[k], np.int32)).to(
-            dev) for k in ("pairs", "counts")]
-        # deterministic replay of the merge prefix onto the stream
-        for i in range(start):
-            ids, seg, n, _ = apply_merge(ids, seg, n, prefill[0][i], 256 + i)
-
-    st = _State(ids, seg, n, 256 + M, M, P)
-    if prefill is not None:
-        st.pairs[:start] = prefill[0]
-        st.cnts[:start] = prefill[1]
-
-    stopped = False
-    for step, i0 in enumerate(range(start, M, unroll)):
-        done = min(i0 + unroll, M)
-        if not stopped:
-            for i in range(i0, done):
-                _round(st, i)
-        if progress is not None:
-            progress(done, M)
-        if (checkpoint_path is not None and checkpoint_every
-                and (done % checkpoint_every == 0 or done >= M) and done < M):
-            ckpt.save(checkpoint_path, st.pairs.cpu().numpy(),
-                      st.cnts.cpu().numpy(), done, M, fingerprint)
-        if not stopped and (step + 1) % STEPS_PER_SYNC == 0:
-            stopped = int(st.fail) < M  # one sync per STEPS_PER_SYNC steps
-    return st.result()
+    ids, seg, n, prefix = resume(ids, seg, M, resume_from, checkpoint_path,
+                                 fingerprint)
+    return run_rounds(_State(ids, seg, n, 256 + M, M, P), _round,
+                      unroll=unroll, steps_per_sync=STEPS_PER_SYNC,
+                      prefix=prefix, progress=progress,
+                      checkpoint_path=checkpoint_path,
+                      checkpoint_every=checkpoint_every,
+                      fingerprint=fingerprint)

@@ -4,9 +4,8 @@ The port of minbpe_tpu/parallel/encode.py. Regex chunks are independent
 (merges never cross chunk ends), so each rank encodes its chunk-aligned
 shard of the corpus (``train.shard_offsets``: JAX's layout) with no halo,
 in one launch against the replicated dense merge table
-(``ops/encode.encode_stream``): K17 ``segment_encode``, each chunk by its
-own lowest-rank loop, where the shard holds more than one chunk and none
-past TILE (2,048) tokens, else K10 ``encode_sweep``, the whole rank sweep.
+(``ops/encode.encode_stream``, which picks the kernel from the shard's
+chunk lengths).
 The ranks' outputs, gathered in rank order, concatenate to exactly
 ``tokenizer.encode_ordinary(text)``.
 
@@ -22,23 +21,18 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..engine import DENSE_VOCAB_MAX, DeviceMergeTable
-from ..ops.encode import check_memory, encode_stream, short_segments
+from ..engine import DENSE_VOCAB_MAX, DeviceMergeTable, table_vocab
+from ..ops.encode import check_memory, encode_stream
 from .comm import Comm
 from .train import shard_chunks, shard_offsets
 
 
-def _table_vocab(merge_ids) -> int:
-    return 256 if len(merge_ids) == 0 else max(256, int(merge_ids.max()) + 1)
-
-
 def _encode_sharded(comm: Comm, ids, seg, lens, merge_pairs, merge_ids):
-    """This rank's shard through K17 (more than one chunk, none past TILE
-    tokens) or K10, the outputs of all ranks gathered in rank order (numpy
-    int32)."""
+    """This rank's shard encoded, the outputs of all ranks gathered in
+    rank order (numpy int32)."""
     merge_pairs = np.asarray(merge_pairs, np.int32).reshape(-1, 2)
     merge_ids = np.asarray(merge_ids, np.int32)
-    V = _table_vocab(merge_ids)
+    V = table_vocab(merge_ids)
     if V > DENSE_VOCAB_MAX:
         raise ValueError(f"the sharded encode takes a dense table (vocab <= "
                          f"{DENSE_VOCAB_MAX}); this one has vocab {V}")
@@ -48,13 +42,14 @@ def _encode_sharded(comm: Comm, ids, seg, lens, merge_pairs, merge_ids):
     dev = comm.device
     mine = seg[r * Nl:r * Nl + n]
     cuts = np.flatnonzero(mine[1:] != mine[:-1]) + 1
-    per = short_segments(np.diff(cuts, prepend=0, append=n))
-    check_memory(dev, n, per_segment=per)
+    lengths = np.diff(cuts, prepend=0, append=n)
+    check_memory(dev, n, len(merge_ids), lengths=lengths)
     mine_ids = torch.from_numpy(ids[r * Nl:r * Nl + n]).to(dev)
     mine_seg = torch.from_numpy(mine).to(dev)
     if n:
         table = DeviceMergeTable(merge_pairs, merge_ids, dev)
-        out, _, k = encode_stream(mine_ids, mine_seg, table, per_segment=per)
+        out, _, k = encode_stream(mine_ids, mine_seg, table,
+                                 lengths=lengths)
         out = out[:int(k.item())]
     else:
         out = mine_ids

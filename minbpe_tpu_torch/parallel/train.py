@@ -439,13 +439,7 @@ def _stepped(comm: Comm, ids, seg, lens, num_merges: int, verbose: bool,
     counts_all = np.zeros((num_merges,), np.int32)
     start = 0
     if resume_from is not None:
-        state = ck.load(resume_from)
-        if state["fingerprint"] != fp:
-            raise ValueError(
-                "checkpoint does not match this corpus "
-                f"(fingerprint {state['fingerprint']} != {fp})")
-        if state["num_merges"] != num_merges:
-            raise ValueError("checkpoint trained a different vocab size")
+        state = ck.load_checked(resume_from, fp, num_merges)
         start = state["round_idx"]
         pairs_all[:start] = state["pairs"]
         counts_all[:start] = state["counts"]

@@ -52,3 +52,16 @@ def load(path: str):
         "num_merges": int(z["num_merges"]),
         "fingerprint": str(z["fingerprint"]),
     }
+
+
+def load_checked(path: str, fingerprint: str, num_merges: int):
+    """``load(path)`` for a run that resumes it: raises ValueError where
+    the checkpoint is of another corpus or another merge count."""
+    c = load(path)
+    if c["fingerprint"] != fingerprint:
+        raise ValueError("checkpoint does not match this corpus "
+                         f"(fingerprint {c['fingerprint']} != {fingerprint})")
+    if c["num_merges"] != num_merges:
+        raise ValueError("checkpoint trained a different vocab size: toward "
+                         f"{c['num_merges']} merges, requested {num_merges}")
+    return c

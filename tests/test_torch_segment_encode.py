@@ -28,6 +28,7 @@ from minbpe_tpu.ops import stream as jstream  # noqa: E402
 import minbpe_tpu_torch as port  # noqa: E402
 from minbpe_tpu_torch import engine, kernels, trace  # noqa: E402
 from minbpe_tpu_torch.convert import tokenizer_from_arrays  # noqa: E402
+from minbpe_tpu_torch.ops import encode as port_encode  # noqa: E402
 from minbpe_tpu_torch.ops.ranktab import CuckooPairTable  # noqa: E402
 from minbpe_tpu_torch.utils import golden  # noqa: E402
 from minbpe_tpu_torch.utils.synthranks import synthetic_ranks  # noqa: E402
@@ -234,3 +235,29 @@ def test_basic_encode_batch_routes_by_longest_document(sizes, route):
     assert b.encode_batch(docs) == [jb.encode(d) for d in docs]
     assert {k: v for k, v in trace.COUNTERS.items()
             if k.startswith("encode.route")} == {f"encode.route.{route}": 1}
+
+
+@pytest.mark.parametrize("lengths, k17", [
+    (None, False), ([3000], False), ([3, 2048, 1], True),
+    ([3, 2049, 1], False), (port_encode.DEVICE_SPLIT, True)])
+def test_memory_check_counts_the_routes_bytes(monkeypatch, lengths, k17):
+    """On the card an encode asks for K17's bytes a token and the cuckoo
+    rows it has still to build, or K10's bytes a token alone; a table given
+    by its merge count counts the rows a built one would hold."""
+    need = []
+    monkeypatch.setattr(port_encode, "check_device_memory",
+                        lambda dev, nbytes, what: need.append(nbytes))
+    if isinstance(lengths, list):
+        lengths = np.asarray(lengths)
+    card = torch.device("cuda")
+    dev = engine.DeviceMergeTable(MERGES, NEW_IDS, "cpu")
+    port_encode.check_memory(card, 1000, dev, lengths=lengths, split_bytes=7)
+    port_encode.check_memory(card, 1000, len(NEW_IDS), lengths=lengths)
+    per = (port_encode.SEGMENT_BYTES_PER_TOKEN if k17
+           else port_encode.BYTES_PER_TOKEN)
+    rows = CuckooPairTable.device_bytes(len(NEW_IDS)) if k17 else 0
+    assert need == [(per + 7) * 1000 + rows, per * 1000 + rows]
+    assert dev.cuckoo is not None  # built: no rows left to count
+    need.clear()
+    port_encode.check_memory(card, 1000, dev, lengths=lengths)
+    assert need == [per * 1000]
