@@ -864,10 +864,11 @@ def phase_segment(torch, np, kernels, golden_mod, cl100k):
     smoke corpus's stream (the host split) with the golden's 768 merges,
     the same stream K10's row times; the regex512-encode-docs cell's
     median, mean-length and longest document, each cut by the device split
-    (K15) and through the cell's table's byte order, with the cell's 256
-    merges; the same three of the cl100k-encode-docs cell's documents with
-    ``cl100k`` (its 100,256-rank stand-in: 100,000 merges, ids up to
-    100,255, 2^18 cuckoo rows a table), through its byte shuffle, against
+    (K15, which writes the ids through the cell's table's byte ids), with
+    the cell's 256 merges; the same three of the cl100k-encode-docs cell's
+    documents with ``cl100k`` (its 100,256-rank stand-in: 100,000 merges,
+    ids up to 100,255, 2^18 cuckoo rows a table), through its byte
+    shuffle, against
     the plain twin alone (K10 would sweep all 100,000 ranks); and the first
     5,000 characters of the smoke corpus followed by LONG_CHUNKS, split on
     the host, with the 768 merges. Its bound: it reads the stream's n
@@ -887,22 +888,19 @@ def phase_segment(torch, np, kernels, golden_mod, cl100k):
                                       256 + np.arange(M), device="cuda")
     cell_tok = RegexTokenizer(device="cuda")
     cell_tok.load(os.path.join(ROOT, CELL_MODEL))
-    perm = torch.from_numpy(cell_tok._transform_bytes_array(
-        np.arange(256, dtype=np.uint8)).astype(np.int32)).cuda()
 
-    shuffle = torch.from_numpy(cl100k.byte_shuffle.astype(np.int32)).cuda()
-
-    def device_split(raw: bytes, order=perm):
+    def device_split(raw: bytes, tok=cell_tok):
         d = torch.frombuffer(bytearray(raw), dtype=torch.uint8).cuda()
-        _, seg = pdp.presplit_seg_ids(d, len(raw), 4)
-        return order[d.long()], seg
+        _, seg, ids = pdp.presplit_seg_ids(d, len(raw), 4,
+                                           device_table(tok).byte_ids)
+        return ids, seg
 
     corpus = golden_mod.smoke_corpus(ROOT)
     cases = [("smoke", smoke_tok, *build_stream(
         *smoke_tok._split_arrays(corpus), "cuda"))]
     cases += [(f"cell_{name}", cell_tok, *device_split(raw)) for name, raw in
               cell_shapes(np, *cell_documents(np, CELL_SEED))]
-    cases += [(f"cl100k_{name}", cl100k, *device_split(raw, shuffle))
+    cases += [(f"cl100k_{name}", cl100k, *device_split(raw, cl100k))
               for name, raw in cell_shapes(np, *cell_documents(
                   np, CELL_SEED, CL100K_TRAFFIC))]
     cases.append(("long_chunks", smoke_tok, *build_stream(
@@ -1207,7 +1205,9 @@ def phase_presplit(torch, np, golden_mod):
     corpus and the XL corpus in both modes, the XL corpus four times over
     (50,353,352 bytes, GPT-4) and 2^20 spaces, letters and digits (GPT-4);
     then its cluster tier at cluster_shapes in both modes, each against
-    the plain twin and the cooperative pair. Returns the rows of
+    the plain twin and the cooperative pair, and with a byte table (the
+    ids against the gather through it; on the cell's documents the launch
+    with the table timed beside the launch without it). Returns the rows of
     presplit_cluster (its time on the cell's mean-length document, GPT-4:
     one request of that cell), presplit_succ and presplit_orbit; the
     pair's main shape is the smoke corpus with GPT-4's split (the
@@ -1226,7 +1226,9 @@ def phase_presplit(torch, np, golden_mod):
     recs = [presplit_case(torch, pdp, *c, profiled=not i)
             for i, c in enumerate(cases)]
     torch.cuda.empty_cache()
-    short = [cluster_case(torch, pdp, name, raw, mode)
+    byte_ids = torch.from_numpy(np.random.default_rng(0).permutation(
+        256).astype(np.int32)).cuda()
+    short = [cluster_case(torch, pdp, name, raw, mode, byte_ids)
              for name, raw in cluster_shapes(np, golden_mod)
              for mode in ("gpt4", "gpt2")]
     mean = next(r for r in short if r["case"] == "cell_mean_gpt4")
@@ -1234,7 +1236,10 @@ def phase_presplit(torch, np, golden_mod):
     rows = [dict(k=kernels.PRESPLIT_CLUSTER,
                  err=max(r["max_abs_err"] for r in short), ms=mean["ms"],
                  plain_ms=mean["plain_ms"], bytes=mean["bytes"],
-                 library_ms=None, pair_ms=mean["pair_ms"], shapes=short)]
+                 library_ms=None, pair_ms=mean["pair_ms"],
+                 ids_cost_us={r["case"]: r["ids_cost_us"] for r in short
+                              if "ids_cost_us" in r},
+                 shapes=short)]
     for info, key in ((kernels.PRESPLIT_SUCC, "succ_"),
                       (kernels.PRESPLIT_ORBIT, "orbit_")):
         rows.append(dict(
@@ -1260,23 +1265,31 @@ def cluster_shapes(np, golden_mod):
     return out
 
 
-def cluster_case(torch, pdp, name, raw: bytes, mode):
+def cluster_case(torch, pdp, name, raw: bytes, mode, byte_ids):
     """K15's cluster tier on one text of at most 32 KB: presplit_cluster
     against presplit_plain and against the cooperative pair on the same
     bytes, boundaries and segment ids exact, each one's device time, and
     the bound of the whole split (n bytes and the 64 KB class table read,
-    n boundaries and 4 n of segment ids written)."""
+    n boundaries and 4 n of segment ids written). With the byte table
+    ``byte_ids`` it also writes the ids, equal to the gather through the
+    table, its boundaries and segment ids unchanged; on a cell's document
+    the two launches are timed in turns (``bare_ms``, ``ids_ms``), and
+    ``ids_cost_us`` is what the ids add."""
     n = len(raw)
     data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to("cuda")
     table = 0x10000 + 5 * pdp._device_tables(data.device)[1].numel()
     got = pdp.presplit_cluster(data, n, mode)
     want = pdp.presplit_plain(data, n, mode)
+    with_ids = pdp.presplit_cluster(data, n, mode, byte_ids)
 
     def pair():
         return pdp.presplit_orbit(pdp.presplit_succ(data, n, mode), n)
 
     err = max_err(torch, [(got[0].int(), want[0].int()), (got[1], want[1])]
-                  + [(a.int(), b.int()) for a, b in zip(pair(), want)])
+                  + [(a.int(), b.int()) for a, b in zip(pair(), want)]
+                  + [(with_ids[0].int(), got[0].int()),
+                     (with_ids[1], got[1]),
+                     (with_ids[2], byte_ids[data.long()])])
     rec = dict(
         case=f"{name}_{mode}", n=n, tiles=-(-n // 4096),
         chunks=int(got[1][-1]) + 1, max_abs_err=err,
@@ -1285,9 +1298,17 @@ def cluster_case(torch, pdp, name, raw: bytes, mode):
         plain_ms=host_ms(torch, lambda: pdp.presplit_plain(data, n, mode), 1),
         bytes=n + table + 5 * n)
     rec["bound_ms"] = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+    ids = ""
+    if name.startswith("cell_"):
+        rec["bare_ms"], rec["ids_ms"] = split_ms(torch, [
+            lambda: pdp.presplit_cluster(data, n, mode),
+            lambda: pdp.presplit_cluster(data, n, mode, byte_ids)], 100)
+        rec["ids_cost_us"] = (rec["ids_ms"] - rec["bare_ms"]) * 1e3
+        ids = (f"; with the ids {rec['ids_ms']:.4f} ms against "
+               f"{rec['bare_ms']:.4f} in turns, {rec['ids_cost_us']:+.3f} us")
     print(f"presplit_cluster {rec['case']}: {n} bytes -> {rec['chunks']} "
           f"chunks, max_abs_err {err}, {rec['ms']:.4f} ms (the pair "
-          f"{rec['pair_ms']:.4f}; bound {rec['bound_ms']:.6f}), plain "
+          f"{rec['pair_ms']:.4f}; bound {rec['bound_ms']:.6f}){ids}, plain "
           f"{rec['plain_ms']:.2f} ms")
     return rec
 
@@ -2968,7 +2989,7 @@ def main() -> int:
          "library_ms": r["library_ms"],
          **{k: r[k] for k in ("xl", "shapes", "by_pair", "ms_per_rank",
                               "k15_ms", "k15_profiled_ms", "k15_plain_ms",
-                              "k15_bound_ms")
+                              "k15_bound_ms", "ids_cost_us")
             if k in r}}
         for r in rows]}
     print(json.dumps(line))

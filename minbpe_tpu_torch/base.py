@@ -142,9 +142,16 @@ class Tokenizer:
             vocab[idx] = special.encode("utf-8")
         return vocab
 
+    def _transform_bytes_array(self, arr):
+        """Byte-level preprocessing before BPE, on the uint8 array of a
+        text's bytes (minbpe_tpu/regex.py:69-72): the identity here;
+        GPT4Tokenizer's byte shuffle."""
+        return arr
+
     def _invalidate_device_state(self):
-        """Drop the cached device merge table and the decode table (call
-        after merges or specials change)."""
+        """Drop the cached device merge table (its byte ids with it) and
+        the decode table (call after merges, specials or the byte
+        transform change)."""
         self._dev = None
         self._dtab = None
 

@@ -4959,11 +4959,15 @@ __device__ unsigned* walk_rounds(unsigned* Wa, unsigned* Wb, uint8_t* vis) {
 // The boundaries (vis, len bytes) and segment ids from base, the chunk
 // starts before it, of the tile of T bytes at s, to device memory: a block
 // scan of the boundary counts, T / TPB consecutive bytes a thread. wsum:
-// TPB / 32 ints. Returns the tile's chunk starts.
+// TPB / 32 ints. Where ids is given, also each byte's token id through
+// byte_ids (int32[256]), the tile's bytes read at bytes (bytes[p] is byte
+// s + p; shared or device memory). Returns the tile's chunk starts.
 template <int TPB, int T>
 __device__ int write_segments(const uint8_t* vis, long long s, int len,
                               int base, uint8_t* boundary, int* seg,
-                              int* wsum) {
+                              int* wsum, const uint8_t* bytes = nullptr,
+                              const int* byte_ids = nullptr,
+                              int* ids = nullptr) {
   constexpr int PER = T / TPB;
   static_assert(PER == 4 || PER == 8, "a thread's bytes as one word");
   using Word = typename std::conditional<PER == 8, uint2, unsigned>::type;
@@ -5000,10 +5004,28 @@ __device__ int write_segments(const uint8_t* vis, long long s, int len,
 #pragma unroll
     for (int c = 0; c < PER / 4; ++c)
       reinterpret_cast<int4*>(seg + s + p0)[c] = sv[c];
+    if (ids != nullptr) {
+      Word dv;
+      uint8_t* const db = reinterpret_cast<uint8_t*>(&dv);
+      if ((reinterpret_cast<uintptr_t>(bytes) & (sizeof(Word) - 1)) == 0) {
+        dv = *reinterpret_cast<const Word*>(bytes + p0);
+      } else {
+#pragma unroll
+        for (int k = 0; k < PER; ++k) db[k] = bytes[p0 + k];
+      }
+      int4 iv[PER / 4];
+      int* const is = reinterpret_cast<int*>(iv);
+#pragma unroll
+      for (int k = 0; k < PER; ++k) is[k] = __ldg(byte_ids + db[k]);
+#pragma unroll
+      for (int c = 0; c < PER / 4; ++c)
+        reinterpret_cast<int4*>(ids + s + p0)[c] = iv[c];
+    }
   } else {
     for (int k = 0; k < len - p0; ++k) {
       boundary[s + p0 + k] = bb[k];
       seg[s + p0 + k] = ss[k];
+      if (ids != nullptr) ids[s + p0 + k] = __ldg(byte_ids + bytes[p0 + k]);
     }
   }
   return in_tile;
@@ -5233,11 +5255,15 @@ __device__ void path_in_grid(cg::grid_group& grid, int n, int tiles,
 // (each block's node count, then the chunk starts in its tiles); trunk:
 // uint32[128 * tiles] (each tile's trunk, a bit a byte). boundary:
 // uint8[n] (the node marks, grid-wide, until step 4); seg: int32[n]
-// (each byte's exit index and count until step 4).
+// (each byte's exit index and count until step 4). Where ids is given
+// (int32[n]), step 4 writes each byte's token id too: byte_ids (int32[256])
+// at the byte of d (uint8[n]).
 __global__ void __launch_bounds__(O_TPB, 2)
 presplit_orbit_kernel(const int* __restrict__ f, int n,
                       uint8_t* boundary, int* seg, int* lists, int* nj,
-                      int* nj2, int* tl, int* bl, unsigned* trunk) {
+                      int* nj2, int* tl, int* bl, unsigned* trunk,
+                      const uint8_t* __restrict__ d,
+                      const int* __restrict__ byte_ids, int* ids) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int4 o_smem[];
   PRESPLIT_STAMP(1, 0);
@@ -5550,7 +5576,7 @@ presplit_orbit_kernel(const int* __restrict__ f, int n,
         __syncthreads();
       }
       base += write_segments<O_TPB, TILE>(vis, s, len, base, boundary, seg,
-                                     wsum);
+                                          wsum, d + s, byte_ids, ids);
       __syncthreads();
     }
   }
@@ -5583,12 +5609,15 @@ struct ClusterSmem {
 
 // One cluster of gridDim.x <= C_MAX CTAs of c_tpb(T) threads, CTA r the
 // tile of T bytes at r * T (none past the text). boundary: uint8[n]; seg:
-// int32[n], each written once.
+// int32[n], each written once; ids (int32[n]), where given, each byte's
+// token id through byte_ids (int32[256]).
 template <int T>
 __global__ void __launch_bounds__(c_tpb(T), 1)
 presplit_cluster_kernel(const uint8_t* __restrict__ d, int n, int mode,
                         Tables t, uint8_t* __restrict__ boundary,
-                        int* __restrict__ seg) {
+                        int* __restrict__ seg,
+                        const int* __restrict__ byte_ids,
+                        int* __restrict__ ids) {
   constexpr int TPB = c_tpb(T);
   constexpr int BPT = T / TPB;  // a thread's bytes
   constexpr int WIN = T + 2 * S_HALO;
@@ -5778,8 +5807,10 @@ presplit_cluster_kernel(const uint8_t* __restrict__ d, int n, int mode,
   }
   PRESPLIT_STAMP(2, 9);
 
-  // 8. the boundaries and segment ids
-  write_segments<TPB, T>(S.vis, s, len, S.base, boundary, seg, S.wsum);
+  // 8. the boundaries and segment ids, and the token ids from the staged
+  // tile
+  write_segments<TPB, T>(S.vis, s, len, S.base, boundary, seg, S.wsum,
+                         S.buf + S_HALO, byte_ids, ids);
   PRESPLIT_STAMP(2, 10);
 }
 
@@ -5788,7 +5819,8 @@ presplit_cluster_kernel(const uint8_t* __restrict__ d, int n, int mode,
 template <int T>
 cudaError_t cluster_launch(const uint8_t* data, int n, int mode,
                            const Tables& t, uint8_t* boundary, int* seg,
-                           int cluster, cudaStream_t stream) {
+                           const int* byte_ids, int* ids, int cluster,
+                           cudaStream_t stream) {
   static std::atomic<int> allowed[64][C_MAX + 1];
   int dev;
   cudaError_t e = cudaGetDevice(&dev);
@@ -5819,7 +5851,7 @@ cudaError_t cluster_launch(const uint8_t* data, int n, int mode,
     allowed[dev][cluster] = 1;
   }
   return cudaLaunchKernelEx(&cfg, presplit_cluster_kernel<T>, data, n, mode,
-                            t, boundary, seg);
+                            t, boundary, seg, byte_ids, ids);
 }
 
 // the cooperative grid of a kernel (0 presplit_succ, 1 presplit_orbit) on
@@ -5932,34 +5964,40 @@ int bpe_presplit_cluster_min_tile() { return presplit::C_MIN_TILE; }
 // and the class tables as for bpe_presplit_succ: one launch of one cluster
 // of `cluster` CTAs (at most bpe_presplit_cluster_max()), a CTA a tile of
 // `tile` bytes (512, 1024, 2048 or the tile size). boundary: uint8[n];
-// seg: int32[n]. A cluster that cannot be resident returns its error (the
-// shared-memory allowance is set, and the cluster size checked, once per
-// device, tile and size).
+// seg: int32[n]; byte_ids: int32[256] and ids: int32[n], each byte's token
+// id, or both null. A cluster that cannot be resident returns its error
+// (the shared-memory allowance is set, and the cluster size checked, once
+// per device, tile and size).
 int bpe_presplit_cluster(const unsigned char* data, int n, int mode,
                          const unsigned char* dense, const int* starts,
                          const unsigned char* flags, int nstarts,
-                         unsigned char* boundary, int* seg, int tile,
+                         unsigned char* boundary, int* seg,
+                         const int* byte_ids, int* ids, int tile,
                          int cluster, void* stream) {
   using namespace presplit;
   if (n < 1 || (mode != 4 && mode != 2) || nstarts < 1 || cluster < 1 ||
-      cluster > C_MAX || (long long)cluster * tile < n)
+      cluster > C_MAX || (long long)cluster * tile < n ||
+      (byte_ids == nullptr) != (ids == nullptr))
     return cudaErrorInvalidValue;
   const Tables t{dense, starts, flags, nstarts};
   const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t e;
   switch (tile) {
     case 512:
-      e = cluster_launch<512>(data, n, mode, t, boundary, seg, cluster, st);
+      e = cluster_launch<512>(data, n, mode, t, boundary, seg,
+                              byte_ids, ids, cluster, st);
       break;
     case 1024:
-      e = cluster_launch<1024>(data, n, mode, t, boundary, seg, cluster, st);
+      e = cluster_launch<1024>(data, n, mode, t, boundary, seg,
+                               byte_ids, ids, cluster, st);
       break;
     case 2048:
-      e = cluster_launch<2048>(data, n, mode, t, boundary, seg, cluster, st);
+      e = cluster_launch<2048>(data, n, mode, t, boundary, seg,
+                               byte_ids, ids, cluster, st);
       break;
     case presplit::TILE:
       e = cluster_launch<presplit::TILE>(data, n, mode, t, boundary, seg,
-                                         cluster, st);
+                                         byte_ids, ids, cluster, st);
       break;
     default:
       return cudaErrorInvalidValue;
@@ -5974,15 +6012,21 @@ int bpe_presplit_cluster(const unsigned char* data, int n, int mode,
 // K15 presplit_orbit over the successors f[0 .. n), n >= 1 (f[p] > p or
 // -1), on grid blocks (at most the tiles). boundary: uint8[n]; seg:
 // int32[n]; lists, nj, nj2: int32[n]; tl: int32[2 * tiles]; bl:
-// int32[2 * grid]; trunk: uint32[tiles * tile size / 32].
+// int32[2 * grid]; trunk: uint32[tiles * tile size / 32]; data: uint8[n]
+// (the bytes whose successors f are), byte_ids: int32[256] and ids:
+// int32[n], each byte's token id, or all three null.
 int bpe_presplit_orbit(const int* f, int n, unsigned char* boundary,
                        int* seg, int* lists, int* nj, int* nj2, int* tl,
-                       int* bl, unsigned* trunk, int grid, void* stream) {
+                       int* bl, unsigned* trunk, const unsigned char* data,
+                       const int* byte_ids, int* ids, int grid,
+                       void* stream) {
   using namespace presplit;
   const long long tiles = ((long long)n + presplit::TILE - 1) / presplit::TILE;
-  if (n < 1 || grid > tiles) return cudaErrorInvalidValue;
+  if (n < 1 || grid > tiles || (data == nullptr) != (ids == nullptr) ||
+      (byte_ids == nullptr) != (ids == nullptr))
+    return cudaErrorInvalidValue;
   void* args[] = {&f, &n, &boundary, &seg, &lists, &nj, &nj2, &tl, &bl,
-                  &trunk};
+                  &trunk, &data, &byte_ids, &ids};
   return launch(1, (const void*)presplit_orbit_kernel, grid, O_TPB, args,
                 O_SMEM, stream);
 }

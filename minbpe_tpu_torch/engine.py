@@ -63,16 +63,20 @@ class DeviceMergeTable:
     ``vocab_size`` covers every id an encode can make; up to
     DENSE_VOCAB_MAX the table is "dense" (K10 reads it rank by rank), above
     it "sorted": the flat encoder's (minbpe_tpu/engine.py:20-47); K17, the
-    device split's encoder, looks pairs up in the cuckoo table of either."""
+    device split's encoder, looks pairs up in the cuckoo table of either.
+    ``byte_ids``, the token id of each byte value (the tokenizer's byte
+    transform, the identity by default), goes to the device with the table
+    as int32[256]; the device split's K15 writes the stream's ids through
+    it."""
 
-    def __init__(self, pairs: np.ndarray, new_ids: np.ndarray, device):
+    def __init__(self, pairs: np.ndarray, new_ids: np.ndarray, device,
+                 byte_ids: np.ndarray = np.arange(256)):
         self.vocab_size = table_vocab(new_ids)
         self.kind = "dense" if self.vocab_size <= DENSE_VOCAB_MAX else "sorted"
-        trace.count("sync.engine.table", 2)
-        self.pairs = torch.as_tensor(
-            np.ascontiguousarray(pairs, dtype=np.int32)).to(device)
-        self.new_ids = torch.as_tensor(
-            np.ascontiguousarray(new_ids, dtype=np.int32)).to(device)
+        trace.count("sync.engine.table", 3)
+        self.pairs, self.new_ids, self.byte_ids = (
+            torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32)).to(device)
+            for a in (pairs, new_ids, byte_ids))
         self._host = (pairs, new_ids)
 
     def cuckoo_bytes(self) -> int:
@@ -89,9 +93,15 @@ class DeviceMergeTable:
 
 
 def device_table(tokenizer) -> DeviceMergeTable:
+    """The tokenizer's merge table and byte ids on its device, built once
+    until its merges, specials or byte transform change
+    (``_invalidate_device_state``)."""
     if tokenizer._dev is None:
         pairs, new_ids = tokenizer._merge_arrays()
-        tokenizer._dev = DeviceMergeTable(pairs, new_ids, tokenizer.device)
+        byte_ids = tokenizer._transform_bytes_array(
+            np.arange(256, dtype=np.uint8))
+        tokenizer._dev = DeviceMergeTable(pairs, new_ids, tokenizer.device,
+                                          byte_ids)
     return tokenizer._dev
 
 
@@ -257,14 +267,15 @@ def _device_split_mode(tokenizer) -> int | None:
 
 def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
     """The whole front half on the device: only the text's raw UTF-8 bytes
-    cross to it; the pre-split (K15, ops/device_presplit.py), the ids (the
-    bytes through the tokenizer's byte transform) and the encode of each
-    chunk (K17, through the table's cuckoo rows, dense or sorted alike) run
-    there, and only the output ids come back. None where the configuration
-    does not qualify: ``device_presplit`` not set, or a split other than
-    GPT-2's or GPT-4's; the caller then splits on the host. (minbpe_tpu
-    declines a sorted table too, engine.py:278-319, as only its dense
-    encoder ran on the device's split.) Counts ``encode.route.device_split``
+    cross to it; the pre-split (K15, ops/device_presplit.py), which also
+    writes the ids (the bytes through the table's ``byte_ids``), and the
+    encode of each chunk (K17, through the table's cuckoo rows, dense or
+    sorted alike) run there, and only the output ids come back. None where
+    the configuration does not qualify: ``device_presplit`` not set, or a
+    split other than GPT-2's or GPT-4's; the caller then splits on the
+    host. (minbpe_tpu declines a sorted table too, engine.py:278-319, as
+    only its dense encoder ran on the device's split.) Counts
+    ``encode.route.device_split``
     for each text it takes. Raises ValueError for a text past the kernels'
     int32 range and MemoryError where the encode does not fit, the cuckoo
     rows of a table's first encode counted, before any work.
@@ -293,14 +304,8 @@ def encode_text_device_split(tokenizer, text: str) -> list[int] | None:
         trace.count("sync.engine.upload")
         data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(device)
     with trace.span("presplit.device"):
-        _, seg = device_presplit.presplit_seg_ids(data, n, mode)
-    with trace.span("engine.upload"):
-        # the ids: the bytes through the byte transform (GPT4Tokenizer's
-        # shuffle, the identity elsewhere) as a 256-entry table
-        perm = tokenizer._transform_bytes_array(
-            np.arange(256, dtype=np.uint8))
-        trace.count("sync.engine.upload")
-        ids = torch.from_numpy(perm.astype(np.int32)).to(device)[data.long()]
+        _, seg, ids = device_presplit.presplit_seg_ids(data, n, mode,
+                                                       dev.byte_ids)
     ids, _, k = encode_stream(ids, seg, dev, lengths=DEVICE_SPLIT)
     out = readback(ids, k)
     with trace.span("api.to_list"):

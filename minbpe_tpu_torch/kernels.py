@@ -39,7 +39,8 @@ same device, so a whole run launches without a host sync per merge:
   champion of gathered rows, one cooperative launch each;
 - ``presplit_succ`` and ``presplit_orbit`` K15: the GPT-2 / GPT-4
   pre-split of raw UTF-8 bytes, every char start's chunk end, then the
-  chunk starts as segment ids (ops/device_presplit.py holds their
+  chunk starts as segment ids, and given a 256-entry byte table each
+  byte's token id beside them (ops/device_presplit.py holds their
   wrappers and plain twins); ``presplit_cluster``, both in one launch of
   one thread-block cluster, a CTA a tile of 512 to 4,096 bytes, for a
   stream of at most ``PRESPLIT_CLUSTER_MAX`` tiles of 4,096.
@@ -284,11 +285,12 @@ SIGNATURES = {
     "bpe_presplit_block_nodes": [],
     "bpe_presplit_grid": [_I],
     "bpe_presplit_succ": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _P],
-    "bpe_presplit_orbit": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    "bpe_presplit_orbit": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _P, _I, _P],
     "bpe_presplit_cluster_max": [],
     "bpe_presplit_cluster_min_tile": [],
-    "bpe_presplit_cluster": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _I, _I,
-                             _P],
+    "bpe_presplit_cluster": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
+                             _I, _I, _P],
 }
 
 _lib = None

@@ -7,7 +7,11 @@ public functions and contracts: ``presplit_seg_ids(data, n, mode)`` and
 "gpt2", or its code 4 or 2, the tokenizers' scanner mode. Only the raw
 bytes cross to the device;
 the split, and after it the stream build and the encode's rank sweep
-(engine.encode_text_device_split), run there.
+(engine.encode_text_device_split), run there. Given ``byte_ids``, an int32
+table of 256 token ids on the data's device, the split also returns each
+byte's token id, ``byte_ids[data]``: the kernels write it beside the
+segment ids, so the stream that the encode takes needs no launch of its
+own.
 
 On a CUDA tensor the split is K15, two hand-written kernels
 (csrc/bpe_kernels.cu): ``presplit_succ`` finds, for every char start,
@@ -85,7 +89,7 @@ def mode_code(mode) -> int | None:
     return code if code in MODES.values() else None
 
 
-def _check_args(data, n: int, mode) -> int:
+def _check_args(data, n: int, mode, byte_ids=None) -> int:
     """mode's code, once the arguments are checked."""
     code = mode_code(mode)
     if code is None:
@@ -96,7 +100,23 @@ def _check_args(data, n: int, mode) -> int:
         raise ValueError(f"n = {n} outside 0 .. {data.numel()}")
     if n > MAX_N:
         raise ValueError(f"{n} bytes: the pre-split takes at most {MAX_N}")
+    if byte_ids is not None:
+        _check_byte_ids(byte_ids, data.device)
     return code
+
+
+def _check_byte_ids(byte_ids, device):
+    kernels._check("byte_ids", byte_ids, torch.int32, device, 256)
+    if byte_ids.shape != (256,):
+        raise ValueError("byte_ids: expected 256 token ids")
+
+
+def _with_ids(out, data, byte_ids):
+    """A split's (boundary, seg), and with ``byte_ids`` each byte's token
+    id after them: the plain twins' ``byte_ids[data]``."""
+    if byte_ids is None:
+        return out
+    return (*out, byte_ids[data.long()])
 
 
 # ---------------------------------------------------------------------------
@@ -274,15 +294,18 @@ def _chars(data, n: int):
     return is_start, char_of_byte, cp, _char_flags(cp), n_chars
 
 
-def presplit_plain(data, n: int, mode):
+def presplit_plain(data, n: int, mode, byte_ids=None):
     """K15's plain twin (minbpe_tpu's _presplit_device, :208-233): per-byte
     (boundary bool, seg int32) of uint8 ``data`` whose first n bytes are
-    valid UTF-8; seg[i] is the index of the chunk byte i belongs to. Values
-    past n are unspecified."""
-    mode = _check_args(data, n, mode)
+    valid UTF-8; seg[i] is the index of the chunk byte i belongs to; with
+    ``byte_ids``, each byte's token id (int32) after them. Values past n
+    are unspecified."""
+    mode = _check_args(data, n, mode, byte_ids)
     if data.numel() == 0:
-        return (torch.zeros(0, dtype=torch.bool, device=data.device),
-                torch.zeros(0, dtype=torch.int32, device=data.device))
+        return _with_ids(
+            (torch.zeros(0, dtype=torch.bool, device=data.device),
+             torch.zeros(0, dtype=torch.int32, device=data.device)),
+            data, byte_ids)
     is_start, char_of_byte, cp, F, n_chars = _chars(data, n)
     cidx = torch.arange(data.numel(), dtype=torch.int32, device=data.device)
     f = _successor(cp, F, cidx, n_chars, mode)
@@ -291,7 +314,7 @@ def presplit_plain(data, n: int, mode):
     boundary = is_start & _gather(torch.cat([starts_chunk, false]),
                                   char_of_byte)
     seg = torch.cumsum(boundary.to(torch.int32), 0, dtype=torch.int32) - 1
-    return boundary, seg
+    return _with_ids((boundary, seg), data, byte_ids)
 
 
 # ---------------------------------------------------------------------------
@@ -789,7 +812,7 @@ def orbit_tiles_model(f, n: int, tile: int, blocks: int, stats=None):
 
 
 def cluster_tiles_model(data, n: int, mode, tile: int, cluster: int,
-                        stats=None):
+                        stats=None, byte_ids=None):
     """presplit_cluster's steps in plain PyTorch at any tile size:
     ``presplit_plain`` as one cluster of ``cluster`` CTAs computes it, CTA
     r the tile of ``tile`` bytes at r * tile (none past the text; the
@@ -809,11 +832,12 @@ def cluster_tiles_model(data, n: int, mode, tile: int, cluster: int,
        before it are those of the tiles the path entered before it.
     4. After a third, each CTA marks the walk from its entry (as
        ``orbit_tiles_model``'s step 3) and writes its boundaries and
-       segment ids.
+       segment ids, and with ``byte_ids`` each byte's token id from its
+       staged tile.
 
     ``stats`` (a dict) gets the tiles, the successors of step 1 (``f``),
     the path's hops and how step 4's walks ended."""
-    code = _check_args(data, n, mode)
+    code = _check_args(data, n, mode, byte_ids)
     tiles = -(-n // tile)
     if not tiles <= cluster <= kernels.PRESPLIT_CLUSTER_MAX:
         raise ValueError(f"{tiles} tiles of {tile} bytes on a cluster of "
@@ -823,7 +847,7 @@ def cluster_tiles_model(data, n: int, mode, tile: int, cluster: int,
     boundary = torch.zeros(NB, dtype=torch.bool, device=dev)
     seg = torch.full((NB,), -1, dtype=torch.int32, device=dev)
     if n == 0:
-        return boundary, seg
+        return _with_ids((boundary, seg), data, byte_ids)
     # 1. the carries from the later CTAs' aggregates, the successors
     st = _byte_state(data, n)
     aggs = _tile_aggs(st, n, tile)
@@ -858,7 +882,7 @@ def cluster_tiles_model(data, n: int, mode, tile: int, cluster: int,
     boundary[:n] = marks
     if stats is not None:
         stats.update(tiles=tiles, f=f, path_hops=hops, walks=outcome)
-    return boundary, seg
+    return _with_ids((boundary, seg), data, byte_ids)
 
 
 # ---------------------------------------------------------------------------
@@ -906,19 +930,30 @@ def presplit_succ(data, n: int, mode):
     return f
 
 
-def presplit_orbit(f, n: int):
+def presplit_orbit(f, n: int, data=None, byte_ids=None):
     """K15 presplit_orbit: ``orbit_plain`` on the card (one cooperative
     launch), for successors that jump forward (f[p] > p, or -1 off a char
-    start). Values past n are unspecified there."""
+    start). With ``data`` (the bytes f is of) and ``byte_ids``, each
+    byte's token id after the boundaries and segment ids, written in the
+    same launch. Values past n are unspecified there."""
+    if (data is None) != (byte_ids is None):
+        raise ValueError("data and byte_ids: both or neither")
+    if data is not None:
+        kernels._check("data", data, torch.uint8, f.device, f.numel())
+        _check_byte_ids(byte_ids, f.device)
     if not f.is_cuda:
-        return orbit_plain(f, n)
+        return _with_ids(orbit_plain(f, n), data, byte_ids)
     dev = f.device
     kernels._check("f", f, torch.int32, dev, n)
     if n == 0:
-        return (torch.zeros(f.numel(), dtype=torch.bool, device=dev),
-                torch.full((f.numel(),), -1, dtype=torch.int32, device=dev))
+        return _with_ids(
+            (torch.zeros(f.numel(), dtype=torch.bool, device=dev),
+             torch.full((f.numel(),), -1, dtype=torch.int32, device=dev)),
+            data, byte_ids)
     boundary = torch.empty(f.numel(), dtype=torch.bool, device=dev)
     seg = torch.empty(f.numel(), dtype=torch.int32, device=dev)
+    ids = None if data is None else torch.empty(
+        f.numel(), dtype=torch.int32, device=dev)
     # each tile's exits, the node graph's two next-node buffers
     lists, nj, nj2 = torch.empty((3, n), dtype=torch.int32, device=dev)
     grid = _grid(dev, 1, n)
@@ -931,9 +966,14 @@ def presplit_orbit(f, n: int):
     kernels._run(dev, kernels._load().bpe_presplit_orbit, f.data_ptr(), n,
                  boundary.data_ptr(), seg.data_ptr(), lists.data_ptr(),
                  nj.data_ptr(), nj2.data_ptr(), tl.data_ptr(), bl.data_ptr(),
-                 trunk.data_ptr(), grid)
+                 trunk.data_ptr(), *_ptrs(data, byte_ids, ids), grid)
     kernels.PRESPLIT_ORBIT.launches += 1
-    return boundary, seg
+    return (boundary, seg) if ids is None else (boundary, seg, ids)
+
+
+def _ptrs(*tensors):
+    """Each tensor's device address, None (a null pointer) for None."""
+    return tuple(None if t is None else t.data_ptr() for t in tensors)
 
 
 def cluster_geometry(n: int) -> tuple[int, int]:
@@ -950,30 +990,36 @@ def cluster_geometry(n: int) -> tuple[int, int]:
     return tile, -(-n // tile)
 
 
-def presplit_cluster(data, n: int, mode):
+def presplit_cluster(data, n: int, mode, byte_ids=None):
     """K15 presplit_cluster: ``presplit_plain`` on the card for a stream of
     at most ``CLUSTER_MAX_N`` bytes, in one launch of one cluster, a CTA a
     tile (``cluster_geometry``; the successors and the walks stay in shared
-    memory). Values past n are unspecified there."""
-    code = _check_args(data, n, mode)
+    memory). With ``byte_ids``, each byte's token id after the boundaries
+    and segment ids, read from the staged tile in the same launch. Values
+    past n are unspecified there."""
+    code = _check_args(data, n, mode, byte_ids)
     tile, ctas = cluster_geometry(n)
     if not data.is_cuda:
-        return presplit_plain(data, n, code)
+        return presplit_plain(data, n, code, byte_ids)
     dev = data.device
     kernels._check("data", data, torch.uint8, dev, 0)
     if n == 0:
-        return (torch.zeros(data.numel(), dtype=torch.bool, device=dev),
-                torch.full((data.numel(),), -1, dtype=torch.int32,
-                           device=dev))
+        return _with_ids(
+            (torch.zeros(data.numel(), dtype=torch.bool, device=dev),
+             torch.full((data.numel(),), -1, dtype=torch.int32,
+                        device=dev)),
+            data, byte_ids)
     boundary = torch.empty(data.numel(), dtype=torch.bool, device=dev)
     seg = torch.empty(data.numel(), dtype=torch.int32, device=dev)
+    ids = None if byte_ids is None else torch.empty(
+        data.numel(), dtype=torch.int32, device=dev)
     dense, starts, flags = _device_tables(dev)
     kernels._run(dev, kernels._load().bpe_presplit_cluster, data.data_ptr(),
                  n, code, dense.data_ptr(), starts.data_ptr(),
                  flags.data_ptr(), starts.numel(), boundary.data_ptr(),
-                 seg.data_ptr(), tile, ctas)
+                 seg.data_ptr(), *_ptrs(byte_ids, ids), tile, ctas)
     kernels.PRESPLIT_CLUSTER.launches += 1
-    return boundary, seg
+    return (boundary, seg) if ids is None else (boundary, seg, ids)
 
 
 def route(n: int) -> str:
@@ -983,20 +1029,23 @@ def route(n: int) -> str:
     return "cluster" if n <= CLUSTER_MAX_N else "grid"
 
 
-def presplit_seg_ids(data, n: int, mode):
+def presplit_seg_ids(data, n: int, mode, byte_ids=None):
     """Per-byte (boundary, seg) of uint8 ``data`` (valid UTF-8 in [:n],
     possibly padded past n), on data's device: K15 on the card (by
     ``route(n)``, counted in ``presplit.route.<route>``), the plain twin on
-    the CPU. mode: "gpt4" | "gpt2" (or 4 | 2). Values past n are
+    the CPU. mode: "gpt4" | "gpt2" (or 4 | 2). With ``byte_ids`` (int32
+    [256] on data's device), (boundary, seg, ids): ids[i] is
+    byte_ids[data[i]], written by the same launch. Values past n are
     unspecified."""
-    code = _check_args(data, n, mode)
+    code = _check_args(data, n, mode, byte_ids)
     if not data.is_cuda:
-        return presplit_plain(data, n, code)
+        return presplit_plain(data, n, code, byte_ids)
     way = route(n)
     trace.count(f"presplit.route.{way}")
     if way == "cluster":
-        return presplit_cluster(data, n, code)
-    return presplit_orbit(presplit_succ(data, n, code), n)
+        return presplit_cluster(data, n, code, byte_ids)
+    return presplit_orbit(presplit_succ(data, n, code), n,
+                          None if byte_ids is None else data, byte_ids)
 
 
 def split_spans_host(text: str, mode, device="cuda"):

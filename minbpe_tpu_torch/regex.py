@@ -86,12 +86,6 @@ class RegexTokenizer(Tokenizer):
             return self._transform_bytes_array(
                 np.frombuffer(data, dtype=np.uint8)), ends
 
-    def _transform_bytes_array(self, arr):
-        """Byte-level preprocessing before BPE, on the uint8 array of a
-        text's bytes (minbpe_tpu/regex.py:69-72): the identity here;
-        GPT4Tokenizer's byte shuffle."""
-        return arr
-
     # -- training -----------------------------------------------------------
     def train(self, text: str, vocab_size: int, verbose: bool = False,
               **train_opts):

@@ -10,9 +10,11 @@ gpt4-cl100k.json: the 100,256-rank stand-in, its cuckoo table 2^18 rows a
 table, 8 MB); the other is regex512-encode-docs' (256 merges, 512 rows a
 table). The documents are the encode cells' (``chip_smoke.cell_documents``:
 the traffic's lengths from starts that a fixed seed picks), each split on
-the card (K15) into the stream the encoder gets. For the median document,
-one of the mean length, the longest (32,768 bytes) and the whole smoke
-corpus it reports K15's device ms, K17's with either table
+the card (K15, which writes the ids through the byte shuffle, or the
+identity for the 256-merge table) into the stream the encoder gets. For
+the median document, one of the mean length, the longest (32,768 bytes)
+and the whole smoke corpus it reports K15's device ms (with the
+shuffle), K17's with either table
 (``chip_smoke.device_ms``), the tokens out, K17's bytes bound at 3.35 TB/s
 (8 B read a token, 8 B written an output token) and the median host ms of
 ``GPT4Tokenizer.encode`` with the device split and with the host split
@@ -67,14 +69,18 @@ def main() -> int:
     small = RegexTokenizer(device="cuda")
     small.load(os.path.join(ROOT, chip_smoke.CELL_MODEL))
     cl100k, v512 = (engine.device_table(t).cuckoo for t in (gpt, small))
-    shuffle = torch.from_numpy(gpt.byte_shuffle.astype(np.int32)).cuda()
+    shuffle, identity = (engine.device_table(t).byte_ids
+                         for t in (gpt, small))
     data, lengths, starts = chip_smoke.cell_documents(
         np, chip_smoke.CELL_SEED)
 
     def stream(raw: bytes):
+        """The bytes on the card, and K15's segment ids and ids through
+        the byte shuffle and through the identity."""
         d = torch.frombuffer(bytearray(raw), dtype=torch.uint8).cuda()
-        _, seg = pdp.presplit_seg_ids(d, len(raw), 4)
-        return d, seg
+        _, seg, ids = pdp.presplit_seg_ids(d, len(raw), 4, shuffle)
+        plain = pdp.presplit_seg_ids(d, len(raw), 4, identity)[2]
+        return d, seg, ids, plain
 
     def wall_ms(tok, text, reps):
         walls = []
@@ -85,9 +91,7 @@ def main() -> int:
         return statistics.median(walls)
 
     def shape(name, raw: bytes, reps: int):
-        d, seg = stream(raw)
-        ids = shuffle[d.long()]
-        plain = d.to(torch.int32)
+        d, seg, ids, plain = stream(raw)
         out = kernels.segment_encode(ids, seg, cl100k)
         k = int(out[2])
         text = raw.decode("utf-8")
@@ -97,7 +101,8 @@ def main() -> int:
         rec = dict(
             case=name, bytes=len(raw), tokens_out=k,
             k15_ms=chip_smoke.device_ms(
-                torch, lambda: pdp.presplit_seg_ids(d, len(raw), 4), reps),
+                torch, lambda: pdp.presplit_seg_ids(d, len(raw), 4, shuffle),
+                reps),
             k17_cl100k_ms=chip_smoke.device_ms(
                 torch, lambda: kernels.segment_encode(ids, seg, cl100k),
                 reps),
@@ -122,9 +127,7 @@ def main() -> int:
     total = out_tokens = 0
     for i in range(min(args.docs, len(lengths))):
         raw = data[starts[i]:starts[i] + lengths[i]]
-        d, seg = stream(raw)
-        ids = shuffle[d.long()]
-        plain = d.to(torch.int32)
+        d, seg, ids, plain = stream(raw)
         out = kernels.segment_encode(ids, seg, cl100k)
         k = int(out[2])
         want = host.encode(raw.decode("utf-8"), allowed_special="none")

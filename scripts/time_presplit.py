@@ -17,7 +17,12 @@ spaces, letters and digits (GPT-4); then at chip_smoke.cluster_shapes
 documents, the smoke corpus's first 1, 2, 4 and 8 tiles; GPT-4), where
 ``pair_ms`` is the pair's time on the same bytes. Each shape also gets the
 sha256 of the split (boundaries, then segment ids, below n) and its bytes
-bound (n read, 5 n written, the 64 KB class table; 3.35 TB/s). With
+bound (n read, 5 n written, the 64 KB class table; 3.35 TB/s). Where the
+package's split takes a byte table (``byte_ids``), ``ids_ms`` is the
+whole split with a table, writing each byte's token id too, and on the
+cluster shapes ``cluster_bare_ms`` and ``cluster_ids_ms`` time
+``presplit_cluster`` without and with the table in turns
+(chip_smoke.split_ms); None elsewhere. With
 ``--ptxas`` it first compiles the kernel source once more with ``-Xptxas
 -v`` and prints what ptxas reports for the K15 kernels (registers, shared
 memory, spills).
@@ -27,14 +32,16 @@ package: unpack that commit with git archive into _archive/ (git-ignored),
 copy this script and chip_smoke.py into it, and run both trees in turns in
 one call (parent, this, this, parent); equal hashes show equal outputs. It
 prints one JSON object, {"root", "ptxas", "shapes": [{"case", "n",
-"chunks", "ms", "succ_ms", "orbit_ms", "pair_ms", "cluster_ms",
-"bound_ms", "sha256"}]} (cluster_ms None where the package has no cluster
-tier or the stream is past it), then the card's name and power limit.
+"chunks", "ms", "succ_ms", "orbit_ms", "pair_ms", "cluster_ms", "ids_ms",
+"cluster_bare_ms", "cluster_ids_ms", "bound_ms", "sha256"}]} (cluster_ms
+None where the package has no cluster tier or the stream is past it),
+then the card's name and power limit.
 """
 
 from __future__ import annotations
 
 import hashlib
+import inspect
 import json
 import os
 import subprocess
@@ -96,6 +103,10 @@ def main() -> int:
     table = 0x10000 + 5 * pdp._device_tables(torch.device("cuda"))[1].numel()
     out = []
     cluster = getattr(pdp, "presplit_cluster", None)
+    byte_ids = None
+    if "byte_ids" in inspect.signature(pdp.presplit_seg_ids).parameters:
+        byte_ids = torch.from_numpy(np.random.default_rng(0).permutation(
+            256).astype(np.int32)).cuda()
     for name, raw, mode in shapes(np, golden_mod):
         n = len(raw)
         data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).cuda()
@@ -120,8 +131,17 @@ def main() -> int:
             cluster_ms=chip_smoke.device_ms(
                 torch, lambda: cluster(data, n, mode), reps) if short
             else None,
+            ids_ms=None if byte_ids is None else chip_smoke.device_ms(
+                torch, lambda: pdp.presplit_seg_ids(data, n, mode, byte_ids),
+                reps),
+            cluster_bare_ms=None, cluster_ids_ms=None,
             bound_ms=(6 * n + table) / chip_smoke.HBM_BYTES_PER_S * 1e3,
             sha256=h.hexdigest())
+        if short and byte_ids is not None:
+            rec["cluster_bare_ms"], rec["cluster_ids_ms"] = \
+                chip_smoke.split_ms(torch, [
+                    lambda: cluster(data, n, mode),
+                    lambda: cluster(data, n, mode, byte_ids)], 100)
         out.append(rec)
         print(f"{rec['case']}: " + ", ".join(
             f"{k} {v}" for k, v in rec.items() if k != "case"),

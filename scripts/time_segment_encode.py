@@ -8,10 +8,11 @@ ops/encode.short_segments, keeps K10 past TILE tokens).
 
 The cell's table (bpebench/data/minbpe-regex-v512.model: 256 merges, the
 GPT-4 split) and documents (``chip_smoke.cell_documents``: the traffic's
-lengths from starts that a fixed seed picks), each split on the card (K15)
-into the stream that ``engine.encode_text_device_split`` hands the
-encoder. For the median document, one of the mean length, the longest
-(32,768 bytes) and the whole smoke corpus it reports K17's and K10's
+lengths from starts that a fixed seed picks), each split on the card (K15,
+which writes the ids through the table's byte ids) into the stream that
+``engine.encode_text_device_split`` hands the encoder. For the median
+document, one of the mean length, the longest (32,768 bytes) and the
+whole smoke corpus it reports K17's and K10's
 device ms (``chip_smoke.device_ms``: CUDA events behind a sleeping
 kernel), K17's bytes bound at 3.35 TB/s (8 B read a token, 8 B written an
 output token) and the plain twin's ms on the CPU; then, over the first
@@ -69,13 +70,12 @@ def main() -> int:
     cpu_table = CuckooPairTable(*tok._merge_arrays(), "cpu")
     data, lengths, starts = chip_smoke.cell_documents(
         np, chip_smoke.CELL_SEED)
-    perm = torch.from_numpy(tok._transform_bytes_array(
-        np.arange(256, dtype=np.uint8)).astype(np.int32)).cuda()
+    byte_ids = engine.device_table(tok).byte_ids
 
     def stream(raw: bytes):
         d = torch.frombuffer(bytearray(raw), dtype=torch.uint8).cuda()
-        _, seg = pdp.presplit_seg_ids(d, len(raw), 4)
-        return perm[d.long()], seg
+        _, seg, ids = pdp.presplit_seg_ids(d, len(raw), 4, byte_ids)
+        return ids, seg
 
     def k17(t, ids, seg):
         return kernels.segment_encode(ids, seg, engine.device_table(t).cuckoo)

@@ -1396,6 +1396,14 @@ def test_presplit_matches_plain(dev, presplit_texts, mode, name):
     cb, cs = pdp.presplit_plain(data, n, mode)
     assert torch.equal(gb[:n].cpu(), cb[:n])
     assert torch.equal(gs[:n].cpu(), cs[:n])
+    # with a byte table the same launches write each byte's token id too
+    byte_ids = _byte_table(dev, 5)
+    kernels.reset_launches()
+    tb, ts, ids = pdp.presplit_seg_ids(gdata, n, mode, byte_ids)
+    assert kernels.PRESPLIT_CLUSTER.launches == int(short)
+    assert kernels.PRESPLIT_ORBIT.launches == int(not short)
+    assert torch.equal(tb[:n], gb[:n]) and torch.equal(ts[:n], gs[:n])
+    assert torch.equal(ids[:n], byte_ids[gdata[:n].long()])
     pb, ps = pdp.presplit_orbit(pdp.presplit_succ(gdata, n, mode), n)
     assert torch.equal(pb[:n], gb[:n]) and torch.equal(ps[:n], gs[:n])
     f = pdp.presplit_succ(gdata, n, mode)
@@ -1407,6 +1415,130 @@ def test_presplit_matches_plain(dev, presplit_texts, mode, name):
     ends = np.flatnonzero(cb[:n].numpy()).tolist()[1:] + [n]
     assert ends == native.split_offsets(raw, 4 if mode == "gpt4" else 2
                                         ).tolist()
+
+
+def _byte_table(dev, seed: int):
+    """A byte table (int32[256]) on dev: a permutation of 256 ids past 255,
+    so that an id left unwritten or taken from the wrong byte shows."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.permutation(256) * 7 + 300).astype(
+        np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 32767, 32768, 32769])
+def test_presplit_ids_edges(dev, presplit_texts, n):
+    """K15 with a byte table at the tile and cluster edges (the cluster up
+    to 32,768 bytes, the cooperative pair at 32,769), on the fuzz text and
+    on 4-byte chars that straddle every tile edge, from an aligned and an
+    unaligned start: the ids equal the gather through the table, and the
+    boundaries and segment ids the split's without it."""
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+
+    byte_ids = _byte_table(dev, n)
+    fuzz = presplit_texts["fuzz"].encode("utf-8") * 2
+    astral = ("a" * (4096 - (n % 4) - 1) + "😊" * 9000).encode("utf-8")
+    for raw in (fuzz, astral):
+        raw = raw[:n].decode("utf-8", errors="ignore").encode("utf-8")
+        raw += b"x" * (n - len(raw))
+        for lead in (0, 3):
+            buf = torch.frombuffer(bytearray(b"\xff" * lead + raw + b"\n 7"),
+                                   dtype=torch.uint8).to(dev)
+            gdata = buf[lead:]
+            for mode in ("gpt4", "gpt2"):
+                gb, gs = pdp.presplit_seg_ids(gdata, n, mode)
+                kernels.reset_launches()
+                tb, ts, ids = pdp.presplit_seg_ids(gdata, n, mode, byte_ids)
+                assert kernels.PRESPLIT_CLUSTER.launches == int(n <= 32768)
+                assert torch.equal(tb[:n], gb[:n]), (n, lead, mode)
+                assert torch.equal(ts[:n], gs[:n]), (n, lead, mode)
+                assert torch.equal(ids[:n], byte_ids[gdata[:n].long()]), (
+                    n, lead, mode)
+
+
+@pytest.mark.parametrize("config", ["regex", "cl100k"])
+def test_presplit_ids_cell_documents(dev, config):
+    """K15's ids on each of an encode cell's 4,096 documents, through the
+    byte table of the cell's tokenizer (the identity for
+    minbpe-regex-v512, the byte shuffle of gpt4-cl100k's ranks), equal the
+    gather through that table that the engine ran after K15 before it
+    wrote them; its boundaries and segment ids equal those it writes
+    without the table."""
+    import json
+
+    import chip_smoke
+    from minbpe_tpu_torch.gpt4 import load_cl100k_ranks
+    from minbpe_tpu_torch.ops import device_presplit as pdp
+
+    if config == "regex":
+        table = np.arange(256)
+        traffic = chip_smoke.CELL_TRAFFIC
+    else:
+        with open(os.path.join(ROOT, "bpebench", "configs-ranks",
+                               "gpt4-cl100k.json")) as f:
+            ranks = load_cl100k_ranks(os.path.join(ROOT,
+                                                   json.load(f)["ranks"]))
+        table = np.array([ranks[bytes([b])] for b in range(256)])
+        assert not np.array_equal(table, np.arange(256))
+        traffic = chip_smoke.CL100K_TRAFFIC
+    byte_ids = torch.from_numpy(table.astype(np.int32)).to(dev)
+    data, lengths, starts = chip_smoke.cell_documents(np, 2**31 + 4242,
+                                                      traffic)
+    assert len(lengths) == 4096
+    bad = []
+    for i, (s, n) in enumerate(zip(starts.tolist(), lengths.tolist())):
+        gdata = torch.frombuffer(bytearray(data[s:s + n]),
+                                 dtype=torch.uint8).to(dev)
+        gb, gs = pdp.presplit_seg_ids(gdata, n, 4)
+        tb, ts, ids = pdp.presplit_seg_ids(gdata, n, 4, byte_ids)
+        if not (torch.equal(ids, byte_ids[gdata.long()])
+                and torch.equal(tb, gb) and torch.equal(ts, gs)):
+            bad.append((i, n))
+    assert not bad, bad[:10]
+
+
+@pytest.mark.parametrize("case", ["regex", "gpt4_dense_synthetic"])
+def test_device_split_runs_no_gather(dev, case):
+    """A warm device-split encode under torch.profiler, in a process of its
+    own: K15 and K17 run, and no index_elementwise or direct_copy kernel
+    (the ids come from K15); one copy to the device (the text's bytes)."""
+    import json
+    import subprocess
+    import sys
+
+    code = f"""
+import json, os, torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from minbpe_tpu_torch import GPT4Tokenizer, RegexTokenizer
+from minbpe_tpu_torch.utils import golden
+from minbpe_tpu_torch.utils.synthranks import synthetic_ranks
+root = {ROOT!r}
+if {case!r} == "regex":
+    tok = RegexTokenizer(device="cuda")
+    tok.load(os.path.join(root, "bpebench", "data", "minbpe-regex-v512.model"))
+else:
+    tok = GPT4Tokenizer.from_mergeable_ranks(
+        synthetic_ranks(1000, seed=3)[0], device="cuda")
+tok.device_presplit = True
+text = golden.smoke_corpus(root)[:20_000]
+want = tok.encode(text)
+torch.cuda.synchronize()
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    got = tok.encode(text)
+    torch.cuda.synchronize()
+assert got == want
+print(json.dumps([[e.key, e.count] for e in p.key_averages()
+                  if e.device_type != DeviceType.CPU]))
+"""
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True, timeout=300)
+    ops = dict(json.loads(out.stdout.strip().splitlines()[-1]))
+    names = " ".join(ops)
+    assert "presplit_cluster_kernel" in names, ops
+    assert "segment_encode" in names, ops
+    assert "index_elementwise" not in names, ops
+    assert "direct_copy" not in names, ops
+    assert sum(c for k, c in ops.items() if "HtoD" in k) == 1, ops
 
 
 @pytest.mark.parametrize("mode", ["gpt4", "gpt2"])
@@ -1987,16 +2119,16 @@ def test_segment_encode_seg_values_repeat(dev):
 
 
 def _split_stream(tok, text, dev):
-    """The device split's stream of text: K15's segment ids and the bytes
-    through the tokenizer's byte transform, as encode_text_device_split
-    makes them."""
+    """The device split's stream of text: K15's token ids (the bytes
+    through the table's byte ids) and segment ids, as
+    encode_text_device_split makes them."""
+    from minbpe_tpu_torch.engine import device_table
     from minbpe_tpu_torch.ops import device_presplit
 
     raw = text.encode("utf-8")
     data = torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev)
-    _, seg = device_presplit.presplit_seg_ids(data, len(raw), 4)
-    perm = tok._transform_bytes_array(np.arange(256, dtype=np.uint8))
-    ids = torch.from_numpy(perm.astype(np.int32)).to(dev)[data.long()]
+    _, seg, ids = device_presplit.presplit_seg_ids(
+        data, len(raw), 4, device_table(tok).byte_ids)
     return ids, seg
 
 
@@ -2040,8 +2172,9 @@ def test_segment_encode_device_split_smoke_corpus(dev):
 def test_segment_encode_cell_documents(dev):
     """The regex512-encode-docs cell's 4,096 document lengths, each from a
     start a seed picks: K17 equals K10 bit for bit through the device
-    split, with the cell's table; a warm request passes its five sync
-    sites and no more, one route count each."""
+    split, with the cell's table; a warm request passes its four sync
+    sites and no more (one upload: the text's bytes), one route count
+    each."""
     from bpebench import inputs
     from minbpe_tpu_torch import trace
     import json
@@ -2068,7 +2201,8 @@ def test_segment_encode_cell_documents(dev):
     for d in docs[:64]:
         tok.encode(d)
     syncs = sum(v for k, v in trace.COUNTERS.items() if k.startswith("sync."))
-    assert syncs == 5 * 64
+    assert syncs == 4 * 64
+    assert trace.COUNTERS["sync.engine.upload"] == 64
     assert trace.COUNTERS["encode.route.segments"] == 64
     assert "encode.route.sweep" not in trace.COUNTERS
 

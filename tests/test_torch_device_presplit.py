@@ -24,7 +24,7 @@ from minbpe_tpu import gpt4 as jgpt4  # noqa: E402
 from minbpe_tpu.ops import device_presplit as jdp  # noqa: E402
 
 import minbpe_tpu_torch as port  # noqa: E402
-from minbpe_tpu_torch import engine, kernels  # noqa: E402
+from minbpe_tpu_torch import engine, gpt4, kernels  # noqa: E402
 from minbpe_tpu_torch.convert import tokenizer_from_arrays  # noqa: E402
 from minbpe_tpu_torch.ops import device_presplit as pdp  # noqa: E402
 from minbpe_tpu_torch.regex import (GPT2_SPLIT_PATTERN,  # noqa: E402
@@ -472,6 +472,111 @@ def test_route_by_length():
     with pytest.raises(ValueError, match="at most 32768"):
         pdp.presplit_cluster(torch.zeros(cap + 1, dtype=torch.uint8),
                              cap + 1, "gpt4")
+
+
+# ---------------------------------------------------------------------------
+# the token ids the split writes through a byte table (byte_ids)
+# ---------------------------------------------------------------------------
+
+def _byte_shuffle() -> np.ndarray:
+    """A GPT4Tokenizer's byte shuffle: that of synthetic ranks."""
+    return gpt4._forest_arrays(synthetic_ranks(300, seed=3)[0])[2]
+
+
+BYTE_TABLES = {"identity": lambda: np.arange(256),
+               "gpt4": _byte_shuffle}
+
+
+def _ids_want(raw: bytes, table: str) -> np.ndarray:
+    """Each byte's token id, by numpy on the host."""
+    return BYTE_TABLES[table]()[np.frombuffer(raw, np.uint8)].astype(
+        np.int32)
+
+
+def _byte_ids(table: str):
+    return torch.from_numpy(BYTE_TABLES[table]().astype(np.int32))
+
+
+def _check_ids(text: str, mode: str, table: str, pad: int = 0):
+    """presplit_seg_ids with the table: the ids are byte_ids[data], and the
+    boundaries and segment ids those of the split without it."""
+    raw = text.encode("utf-8")
+    n = len(raw)
+    data = torch.frombuffer(bytearray(raw + b"x" * pad), dtype=torch.uint8)
+    byte_ids = _byte_ids(table)
+    pb, ps = pdp.presplit_seg_ids(data, n, mode)
+    got = pdp.presplit_seg_ids(data, n, mode, byte_ids)
+    assert len(got) == 3
+    gb, gs, ids = got
+    assert ids.dtype == torch.int32 and ids.shape == (n + pad,)
+    assert np.array_equal(ids.numpy()[:n], _ids_want(raw, table)), repr(text)
+    assert torch.equal(gb, pb) and torch.equal(gs, ps)
+
+
+@pytest.mark.parametrize("table", sorted(BYTE_TABLES))
+@pytest.mark.parametrize("mode", MODES)
+def test_ids_cases(table, mode):
+    """CASES and lengths of 1-7 bytes, none a multiple of 4 among them,
+    padded and not."""
+    for text in CASES + ["a", "ab", "abc", "abcde", "😊x", "x😊", "é😊"]:
+        _check_ids(text, mode, table)
+    _check_ids(CASES[11], mode, table, pad=5)
+
+
+@pytest.mark.parametrize("table", sorted(BYTE_TABLES))
+@pytest.mark.parametrize("seed", range(2))
+def test_ids_fuzz(table, seed):
+    rng = random.Random(300 + seed)
+    for length in (61, 298, 1501):
+        text = "".join(rng.choice(ALPHA_WIDE) for _ in range(length))
+        _check_ids(text, MODES[seed], table)
+
+
+@pytest.mark.parametrize("cluster", range(1, 9))
+def test_ids_cluster_model(cluster):
+    """The cluster model with the table at each cluster size, 4-byte chars
+    across the edges of its 16-byte tiles: the ids are byte_ids[data], the
+    split that without the table."""
+    byte_ids = _byte_ids("gpt4")
+    raw = ("a" * 15 + "😊 𝕏'll" * 20).encode("utf-8")[:cluster * 16]
+    raw = raw.decode("utf-8", errors="ignore").encode("utf-8")
+    n = len(raw)
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    for mode in MODES:
+        pb, ps = pdp.cluster_tiles_model(data, n, mode, 16, cluster)
+        gb, gs, ids = pdp.cluster_tiles_model(data, n, mode, 16, cluster,
+                                              byte_ids=byte_ids)
+        assert torch.equal(gb, pb) and torch.equal(gs, ps)
+        assert np.array_equal(ids.numpy()[:n], _ids_want(raw, "gpt4"))
+        assert torch.equal(gb[:n], pdp.presplit_plain(data, n, mode)[0][:n])
+
+
+def test_ids_wrappers_and_checks():
+    """presplit_orbit and presplit_cluster take the table on the CPU too;
+    a table of another dtype or size, or data without one, is refused."""
+    raw = "Hello's world 123456 !!\r\n  x😊".encode()
+    n = len(raw)
+    data = torch.frombuffer(bytearray(raw), dtype=torch.uint8)
+    byte_ids = _byte_ids("gpt4")
+    want = _ids_want(raw, "gpt4")
+    f = pdp.presplit_succ(data, n, "gpt4")
+    ob, os_, ids = pdp.presplit_orbit(f, n, data, byte_ids)
+    assert np.array_equal(ids.numpy(), want)
+    pb, ps = pdp.presplit_orbit(f, n)
+    assert torch.equal(ob, pb) and torch.equal(os_, ps)
+    cb, cs, ids = pdp.presplit_cluster(data, n, "gpt4", byte_ids)
+    assert np.array_equal(ids.numpy(), want)
+    assert torch.equal(cb, pb) and torch.equal(cs, ps)
+    b, s, ids = pdp.presplit_seg_ids(data[:0], 0, "gpt4", byte_ids)
+    assert b.numel() == s.numel() == ids.numel() == 0
+    for bad in (byte_ids.long(), byte_ids[:255],
+                byte_ids.reshape(16, 16)):
+        with pytest.raises((TypeError, ValueError)):
+            pdp.presplit_seg_ids(data, n, "gpt4", bad)
+    with pytest.raises(ValueError):
+        pdp.presplit_orbit(f, n, data)
+    with pytest.raises(ValueError):
+        pdp.presplit_orbit(f, n, None, byte_ids)
 
 
 # ---------------------------------------------------------------------------

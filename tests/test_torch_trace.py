@@ -9,14 +9,16 @@ import json
 import os
 import tracemalloc
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 import minbpe_tpu_torch as port
-from minbpe_tpu_torch import trace
+from minbpe_tpu_torch import engine, gpt4, trace
 from minbpe_tpu_torch.ops import train as train_ops
 from minbpe_tpu_torch.utils import golden
+from minbpe_tpu_torch.utils.synthranks import synthetic_ranks
 
 torch.set_num_threads(1)
 
@@ -86,9 +88,11 @@ def test_encode_spans_nest_under_the_root():
     assert [s for s in spans if s[1] is None] == [("api.encode", None)]
     children = sorted(name for name, parent in spans
                       if parent == "api.encode")
+    # one upload, the text's bytes: K15 writes the ids through the table's
+    # byte ids, which went to the device with the table
     assert children == sorted([
         "api.text_encode", "engine.upload", "presplit.device",
-        "engine.upload", "encode.sweep", "encode.readback", "api.to_list"])
+        "encode.sweep", "encode.readback", "api.to_list"])
     # the host split's path: the split and the stream build have theirs
     tok.device_presplit = False
     got, spans = _traced(lambda: tok.encode(doc))
@@ -131,17 +135,18 @@ def test_encode_counts_its_sync_sites():
     tok.device_presplit = True
     trace.reset()
     first = tok.encode(TEXT[:2_000])
-    # the first request sends the merge table too (its cuckoo rows, pairs
-    # and new ids); each request counts its routes: where the text was
-    # split, then the per-segment loop
-    assert trace.COUNTERS == {"sync.engine.table": 3, "sync.engine.upload": 2,
+    # the first request sends the merge table too (its cuckoo rows, pairs,
+    # new ids and byte ids); each request uploads its text's bytes alone
+    # and counts its routes: where the text was split, then the
+    # per-segment loop
+    assert trace.COUNTERS == {"sync.engine.table": 4, "sync.engine.upload": 1,
                               "encode.route.device_split": 1,
                               "encode.route.segments": 1,
                               "sync.encode.count": 1,
                               "sync.encode.readback": 1}
     trace.reset()
     assert tok.encode(TEXT[:2_000]) == first
-    assert trace.COUNTERS == {"sync.engine.upload": 2, "sync.encode.count": 1,
+    assert trace.COUNTERS == {"sync.engine.upload": 1, "sync.encode.count": 1,
                               "encode.route.device_split": 1,
                               "encode.route.segments": 1,
                               "sync.encode.readback": 1}
@@ -152,6 +157,52 @@ def test_encode_counts_its_sync_sites():
                               "encode.route.host_split": 1,
                               "encode.route.segments": 1,
                               "sync.encode.readback": 1}
+
+
+def _device_split_rebuilds(tok, doc):
+    """tok's device-split encode of doc after its table was dropped: the
+    table (byte ids among it) goes to the device again, and the ids equal
+    the host split's."""
+    tok.device_presplit = True
+    trace.reset()
+    got = tok.encode(doc)
+    assert trace.COUNTERS["sync.engine.table"] == 4
+    assert trace.COUNTERS["sync.engine.upload"] == 1
+    assert trace.COUNTERS["encode.route.device_split"] == 1
+    tok.device_presplit = False
+    assert tok.encode(doc) == got
+    return got
+
+
+def test_new_tables_bring_their_byte_ids(tmp_path):
+    """A retrained or reloaded RegexTokenizer, and a GPT4Tokenizer given
+    other ranks, split on the device through their new table's byte ids:
+    the table is built again, and the ids follow the new byte shuffle."""
+    doc = TEXT[:2_000]
+    tok = port.RegexTokenizer(device="cpu")
+    tok.train(TEXT[:5_000], 300)
+    first = _device_split_rebuilds(tok, doc)
+    old = engine.device_table(tok)
+    tok.train(TEXT[5_000:10_000], 280)
+    second = _device_split_rebuilds(tok, doc)
+    assert engine.device_table(tok) is not old
+    assert second != first
+    tok.save(str(tmp_path / "t"))
+    tok.train(TEXT[:5_000], 300)
+    assert _device_split_rebuilds(tok, doc) == first
+    tok.load(str(tmp_path / "t.model"))
+    assert _device_split_rebuilds(tok, doc) == second
+    g = port.GPT4Tokenizer.from_mergeable_ranks(
+        synthetic_ranks(400, seed=1)[0], device="cpu")
+    one = _device_split_rebuilds(g, doc)
+    ranks = synthetic_ranks(400, seed=2)[0]
+    g._init_pretrained(*gpt4._forest_arrays(ranks), {})
+    two = _device_split_rebuilds(g, doc)
+    assert torch.equal(engine.device_table(g).byte_ids,
+                       torch.from_numpy(g.byte_shuffle.astype(np.int32)))
+    assert two != one
+    assert two == port.GPT4Tokenizer.from_mergeable_ranks(
+        ranks, device="cpu").encode(doc)
 
 
 def test_profile_dir_trace_holds_the_programs_spans(tmp_path):
